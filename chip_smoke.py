@@ -1,22 +1,49 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
-The workload is the headline one: the 62,500-particle LJ liquid
-(bench_data/liq64k.npz) on the packed cell engine (r_cut 2.5, skin 0.55,
-cap 40), BAOAB Langevin, two lamellar CVs on a 64x64 well-tempered grid
-bias with edge walls, one hill per 500-step stride.  Phases, one line each:
+Two workloads, both at full size:
+
+- the headline one (bench.py): the 62,500-particle LJ liquid
+  (bench_data/liq64k.npz) on the packed cell engine (r_cut 2.5, skin 0.55,
+  cap 40), BAOAB Langevin, two lamellar CVs on a 64x64 well-tempered grid
+  bias with edge walls, one hill per 500-step stride;
+- Config 3 (bench_config3.py): a 62,500-particle fcc start at rho 0.95 and
+  kT 0.6 (r_cut 2.5, skin 0.3, cap 32), Steinhardt Q6 and coordination on a
+  48x48 well-tempered grid with walls, one hill per 100-step stride,
+  bias_every=10, with the lagged fused multiple-time-stepping path
+  (mts_lag=True, the headline) and the exact one.
+
+Phases, one line or more each:
 
   1. device: the card, and nvidia-smi's name and power limit;
-  2. build: the pair-force kernel from metadyn_tpu_torch/csrc with nvcc;
-  3. kernel vs plain PyTorch pair force at the workload's shapes, in both
+  2. build: every kernel from metadyn_tpu_torch/csrc with nvcc, all sources
+     compiled at once (one nvcc each);
+  3. pair kernel vs plain PyTorch pair force at the liquid's shapes, in both
      modes (forces only; with energy and virial), with times per call;
-  4. the whole slice for 20 steps at gamma = 0 on the kernel engine and on
+  4. the liquid slice for 20 steps at gamma = 0 on the kernel engine and on
      the plain-force engine, from one state: positions must agree;
-  5. the slice with bias_every=5: 1 warm stride, 4 timed strides;
-  6. the strict slice with bias_every=1: 1 warm stride, 2 timed strides.
+  5. the liquid slice with bias_every=5: 1 warm stride, 4 timed strides;
+  6. the strict liquid slice with bias_every=1: 1 warm stride, 2 timed;
+  7. the order-CV libraries' build report (ptxas registers and spills);
+  8. the order-CV kernels (values, force, fused LJ + CV) vs their plain
+     versions at Config 3's shapes on fcc plus noise, with times per call;
+  9. the Config 3 slice (mts_lag) for 20 steps at gamma = 0 on the kernels
+     and on the plain versions, from one state: positions must agree.  The
+     plain path swaps the plain sweeps in where the port looks up the
+     wrappers (cv/packed_order, sampler) and runs the plain-force engine;
+ 10. Config 3 with mts_lag: cap 32 (once more at cap 36 on overflow, as
+     bench_config3 does), 2 + 2 warm strides, then 2 runs of 4 timed
+     strides, with exact kernel launch counts per stride;
+ 11. Config 3 with exact multiple time stepping (mts_lag=False): 2 + 2
+     warm strides (one is too few: from the fcc start the temperature is
+     still ~0.48 after 200 steps), 2 timed strides, exact launch counts.
 
-After each timed slice one more stride runs under torch.profiler, and a
-line reports the GPU's busy share of it and the top kernels.
+After each timed run one more stride runs under torch.profiler, and a line
+reports the GPU's busy share of it and the top kernels.  The launch counts
+of each path are set to 0 just before its timed strides and read just
+after: the pair kernel's from phase 5, the values and fused kernels' from
+phase 10, the force kernel's from phase 11 (the lagged path never runs it
+inside a stride).
 
 Then a JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises and the script
@@ -24,16 +51,21 @@ exits non-zero; without a CUDA device it exits 1 and prints no result.
 
 Run from the repository root:  python3 chip_smoke.py
 """
+import contextlib
 import json
 import pathlib
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parent
 STRIDE = 500
 KT = 1.0
+CFG3_STRIDE = 100
+CFG3_KT = 0.6
+CFG3_T_BAND = (0.5, 0.7)
 
 
 def cuda_ms(fn, calls: int = 25, warm: int = 3) -> float:
@@ -55,6 +87,339 @@ def cuda_ms(fn, calls: int = 25, warm: int = 3) -> float:
     return statistics.median(times)
 
 
+def ptxas_lines(name: str) -> list:
+    from metadyn_tpu_torch.ops import _build
+    return [ln.strip() for ln in _build.log_path(name).read_text().splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def build_all(names) -> dict:
+    """Compile every library at once, one nvcc per source.  Returns the
+    seconds each build took."""
+    from metadyn_tpu_torch.ops import _build
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {n: pool.submit(_build.build, n) for n in names}
+        return {n: f.result() for n, f in futures.items()}
+
+
+def config3_inputs(cap: int, noise: float = 0.0):
+    """bench_config3.run_once's start on the port: (pos, vel, L, a, spec)."""
+    import numpy as np
+    from metadyn_tpu_torch import PackedSpec, fcc_lattice
+    rho = 0.95
+    a = (4.0 / rho) ** (1.0 / 3.0)
+    pos = fcc_lattice(25, a)
+    n = pos.shape[0]
+    L = 25 * a
+    rng = np.random.default_rng(0)
+    vel = rng.normal(0.0, np.sqrt(CFG3_KT), (n, 3)).astype(np.float32)
+    vel -= vel.mean(axis=0)
+    if noise:
+        pos = (pos + np.random.default_rng(5).normal(0.0, noise, pos.shape)
+               ).astype(np.float32)
+    spec = PackedSpec.create(L, n, r_cut=2.5, skin=0.3, cap=cap,
+                             shift_energy=False, uniform_sigma=1.0,
+                             uniform_eps=1.0)
+    return pos, vel, L, a, spec
+
+
+def config3_cvs(spec, a):
+    import numpy as np
+    from metadyn_tpu_torch import PackedCoordination, PackedSteinhardtQl
+    nn = a / np.sqrt(2)
+    return [PackedSteinhardtQl(spec, r_cut=nn * 1.2, l=6, name="q6"),
+            PackedCoordination(spec, r0=nn * 1.35, name="coord",
+                               r_cut=nn * 1.35 * 1.5)]
+
+
+def config3_sampler(engine_cls, dev, cap: int, mts_lag: bool,
+                    gamma: float = 1.0, stride: int = CFG3_STRIDE):
+    """The Config 3 sampler through the port's entry points, or None if the
+    initial pack overflows ``cap``."""
+    import numpy as np
+    from metadyn_tpu_torch import (
+        Box, GridSpec, HillSpec, MetadSampler, WallSpec, WELL_TEMPERED,
+        make_packed_langevin_step, make_system,
+    )
+    pos, vel, L, a, spec = config3_inputs(cap)
+    n = pos.shape[0]
+    engine = engine_cls(spec, dev, rebuild_every=10)
+    state, overflow = engine.pack_state(
+        pos, Box.cubic(L, dev), np.zeros(n, np.int32), np.ones(n, np.float32),
+        np.ones(n, np.float32), vel=vel)
+    if overflow:
+        return None
+    grid = GridSpec.create([0.0, 4.0], [0.7, 28.0], [48, 48], [0.015, 0.5],
+                           dev)
+    return MetadSampler(
+        make_system(n, dev), state, engine, config3_cvs(spec, a), grid,
+        HillSpec.create(W=0.4, stride=stride, mode=WELL_TEMPERED, deltaT=6.0),
+        lambda f: make_packed_langevin_step(f, dt=0.004, kT=CFG3_KT,
+                                            gamma=gamma),
+        seed=0, chunks_per_block=2,
+        walls=WallSpec.at_grid_edges(grid, k=200.0),
+        bias_every=10, mts_lag=mts_lag)
+
+
+def plain_force_engine():
+    """PackedEngine with the plain PyTorch pair force in place of the kernel:
+    the reference path of phases 4 and 9."""
+    from metadyn_tpu_torch import PackedEngine
+    from metadyn_tpu_torch.ops.packed import packed_lj_force
+
+    class PlainForceEngine(PackedEngine):
+        def _pair_force(self, state, with_energy):
+            return packed_lj_force(state, self.spec, with_energy=with_energy)
+
+    return PlainForceEngine
+
+
+def counters() -> dict:
+    from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
+    from metadyn_tpu_torch.ops.packed_fused_cuda import (
+        fused_lj_order_force_cuda,
+    )
+    from metadyn_tpu_torch.ops.packed_order_cuda import (
+        order_force_cuda, order_values_cuda,
+    )
+    return {"pair": packed_lj_force_cuda, "values": order_values_cuda,
+            "force": order_force_cuda, "fused": fused_lj_order_force_cuda}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+@contextlib.contextmanager
+def plain_order_path():
+    """The order-CV wrappers' plain versions, patched in where the port looks
+    them up: the reference path of phase 9."""
+    import metadyn_tpu_torch.cv.packed_order as po
+    import metadyn_tpu_torch.sampler as sm
+    from metadyn_tpu_torch.ops.packed_fused_cuda import (
+        fused_lj_order_force_plain,
+    )
+    saved = (po.order_values_cuda, po.order_force_cuda,
+             sm.fused_lj_order_force_cuda)
+    po.order_values_cuda = po.order_values_plain
+    po.order_force_cuda = po.order_force_plain
+    sm.fused_lj_order_force_cuda = fused_lj_order_force_plain
+    try:
+        yield
+    finally:
+        (po.order_values_cuda, po.order_force_cuda,
+         sm.fused_lj_order_force_cuda) = saved
+
+
+def order_kernels_vs_plain(dev) -> dict:
+    """Phase 8: each order-CV kernel against its plain version at Config 3's
+    shapes (fcc plus noise 0.05, cap 32).  Returns per kernel (max abs
+    error, kernel ms, plain ms)."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import Box, PackedEngine
+    from metadyn_tpu_torch.cv.packed_order import (
+        order_force_plain, order_values_plain,
+    )
+    from metadyn_tpu_torch.ops.packed_fused_cuda import (
+        fused_lj_order_force_cuda, fused_lj_order_force_plain,
+    )
+    from metadyn_tpu_torch.ops.packed_order_cuda import (
+        order_force_cuda, order_values_cuda,
+    )
+
+    pos, vel, L, a, spec = config3_inputs(32, noise=0.05)
+    n = pos.shape[0]
+    engine = PackedEngine(spec, dev, rebuild_every=10)
+    st, overflow = engine.pack_state(
+        pos, Box.cubic(L, dev), np.zeros(n, np.int32), np.ones(n, np.float32),
+        np.ones(n, np.float32), vel=vel)
+    assert not overflow, "cell capacity overflow at pack (phase 8)"
+    assert (spec.cap, spec.n_pad) == (32, 87808), (spec.cap, spec.n_pad)
+    cvs = config3_cvs(spec, a)
+    dV = torch.tensor([0.9, -1.3], device=dev)
+    out = {}
+
+    def lanes(terms):
+        return torch.cat([t.reshape(-1) for cv_t in terms for t in cv_t])
+
+    def lanes_close(name, terms, ref, rtol):
+        """max|Δlane| ≤ rtol·max|lane| within each CV's lanes."""
+        for cv, t, r in zip(cvs, terms, ref):
+            d = float((lanes([t]) - lanes([r])).abs().max())
+            scale = float(lanes([r]).abs().max())
+            assert np.isfinite(d) and d <= rtol * scale, (name, cv.name, d,
+                                                          scale)
+
+    # kernel 2: value terms and s
+    tk = order_values_cuda(st, spec, cvs)
+    tp = order_values_plain(st, spec, cvs)
+    sk = torch.stack([cv.finalize_value(t) for cv, t in zip(cvs, tk)])
+    sp = torch.stack([cv.finalize_value(t) for cv, t in zip(cvs, tp)])
+    torch.cuda.synchronize()
+    err = float((lanes(tk) - lanes(tp)).abs().max())
+    ds = float(((sk - sp).abs() / sp.abs()).max())
+    assert np.isfinite(err) and ds <= 2e-5, (ds, sk, sp)
+    lanes_close("values", tk, tp, 2e-5)
+    out["values"] = (err, cuda_ms(lambda: order_values_cuda(st, spec, cvs)),
+                     cuda_ms(lambda: order_values_plain(st, spec, cvs)))
+    print(f"order_values kernel_vs_plain: s={sk.tolist()} rel_ds={ds:.3e} "
+          f"max|dlane|={err:.3e} kernel_ms={out['values'][1]:.4f} "
+          f"plain_ms={out['values'][2]:.4f}")
+
+    def force_close(name, a_, b_, rtol, atol_frac):
+        d = (a_ - b_).abs()
+        bmax = float(b_.abs().max())
+        worst = float((d - rtol * b_.abs()).max())
+        assert np.isfinite(bmax) and worst <= atol_frac * bmax, (name, worst,
+                                                                  bmax)
+        return float(d.max()), bmax
+
+    # kernel 3: bias force
+    auxs = [cv.grad_aux(t, dV[i]) for i, (cv, t) in enumerate(zip(cvs, tp))]
+    gk = order_force_cuda(st, spec, cvs, auxs)
+    gp = order_force_plain(st, spec, cvs, auxs)
+    torch.cuda.synchronize()
+    vac = st.pid >= spec.n_real
+    assert torch.all(gk[:, vac] == 0.0)
+    err, gmax = force_close("g", gk, gp, 2e-3, 2e-4)
+    out["force"] = (err,
+                    cuda_ms(lambda: order_force_cuda(st, spec, cvs, auxs)),
+                    cuda_ms(lambda: order_force_plain(st, spec, cvs, auxs)))
+    print(f"order_force kernel_vs_plain: max|dg|={err:.3e} max|g|={gmax:.3e} "
+          f"kernel_ms={out['force'][1]:.4f} plain_ms={out['force'][2]:.4f}")
+
+    # kernel 4: LJ force, bias force and fresh terms in one traversal
+    fk, gk4, tk4 = fused_lj_order_force_cuda(st, spec, cvs, auxs)
+    fp, gp4, tp4 = fused_lj_order_force_plain(st, spec, cvs, auxs)
+    torch.cuda.synchronize()
+    assert torch.all(fk[:, vac] == 0.0) and torch.all(gk4[:, vac] == 0.0)
+    ef, fmax = force_close("f_lj", fk, fp, 0.0, 1e-3)
+    eg, _ = force_close("g", gk4, gp4, 2e-3, 2e-4)
+    s4k = torch.stack([cv.finalize_value(t) for cv, t in zip(cvs, tk4)])
+    s4p = torch.stack([cv.finalize_value(t) for cv, t in zip(cvs, tp4)])
+    ds4 = float(((s4k - s4p).abs() / s4p.abs()).max())
+    assert ds4 <= 2e-4, (ds4, s4k, s4p)
+    lanes_close("fused values", tk4, tp4, 2e-4)
+    el = float((lanes(tk4) - lanes(tp4)).abs().max())
+    out["fused"] = (
+        max(ef, eg, el),
+        cuda_ms(lambda: fused_lj_order_force_cuda(st, spec, cvs, auxs)),
+        cuda_ms(lambda: fused_lj_order_force_plain(st, spec, cvs, auxs)))
+    print(f"fused_lj_order kernel_vs_plain: max|df_lj|={ef:.3e} "
+          f"(max|f_lj|={fmax:.3e}) max|dg|={eg:.3e} rel_ds={ds4:.3e} "
+          f"max|dlane|={el:.3e} kernel_ms={out['fused'][1]:.4f} "
+          f"plain_ms={out['fused'][2]:.4f}")
+    return out
+
+
+def config3_kernel_vs_plain(dev) -> None:
+    """Phase 9: 20 steps of the lagged Config 3 slice at gamma = 0, kernels
+    against plain versions, from one state."""
+    import numpy as np
+    from metadyn_tpu_torch import PackedEngine
+    from metadyn_tpu_torch.ops.packed import unpack_positions
+
+    finals = []
+    for plain in (False, True):
+        reset_counts()
+        with plain_order_path() if plain else contextlib.nullcontext():
+            engine_cls = plain_force_engine() if plain else PackedEngine
+            s = config3_sampler(engine_cls, dev, 32, mts_lag=True, gamma=0.0,
+                                stride=20)
+            assert s is not None, "cell capacity overflow at pack (phase 9)"
+            m = s.run(20)[-1]
+        counts = read_counts()
+        if plain:
+            assert not any(counts.values()), counts
+        else:
+            assert all(counts[k] > 0 for k in ("pair", "values", "fused")), \
+                counts
+        finals.append((unpack_positions(s.state, s.engine.spec).cpu().numpy(),
+                       np.asarray(m["cv"])))
+    L = float(s.state.box.L_host[0])
+    dpos = finals[0][0] - finals[1][0]
+    dpos -= L * np.round(dpos / L)
+    dpos = float(np.abs(dpos).max())
+    dcv = float(np.abs(finals[0][1] - finals[1][1]).max())
+    assert dpos <= 1e-3, dpos
+    print(f"config3_kernel_vs_plain mts_lag gamma=0 20 steps: "
+          f"max|dpos|={dpos:.3e} max|dcv|={dcv:.3e} "
+          f"cv={finals[0][1].tolist()}")
+
+
+def config3_timed(dev, mts_lag: bool, warm: tuple, n_runs: int, n_timed: int,
+                  per_stride: dict, smi: str) -> dict:
+    """Phases 10 and 11: Config 3 timed, with the physics checks and exact
+    launch counts per stride.  Returns the launch counts of the last run."""
+    from metadyn_tpu_torch import PackedEngine
+    from metadyn_tpu_torch.utils.profiling import device_profile
+    import numpy as np
+    import torch
+
+    tag = f"config3 mts_lag={mts_lag}"
+    for cap in (32, 36):
+        s = config3_sampler(PackedEngine, dev, cap, mts_lag)
+        if s is None:
+            print(f"{tag}: cap {cap} overflows at pack")
+            continue
+        for w in warm:
+            hist = s.run(CFG3_STRIDE * w)
+        if any(bool(m["nlist_overflow"]) for m in hist):
+            print(f"{tag}: cap {cap} overflowed in the warm strides")
+            continue
+        runs = []
+        for _ in range(n_runs):
+            hills0 = s.bias.n_hills
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            hist = s.run(CFG3_STRIDE * n_timed)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = read_counts()
+            runs.append((dt, counts, hist, s.bias.n_hills - hills0))
+        if any(bool(m["nlist_overflow"]) for r in runs for m in r[2]):
+            print(f"{tag}: cap {cap} overflowed in the timed strides")
+            continue
+        break
+    else:
+        raise AssertionError(f"{tag}: overflow at cap 32 and at cap 36")
+    retry = " (retry at cap 36 after overflow at cap 32)" if cap == 36 else ""
+    n = s.engine.spec.n_real
+    for dt, counts, hist, hills in runs:
+        want = {k: n_timed * per_stride.get(k, 0) for k in counts}
+        assert counts == want, (counts, want)
+        assert hills == n_timed, hills
+        for m in hist:
+            for k in ("cv", "bias_V", "hill_height", "temperature",
+                      "potential_energy"):
+                assert np.all(np.isfinite(m[k])), (k, m)
+            assert not m["cell_width_violation"], m
+            assert CFG3_T_BAND[0] < float(m["temperature"]) < CFG3_T_BAND[1], m
+            assert float(m["hill_height"]) > 0.0, m
+        last = hist[-1]
+        print(f"{tag}: cap {cap}{retry} {n_timed} strides {dt:.3f} s "
+              f"{n * CFG3_STRIDE * n_timed / dt:.1f} particle-steps/s "
+              f"T={float(last['temperature']):.4f} "
+              f"PE/N={float(last['potential_energy']) / n:.4f} "
+              f"cv={last['cv'].tolist()} "
+              f"T_range=[{min(float(m['temperature']) for m in hist):.4f}, "
+              f"{max(float(m['temperature']) for m in hist):.4f}] "
+              f"launches={counts} on {smi}")
+    prof = device_profile(lambda: s.run(CFG3_STRIDE))
+    untraced_ms = 1e3 * min(r[0] for r in runs) / n_timed
+    prof["busy_share_untraced"] = prof["busy_ms"] / untraced_ms
+    prof["tracing_overhead_ms"] = prof["wall_ms"] - untraced_ms
+    print(f"profile {tag} one stride: {json.dumps(prof)} on {smi}")
+    return runs[-1][1]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -68,16 +433,10 @@ def main() -> int:
         make_system,
     )
     from metadyn_tpu_torch.ops import _build
+    from metadyn_tpu_torch.ops import packed_fused_cuda, packed_order_cuda
     from metadyn_tpu_torch.ops.packed import packed_lj_force, unpack_positions
     from metadyn_tpu_torch.ops.packed_cuda import KERNEL, packed_lj_force_cuda
     from metadyn_tpu_torch.utils.profiling import device_profile
-
-    class PlainForceEngine(PackedEngine):
-        """The engine with the plain PyTorch pair force in place of the
-        kernel: the reference path of phase 4."""
-
-        def _pair_force(self, state, with_energy):
-            return packed_lj_force(state, self.spec, with_energy=with_energy)
 
     # 1. device
     dev = torch.device("cuda", 0)
@@ -90,14 +449,12 @@ def main() -> int:
           f"cuda={torch.version.cuda}")
     print(smi[0])
 
-    # 2. build
-    secs = _build.build(KERNEL)
-    ptxas = [ln.strip() for ln in
-             _build.log_path(KERNEL).read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    print("\n".join(ptxas), file=sys.stderr)
+    # 2. build, every source at once
+    order_libs = (packed_order_cuda.KERNEL, packed_fused_cuda.KERNEL)
+    build_secs = build_all((KERNEL,) + order_libs)
+    print("\n".join(ptxas_lines(KERNEL)), file=sys.stderr)
     print(f"build: csrc/{KERNEL}.cu nvcc {' '.join(_build.NVCC_FLAGS[:2])} "
-          f"{secs:.2f} s")
+          f"{build_secs[KERNEL]:.2f} s")
 
     # the workload (bench.py build_sampler, on the port)
     d = np.load(ROOT / "bench_data" / "liq64k.npz")
@@ -155,7 +512,7 @@ def main() -> int:
 
     # 4. the slice at gamma = 0: kernel engine vs plain-force engine
     finals = []
-    for cls in (PackedEngine, PlainForceEngine):
+    for cls in (PackedEngine, plain_force_engine()):
         s = build(cls, 5, gamma=0.0, stride=20)
         m = s.run(20)[-1]
         finals.append((unpack_positions(s.state, spec).cpu().numpy(),
@@ -207,13 +564,51 @@ def main() -> int:
         print(f"profile bias_every={bias_every} one stride: "
               f"{json.dumps(prof)} on {smi[0]}")
 
-    print(json.dumps({"kernels": [{
-        "name": KERNEL, "route": "cuda",
-        "source": f"metadyn_tpu_torch/csrc/{KERNEL}.cu",
-        "replaces": "metadyn_tpu/ops/packed_pallas2.py:301",
-        "launches": rates[5][1],
-        "max_abs_err": max(errs.values()),
-        "ms": times[False][0], "plain_ms": times[False][1]}]}))
+    # 7. the order-CV libraries (built in phase 2)
+    for lib in order_libs:
+        print("\n".join(ptxas_lines(lib)), file=sys.stderr)
+        print(f"build: csrc/{lib}.cu nvcc {' '.join(_build.NVCC_FLAGS[:2])} "
+              f"{build_secs[lib]:.2f} s; "
+              + "; ".join(ptxas_lines(lib)[-4:]))
+
+    # 8. order-CV kernels vs plain at Config 3's shapes
+    order = order_kernels_vs_plain(dev)
+
+    # 9. the Config 3 slice at gamma = 0: kernels vs plain versions
+    config3_kernel_vs_plain(dev)
+
+    # 10./11. Config 3 timed, lagged and exact
+    lag_counts = config3_timed(
+        dev, True, warm=(2, 2), n_runs=2, n_timed=4,
+        per_stride={"pair": 91, "fused": 10, "values": 2}, smi=smi[0])
+    exact_counts = config3_timed(
+        dev, False, warm=(2, 2), n_runs=1, n_timed=2,
+        per_stride={"pair": 101, "values": 12, "force": 10}, smi=smi[0])
+
+    order_src = f"metadyn_tpu_torch/csrc/{packed_order_cuda.KERNEL}.cu"
+    print(json.dumps({"kernels": [
+        {"name": KERNEL, "route": "cuda",
+         "source": f"metadyn_tpu_torch/csrc/{KERNEL}.cu",
+         "replaces": "metadyn_tpu/ops/packed_pallas2.py:301",
+         "launches": rates[5][1],
+         "max_abs_err": max(errs.values()),
+         "ms": times[False][0], "plain_ms": times[False][1]},
+        {"name": "packed_order_values", "route": "cuda",
+         "source": order_src,
+         "replaces": "metadyn_tpu/ops/packed_order_pallas.py:257",
+         "launches": lag_counts["values"], "max_abs_err": order["values"][0],
+         "ms": order["values"][1], "plain_ms": order["values"][2]},
+        {"name": "packed_order_force", "route": "cuda",
+         "source": order_src,
+         "replaces": "metadyn_tpu/ops/packed_order_pallas.py:309",
+         "launches": exact_counts["force"], "max_abs_err": order["force"][0],
+         "ms": order["force"][1], "plain_ms": order["force"][2]},
+        {"name": packed_fused_cuda.KERNEL, "route": "cuda",
+         "source": f"metadyn_tpu_torch/csrc/{packed_fused_cuda.KERNEL}.cu",
+         "replaces": "metadyn_tpu/ops/packed_fused_pallas.py:296",
+         "launches": lag_counts["fused"], "max_abs_err": order["fused"][0],
+         "ms": order["fused"][1], "plain_ms": order["fused"][2]},
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

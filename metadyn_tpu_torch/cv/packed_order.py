@@ -1,0 +1,471 @@
+"""Order-parameter CVs on the packed state: Steinhardt Q_l and coordination
+(counterpart of ``metadyn_tpu/cv/packed_order.py``).
+
+Both CVs are sums over neighbour pairs, so their values and bias forces
+come from pair sweeps over the cell structure.  On a CUDA tensor the sweeps
+are the hand-written kernels of ``ops/packed_order_cuda.py``; on a CPU
+tensor they are the plain roll sweeps below, which the kernels are held
+against on the card:
+
+- :func:`_half_partner_stacks`, :func:`_offset_pair_sweep` and
+  :func:`_offset_force_sweep` walk the Newton-halved offset set (the self
+  cell and the 13 lexicographically positive neighbour cells), each offset
+  a ``torch.roll`` of the (cap, cx, cy, cz) slot view, with pair terms as
+  (j_block, cap, C) broadcasts.  Halving is valid because every per-pair
+  term is even in d (Q_l with even l: parity (−1)^l; coordination: r²
+  only): cross-cell pairs get value weight 2, and the j-side force
+  reaction −φ′(d_ij) = +φ′(d_ji) is rolled back onto j.
+- Vacancy enters through the validity weight (``pid < n_real``), so the
+  plain sweeps take both the sentinel and the validity layout; the kernels
+  take the sentinel layout only.
+
+The CVs keep the reference's flat-scalar protocol (``n_value_terms``,
+``pair_value_terms_flat``, ``terms_from_flat``, ``aux_size``,
+``aux_flat``/``aux_from_flat``), with one-dimensional tensors where the
+reference has tuples of scalars, and its ``terms`` structure: (re (l+1,),
+im (l+1,), n_b) for Q_l, a 1-tuple for coordination.
+
+Not ported (they raise NotImplementedError): the monomial protocol
+(``mono_value_decode``, ``mono_force_vecs``, ``cv/ylm_mono.py``), which only
+the spatially decomposed engines use, and :func:`make_table_order_force`,
+which needs the slot neighbour table.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.state import System
+from ..ops.packed import (
+    OFFSETS, PackedSpec, PackedState, _tables, shift_rows_cart,
+)
+from ..ops.packed_order_cuda import order_force_cuda, order_values_cuda
+from .steinhardt import _dcoeffs, _norms, _plm_over_sinm_coeffs, ql_from_sums
+
+KIND_QL = 0
+KIND_COORD = 1
+
+
+def _j_block(spec: PackedSpec) -> int:
+    """j rows per block: the whole cap up to 2^26 elements per (B, cap, C)
+    temporary (the rule of ``ops.packed.packed_lj_force``)."""
+    cap, C = spec.cap, spec.n_cells
+    if cap * cap * C > 2**26:
+        return max(8, (2**26 // (cap * C)) // 8 * 8)
+    return cap
+
+
+def _half_partner_stacks(state: PackedState, spec: PackedSpec) -> list:
+    """Rolled and shifted partner stacks of the Newton-halved offset set (the
+    self cell and the 13 offsets ``o > 0``): a list of (o, xj (3, cap, C),
+    vj (cap, C)), built once per step and shared by the value and force
+    sweeps."""
+    cap, C = spec.cap, spec.n_cells
+    cx, cy, cz = spec.cells_per_dim
+    valid = (state.pid < spec.n_real).to(torch.float32)
+    rows4 = torch.cat([state.r, valid[None]]).reshape(4, cap, cx, cy, cz)
+    shifts = shift_rows_cart(_tables(spec, state.r.device).ushift, state.box)
+    out = []
+    for oi, o in enumerate(OFFSETS):
+        if o < (0, 0, 0):
+            continue
+        part = torch.roll(rows4, shifts=(-o[0], -o[1], -o[2]),
+                          dims=(2, 3, 4)).reshape(4, cap, C)
+        out.append((o, part[:3] + shifts[oi][:, None, :], part[3]))
+    return out
+
+
+def _tree_add(a, b):
+    if isinstance(a, (tuple, list)):
+        return type(a)(_tree_add(x, y) for x, y in zip(a, b))
+    return a + b
+
+
+def _pairs(state: PackedState, spec: PackedSpec, stacks):
+    """Yield (o, j rows, dx, dy, dz, r2, w) per offset and j block; w is the
+    validity weight times (r² > 1e-12), without the Newton weight."""
+    cap, C = spec.cap, spec.n_cells
+    vi = (state.pid < spec.n_real).to(torch.float32).reshape(1, cap, C)
+    xi = state.r.reshape(3, 1, cap, C)
+    jb = _j_block(spec)
+    for o, xj, vj in stacks:
+        for j0 in range(0, cap, jb):
+            rows = slice(j0, j0 + jb)
+            d = xi - xj[:, rows, None, :]                   # (3, B, cap, C)
+            r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+            w = vi * vj[rows, None, :] * (r2 > 1e-12)
+            yield o, rows, d[0], d[1], d[2], r2, w
+
+
+def _offset_pair_sweep(state: PackedState, spec: PackedSpec, per_pair,
+                       stacks=None):
+    """Σ over pairs of ``per_pair(dx, dy, dz, r2, w)`` (a tree of sums) over
+    the Newton-halved offset set with cross-cell weight 2 — valid only for
+    per-pair functions even under d → −d.  ``stacks``: prebuilt
+    :func:`_half_partner_stacks`."""
+    if stacks is None:
+        stacks = _half_partner_stacks(state, spec)
+    acc = None
+    for o, _, dx, dy, dz, r2, w in _pairs(state, spec, stacks):
+        if o != (0, 0, 0):
+            w = 2.0 * w
+        out = per_pair(dx, dy, dz, r2, w)
+        acc = out if acc is None else _tree_add(acc, out)
+    return acc
+
+
+def _offset_force_sweep(state: PackedState, spec: PackedSpec, pair_grad,
+                        stacks=None) -> torch.Tensor:
+    """F_i = Σ_j w·pair_grad(d_ij) over the Newton-halved offset set, with
+    the j-side reaction rolled back from each cross offset's frame.
+    ``pair_grad(dx, dy, dz, r2)`` is the d-gradient of an even per-pair
+    scalar.  Returns (3, Npad)."""
+    cap, C = spec.cap, spec.n_cells
+    cx, cy, cz = spec.cells_per_dim
+    if stacks is None:
+        stacks = _half_partner_stacks(state, spec)
+    force = torch.zeros((3, cap, C), dtype=torch.float32,
+                        device=state.r.device)
+    react = {}
+    for o, rows, dx, dy, dz, r2, w in _pairs(state, spec, stacks):
+        wg = w * torch.stack(pair_grad(dx, dy, dz, r2))     # (3, B, cap, C)
+        force = force + wg.sum(dim=1)                       # i side
+        if o != (0, 0, 0):
+            if o not in react:
+                react[o] = torch.zeros_like(force)
+            react[o][:, rows] += wg.sum(dim=2)              # j side, rolled
+    for o, fj in react.items():
+        force = force - torch.roll(fj.reshape(3, cap, cx, cy, cz),
+                                   shifts=o, dims=(2, 3, 4)).reshape(3, cap, C)
+    return force.reshape(3, -1)
+
+
+def order_values_plain(state: PackedState, spec: PackedSpec, cvs,
+                       stacks=None) -> tuple:
+    """Per-CV value ``terms`` by the plain half sweep: the plain version of
+    the values kernel."""
+    def per_pair(dx, dy, dz, r2, w):
+        return tuple(cv.pair_value_terms(dx, dy, dz, r2, w) for cv in cvs)
+
+    return _offset_pair_sweep(state, spec, per_pair, stacks=stacks)
+
+
+def order_force_plain(state: PackedState, spec: PackedSpec, cvs, auxs,
+                      stacks=None) -> torch.Tensor:
+    """Σ_cv bias force (3, Npad) by the plain half sweep: the plain version
+    of the force kernel."""
+    def pair_grad(dx, dy, dz, r2):
+        gx = gy = gz = 0.0
+        for cv, aux in zip(cvs, auxs):
+            ax, ay, az = cv.pair_grad_terms(dx, dy, dz, r2, aux)
+            gx, gy, gz = gx + ax, gy + ay, gz + az
+        return gx, gy, gz
+
+    return _offset_force_sweep(state, spec, pair_grad, stacks=stacks)
+
+
+def _horner(coeffs, x: torch.Tensor) -> torch.Tensor:
+    p = torch.zeros_like(x)
+    for a in coeffs[::-1]:
+        p = p * x + a
+    return p
+
+
+class PackedSteinhardtQl(nn.Module):
+    """Global Q_l over all pair bonds within ``r_cut``, counted from both
+    sides (packed twin of the reference's particle-order ``SteinhardtQl``).
+
+    The p_lm and N_m tables are rounded to f32 once, the numbers the CUDA
+    kernels upload, so that the plain math and the kernels share them."""
+
+    def __init__(self, spec: PackedSpec, r_cut: float = 1.5, l: int = 6,
+                 name: str = "q6"):
+        super().__init__()
+        if r_cut > spec.r_list + 1e-6:
+            raise ValueError("Q_l r_cut must be within the cell stencil "
+                             "(r_cut + skin)")
+        if l % 2:
+            raise ValueError("packed Q_l uses the Newton-halved sweep (parity "
+                             "(−1)^l): even l only")
+        self.spec = spec
+        self.r_cut = float(r_cut)
+        self.l = int(l)
+        self.name = name
+        f32 = lambda a: [float(x) for x in np.asarray(a, np.float32)]
+        self._coeffs = [f32(c) for c in _plm_over_sinm_coeffs(self.l)]
+        self._dcoeffs = [f32(c) for c in _dcoeffs(self.l)]
+        self._norms = f32(_norms(self.l))
+
+    @property
+    def log_name(self) -> str:
+        return f"cv_{self.name}"
+
+    # --- the monomial protocol: not ported ---------------------------------
+    def mono_value_decode(self, mono_sums, nb):
+        raise NotImplementedError("the monomial Y_lm protocol is not ported")
+
+    def mono_force_vecs(self, aux):
+        raise NotImplementedError("the monomial Y_lm protocol is not ported")
+
+    # --- flat-scalar protocol ----------------------------------------------
+    @property
+    def n_value_terms(self) -> int:
+        return 2 * (self.l + 1) + 1
+
+    @property
+    def aux_size(self) -> int:
+        return 2 * (self.l + 1)
+
+    def kernel_descriptor(self) -> tuple:
+        """(kind, l, rc2, r02, sc, scale, table) for the CUDA kernels: the
+        table is N_m, then the p_lm and then the p_lm′ coefficients."""
+        table = (self._norms + [a for c in self._coeffs for a in c]
+                 + [a for c in self._dcoeffs for a in c])
+        return KIND_QL, self.l, self.r_cut ** 2, 0.0, 0.0, 1.0, table
+
+    def _chains(self, dx, dy, dz, r2, w, aux):
+        """The shared P_lm / u^m recurrence: value terms with the weight
+        ``w`` as given (if not None) and the bias-force gradient, zero
+        outside 1e-12 < r² < r_cut² (if ``aux`` is not None)."""
+        inside = (r2 < self.r_cut ** 2) & (r2 > 1e-12)
+        r2s = torch.where(r2 > 1e-12, r2, 1.0)
+        inv_r = torch.rsqrt(r2s)
+        cth = dz * inv_r
+        ux, uy = dx * inv_r, dy * inv_r
+        pr, pi = torch.ones_like(cth), torch.zeros_like(cth)   # u^m
+        qr, qi = torch.zeros_like(cth), torch.zeros_like(cth)  # u^(m-1)
+        D = E = F = BU = 0.0
+        re, im = [], []
+        for m in range(self.l + 1):
+            pl = _horner(self._coeffs[m], cth)
+            if w is not None:
+                wn = w * (self._norms[m] * pl)
+                re.append(torch.sum(wn * pr))
+                im.append(torch.sum(wn * pi))
+            if aux is not None:
+                a_re, a_im = aux[0][m], aux[1][m]
+                nm = self._norms[m]
+                dpl = _horner(self._dcoeffs[m], cth)
+                D = D + nm * dpl * (a_re * pr + a_im * pi)
+                if m > 0:
+                    br = m * (a_re * qr + a_im * qi)
+                    bi = m * (a_re * qi - a_im * qr)
+                    E = E + nm * pl * br
+                    F = F + nm * pl * bi
+                    BU = BU + nm * pl * (br * ux - bi * uy)
+            qr, qi = pr, pi
+            pr, pi = pr * ux - pi * uy, pr * uy + pi * ux
+        flat = (tuple(re) + tuple(im) + (torch.sum(w),)
+                if w is not None else None)
+        grad = None
+        if aux is not None:
+            mi = inside * inv_r
+            grad = ((D * (-cth * ux) + E - ux * BU) * mi,
+                    (D * (-cth * uy) - F - uy * BU) * mi,
+                    (D * (1.0 - cth * cth) - cth * BU) * mi)
+        return flat, grad
+
+    def pair_value_terms_flat(self, dx, dy, dz, r2, w) -> tuple:
+        """Per-pair partial sums, flat: (Re S_0..l, Im S_0..l, n_b).  The
+        weight gets the r_cut mask only (the sweeps' ``w`` already drops
+        r² ≤ 1e-12)."""
+        return self._chains(dx, dy, dz, r2, w * (r2 < self.r_cut ** 2),
+                            None)[0]
+
+    def terms_from_flat(self, flat) -> tuple:
+        if not isinstance(flat, torch.Tensor):
+            flat = torch.stack(list(flat))
+        k = self.l + 1
+        return flat[:k], flat[k:2 * k], flat[2 * k]
+
+    def pair_value_terms(self, dx, dy, dz, r2, w) -> tuple:
+        return self.terms_from_flat(
+            self.pair_value_terms_flat(dx, dy, dz, r2, w))
+
+    def aux_flat(self, aux) -> torch.Tensor:
+        return torch.cat([aux[0].reshape(-1), aux[1].reshape(-1)])
+
+    def aux_from_flat(self, flat) -> tuple:
+        k = self.l + 1
+        return flat[:k], flat[k:2 * k]
+
+    def finalize_value(self, terms) -> torch.Tensor:
+        re, im, nb = terms
+        return ql_from_sums(re, im, nb, self.l)
+
+    def _sums(self, state: PackedState) -> tuple:
+        return order_values_cuda(state, self.spec, [self])[0]
+
+    def value(self, state: PackedState, system: System) -> torch.Tensor:
+        return self.finalize_value(self._sums(state))
+
+    def grad_aux(self, terms, dVds) -> tuple:
+        """Outer gradient g_m = ∂Q/∂S_m in closed form, with the bias-force
+        coefficient −2·dVds folded in (both pair orderings hit the i side:
+        even parity).  Q = sqrt(A q2)/n_b with A = 4π/(2l+1) and q2 = re_0² +
+        im_0² + 2 Σ_{m≥1}(re_m² + im_m²), so ∂Q/∂re_m = A c_m re_m /
+        (n_b sqrt(A q2)) with c_0 = 1, c_m = 2."""
+        re, im, nb = terms
+        A = 4.0 * math.pi / (2 * self.l + 1)
+        q2 = (re[0] ** 2 + im[0] ** 2) + 2.0 * torch.sum(re[1:] ** 2
+                                                         + im[1:] ** 2)
+        c = A / (torch.sqrt(A * q2) * torch.clamp(nb, min=1.0))
+        mult = torch.full_like(re, 2.0)
+        mult[0] = 1.0
+        k = -2.0 * dVds * c * mult
+        return k * re, k * im
+
+    def pair_grad_terms(self, dx, dy, dz, r2, aux) -> tuple:
+        """Closed-form per-pair bias-force contribution: the d-gradient of
+        φ(d) = Σ_m N_m p_m(cosθ)·Re[(g^re_m − i g^im_m)·u^m] (u = (dx+i dy)/r),
+        zero outside 1e-12 < r² < r_cut²; both orderings give particle i
+        +∂φ/∂d (even parity), so no j-side scatter is needed."""
+        return self._chains(dx, dy, dz, r2, None, aux)[1]
+
+    def pair_value_and_grad(self, dx, dy, dz, r2, wv, aux) -> tuple:
+        """Value terms and bias-force gradient from one shared recurrence
+        (the fused kernel's math).  ``wv`` gets the mask 1e-12 < r² <
+        r_cut².  Returns (flat terms, gx, gy, gz)."""
+        inside = (r2 < self.r_cut ** 2) & (r2 > 1e-12)
+        flat, (gx, gy, gz) = self._chains(dx, dy, dz, r2, wv * inside, aux)
+        return flat, gx, gy, gz
+
+    def accum_bias_force(self, state: PackedState, system: System,
+                         dVds: torch.Tensor, f_acc: torch.Tensor
+                         ) -> torch.Tensor:
+        """f_acc + the bias force: one value sweep, the outer gradient, one
+        force sweep."""
+        aux = self.grad_aux(self._sums(state), dVds)
+        return f_acc + order_force_cuda(state, self.spec, [self], [aux])
+
+
+class PackedCoordination(nn.Module):
+    """Smooth mean coordination number (PLUMED COORDINATION switching):
+
+        s = (1/N) Σ_pairs [1 − (r/r0)^6] / [1 − (r/r0)^12] = (1/N) Σ 1/(1 + (r/r0)^6)
+
+    ``r_cut=None`` truncates at the cell stencil's reach.  A finite
+    ``r_cut`` applies the PLUMED stretch s̃ = (s − s(r_cut)) / (1 −
+    s(r_cut)) below r_cut and 0 beyond."""
+
+    n_value_terms = 1
+    aux_size = 1
+
+    def __init__(self, spec: PackedSpec, r0: float = 1.5, name: str = "coord",
+                 r_cut: float | None = None):
+        super().__init__()
+        # the switching tail is negligible past ~1.5·r0: require coverage
+        if r0 * 1.5 > spec.r_list + 1e-6:
+            raise ValueError("coordination r0 too large for the cell stencil")
+        self.spec = spec
+        self.r0 = float(r0)
+        self.name = name
+        self.r_cut = None if r_cut is None else float(r_cut)
+
+    @property
+    def log_name(self) -> str:
+        return f"cv_{self.name}"
+
+    def _stretch(self) -> tuple:
+        """(s_c, scale): the switching value at the cut-off and 1/(1 − s_c)."""
+        sc = 1.0 / (1.0 + (self.r_cut / self.r0) ** 6)
+        return sc, 1.0 / (1.0 - sc)
+
+    def kernel_descriptor(self) -> tuple:
+        """(kind, l, rc2, r02, sc, scale, table) for the CUDA kernels; no
+        cut-off is rc2 = inf with the identity stretch."""
+        if self.r_cut is None:
+            rc2, sc, scale = math.inf, 0.0, 1.0
+        else:
+            (sc, scale), rc2 = self._stretch(), self.r_cut ** 2
+        return KIND_COORD, 0, rc2, self.r0 ** 2, sc, scale, []
+
+    def pair_value_terms_flat(self, dx, dy, dz, r2, w) -> tuple:
+        return self.pair_value_terms(dx, dy, dz, r2, w)
+
+    def terms_from_flat(self, flat) -> tuple:
+        return (flat[0],)
+
+    def aux_flat(self, aux) -> torch.Tensor:
+        return aux.reshape(1)
+
+    def aux_from_flat(self, flat):
+        return flat[0]
+
+    def pair_value_terms(self, dx, dy, dz, r2, w) -> tuple:
+        # 1/(1 + (r/r0)^6): the regular form of the switching quotient
+        y3 = (r2 / self.r0 ** 2) ** 3
+        s = 1.0 / (1.0 + y3)
+        if self.r_cut is not None:
+            sc, scale = self._stretch()
+            s = torch.where(r2 < self.r_cut ** 2, (s - sc) * scale, 0.0)
+        return (torch.sum(w * s),)
+
+    def finalize_value(self, terms) -> torch.Tensor:
+        return terms[0] / self.spec.n_real
+
+    def value(self, state: PackedState, system: System) -> torch.Tensor:
+        return self.finalize_value(
+            order_values_cuda(state, self.spec, [self])[0])
+
+    def grad_aux(self, terms, dVds) -> torch.Tensor:
+        """Bias-force coefficient −dVds·2/N (the two pair orderings, even
+        parity), folded into the per-pair coefficient."""
+        return -dVds * 2.0 / self.spec.n_real
+
+    def pair_grad_terms(self, dx, dy, dz, r2, aux) -> tuple:
+        """φ(d) = 1/(1 + t³) with t = r²/r0²: ∂φ/∂d = −3t²/(r0²(1 + t³)²)·2d,
+        times the stretch factor below r_cut and 0 beyond."""
+        r02 = self.r0 ** 2
+        t = r2 / r02
+        t3 = t * t * t
+        dphi_dr2 = -3.0 * t * t / (r02 * (1.0 + t3) ** 2)
+        if self.r_cut is not None:
+            _, scale = self._stretch()
+            dphi_dr2 = torch.where(r2 < self.r_cut ** 2, dphi_dr2 * scale, 0.0)
+        c = aux * 2.0 * dphi_dr2
+        return c * dx, c * dy, c * dz
+
+    def accum_bias_force(self, state: PackedState, system: System,
+                         dVds: torch.Tensor, f_acc: torch.Tensor
+                         ) -> torch.Tensor:
+        aux = self.grad_aux(None, dVds)
+        return f_acc + order_force_cuda(state, self.spec, [self], [aux])
+
+
+def make_fused_order_force(cvs, spec: PackedSpec):
+    """One value traversal and one force traversal for all order CVs.
+
+    Returns ``(values_fn, force_fn)``:
+      values_fn(state) -> (s_stack, ctx)
+      force_fn(state, ctx, dVds) -> (3, Npad) bias force g
+    with ``ctx = (terms, stacks)`` as in the reference.  On a CUDA state
+    both go to the kernels and ``stacks`` is None (the kernels index the
+    neighbour cells directly); on a CPU state both run the plain sweeps,
+    which share the partner stacks built once by ``values_fn``."""
+    cvs = list(cvs)
+
+    def values_fn(state):
+        stacks = (_half_partner_stacks(state, spec)
+                  if state.r.device.type == "cpu" else None)
+        terms = order_values_cuda(state, spec, cvs, stacks=stacks)
+        s = torch.stack([cv.finalize_value(t) for cv, t in zip(cvs, terms)])
+        return s, (terms, stacks)
+
+    def force_fn(state, ctx, dVds):
+        terms, stacks = ctx
+        auxs = [cv.grad_aux(t, dVds[i])
+                for i, (cv, t) in enumerate(zip(cvs, terms))]
+        return order_force_cuda(state, spec, cvs, auxs, stacks=stacks)
+
+    return values_fn, force_fn
+
+
+def make_table_order_force(cvs, spec: PackedSpec):
+    """The neighbour-table twin of :func:`make_fused_order_force`: not
+    ported (the slot neighbour table ``nbr_table`` is not)."""
+    raise NotImplementedError("the neighbour-table order-CV path is not "
+                              "ported (nbr_table is not)")

@@ -36,13 +36,18 @@ def make_packed_langevin_step(
     force_fn: Callable[[PackedState], PackedState],
     dt: float, kT: float, gamma: float = 1.0, mass: float = 1.0,
 ) -> PackedStepFn:
-    """BAOAB Langevin on the packed state."""
+    """BAOAB Langevin on the packed state.
+
+    ``force_fn`` returns the state, or a ``(state, extras)`` tuple; then
+    ``step`` returns ``(state, extras)`` too.  The lagged multiple-time-
+    stepping path uses the tuple form to carry fresh CV terms out of its
+    trailing force call (``sampler.make_stride_chunk``)."""
     c1 = math.exp(-gamma * dt)
     c2 = math.sqrt((1.0 - c1 * c1) * kT / mass)
     h = 0.5 * dt / mass
 
     def step(state: PackedState, generator: Optional[torch.Generator] = None,
-             noise: Optional[torch.Tensor] = None) -> PackedState:
+             noise: Optional[torch.Tensor] = None):
         v = state.v + h * state.f
         r = state.r + 0.5 * dt * v
         if noise is None:
@@ -50,8 +55,11 @@ def make_packed_langevin_step(
                                 device=v.device)
         v = c1 * v + c2 * noise
         r = r + 0.5 * dt * v
-        state = force_fn(state.replace(r=_pin_vacant(r, state.r)))
-        return state.replace(v=v + h * state.f)
+        out = force_fn(state.replace(r=_pin_vacant(r, state.r)))
+        if isinstance(out, tuple):
+            state, extras = out
+            return state.replace(v=v + h * state.f), extras
+        return out.replace(v=v + h * out.f)
 
     return step
 

@@ -7,9 +7,10 @@ with ``np.asarray``, so this module never imports jax.  The ``*_arrays``
 functions go back: they return plain dicts of numpy arrays and Python
 values under the reference's field names, ready for its constructors.
 
-Covered: ``PackedState`` with its ``Box``, ``PackedSpec``, ``GridSpec``,
-``BiasState`` (V, dV, n_hills) and the lamellar CV's lattice vectors and
-phases.
+Covered: ``PackedState`` with its ``Box`` (every attr, the lagged path's
+``held_g*`` included), ``PackedSpec``, ``GridSpec``, ``BiasState`` (V, dV,
+n_hills), the lamellar CV's lattice vectors and phases, and the packed
+order CVs' parameters (Q_l and coordination).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from .bias.grid import BiasGrid, GridSpec
 from .bias.metad import BiasState
 from .core.box import Box
 from .cv.packed import PackedLamellar
+from .cv.packed_order import PackedCoordination, PackedSteinhardtQl
 from .ops.packed import PackedSpec, PackedState
 
 _STATE_TENSORS = ("r", "v", "f", "image", "ref_r", "pid", "typ", "slot_of",
@@ -108,3 +110,25 @@ def lamellar_from(obj, device) -> PackedLamellar:
 def lamellar_arrays(cv: PackedLamellar) -> dict:
     return {"lattice_vectors": _np(cv.lattice_vectors),
             "phases": _np(cv.phases), "n_real": cv.n_real, "name": cv.name}
+
+
+def steinhardt_from(obj) -> PackedSteinhardtQl:
+    return PackedSteinhardtQl(packed_spec_from(obj.spec), r_cut=obj.r_cut,
+                              l=obj.l, name=obj.name)
+
+
+def steinhardt_arrays(cv: PackedSteinhardtQl) -> dict:
+    """``spec`` is a dict of the spec's fields (see packed_spec_fields)."""
+    return {"spec": packed_spec_fields(cv.spec), "r_cut": cv.r_cut,
+            "l": cv.l, "name": cv.name}
+
+
+def coordination_from(obj) -> PackedCoordination:
+    return PackedCoordination(packed_spec_from(obj.spec), r0=obj.r0,
+                              name=obj.name, r_cut=obj.r_cut)
+
+
+def coordination_arrays(cv: PackedCoordination) -> dict:
+    """``spec`` is a dict of the spec's fields (see packed_spec_fields)."""
+    return {"spec": packed_spec_fields(cv.spec), "r0": cv.r0,
+            "name": cv.name, "r_cut": cv.r_cut}

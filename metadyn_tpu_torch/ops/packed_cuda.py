@@ -36,6 +36,19 @@ def check_spec(spec: PackedSpec) -> None:
                                   "are not ported")
 
 
+def check_state(state: PackedState, spec: PackedSpec, who: str) -> None:
+    """Raise on a state the kernels do not take: a tilted box, or positions
+    that are not contiguous f32 of shape (3, Npad)."""
+    if state.box.tilt is not None:
+        raise NotImplementedError(f"{who}: triclinic boxes are not ported")
+    r = state.r
+    if (r.dtype != torch.float32 or not r.is_contiguous()
+            or tuple(r.shape) != (3, spec.n_pad)):
+        raise ValueError(f"{who}: r must be contiguous f32 of shape "
+                         f"(3, {spec.n_pad}); got {r.dtype} {tuple(r.shape)} "
+                         f"contiguous={r.is_contiguous()}")
+
+
 def _function():
     lib = _build.load(KERNEL)
     fn = lib.packed_lj_force
@@ -61,14 +74,7 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
     if r.device.type != "cuda":
         raise ValueError(f"packed_lj_force_cuda: unsupported device {r.device}")
     check_spec(spec)
-    if state.box.tilt is not None:
-        raise NotImplementedError("CUDA pair kernel: triclinic boxes are not "
-                                  "ported")
-    if (r.dtype != torch.float32 or not r.is_contiguous()
-            or tuple(r.shape) != (3, spec.n_pad)):
-        raise ValueError(f"packed_lj_force_cuda: r must be contiguous f32 of "
-                         f"shape (3, {spec.n_pad}); got {r.dtype} "
-                         f"{tuple(r.shape)} contiguous={r.is_contiguous()}")
+    check_state(state, spec, "packed_lj_force_cuda")
     fn, threads = _function()
     f = torch.empty_like(r)
     if with_energy:

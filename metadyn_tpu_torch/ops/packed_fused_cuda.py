@@ -1,0 +1,116 @@
+"""Wrapper of the hand-written Hopper fused LJ + order-CV kernel
+(``csrc/packed_fused_lj_order.cu``), the counterpart of
+``metadyn_tpu/ops/packed_fused_pallas.fused_lj_order_force`` in its
+recurrence mode.
+
+One traversal returns the LJ pair force, the order-CV bias force from the
+given (lagged) bias coefficients, and fresh CV value terms at the current
+positions: the trailing force call of each sub-chunk on the lagged
+multiple-time-stepping path (``sampler.make_lagged_parts``).
+
+On a CUDA tensor :func:`fused_lj_order_force_cuda` launches the kernel or
+raises; on a CPU tensor it runs :func:`fused_lj_order_force_plain`, the
+reference's own oracle chain: the plain pair force, the plain force sweep
+and the plain value sweep at the same positions.  There is no other
+fallback.  ``fused_lj_order_force_cuda.launches`` counts the launches.
+
+Not ported (they raise): the monomial math mode, ``cell_mask`` and the
+``parts`` subsets.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .packed import PackedSpec, PackedState, packed_lj_force
+from .packed_cuda import check_spec, check_state
+from .packed_order_cuda import (
+    _plan, _raise_on, _stream, decode_value_lanes, geometry_args,
+    pack_force_aux,
+)
+
+KERNEL = "packed_fused_lj_order"
+ALL_PARTS = frozenset({"lj", "vals", "force"})
+
+
+def _library():
+    lib = _build.load(KERNEL)
+    fn = lib.packed_fused_lj_order
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.packed_fused_lj_order_threads.argtypes = []
+        lib.packed_fused_lj_order_threads.restype = ctypes.c_int
+    return lib
+
+
+def fused_lj_order_force_plain(state: PackedState, spec: PackedSpec, cvs,
+                               auxs) -> tuple:
+    """(f_lj, g, terms) from the plain pair force and the plain sweeps."""
+    from ..cv.packed_order import (
+        _half_partner_stacks, order_force_plain, order_values_plain,
+    )
+    f_lj = packed_lj_force(state, spec, with_energy=False).f
+    stacks = _half_partner_stacks(state, spec)
+    g = order_force_plain(state, spec, cvs, auxs, stacks=stacks)
+    return f_lj, g, order_values_plain(state, spec, cvs, stacks=stacks)
+
+
+def fused_lj_order_force_cuda(state: PackedState, spec: PackedSpec, cvs,
+                              auxs, parts=ALL_PARTS, mono: bool = False,
+                              cell_mask=None) -> tuple:
+    """One traversal → (f_lj (3, Npad), g_bias (3, Npad), terms).
+
+    ``auxs``: per-CV ``grad_aux`` outputs, usually from the previous
+    evaluation's terms (the lag); ``terms`` are the fresh value sums."""
+    if mono:
+        raise NotImplementedError("the monomial math mode is not ported")
+    if cell_mask is not None:
+        raise NotImplementedError("cell_mask (spatial decomposition) is not "
+                                  "ported yet")
+    if frozenset(parts) != ALL_PARTS:
+        raise NotImplementedError("the parts subsets (timing modes) are not "
+                                  "ported")
+    if not spec.sentinel or spec.has_bonds:
+        raise ValueError("the fused LJ + CV kernel needs the lean sentinel "
+                         "layout (uniform_sigma and uniform_eps, no bonds)")
+    r = state.r
+    if r.device.type == "cpu":
+        return fused_lj_order_force_plain(state, spec, cvs, auxs)
+    if r.device.type != "cuda":
+        raise ValueError(f"fused_lj_order_force_cuda: unsupported device "
+                         f"{r.device}")
+    check_spec(spec)
+    check_state(state, spec, "fused_lj_order_force_cuda")
+    desc, n_vals, n_aux = _plan(tuple(cvs), r.device)
+    aux = pack_force_aux(cvs, auxs)
+    if aux.numel() != n_aux or aux.device != r.device:
+        raise ValueError(f"fused_lj_order_force_cuda: {aux.numel()} aux "
+                         f"lanes on {aux.device}, expected {n_aux} on "
+                         f"{r.device}")
+    lib = _library()
+    n_blocks = -(-spec.n_pad // lib.packed_fused_lj_order_threads())
+    f = torch.empty_like(r)
+    g = torch.empty_like(r)
+    partials = torch.empty((n_blocks, n_vals), dtype=torch.float32,
+                           device=r.device)
+    out = torch.empty(n_vals, dtype=torch.float32, device=r.device)
+    sig2 = float(spec.uniform_sigma) ** 2
+    with torch.cuda.device(r.device):
+        err = lib.packed_fused_lj_order(
+            r.data_ptr(), desc.data_ptr(), desc.numel(), len(cvs), n_vals,
+            aux.data_ptr(), n_aux, f.data_ptr(), g.data_ptr(),
+            partials.data_ptr(), out.data_ptr(), *geometry_args(state, spec),
+            float(spec.r_cut) ** 2, sig2, 4.0 * float(spec.uniform_eps),
+            _stream(r.device))
+    _raise_on(err, "packed_fused_lj_order")
+    fused_lj_order_force_cuda.launches += 1
+    return f, g, decode_value_lanes(cvs, out)
+
+
+fused_lj_order_force_cuda.launches = 0

@@ -1,0 +1,219 @@
+"""Wrappers of the hand-written Hopper order-CV kernels
+(``csrc/packed_order.cu``), the counterparts of
+``metadyn_tpu/ops/packed_order_pallas.py`` ``order_values_pallas`` and
+``order_force_pallas`` in the sentinel layout.
+
+On a CUDA tensor :func:`order_values_cuda` and :func:`order_force_cuda`
+launch their kernel or raise; on a CPU tensor they run the plain roll
+sweeps of ``cv/packed_order.py``.  There is no other fallback.  Each
+wrapper's ``launches`` counts its kernel launches.
+
+The CVs reach the kernels as a float descriptor (format in
+``csrc/order_cv.cuh``) built from each CV's ``kernel_descriptor()`` and
+uploaded once per (CV list, device).  Value terms and bias coefficients
+use the lane layout of :func:`lane_layout`: per CV its
+``n_value_terms`` value lanes and ``aux_size`` aux lanes, in list order
+(the reference's recurrence-mode ``_lane_layout``).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import _build
+from .packed import PackedSpec, PackedState
+from .packed_cuda import check_state
+
+KERNEL = "packed_order"
+
+# descriptor limits, as csrc/order_cv.cuh states them (MAX_L is this
+# wrapper's: the f32 p_lm tables lose accuracy at high degree)
+HDR = 9
+MAX_CVS = 8
+MAX_L = 12
+MAX_TERMS = 64
+MAX_AUX = 64
+MAX_DESC = 1024
+
+
+def lane_layout(cvs) -> tuple[list, list, int, int]:
+    """(aux lane offsets, value lane offsets, aux lanes, value lanes)."""
+    aux_off, val_off = [], []
+    na = nv = 0
+    for cv in cvs:
+        aux_off.append(na)
+        val_off.append(nv)
+        na += cv.aux_size
+        nv += cv.n_value_terms
+    return aux_off, val_off, na, nv
+
+
+def pack_force_aux(cvs, auxs, mono: bool = False) -> torch.Tensor:
+    """The CVs' ``grad_aux`` outputs as one (aux lanes,) f32 device tensor
+    (the reference pads to a (1, 128) lane row; the kernels take the
+    length)."""
+    if mono:
+        raise NotImplementedError("the monomial math mode is not ported")
+    return torch.cat([cv.aux_flat(aux).reshape(-1).to(torch.float32)
+                      for cv, aux in zip(cvs, auxs)]).contiguous()
+
+
+def decode_value_lanes(cvs, vals: torch.Tensor, mono: bool = False) -> tuple:
+    """Kernel value lanes → per-CV ``terms`` (the plain sweep's structure)."""
+    if mono:
+        raise NotImplementedError("the monomial math mode is not ported")
+    _, val_off, _, _ = lane_layout(cvs)
+    return tuple(cv.terms_from_flat(vals[off:off + cv.n_value_terms])
+                 for cv, off in zip(cvs, val_off))
+
+
+def cv_descriptor(cvs) -> np.ndarray:
+    """The kernels' CV descriptor: one header of ``HDR`` floats per CV
+    ``[kind, l, val_off, aux_off, tab_off, rc2, r02, sc, scale]``, then the
+    CVs' tables.  Raises on a CV without kernel math, on l > ``MAX_L`` and
+    beyond the kernels' lane and descriptor limits."""
+    cvs = list(cvs)
+    if not 1 <= len(cvs) <= MAX_CVS:
+        raise ValueError(f"CUDA order kernels: 1..{MAX_CVS} CVs, got "
+                         f"{len(cvs)}")
+    aux_off, val_off, n_aux, n_vals = lane_layout(cvs)
+    if n_vals > MAX_TERMS or n_aux > MAX_AUX:
+        raise ValueError(f"CUDA order kernels: {n_vals} value and {n_aux} aux "
+                         f"lanes exceed {MAX_TERMS} and {MAX_AUX}")
+    headers, tables = [], []
+    tab_off = HDR * len(cvs)
+    for cv, ao, vo in zip(cvs, aux_off, val_off):
+        if not hasattr(cv, "kernel_descriptor"):
+            raise NotImplementedError(
+                f"CUDA order kernels: CV {getattr(cv, 'name', cv)!r} has no "
+                "kernel math (Q_l and coordination only)")
+        kind, l, rc2, r02, sc, scale, table = cv.kernel_descriptor()
+        if kind == 0 and l > MAX_L:
+            raise NotImplementedError(f"CUDA order kernels: Q_l with l={l} > "
+                                      f"{MAX_L}")
+        headers += [kind, l, vo, ao, tab_off, rc2, r02, sc, scale]
+        tables.append(np.asarray(table, np.float32))
+        tab_off += len(tables[-1])
+    desc = np.concatenate([np.asarray(headers, np.float32)] + tables)
+    if desc.size > MAX_DESC:
+        raise ValueError(f"CUDA order kernels: descriptor of {desc.size} "
+                         f"floats exceeds {MAX_DESC}")
+    return desc
+
+
+@functools.lru_cache(maxsize=32)
+def _plan(cvs: tuple, device: torch.device) -> tuple:
+    """(device descriptor, value lanes, aux lanes) of a CV list, uploaded
+    once per (CV list, device)."""
+    desc = cv_descriptor(cvs)
+    _, _, n_aux, n_vals = lane_layout(cvs)
+    return (torch.as_tensor(desc, device=device), n_vals, n_aux)
+
+
+def check_layout(state: PackedState, spec: PackedSpec, who: str) -> None:
+    """Raise on a state the order kernels do not take."""
+    if not spec.sentinel:
+        raise NotImplementedError(
+            f"{who}: only the sentinel layout (uniform_sigma and uniform_eps "
+            "set) is ported; the validity layout is not")
+    check_state(state, spec, who)
+
+
+def geometry_args(state: PackedState, spec: PackedSpec) -> tuple:
+    """(n_pad, cap, cx, cy, cz, Lx, Ly, Lz) as the kernels take them."""
+    return (spec.n_pad, spec.cap, *spec.cells_per_dim, *state.box.L_host)
+
+
+def _library():
+    lib = _build.load(KERNEL)
+    if lib.packed_order_values.argtypes is None:
+        geom = [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+        lib.packed_order_values.argtypes = (
+            [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 2 + geom + [ctypes.c_void_p])
+        lib.packed_order_values.restype = ctypes.c_int
+        lib.packed_order_force.argtypes = (
+            [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 2
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + geom
+            + [ctypes.c_void_p])
+        lib.packed_order_force.restype = ctypes.c_int
+        lib.packed_order_threads.argtypes = []
+        lib.packed_order_threads.restype = ctypes.c_int
+    return lib
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _device_of(state: PackedState, who: str) -> torch.device:
+    dev = state.r.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: unsupported device {dev}")
+    return dev
+
+
+def order_values_cuda(state: PackedState, spec: PackedSpec, cvs,
+                      stacks=None, cell_mask=None) -> tuple:
+    """Value sums of every CV in one traversal → per-CV ``terms``.
+    ``stacks``: prebuilt partner stacks for the plain sweep (CPU only)."""
+    if cell_mask is not None:
+        raise NotImplementedError("cell_mask (spatial decomposition) is not "
+                                  "ported yet")
+    if _device_of(state, "order_values_cuda").type == "cpu":
+        from ..cv.packed_order import order_values_plain
+        return order_values_plain(state, spec, cvs, stacks=stacks)
+    check_layout(state, spec, "order_values_cuda")
+    r = state.r
+    desc, n_vals, _ = _plan(tuple(cvs), r.device)
+    lib = _library()
+    n_blocks = -(-spec.n_pad // lib.packed_order_threads())
+    partials = torch.empty((n_blocks, n_vals), dtype=torch.float32,
+                           device=r.device)
+    out = torch.empty(n_vals, dtype=torch.float32, device=r.device)
+    with torch.cuda.device(r.device):
+        err = lib.packed_order_values(
+            r.data_ptr(), desc.data_ptr(), desc.numel(), len(cvs), n_vals,
+            partials.data_ptr(), out.data_ptr(), *geometry_args(state, spec),
+            _stream(r.device))
+    _raise_on(err, "packed_order_values")
+    order_values_cuda.launches += 1
+    return decode_value_lanes(cvs, out)
+
+
+def order_force_cuda(state: PackedState, spec: PackedSpec, cvs, auxs,
+                     stacks=None) -> torch.Tensor:
+    """Bias force (3, Npad) Σ_cv Σ_j ``pair_grad_terms(d_ij, aux_cv)``.
+    ``stacks``: prebuilt partner stacks for the plain sweep (CPU only)."""
+    if _device_of(state, "order_force_cuda").type == "cpu":
+        from ..cv.packed_order import order_force_plain
+        return order_force_plain(state, spec, cvs, auxs, stacks=stacks)
+    check_layout(state, spec, "order_force_cuda")
+    r = state.r
+    desc, _, n_aux = _plan(tuple(cvs), r.device)
+    aux = pack_force_aux(cvs, auxs)
+    if aux.numel() != n_aux or aux.device != r.device:
+        raise ValueError(f"order_force_cuda: {aux.numel()} aux lanes on "
+                         f"{aux.device}, expected {n_aux} on {r.device}")
+    g = torch.empty_like(r)
+    lib = _library()
+    with torch.cuda.device(r.device):
+        err = lib.packed_order_force(
+            r.data_ptr(), desc.data_ptr(), desc.numel(), len(cvs),
+            aux.data_ptr(), n_aux, g.data_ptr(), *geometry_args(state, spec),
+            _stream(r.device))
+    _raise_on(err, "packed_order_force")
+    order_force_cuda.launches += 1
+    return g
+
+
+order_values_cuda.launches = 0
+order_force_cuda.launches = 0

@@ -7,14 +7,21 @@ CVs' analytic ``accum_bias_force``.  With ``bias_every`` > 1 the CV sweeps
 and ∂V/∂s run once per ``bias_every`` steps and the bias force is held over
 them (multiple time stepping); the pair force stays exact every step.
 
+When every CV is a packed order CV (Q_l, coordination), their values come
+from one fused value sweep and their bias forces from one force sweep
+(``cv/packed_order.make_fused_order_force``).  With ``mts_lag`` the last
+step of each sub-chunk instead runs one fused traversal for the LJ force,
+the bias force from the previous sub-chunk's CV terms and fresh terms
+(:func:`make_lagged_parts`).
+
 The reference's ``lax.scan`` loops are Python loops here; the device state
 stays on the device, and the per-stride metrics of ``chunks_per_block``
 strides go to the host in one transfer.  Random numbers come from one
 ``torch.Generator`` on the engine's device, seeded from ``seed``.
 
-Ported: grid mode with analytic-force CVs.  Hill-list mode, ``mts_lag``,
-``hill_file``, the fused and table order-CV paths and the vjp path raise
-NotImplementedError.
+Ported: grid mode with analytic-force CVs and the fused order-CV path,
+with and without ``mts_lag``.  Hill-list mode, ``hill_file``, the table
+order-CV path and the vjp path raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ from .bias.metad import (
 )
 from .bias.grid import GridSpec
 from .core.state import System
+from .cv.packed_order import make_fused_order_force
+from .ops.packed_fused_cuda import fused_lj_order_force_cuda
 from .utils.profiling import phase
 
 
@@ -40,10 +49,23 @@ class SamplerCarry:
     aux: object
     generator: torch.Generator
     step: int  # global step counter (host)
+    # lagged-MTS context: the CV value terms of the last fused call
+    # (see make_lagged_parts); None outside mts_lag runs
+    ctx: object = None
 
 
 def cv_stack(cvs, state, system: System) -> torch.Tensor:
     return torch.stack([cv.value(state, system) for cv in cvs])
+
+
+def _grad_with_walls(bias: BiasState, s: torch.Tensor,
+                     walls: Optional[WallSpec]) -> torch.Tensor:
+    """∂V/∂s of the bias, plus the walls' gradient."""
+    _, dVds = bias_value_and_grad(bias, s)
+    if walls is not None:
+        _, gw = walls.energy_and_grad(s)
+        dVds = dVds + gw
+    return dVds
 
 
 def make_bias_force_parts(engine, cvs, system: System,
@@ -53,13 +75,11 @@ def make_bias_force_parts(engine, cvs, system: System,
       eval_bias(state, aux, bias) -> (g, dVds, s)   # the CV sweeps
       apply_force(state, aux, g, dVds) -> state     # engine force + held g
 
-    Only the analytic path is ported: every CV must provide
+    When every CV implements the pair-sweep protocol (the packed order
+    CVs), all values come from one fused value sweep and all bias forces
+    from one force sweep; otherwise every CV must provide
     ``accum_bias_force``."""
     for cv in cvs:
-        if hasattr(cv, "pair_value_terms") or hasattr(cv, "pair_grad_terms"):
-            raise NotImplementedError(
-                f"CV {getattr(cv, 'name', cv)}: the fused and table "
-                "order-CV paths are not ported yet")
         if not hasattr(cv, "accum_bias_force"):
             raise NotImplementedError(
                 f"CV {getattr(cv, 'name', cv)}: the vjp bias-force path is "
@@ -69,17 +89,18 @@ def make_bias_force_parts(engine, cvs, system: System,
             raise NotImplementedError(
                 f"CV {getattr(cv, 'name', cv)}: box- or energy-coupled CVs "
                 "are not ported yet")
-
-    def grad_with_walls(bias, s):
-        _, dVds = bias_value_and_grad(bias, s)
-        if walls is not None:
-            _, gw = walls.energy_and_grad(s)
-            dVds = dVds + gw
-        return dVds
+    fused = (len(cvs) > 0 and hasattr(engine, "spec")
+             and all(hasattr(cv, "pair_value_terms") for cv in cvs))
+    if fused:
+        fused_values, fused_force = make_fused_order_force(cvs, engine.spec)
 
     def eval_bias(state, aux, bias):
+        if fused:
+            s, ctx = fused_values(state)
+            dVds = _grad_with_walls(bias, s, walls)
+            return fused_force(state, ctx, dVds), dVds, s
         s = cv_stack(cvs, state, system)
-        dVds = grad_with_walls(bias, s)
+        dVds = _grad_with_walls(bias, s, walls)
         g = torch.zeros_like(engine.positions(state))
         for i, cv in enumerate(cvs):
             g = cv.accum_bias_force(state, system, dVds[i], g)
@@ -89,6 +110,81 @@ def make_bias_force_parts(engine, cvs, system: System,
         return engine.force_into(state, aux, extra_force=g)
 
     return eval_bias, apply_force
+
+
+_HELD_G_ATTRS = ("held_gx", "held_gy", "held_gz")
+
+
+def lag_supported(engine, cvs) -> bool:
+    """True iff :func:`make_lagged_parts` accepts this combination: the
+    sentinel-layout packed engine and order CVs only.  (The reference also
+    asks for its Pallas kernels; here the device picks kernels or plain
+    sweeps, and both run the lagged path.)"""
+    spec = getattr(engine, "spec", None)
+    return (spec is not None and spec.sentinel and not spec.has_bonds
+            and len(cvs) > 0
+            and all(hasattr(cv, "pair_value_terms_flat")
+                    and hasattr(cv, "pair_grad_terms") for cv in cvs)
+            and not any(hasattr(cv, "bias_virial") for cv in cvs))
+
+
+def make_lagged_parts(engine, cvs, system: System,
+                      walls: Optional[WallSpec] = None):
+    """The lagged fused multiple-time-stepping path (``MetadSampler(
+    mts_lag=True)``): the trailing force call of each sub-chunk's last MD
+    step runs one fused traversal that returns the LJ force, the bias
+    force and fresh CV value terms.  The bias coefficients (∂V/∂s and the
+    outer CV gradient) come from the previous sub-chunk's terms: a lag of
+    one sub-chunk, the slowly-varying-bias approximation ``bias_every``
+    already makes.
+
+    The held bias force rides in ``state.attrs`` (``held_g*``), so slot
+    repacks permute it with the particles; the terms ride in
+    ``SamplerCarry.ctx``.
+
+    Returns ``(seed_eval, fused_force)``; raises ValueError where the
+    reference refuses: a packed engine without the sentinel layout, bonds,
+    CVs that are not order CVs, box-coupled CVs."""
+    spec = getattr(engine, "spec", None)
+    if spec is None:
+        raise ValueError("mts_lag needs the packed engine")
+    if not spec.sentinel or spec.has_bonds:
+        raise ValueError("mts_lag needs the lean sentinel layout "
+                         "(uniform_sigma + uniform_eps, no bonds)")
+    if not all(hasattr(cv, "pair_value_terms_flat")
+               and hasattr(cv, "pair_grad_terms") for cv in cvs):
+        raise ValueError("mts_lag supports the roll-sweep order CVs only")
+    if any(hasattr(cv, "bias_virial") for cv in cvs):
+        raise ValueError("mts_lag: box-coupled CVs unsupported")
+    cvs = list(cvs)
+    values_fn, force_fn = make_fused_order_force(cvs, spec)
+
+    def seed_eval(state, bias):
+        """Exact (not lagged) evaluation at the current positions: (g,
+        terms), once at sampler construction to seed the lag."""
+        s, ctx = values_fn(state)
+        return force_fn(state, ctx, _grad_with_walls(bias, s, walls)), ctx[0]
+
+    def fused_force(state, bias, terms):
+        """(f_lj, g_new, terms_new) at the state's positions, with the bias
+        coefficients from the lagged ``terms``."""
+        s = torch.stack([cv.finalize_value(t) for cv, t in zip(cvs, terms)])
+        dVds = _grad_with_walls(bias, s, walls)
+        auxs = [cv.grad_aux(t, dVds[i])
+                for i, (cv, t) in enumerate(zip(cvs, terms))]
+        return fused_lj_order_force_cuda(state, spec, cvs, auxs)
+
+    return seed_eval, fused_force
+
+
+def held_g(state) -> torch.Tensor:
+    """The repack-safe held bias force (3, Npad) from the state attrs."""
+    return torch.stack([state.attrs[k] for k in _HELD_G_ATTRS])
+
+
+def with_held_g(state, g: torch.Tensor):
+    return state.replace(attrs={**state.attrs,
+                                **dict(zip(_HELD_G_ATTRS, g.unbind(0)))})
 
 
 def make_stride_chunk(
@@ -101,10 +197,12 @@ def make_stride_chunk(
     bias_every: int = 1,
     bias_parts=None,
     add_hills: bool = True,
+    lag_parts=None,
 ):
     """One deposition stride: rebuild blocks × MD steps, then the energy
     refresh and a hill.  Returns ``chunk(carry) -> (carry, record,
-    metrics)`` with device-tensor metrics."""
+    metrics)`` with device-tensor metrics.  ``lag_parts`` (from
+    :func:`make_lagged_parts`) selects the lagged sub-chunks."""
     r = min(engine.rebuild_every, hills.stride)
     if hills.stride % r:
         raise ValueError(f"stride={hills.stride} must be a multiple of "
@@ -118,7 +216,7 @@ def make_stride_chunk(
             raise ValueError("bias_every > 1 needs bias_parts")
         eval_bias, apply_force = bias_parts
 
-    def finish(carry, state, aux, bias):
+    def finish(carry, state, aux, bias, ctx):
         with phase("energy_refresh"):
             state = engine.refresh_energy(state, aux)
         new_step = carry.step + hills.stride
@@ -141,8 +239,43 @@ def make_stride_chunk(
             "cv_out_of_grid": torch.any((s < spec.lo) | (s > spec.hi)),
             **engine.metrics(state, aux),
         }
-        return (SamplerCarry(state, new_bias, aux, carry.generator, new_step),
-                rec, metrics)
+        return (SamplerCarry(state, new_bias, aux, carry.generator, new_step,
+                             ctx=ctx), rec, metrics)
+
+    if lag_parts is not None:
+        if bias_every <= 1:
+            raise ValueError("mts_lag needs bias_every > 1")
+        _seed, fused_force = lag_parts
+
+        def lag_chunk(carry: SamplerCarry):
+            bias, gen = carry.bias, carry.generator
+            state, aux, terms = carry.state, carry.aux, carry.ctx
+            for _ in range(n_blocks):
+                with phase("nlist_rebuild"):
+                    state, aux = engine.rebuild(state, aux)
+                with phase("md_steps"):
+                    # bias_every − 1 steps with the held (repack-safe) bias
+                    # force of the last fused call
+                    step_fn = integrator_factory(
+                        lambda s2, aux=aux: engine.force_into(
+                            s2, aux, extra_force=held_g(s2)))
+                    for _ in range(r // bias_every):
+                        for _ in range(bias_every - 1):
+                            state = step_fn(state, gen)
+
+                        # the last step: one fused traversal → LJ force,
+                        # the bias force from the lagged terms, fresh terms
+                        def rich_force(s2, terms=terms):
+                            f_lj, g_new, terms_new = fused_force(s2, bias,
+                                                                 terms)
+                            return (with_held_g(s2.replace(f=f_lj + g_new),
+                                                g_new), terms_new)
+
+                        state, terms = integrator_factory(rich_force)(
+                            state, gen)
+            return finish(carry, state, aux, bias, terms)
+
+        return lag_chunk
 
     def chunk(carry: SamplerCarry):
         bias, gen = carry.bias, carry.generator
@@ -165,7 +298,7 @@ def make_stride_chunk(
                         lambda st, aux=aux: biased_force(st, aux, bias))
                     for _ in range(r):
                         state = step_fn(state, gen)
-        return finish(carry, state, aux, bias)
+        return finish(carry, state, aux, bias, carry.ctx)
 
     return chunk
 
@@ -223,14 +356,14 @@ class MetadSampler:
         """``bias_every`` > 1 holds the bias force for that many MD steps
         between CV evaluations.  ``add_hills=False`` freezes the bias.
         ``chunks_per_block`` strides' metrics go to the host in one
-        transfer."""
+        transfer.  ``mts_lag=True`` (``bias_every`` > 1, the sentinel-layout
+        packed engine and order CVs) runs each sub-chunk's last force call
+        as one fused traversal with the bias coefficients lagged by one
+        sub-chunk (:func:`make_lagged_parts`)."""
         if grid_spec is None or hill_sigma is not None or spill_grid is not None:
             raise NotImplementedError(
                 "hill-list mode (grid_spec=None, hill_sigma, spill_grid) is "
                 "not ported yet; pass a GridSpec")
-        if mts_lag:
-            raise NotImplementedError("mts_lag (the lagged fused MTS path) "
-                                      "is not ported yet")
         if hill_file is not None:
             raise NotImplementedError("hill_file (the hill log) is not "
                                       "ported yet")
@@ -242,6 +375,11 @@ class MetadSampler:
         self.hills = hills
         self.grid_spec = grid_spec
         self.walls = walls
+        lag_parts = None
+        if mts_lag:
+            if bias_every <= 1:
+                raise ValueError("mts_lag requires bias_every > 1")
+            lag_parts = make_lagged_parts(engine, cvs, system, walls)
         self._bias_parts = make_bias_force_parts(engine, cvs, system, walls)
         _eval, _apply = self._bias_parts
         self.biased_force = lambda st, aux, bias: _apply(
@@ -253,15 +391,20 @@ class MetadSampler:
         # force calls: one in init, one in the biased force)
         state, aux = engine.init(state)
         state = self.biased_force(state, aux, bias)
+        ctx0 = None
+        if lag_parts is not None:
+            # seed the lag: the exact bias force and terms at the start
+            g0, ctx0 = lag_parts[0](state, bias)
+            state = with_held_g(state, g0)
 
         generator = torch.Generator(device=engine.device)
         generator.manual_seed(seed)
         self.carry = SamplerCarry(state=state, bias=bias, aux=aux,
-                                  generator=generator, step=0)
+                                  generator=generator, step=0, ctx=ctx0)
         self._chunk = make_stride_chunk(
             engine, self.biased_force, cvs, system, hills, integrator_factory,
             bias_every=bias_every, bias_parts=self._bias_parts,
-            add_hills=add_hills)
+            add_hills=add_hills, lag_parts=lag_parts)
         self._block = chunks_per_block
         self.history: list[dict] = []
 

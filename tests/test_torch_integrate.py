@@ -84,6 +84,28 @@ def test_langevin_step_matches_reference(gamma):
         np.testing.assert_array_equal(again.r.numpy(), out.r.numpy())
 
 
+def test_langevin_step_passes_extras_through():
+    """A ``force_fn`` that returns ``(state, extras)`` makes the step return
+    ``(state, extras)``, as the reference's does; the state matches the
+    reference's step with the same noise."""
+    jst, jspec, st, spec = _case()
+    key = jax.random.PRNGKey(5)
+    jstep = ji.make_packed_langevin_step(
+        lambda s: (_jforce(s, jspec), s.r[0, 0]), dt=0.005, kT=1.0)
+    jout, jextra = jstep(jst, key)
+    noise = np.array(jax.random.normal(key, jst.v.shape, jnp.float32))
+    step = ti.make_packed_langevin_step(
+        lambda s: (tp.packed_lj_force(s, spec), s.r[0, 0]), dt=0.005, kT=1.0)
+    out = step(st, noise=torch.as_tensor(noise))
+    assert isinstance(out, tuple) and len(out) == 2
+    out, extra = out
+    _check(out, jout, spec)
+    # the extras are what force_fn returned: the drifted position it saw
+    np.testing.assert_allclose(float(extra), float(jextra), rtol=0,
+                               atol=1e-5)
+    assert float(extra) == float(out.r[0, 0])
+
+
 def test_nve_step_matches_reference():
     jst, jspec, st, spec = _case()
     jstep = ji.make_packed_nve_step(lambda s: _jforce(s, jspec), dt=0.005)

@@ -19,13 +19,14 @@ import torch
 
 from metadyn_tpu_torch import (
     Box, GridSpec, HillSpec, MetadSampler, PackedEngine, PackedLamellar,
-    PackedSpec, WallSpec, WELL_TEMPERED, make_packed_langevin_step,
-    make_system,
+    PackedSpec, WallSpec, WELL_TEMPERED, fcc_lattice,
+    make_packed_langevin_step, make_system,
 )
 from metadyn_tpu_torch.ops.packed import (
     VACANT_X, packed_lj_force, unpack_positions,
 )
 from metadyn_tpu_torch.ops.packed_cuda import check_spec, packed_lj_force_cuda
+from metadyn_tpu_torch.sampler import lag_supported
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SLICE_MODULES = [
@@ -36,6 +37,10 @@ SLICE_MODULES = [
     "metadyn_tpu_torch.cv.packed", "metadyn_tpu_torch.bias.grid",
     "metadyn_tpu_torch.bias.metad", "metadyn_tpu_torch.utils.profiling",
     "metadyn_tpu_torch.sampler", "metadyn_tpu_torch.interop",
+    "metadyn_tpu_torch.cv.packed_order", "metadyn_tpu_torch.cv.steinhardt",
+    "metadyn_tpu_torch.utils.lattice",
+    "metadyn_tpu_torch.ops.packed_order_cuda",
+    "metadyn_tpu_torch.ops.packed_fused_cuda",
 ]
 
 
@@ -54,20 +59,11 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _fcc(n_cells: int, a: float) -> np.ndarray:
-    base = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]],
-                    np.float32)
-    c = np.arange(n_cells)
-    i, j, k = np.meshgrid(c, c, c, indexing="ij")
-    origins = np.stack([i.ravel(), j.ravel(), k.ravel()], 1).astype(np.float32)
-    pos = (origins[:, None, :] + base[None]).reshape(-1, 3) * a
-    return (pos - pos.mean(axis=0)).astype(np.float32)
-
-
 def _sampler(device, gamma=1.0, engine_cls=PackedEngine, bias_every=5):
     """The bench's configuration at 864 particles, stride 20."""
     rng = np.random.default_rng(0)
-    pos = (_fcc(6, 1.71) + rng.normal(0.0, 0.05, (864, 3))).astype(np.float32)
+    pos = (fcc_lattice(6, 1.71)
+           + rng.normal(0.0, 0.05, (864, 3))).astype(np.float32)
     n, L = pos.shape[0], 6 * 1.71
     vel = rng.normal(0.0, 1.0, (n, 3)).astype(np.float32)
     spec = PackedSpec.create(L, n, r_cut=2.5, skin=0.55, cap=40,
@@ -161,14 +157,22 @@ def test_plain_force_refuses_unported_physics(change):
 
 @pytest.mark.parametrize("kwargs", [
     dict(grid_spec=None, hill_sigma=[0.01, 0.01]),
-    dict(mts_lag=True),
+    dict(mts_lag=True, bias_every=5),
     dict(hill_file="hills.txt"),
 ])
 def test_sampler_refuses_unported_modes(kwargs):
+    """Unported modes raise NotImplementedError.  ``mts_lag`` is ported, but
+    refused here for the reference's reason: the lagged path takes order
+    CVs only, and these CVs are lamellar."""
     sampler, _ = _sampler("cpu")
     args = dict(grid_spec=sampler.grid_spec)
     args.update(kwargs)
-    with pytest.raises(NotImplementedError):
+    if kwargs.get("mts_lag"):
+        assert not lag_supported(sampler.engine, sampler.cvs)
+        refused = pytest.raises(ValueError, match="order CVs only")
+    else:
+        refused = pytest.raises(NotImplementedError)
+    with refused:
         MetadSampler(sampler.system, sampler.state, sampler.engine,
                      sampler.cvs, hills=sampler.hills,
                      integrator_factory=lambda f: make_packed_langevin_step(
