@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
-Two workloads, both at full size:
+Three workloads, all at full size:
 
 - the headline one (bench.py): the 62,500-particle LJ liquid
   (bench_data/liq64k.npz) on the packed cell engine (r_cut 2.5, skin 0.55,
@@ -11,7 +11,14 @@ Two workloads, both at full size:
   kT 0.6 (r_cut 2.5, skin 0.3, cap 32), Steinhardt Q6 and coordination on a
   48x48 well-tempered grid with walls, one hill per 100-step stride,
   bias_every=10, with the lagged fused multiple-time-stepping path
-  (mts_lag=True, the headline) and the exact one.
+  (mts_lag=True, the headline) and the exact one;
+- Config 2 (examples/config2_diblock_sk.yaml): 512 diblock chains of 16
+  beads (8192 beads, L = 21.3, rho 0.85), relaxed by the packed soft
+  push-off (A = 100, FENE, r_cut 1, 2000 steps at dt 0.002, gamma 2), then
+  LJ r_cut 2.5 with the per-type epsilon table [[1, .6], [.6, 1]] and FENE
+  bonds (skin 0.4, cap 40: 343 cells, Npad 13,720), the S(k) mesh CV (32^3,
+  k0 1.18, width 0.4) on an 81-point well-tempered grid over [0, 8000]
+  with walls, bias_every=1, one hill per 100-step stride.
 
 Phases, one line or more each:
 
@@ -37,15 +44,36 @@ Phases, one line or more each:
  11. Config 3 with exact multiple time stepping (mts_lag=False): 2 + 2
      warm strides (one is too few: from the fcc start the temperature is
      still ~0.48 after 200 steps), 2 timed strides, exact launch counts.
+ 12. the v1 pair kernel's build report (built in phase 2 with the others);
+ 13. the Config 2 push-off (soft pair on the plain sweep, timed on its own
+     line), then on the relaxed melt: the pair kernel in each per-slot
+     layout (Config 2's table + FENE; FENE with the WCA r_cut of
+     examples/config2_diblock_sk.py; Config 5's se + uniform sigma + FENE;
+     se/hs alone), forces only and with energy, and the v1 kernel, each
+     against the plain pair force and v1 against the pair kernel, with
+     times per call;
+ 14. the Config 2 slice for 20 steps at gamma = 0 on the kernel engine and
+     on the plain-force engine, from one state: positions must agree;
+ 15. Config 2 timed: the production pack (no overflow, S(k0) inside the
+     grid), 24 warm strides (the switch from the soft push-off to LJ
+     heats the melt to T ~ 6, and T - 1 decays by ~0.77 per stride), then
+     2 runs of 3 timed strides with exact launch counts.
 
 After each timed run one more stride runs under torch.profiler, and a line
 reports the GPU's busy share of it and the top kernels.  The launch counts
 of each path are set to 0 just before its timed strides and read just
-after: the pair kernel's from phase 5, the values and fused kernels' from
-phase 10, the force kernel's from phase 11 (the lagged path never runs it
-inside a stride).
+after: the pair kernel's from phases 5 and 15, the values and fused
+kernels' from phase 10, the force kernel's from phase 11 (the lagged path
+never runs it inside a stride); the v1 kernel has no production caller and
+no main-path launches.
 
-Then a JSON line describing each kernel, and as the last line
+Then a JSON line describing each kernel: its time, its plain version's,
+its launches on the main path, and its bound: the larger of the bytes it
+must move (each input read once, each output written once) over the
+card's memory rate and the floating-point operations the run's pairs need
+over the card's FP32 rate (the operations per pair are counted from the
+kernels' sources, see FLOP_PER_PAIR).  No single PyTorch call computes a
+cell-list pair sweep, so every library_ms is null.  As the last line
 {"ok": true, "device": {...}}.  Any failed check raises and the script
 exits non-zero; without a CUDA device it exits 1 and prints no result.
 
@@ -66,6 +94,25 @@ KT = 1.0
 CFG3_STRIDE = 100
 CFG3_KT = 0.6
 CFG3_T_BAND = (0.5, 0.7)
+CFG2_STRIDE = 100
+CFG2_T_BAND = (0.9, 1.1)
+CFG2_PUSHOFF_STEPS = 2000
+CFG2_EPS_TABLE = [[1.0, 0.6], [0.6, 1.0]]
+WCA_RC = 2.0 ** (1.0 / 6.0)
+
+# Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# FP32 outside the tensor cores, and HBM3.
+PEAK_FP32 = 67e12     # FLOP/s
+PEAK_BYTES = 3.35e12  # B/s
+# Floating-point operations per unordered pair, counted from the kernels'
+# sources (csrc/pair_terms.cuh, csrc/order_cv.cuh): an LJ pair forces only
+# (difference, r^2, the power chain, coefficient, 3 accumulations) and
+# with energy and virial; a FENE + WCA bond; a Q_6 bond (the Y_6m
+# recurrence over m = 0..6; its bias force twice that); a coordination
+# pair (the switching function; its force).  Estimates to within ~50%:
+# the bound they give is a floor, not a prediction.
+FLOP_PER_PAIR = {"lj": 24, "lj_energy": 37, "bond": 45, "q6_value": 150,
+                 "q6_force": 300, "coord_value": 20, "coord_force": 30}
 
 
 def cuda_ms(fn, calls: int = 25, warm: int = 3) -> float:
@@ -85,6 +132,57 @@ def cuda_ms(fn, calls: int = 25, warm: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound(nbytes: float, flops: float) -> tuple:
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``nbytes`` and do ``flops`` FP32 operations."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def pairs_within(state, spec, rc: float) -> int:
+    """Unordered pairs of real slots closer than ``rc``, by a roll sweep
+    over the 27 neighbour cells: the pair work these inputs need."""
+    import torch
+    from metadyn_tpu_torch.ops.packed import OFFSETS, _tables, shift_rows_cart
+    cap, C = spec.cap, spec.n_cells
+    dims = (2, 3, 4)
+    x = state.r.reshape(3, cap, *spec.cells_per_dim)
+    real = (state.pid < spec.n_real).reshape(cap, *spec.cells_per_dim)
+    shifts = shift_rows_cart(_tables(spec, state.r.device).ushift, state.box)
+    xi = state.r.reshape(3, 1, cap, C)
+    real_i = real.reshape(1, cap, C)
+    count = 0
+    for oi, o in enumerate(OFFSETS):
+        back = (-o[0], -o[1], -o[2])
+        xj = torch.roll(x, back, dims).reshape(3, cap, C) + shifts[oi][:, None]
+        rj = torch.roll(real, back, (1, 2, 3)).reshape(cap, 1, C)
+        d = xi - xj[:, :, None, :]
+        r2 = (d * d).sum(0)
+        count += int(((r2 < rc * rc) & (r2 > 1e-12) & real_i & rj).sum())
+    return count // 2
+
+
+def pair_kernel_bytes(spec, with_energy: bool, v1: bool = False) -> int:
+    """Bytes the pair kernels must move for ``spec``'s layout: the inputs
+    the layout reads (positions; se, hs, types, pids and bond partners
+    where used), each once, and the forces out."""
+    per_slot = 12 + 12                                  # r in, f out
+    per_slot += 4 * (v1 or spec.uniform_eps is None)    # se
+    per_slot += 4 * (v1 or spec.uniform_sigma is None)  # hs
+    per_slot += 4 * spec.has_pair_table                 # typ
+    if spec.has_bonds:
+        per_slot += 4 + 4 * spec.bond_slots             # pid, bp*
+    return spec.n_pad * per_slot + (16 if with_energy else 0)
+
+
+def pair_kernel_bound(spec, n_pairs: int, n_bonds: int, with_energy: bool,
+                      v1: bool = False) -> tuple:
+    flops = (n_pairs * FLOP_PER_PAIR["lj_energy" if with_energy else "lj"]
+             + n_bonds * FLOP_PER_PAIR["bond"])
+    return bound(pair_kernel_bytes(spec, with_energy, v1), flops)
 
 
 def ptxas_lines(name: str) -> list:
@@ -182,8 +280,10 @@ def counters() -> dict:
     from metadyn_tpu_torch.ops.packed_order_cuda import (
         order_force_cuda, order_values_cuda,
     )
+    from metadyn_tpu_torch.ops.packed_v1_cuda import packed_lj_force_v1_cuda
     return {"pair": packed_lj_force_cuda, "values": order_values_cuda,
-            "force": order_force_cuda, "fused": fused_lj_order_force_cuda}
+            "force": order_force_cuda, "fused": fused_lj_order_force_cuda,
+            "v1": packed_lj_force_v1_cuda}
 
 
 def reset_counts() -> None:
@@ -315,6 +415,21 @@ def order_kernels_vs_plain(dev) -> dict:
           f"(max|f_lj|={fmax:.3e}) max|dg|={eg:.3e} rel_ds={ds4:.3e} "
           f"max|dlane|={el:.3e} kernel_ms={out['fused'][1]:.4f} "
           f"plain_ms={out['fused'][2]:.4f}")
+
+    # bounds: positions in (and forces out), the pairs inside each cut-off
+    fp, n_pad = FLOP_PER_PAIR, spec.n_pad
+    q6 = pairs_within(st, spec, cvs[0].r_cut)
+    co = pairs_within(st, spec, cvs[1].r_cut)
+    lj = pairs_within(st, spec, spec.r_cut)
+    out["values"] += bound(12 * n_pad,
+                           q6 * fp["q6_value"] + co * fp["coord_value"])
+    out["force"] += bound(24 * n_pad,
+                          q6 * fp["q6_force"] + co * fp["coord_force"])
+    out["fused"] += bound(
+        36 * n_pad, lj * fp["lj"] + q6 * (fp["q6_value"] + fp["q6_force"])
+        + co * (fp["coord_value"] + fp["coord_force"]))
+    print(f"order kernels' bounds: pairs q6={q6} coord={co} lj={lj}; "
+          + " ".join(f"{k}={v[3]:.5f} ms ({v[4]})" for k, v in out.items()))
     return out
 
 
@@ -420,6 +535,292 @@ def config3_timed(dev, mts_lag: bool, warm: tuple, n_runs: int, n_timed: int,
     return runs[-1][1]
 
 
+def config2_pushoff(dev, smi: str) -> dict:
+    """The Config 2 start: examples/config2_diblock_sk.yaml's melt (512
+    chains of 16, L = 21.3, numpy seed 0), relaxed by the JAX package's
+    packed soft push-off (examples/config5_flux_1m.py): pair_kind soft with
+    A = 100 through eps_i, FENE bonds, r_cut 1 and skin 1, cap from the
+    measured occupancy (x1.4 + 6), rebuild every 5 steps, Langevin dt
+    0.002 and gamma 2, CFG2_PUSHOFF_STEPS steps.  The soft pair has no
+    kernel: this runs the plain roll sweep on the card."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import (
+        Box, PackedEngine, PackedSpec, bond_partner_attrs,
+        make_packed_langevin_step, polymer_melt,
+    )
+    from metadyn_tpu_torch.ops.packed import unpack_positions
+
+    n_chains, chain_len, L = 512, 16, 21.3
+    pos, bonds = polymer_melt(n_chains, chain_len, L, seed=0)
+    n = pos.shape[0]
+    t = np.zeros((n_chains, chain_len), np.int32)
+    t[:, chain_len // 2:] = 1
+    types = t.reshape(-1)
+    cpd = int(np.floor(L / 2.0))
+    cell = np.floor((pos / L + 0.5) * cpd).astype(np.int64) % cpd
+    occ0 = int(np.bincount((cell[:, 0] * cpd + cell[:, 1]) * cpd
+                           + cell[:, 2]).max())
+    spec = PackedSpec.create(L, n, r_cut=1.0, skin=1.0, cap=int(occ0 * 1.4) + 6,
+                             pair_kind="soft", fene_k=30.0, fene_r0=1.5)
+    engine = PackedEngine(spec, dev, rebuild_every=5)
+    st, overflow = engine.pack_state(
+        pos, Box.cubic(L, dev), types, np.full(n, 100.0, np.float32),
+        np.ones(n, np.float32), extra_attrs=bond_partner_attrs(bonds, n))
+    assert not overflow, "cell capacity overflow at the push-off pack"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, aux = engine.init(st)
+    step = make_packed_langevin_step(lambda s_: engine.force_into(s_, aux),
+                                     dt=0.002, kT=1.0, gamma=2.0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    for _ in range(CFG2_PUSHOFF_STEPS // 5):
+        st, aux = engine.rebuild(st, aux)
+        for _ in range(5):
+            st = step(st, gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    assert not bool(aux.overflow), "overflow during the push-off"
+    relaxed = unpack_positions(st, spec).cpu().numpy()
+    assert np.isfinite(relaxed).all()
+    print(f"config2 push-off: {CFG2_PUSHOFF_STEPS} soft steps (plain sweep, "
+          f"cap {spec.cap}, Npad {spec.n_pad}) {dt:.3f} s "
+          f"{n * CFG2_PUSHOFF_STEPS / dt:.1f} particle-steps/s on {smi}")
+    return {"pos": relaxed, "bonds": bonds, "types": types, "L": L, "n": n}
+
+
+# the per-slot layouts of phase 13 on the Config 2 melt: name ->
+# (PackedSpec.create keywords, per-type epsilon table or None)
+CFG2_LAYOUTS = {
+    # examples/config2_diblock_sk.yaml: the main path
+    "se_hs_table_fene": (dict(r_cut=2.5, skin=0.4, cap=40,
+                              shift_energy=False, fene_k=30.0,
+                              fene_r0=1.5), CFG2_EPS_TABLE),
+    # examples/config2_diblock_sk.py: WCA + FENE
+    "se_hs_fene_wca": (dict(r_cut=WCA_RC, skin=0.5, cap=40, fene_k=30.0,
+                            fene_r0=1.5), None),
+    # examples/config5_flux_1m.py's production spec
+    "se_usig_fene_wca": (dict(r_cut=WCA_RC, skin=0.5, cap=48, fene_k=30.0,
+                              fene_r0=1.5, uniform_sigma=1.0), None),
+    "se_hs": (dict(r_cut=2.5, skin=0.4, cap=40, shift_energy=False), None),
+}
+
+
+def config2_pack(melt: dict, dev, layout: str = "se_hs_table_fene",
+                 engine_cls=None, cv=None):
+    """(engine, state, spec) of a CFG2_LAYOUTS layout on the relaxed melt,
+    velocities from numpy seed 2 (the YAML's seed), the mesh CV's
+    coefficients (+1 A, -1 B) as a slot attr when ``cv`` is given."""
+    import numpy as np
+    from metadyn_tpu_torch import (
+        Box, PackedEngine, PackedSpec, bond_partner_attrs, pair_scale_tables,
+    )
+    n, types = melt["n"], melt["types"]
+    kw, table = CFG2_LAYOUTS[layout]
+    eps_scale, eps_i = None, np.ones(n, np.float32)
+    if table is not None:
+        eps_scale, _, eps_diag, _ = pair_scale_tables(table)
+        eps_i = eps_diag[types]
+    spec = PackedSpec.create(melt["L"], n, eps_scale=eps_scale, **kw)
+    engine = (engine_cls or PackedEngine)(spec, dev, rebuild_every=5)
+    rng = np.random.default_rng(2)
+    vel = rng.normal(0.0, 1.0, (n, 3)).astype(np.float32)
+    vel -= vel.mean(axis=0)
+    extra = {}
+    if spec.has_bonds:
+        extra.update(bond_partner_attrs(melt["bonds"], n))
+    if cv is not None:
+        extra[cv.attr_name] = np.asarray([1.0, -1.0], np.float32)[types]
+    state, overflow = engine.pack_state(
+        melt["pos"], Box.cubic(melt["L"], dev), types, eps_i,
+        np.ones(n, np.float32), vel=vel, extra_attrs=extra)
+    assert not overflow, f"cell capacity overflow at pack ({layout})"
+    return engine, state, spec
+
+
+def config2_kernels_vs_plain(melt: dict, dev) -> dict:
+    """Phase 13: the pair kernel in each per-slot layout and the v1 kernel
+    against the plain pair force (and v1 against the pair kernel) on the
+    relaxed Config 2 melt.  Returns per variant (max abs error, kernel ms,
+    plain ms, bound ms, bound by)."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch.ops.packed import packed_lj_force
+    from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
+    from metadyn_tpu_torch.ops.packed_v1_cuda import packed_lj_force_v1_cuda
+
+    def compare(tag, a, b, with_energy):
+        df = float((a.f - b.f).abs().max())
+        fmax = float(b.f.abs().max())
+        assert np.isfinite(df) and df <= 1e-4 * fmax + 1e-3, (tag, df, fmax)
+        line = f"max|df|/max|f|={df / fmax:.3e} (max|f|={fmax:.3e})"
+        if with_energy:
+            dpe = abs(float(a.potential_energy - b.potential_energy)) / abs(
+                float(b.potential_energy))
+            dw = float(((a.virial - b.virial).abs() / b.virial.abs()).max())
+            assert dpe <= 1e-5 and dw <= 1e-5, (tag, dpe, dw)
+            line += f" rel_dPE={dpe:.3e} rel_dvirial={dw:.3e}"
+        return df, line
+
+    n_bonds = len(melt["bonds"])
+    out = {}
+    for layout in CFG2_LAYOUTS:
+        _, st, spec = config2_pack(melt, dev, layout)
+        pairs = pairs_within(st, spec, spec.r_cut)
+        nb = n_bonds if spec.has_bonds else 0
+        for we in (False, True):
+            a = packed_lj_force_cuda(st, spec, with_energy=we)
+            b = packed_lj_force(st, spec, with_energy=we)
+            torch.cuda.synchronize()
+            err, line = compare(layout, a, b, we)
+            ms = cuda_ms(lambda: packed_lj_force_cuda(st, spec,
+                                                      with_energy=we))
+            plain = cuda_ms(lambda: packed_lj_force(st, spec,
+                                                    with_energy=we),
+                            calls=10)
+            bms, by = pair_kernel_bound(spec, pairs, nb, we)
+            out[f"{layout}{'+energy' if we else ''}"] = (err, ms, plain,
+                                                         bms, by)
+            print(f"config2 pair kernel {layout} with_energy={we} "
+                  f"kernel_vs_plain: {line} kernel_ms={ms:.4f} "
+                  f"plain_ms={plain:.4f} bound_ms={bms:.5f} ({by}; "
+                  f"{pairs} pairs, {nb} bonds, Npad {spec.n_pad})")
+        if spec.has_pair_table or spec.uniform_sigma is not None:
+            continue
+        v1 = packed_lj_force_v1_cuda(st, spec)
+        plain = packed_lj_force(st, spec, with_energy=True)
+        k1 = packed_lj_force_cuda(st, spec, with_energy=True)
+        torch.cuda.synchronize()
+        err, line = compare(f"v1 {layout}", v1, plain, True)
+        err_k1, line_k1 = compare(f"v1 vs kernel 1 {layout}", v1, k1, True)
+        ms = cuda_ms(lambda: packed_lj_force_v1_cuda(st, spec))
+        plain_ms = cuda_ms(lambda: packed_lj_force(st, spec,
+                                                   with_energy=True),
+                           calls=10)
+        bms, by = pair_kernel_bound(spec, pairs, nb, True, v1=True)
+        out[f"v1 {layout}"] = (max(err, err_k1), ms, plain_ms, bms, by)
+        print(f"config2 v1 kernel {layout}: vs plain {line}; vs pair kernel "
+              f"{line_k1} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bms:.5f} ({by})")
+    return out
+
+
+def config2_sampler(melt: dict, dev, engine_cls=None, gamma: float = 1.0,
+                    stride: int = CFG2_STRIDE):
+    """The Config 2 sampler through the port's entry points (the YAML's
+    engine, CV, bias and integrator; cli.py's start check: S(k0) inside the
+    grid).  Returns (sampler, S(k0) at the start)."""
+    from metadyn_tpu_torch import (
+        GridSpec, HillSpec, MetadSampler, PackedMesh, WallSpec,
+        WELL_TEMPERED, make_packed_langevin_step, make_system,
+    )
+    n, L = melt["n"], melt["L"]
+    cv = PackedMesh.create((32, 32, 32), L, n_real=n, k0=1.18, width=0.4,
+                           name="sk")
+    engine, state, spec = config2_pack(melt, dev, engine_cls=engine_cls,
+                                       cv=cv)
+    system = make_system(n, dev, types=melt["types"], bonds=melt["bonds"])
+    s0 = float(cv.value(state, system))
+    assert 0.0 <= s0 <= 8000.0, f"S(k0) = {s0} outside the grid [0, 8000]"
+    grid = GridSpec.create([0.0], [8000.0], [81], [100.0], dev)
+    sampler = MetadSampler(
+        system, state, engine, [cv], grid,
+        HillSpec.create(W=0.3, stride=stride, mode=WELL_TEMPERED,
+                        deltaT=5.0),
+        lambda f: make_packed_langevin_step(f, dt=0.002, kT=1.0,
+                                            gamma=gamma),
+        seed=2, chunks_per_block=4, bias_every=1,
+        walls=WallSpec.at_grid_edges(grid, k=50.0))
+    return sampler, s0
+
+
+def config2_kernel_vs_plain(melt: dict, dev) -> None:
+    """Phase 14: 20 steps of the Config 2 slice at gamma = 0, the kernel
+    engine against the plain-force engine, from one state."""
+    import numpy as np
+    from metadyn_tpu_torch.ops.packed import unpack_positions
+
+    finals = []
+    for plain in (False, True):
+        reset_counts()
+        s, _ = config2_sampler(melt, dev, plain_force_engine() if plain
+                               else None, gamma=0.0, stride=20)
+        m = s.run(20)[-1]
+        counts = read_counts()
+        assert counts["pair"] == (0 if plain else 21 + 2), counts
+        finals.append((unpack_positions(s.state, s.engine.spec).cpu().numpy(),
+                       float(np.asarray(m["cv"])[0]),
+                       float(m["potential_energy"])))
+    L = melt["L"]
+    dpos = finals[0][0] - finals[1][0]
+    dpos -= L * np.round(dpos / L)
+    dpos = float(np.abs(dpos).max())
+    assert dpos <= 1e-3, dpos
+    print(f"config2_kernel_vs_plain gamma=0 20 steps: max|dpos|={dpos:.3e} "
+          f"rel_dcv={abs(finals[0][1] - finals[1][1]) / finals[1][1]:.3e} "
+          f"rel_dPE={abs(finals[0][2] - finals[1][2]) / abs(finals[1][2]):.3e}"
+          f" cv={finals[0][1]:.3f}")
+
+
+def config2_timed(melt: dict, dev, smi: str, warm: int = 24,
+                  n_runs: int = 2, n_timed: int = 3) -> int:
+    """Phase 15: Config 2 timed, with the physics checks and exact launch
+    counts per stride.  Returns the pair kernel's launches in the last
+    run."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch.utils.profiling import device_profile
+
+    s, s0 = config2_sampler(melt, dev)
+    spec = s.engine.spec
+    assert (spec.cells_per_dim, spec.cap, spec.n_pad) == ((7, 7, 7), 40,
+                                                          13720)
+    hist = s.run(CFG2_STRIDE * warm)
+    assert not any(bool(m["nlist_overflow"]) for m in hist), "warm overflow"
+    print(f"config2 warm: S(k0) at the start {s0:.3f}; {warm} strides, T by "
+          f"stride {[round(float(m['temperature']), 4) for m in hist]}")
+    n = spec.n_real
+    runs = []
+    for _ in range(n_runs):
+        hills0 = s.bias.n_hills
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        hist = s.run(CFG2_STRIDE * n_timed)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        assert counts == {**{k: 0 for k in counts},
+                          "pair": n_timed * (CFG2_STRIDE + 1)}, counts
+        assert s.bias.n_hills - hills0 == n_timed, s.bias.n_hills
+        for m in hist:
+            for k in ("cv", "bias_V", "hill_height", "temperature",
+                      "potential_energy"):
+                assert np.all(np.isfinite(m[k])), (k, m)
+            assert not m["nlist_overflow"], m
+            assert not m["cell_width_violation"], m
+            assert CFG2_T_BAND[0] < float(m["temperature"]) < CFG2_T_BAND[1], m
+            assert float(m["hill_height"]) > 0.0, m
+        runs.append(dt)
+        last = hist[-1]
+        print(f"config2: {n_timed} strides {dt:.3f} s "
+              f"{n * CFG2_STRIDE * n_timed / dt:.1f} particle-steps/s "
+              f"T={float(last['temperature']):.4f} "
+              f"PE/N={float(last['potential_energy']) / n:.4f} "
+              f"S(k0)={float(last['cv'][0]):.3f} "
+              f"V={float(last['bias_V']):.4f} "
+              f"T_range=[{min(float(m['temperature']) for m in hist):.4f}, "
+              f"{max(float(m['temperature']) for m in hist):.4f}] "
+              f"launches={counts} on {smi}")
+    prof = device_profile(lambda: s.run(CFG2_STRIDE))
+    untraced_ms = 1e3 * min(runs) / n_timed
+    prof["busy_share_untraced"] = prof["busy_ms"] / untraced_ms
+    prof["tracing_overhead_ms"] = prof["wall_ms"] - untraced_ms
+    print(f"profile config2 one stride: {json.dumps(prof)} on {smi}")
+    return counts["pair"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -433,7 +834,9 @@ def main() -> int:
         make_system,
     )
     from metadyn_tpu_torch.ops import _build
-    from metadyn_tpu_torch.ops import packed_fused_cuda, packed_order_cuda
+    from metadyn_tpu_torch.ops import (
+        packed_fused_cuda, packed_order_cuda, packed_v1_cuda,
+    )
     from metadyn_tpu_torch.ops.packed import packed_lj_force, unpack_positions
     from metadyn_tpu_torch.ops.packed_cuda import KERNEL, packed_lj_force_cuda
     from metadyn_tpu_torch.utils.profiling import device_profile
@@ -451,7 +854,7 @@ def main() -> int:
 
     # 2. build, every source at once
     order_libs = (packed_order_cuda.KERNEL, packed_fused_cuda.KERNEL)
-    build_secs = build_all((KERNEL,) + order_libs)
+    build_secs = build_all((KERNEL, packed_v1_cuda.KERNEL) + order_libs)
     print("\n".join(ptxas_lines(KERNEL)), file=sys.stderr)
     print(f"build: csrc/{KERNEL}.cu nvcc {' '.join(_build.NVCC_FLAGS[:2])} "
           f"{build_secs[KERNEL]:.2f} s")
@@ -509,6 +912,10 @@ def main() -> int:
             cuda_ms(lambda: packed_lj_force(st, spec, with_energy=we)))
         print(f"kernel_vs_plain with_energy={we}: {line} "
               f"kernel_ms={times[we][0]:.4f} plain_ms={times[we][1]:.4f}")
+    liq_pairs = pairs_within(st, spec, spec.r_cut)
+    liq_bound = pair_kernel_bound(spec, liq_pairs, 0, False)
+    print(f"pair kernel bound (liquid, forces only): {liq_bound[0]:.5f} ms "
+          f"({liq_bound[1]}; {liq_pairs} pairs within r_cut)")
 
     # 4. the slice at gamma = 0: kernel engine vs plain-force engine
     finals = []
@@ -585,29 +992,53 @@ def main() -> int:
         dev, False, warm=(2, 2), n_runs=1, n_timed=2,
         per_stride={"pair": 101, "values": 12, "force": 10}, smi=smi[0])
 
-    order_src = f"metadyn_tpu_torch/csrc/{packed_order_cuda.KERNEL}.cu"
+    # 12. the v1 pair kernel (built in phase 2)
+    v1_lib = packed_v1_cuda.KERNEL
+    print("\n".join(ptxas_lines(v1_lib)), file=sys.stderr)
+    print(f"build: csrc/{v1_lib}.cu nvcc {' '.join(_build.NVCC_FLAGS[:2])} "
+          f"{build_secs[v1_lib]:.2f} s; " + "; ".join(ptxas_lines(v1_lib)[-6:]))
+
+    # 13.-15. Config 2: the push-off, kernels vs plain, the slice, timed
+    melt = config2_pushoff(dev, smi[0])
+    cfg2 = config2_kernels_vs_plain(melt, dev)
+    config2_kernel_vs_plain(melt, dev)
+    cfg2_launches = config2_timed(melt, dev, smi[0])
+
+    def entry(name, source, replaces, launches, nums, **extra):
+        err, ms, plain_ms, bms, by = nums
+        return {"name": name, "route": "cuda",
+                "source": f"metadyn_tpu_torch/csrc/{source}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bms, "bound_by": by, "library_ms": None, **extra}
+
+    variants = {
+        "sentinel liq64k": (errs[False], *times[False], *liq_bound),
+        **{f"{k} config2": v for k, v in cfg2.items()
+           if not k.startswith("v1")}}
     print(json.dumps({"kernels": [
-        {"name": KERNEL, "route": "cuda",
-         "source": f"metadyn_tpu_torch/csrc/{KERNEL}.cu",
-         "replaces": "metadyn_tpu/ops/packed_pallas2.py:301",
-         "launches": rates[5][1],
-         "max_abs_err": max(errs.values()),
-         "ms": times[False][0], "plain_ms": times[False][1]},
-        {"name": "packed_order_values", "route": "cuda",
-         "source": order_src,
-         "replaces": "metadyn_tpu/ops/packed_order_pallas.py:257",
-         "launches": lag_counts["values"], "max_abs_err": order["values"][0],
-         "ms": order["values"][1], "plain_ms": order["values"][2]},
-        {"name": "packed_order_force", "route": "cuda",
-         "source": order_src,
-         "replaces": "metadyn_tpu/ops/packed_order_pallas.py:309",
-         "launches": exact_counts["force"], "max_abs_err": order["force"][0],
-         "ms": order["force"][1], "plain_ms": order["force"][2]},
-        {"name": packed_fused_cuda.KERNEL, "route": "cuda",
-         "source": f"metadyn_tpu_torch/csrc/{packed_fused_cuda.KERNEL}.cu",
-         "replaces": "metadyn_tpu/ops/packed_fused_pallas.py:296",
-         "launches": lag_counts["fused"], "max_abs_err": order["fused"][0],
-         "ms": order["fused"][1], "plain_ms": order["fused"][2]},
+        entry(KERNEL, KERNEL, "metadyn_tpu/ops/packed_pallas2.py:301",
+              cfg2_launches, cfg2["se_hs_table_fene"],
+              launches_by_path={"liq64k bias_every=5": rates[5][1],
+                                "config3 mts_lag": lag_counts["pair"],
+                                "config2": cfg2_launches},
+              variants={k: dict(zip(("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by"), v))
+                        for k, v in variants.items()}),
+        entry("packed_order_values", packed_order_cuda.KERNEL,
+              "metadyn_tpu/ops/packed_order_pallas.py:257",
+              lag_counts["values"], order["values"]),
+        entry("packed_order_force", packed_order_cuda.KERNEL,
+              "metadyn_tpu/ops/packed_order_pallas.py:309",
+              exact_counts["force"], order["force"]),
+        entry(packed_fused_cuda.KERNEL, packed_fused_cuda.KERNEL,
+              "metadyn_tpu/ops/packed_fused_pallas.py:296",
+              lag_counts["fused"], order["fused"]),
+        entry(v1_lib, v1_lib, "metadyn_tpu/ops/packed_pallas.py:185", 0,
+              cfg2["v1 se_hs_fene_wca"],
+              variants={k: dict(zip(("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by"), v))
+                        for k, v in cfg2.items() if k.startswith("v1")}),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

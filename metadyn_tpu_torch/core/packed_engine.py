@@ -1,9 +1,12 @@
 """PackedEngine — the MD engine over the slot-layout state (counterpart of
 ``metadyn_tpu/core/packed_engine.py``).
 
-On a CUDA device every pair-force call goes to the hand-written kernel
+On a CUDA device every LJ pair-force call goes to the hand-written kernel
 (``ops/packed_cuda.py``); on the CPU to the plain roll sweep.  There is no
-fallback between the two.
+fallback between the two.  The soft push-off pair (``pair_kind="soft"``)
+has no kernel in the reference either: its engine routes it to the XLA
+roll path on every backend, and this engine to the plain roll sweep, its
+port, on both devices.
 """
 from __future__ import annotations
 
@@ -14,8 +17,8 @@ import torch
 
 from .box import Box
 from ..ops.packed import (
-    PackedSpec, PackedState, needs_repack, pack_host, packed_temperature,
-    repack_incremental,
+    PackedSpec, PackedState, needs_repack, pack_host, packed_lj_force,
+    packed_temperature, repack_incremental,
 )
 from ..ops.packed_cuda import check_spec, packed_lj_force_cuda
 
@@ -35,7 +38,7 @@ class PackedAux:
 
 
 class PackedEngine:
-    """LJ pair forces on the packed cell layout, with a distance-triggered
+    """Pair forces on the packed cell layout, with a distance-triggered
     incremental repack checked every ``rebuild_every`` steps.
 
     The check is a host ``if`` on :func:`needs_repack`: one device-to-host
@@ -54,7 +57,8 @@ class PackedEngine:
             if not torch.cuda.is_available():
                 raise RuntimeError("PackedEngine: a CUDA device was asked "
                                    "for, but torch finds no CUDA device")
-            check_spec(spec)
+            if spec.pair_kind == "lj":
+                check_spec(spec)
             # the reference runs f32 at full precision: no TF32 products
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -63,9 +67,6 @@ class PackedEngine:
         if nbr_table is not None:
             raise NotImplementedError("PackedEngine: the slot neighbour table "
                                       "(nbr_table) is not ported yet")
-        if spec.pair_kind != "lj":
-            raise NotImplementedError(f"PackedEngine: pair_kind "
-                                      f"{spec.pair_kind!r} is not ported yet")
         self.spec = spec
         self.rebuild_every = rebuild_every
         self.mass = mass
@@ -87,6 +88,8 @@ class PackedEngine:
     # --- protocol ---------------------------------------------------------
     def _pair_force(self, state: PackedState,
                     with_energy: bool) -> PackedState:
+        if self.spec.pair_kind == "soft":
+            return packed_lj_force(state, self.spec, with_energy=with_energy)
         return packed_lj_force_cuda(state, self.spec, with_energy=with_energy)
 
     def init(self, state: PackedState):

@@ -7,10 +7,12 @@ with ``np.asarray``, so this module never imports jax.  The ``*_arrays``
 functions go back: they return plain dicts of numpy arrays and Python
 values under the reference's field names, ready for its constructors.
 
-Covered: ``PackedState`` with its ``Box`` (every attr, the lagged path's
-``held_g*`` included), ``PackedSpec``, ``GridSpec``, ``BiasState`` (V, dV,
-n_hills), the lamellar CV's lattice vectors and phases, and the packed
-order CVs' parameters (Q_l and coordination).
+Covered: ``PackedState`` with its ``Box`` (``typ`` and every attr: the
+bond partners ``bp*``, the CV coefficients ``lam_*``/``mesh_*``, the lagged
+path's ``held_g*``), ``PackedSpec`` (every field: scale tables, bonds,
+``pair_kind``), ``GridSpec``, ``BiasState`` (V, dV, n_hills), the lamellar
+CV's lattice vectors and phases, the packed order CVs' parameters (Q_l and
+coordination) and the packed mesh CV's.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 from .bias.grid import BiasGrid, GridSpec
 from .bias.metad import BiasState
 from .core.box import Box
-from .cv.packed import PackedLamellar
+from .cv.packed import PackedLamellar, PackedMesh
 from .cv.packed_order import PackedCoordination, PackedSteinhardtQl
 from .ops.packed import PackedSpec, PackedState
 
@@ -132,3 +134,19 @@ def coordination_arrays(cv: PackedCoordination) -> dict:
     """``spec`` is a dict of the spec's fields (see packed_spec_fields)."""
     return {"spec": packed_spec_fields(cv.spec), "r0": cv.r0,
             "name": cv.name, "r_cut": cv.r_cut}
+
+
+def mesh_from(obj, device) -> PackedMesh:
+    u_k = getattr(obj, "u_k", None)
+    return PackedMesh(tuple(obj.mesh_shape), obj.n_real, k0=obj.k0,
+                      width=obj.width,
+                      u_k=None if u_k is None else np.asarray(u_k),
+                      name=obj.name, assign_order=obj.assign_order,
+                      device=device)
+
+
+def mesh_arrays(cv: PackedMesh) -> dict:
+    return {"u_k": None if cv.u_k is None else _np(cv.u_k),
+            "k0": cv.k0, "width": cv.width, "mesh_shape": cv.mesh_shape,
+            "n_real": cv.n_real, "name": cv.name,
+            "assign_order": cv.assign_order}

@@ -10,9 +10,11 @@ iz``.  Coordinates are (3, Npad) f32 rows.
 **Vacancy.**  Vacant slots carry √ε = 0 in the ``se`` attribute, and in the
 sentinel layout (``uniform_eps`` set) their coordinates sit at exactly
 ``VACANT_X``.  The plain force culls vacancy through ``se``; the CUDA kernel
-(``ops/packed_cuda.py``) through the sentinel.
+(``ops/packed_cuda.py``) through the sentinel in that layout and through
+``se`` in the per-slot ones, where vacant slots are not pinned and drift.
 
-**Plain force.**  :func:`packed_lj_force` is the 27-offset roll sweep: for
+**Plain force.**  :func:`packed_lj_force` (LJ or the soft push-off pair,
+optional per-type scale tables and bonds) is the 27-offset roll sweep: for
 each neighbour-cell offset the partner rows are a ``torch.roll`` of the
 (cap, cx, cy, cz) view plus a periodic shift, and pair terms are (cap_j,
 cap_i, C) broadcasts reduced over cap_j.  It is the plain PyTorch version of
@@ -97,14 +99,21 @@ class PackedSpec:
     r_cut: float
     skin: float
     shift_energy: bool = True
-    # uniform σ and ε: the sentinel layout the CUDA kernel takes
+    # uniform σ and/or ε; both set is the sentinel layout (vacancy by
+    # coordinate)
     uniform_sigma: Optional[float] = None
     uniform_eps: Optional[float] = None
+    # "lj" or "soft" (the DPD-conservative push-off pair, A = se_i·se_j)
     pair_kind: str = "lj"
-    # per-type-pair scale tables and bonds: not ported yet (the plain
-    # force raises on them)
+    # symmetric (n_types, n_types) scale tables over the per-slot
+    # Lorentz–Berthelot base: ε_ij = se_i·se_j·k_ε(ti, tj), σ_ij =
+    # (hs_i + hs_j)·k_σ(ti, tj) (see pair_scale_tables)
     eps_scale: Optional[tuple] = None
     sigma_scale: Optional[tuple] = None
+    # bonds (None = none): partners matched by pid through the per-slot
+    # attrs bp0..bp{bond_slots-1} (partner pid + 1, 0 = none); a bonded
+    # pair gets the bond term instead of the pair term.  "fene" is FENE +
+    # WCA (k = fene_k, r0 = maximum extension), "harmonic" ½k(r − r0)².
     fene_k: Optional[float] = None
     fene_r0: Optional[float] = None
     bond_kind: str = "fene"
@@ -473,30 +482,128 @@ def needs_repack(state: PackedState, spec: PackedSpec) -> torch.Tensor:
     return torch.max(d2) > (0.5 * spec.skin) ** 2
 
 
+def pair_scale_tables(eps_table, sigma_table=None):
+    """Target per-type-pair tables → ``(eps_scale, sigma_scale, eps_diag,
+    sigma_diag)``: the scale tables for :class:`PackedSpec` and the
+    per-type diagonals to build ``eps_i``/``sigma_i`` from (``eps_i =
+    eps_diag[types]``).  ε entries must be positive (use the soft pair for
+    athermal species)."""
+    e = np.asarray(eps_table, np.float64)
+    if not np.all(e > 0):
+        raise ValueError("eps table entries must be positive")
+    se = np.sqrt(np.diag(e))
+    eps_scale = e / np.outer(se, se)
+    if sigma_table is None:
+        return (eps_scale, None, np.diag(e).astype(np.float32), None)
+    s = np.asarray(sigma_table, np.float64)
+    hs = 0.5 * np.diag(s)
+    sigma_scale = s / np.add.outer(hs, hs)
+    return (eps_scale, sigma_scale, np.diag(e).astype(np.float32),
+            np.diag(s).astype(np.float32))
+
+
+def _scale_fn(table):
+    """Symmetric (nt, nt) scale table → ``f(ti, tj) -> k`` on f32 type
+    tensors, the reference's forms: a constant table is its value, two
+    types the bilinear form c0 + c1·(ti + tj) + c2·ti·tj (exact on {0, 1}²),
+    more types a one-hot sum.  The vacant type nt gives a finite value
+    (bilinear) or 0 (one-hot); vacancy is culled by se = 0 either way."""
+    t = np.asarray(table, np.float64)
+    nt = t.shape[0]
+    if np.allclose(t, t[0, 0]):
+        c = float(t[0, 0])
+        return lambda ti, tj: c
+    if nt == 2:
+        c0 = float(t[0, 0])
+        c1 = float(t[0, 1] - t[0, 0])
+        c2 = float(t[1, 1] - 2.0 * t[0, 1] + t[0, 0])
+        return lambda ti, tj: c0 + c1 * (ti + tj) + c2 * (ti * tj)
+
+    def one_hot(ti, tj):
+        k = 0.0
+        for a in range(nt):
+            row = 0.0
+            for b in range(nt):
+                row = row + float(t[a, b]) * (tj == b).to(torch.float32)
+            k = k + (ti == a).to(torch.float32) * row
+        return k
+
+    return one_hot
+
+
+def pair_scales_for(spec: PackedSpec):
+    """(k_eps(ti, tj), k_sig(ti, tj)) scale functions, None where absent."""
+    ke = _scale_fn(spec.eps_scale) if spec.eps_scale is not None else None
+    ks = (_scale_fn(spec.sigma_scale)
+          if spec.sigma_scale is not None else None)
+    return ke, ks
+
+
+def _fene_wca_pair(r2s, eps, sig, spec: PackedSpec):
+    """Bonded-pair (energy, coef), which replaces the pair term of a bonded
+    pair: FENE + WCA (Kremer–Grest) or the harmonic spring ½k(r − r0)²,
+    by ``spec.bond_kind``.  The force on i is coef·(r_i − r_j)."""
+    r0 = spec.fene_r0
+    k = spec.fene_k
+    if spec.bond_kind == "harmonic":
+        r = torch.sqrt(r2s)
+        e = 0.5 * k * (r - r0) ** 2
+        coef = -k * (r - r0) / r
+        return e, coef
+    x = torch.clamp(r2s / (r0 * r0), max=0.99)
+    e_f = -0.5 * k * r0 * r0 * torch.log1p(-x)
+    coef_f = -k / (1.0 - x)
+    rc2w = (2.0 ** (1.0 / 3.0)) * sig * sig
+    in_w = r2s < rc2w
+    s2 = sig * sig / r2s
+    s6 = s2 * s2 * s2
+    e_w = torch.where(in_w, 4.0 * eps * (s6 * s6 - s6) + eps, 0.0)
+    coef_w = torch.where(in_w, 4.0 * eps * (12.0 * s6 * s6 - 6.0 * s6) / r2s,
+                         0.0)
+    return e_f + e_w, coef_f + coef_w
+
+
+def bond_partner_attrs(bonds: np.ndarray, n: int, slots: int = 2) -> dict:
+    """Per-particle bond-partner attrs ``bp0..bp{slots-1}`` for pack time:
+    partner pid + 1, 0 = no partner (so zero-filled vacant slots never
+    match particle 0).  ``slots`` must equal ``PackedSpec.bond_slots``."""
+    bp = np.zeros((n, slots), np.float32)
+    cnt = np.zeros(n, np.int32)
+    for a, b in np.asarray(bonds):
+        for x, y in ((a, b), (b, a)):
+            if cnt[x] >= slots:
+                raise ValueError(
+                    f"particle {x} has more than {slots} bonds; raise "
+                    "bond_slots (PackedSpec + bond_partner_attrs)")
+            bp[x, cnt[x]] = y + 1
+            cnt[x] += 1
+    return {f"bp{k}": bp[:, k] for k in range(slots)}
+
+
 def packed_lj_force(state: PackedState, spec: PackedSpec,
                     with_energy: bool = True, cell_mask=None,
                     j_block: Optional[int] = None) -> PackedState:
-    """LJ pair forces by the 27-offset roll sweep (see the module docstring).
+    """Pair forces by the 27-offset roll sweep (see the module docstring).
 
     Per-slot Lorentz–Berthelot parameters: ε_ij = se_i·se_j (se = √ε),
-    σ_ij = hs_i + hs_j (hs = σ/2); vacant slots have se = 0.  With
-    ``with_energy`` the state also gets the potential energy and the
-    diagonal virial; without, they keep their old values (as the kernel's
+    σ_ij = hs_i + hs_j (hs = σ/2), each times its per-type-pair scale
+    where the spec has tables; vacant slots have se = 0.  ``pair_kind``
+    "lj" is Lennard-Jones (energy-shifted with ``shift_energy``), "soft"
+    the DPD-conservative u = (A·rc/2)(1 − r/rc)² with A = ε_ij.  Bonded
+    pairs (matched by partner pid, at any distance) get the bond term of
+    :func:`_fene_wca_pair` instead.  The uniform σ/ε fields do not enter:
+    this path reads ``se``/``hs`` in every layout.
+
+    With ``with_energy`` the state also gets the potential energy and the
+    diagonal virial; without, they keep their old values (as the kernels'
     forces-only mode does).  ``j_block`` bounds the (j_block, cap, C) pair
     temporaries; by default the whole cap is one block up to 2^26 elements.
-
-    Soft pairs, bonds, per-type pair tables and ``cell_mask`` are not
-    ported yet and raise NotImplementedError."""
-    if spec.pair_kind != "lj":
-        raise NotImplementedError(f"pair_kind={spec.pair_kind!r}: only 'lj' "
-                                  "is ported")
-    if spec.has_bonds:
-        raise NotImplementedError("bonded packed layouts are not ported yet")
-    if spec.has_pair_table:
-        raise NotImplementedError("per-type pair tables are not ported yet")
+    ``cell_mask`` (spatial decomposition) is not ported and raises."""
     if cell_mask is not None:
         raise NotImplementedError("cell_mask (spatial decomposition) is not "
                                   "ported yet")
+    if spec.pair_kind not in ("lj", "soft"):
+        raise ValueError(f"unknown pair_kind {spec.pair_kind!r}")
     cap, C = spec.cap, spec.n_cells
     cx, cy, cz = spec.cells_per_dim
     if j_block is None and cap * cap * C > 2**26:
@@ -504,12 +611,24 @@ def packed_lj_force(state: PackedState, spec: PackedSpec,
     jb = cap if j_block is None else min(j_block, cap)
 
     dev = state.r.device
-    # positions and the two pair parameters, rolled together per offset
-    rows5 = torch.cat([state.r, state.attrs["se"][None],
-                       state.attrs["hs"][None]]).reshape(5, cap, cx, cy, cz)
+    k_eps, k_sig = pair_scales_for(spec)
+    # positions, the two pair parameters and (where used) the type and
+    # pid + 1, rolled together per offset
+    rows = [state.r, state.attrs["se"][None], state.attrs["hs"][None]]
+    if spec.has_pair_table:
+        rows.append(state.typ.to(torch.float32)[None])
+    if spec.has_bonds:
+        rows.append((state.pid.to(torch.float32) + 1.0)[None])
+    rows = torch.cat(rows)
+    n_rows = rows.shape[0]
+    rows = rows.reshape(n_rows, cap, cx, cy, cz)
     xi = state.r.reshape(3, 1, cap, C)
     se_i = state.attrs["se"].reshape(1, cap, C)
     hs_i = state.attrs["hs"].reshape(1, cap, C)
+    ty_i = (state.typ.to(torch.float32).reshape(1, cap, C)
+            if spec.has_pair_table else None)
+    bp_i = [state.attrs[f"bp{k}"].reshape(1, cap, C)
+            for k in range(spec.bond_slots)] if spec.has_bonds else []
     rc2 = float(spec.r_cut) ** 2
     shifts = shift_rows_cart(_tables(spec, dev).ushift, state.box)[:, :, None]
 
@@ -517,30 +636,60 @@ def packed_lj_force(state: PackedState, spec: PackedSpec,
     e_tot = torch.zeros((), dtype=torch.float32, device=dev)
     w_tot = torch.zeros(3, dtype=torch.float32, device=dev)
     for oi, o in enumerate(OFFSETS):
-        part = torch.roll(rows5, shifts=(-o[0], -o[1], -o[2]),
-                          dims=(2, 3, 4)).reshape(5, cap, C)
+        part = torch.roll(rows, shifts=(-o[0], -o[1], -o[2]),
+                          dims=(2, 3, 4)).reshape(n_rows, cap, C)
         xj = part[:3] + shifts[oi]                          # (3, cap, C)
         for j0 in range(0, cap, jb):
-            rows = slice(j0, j0 + jb)
-            dx = xi - xj[:, rows, None, :]                  # (3, B, cap, C)
+            blk = slice(j0, j0 + jb)
+            dx = xi - xj[:, blk, None, :]                   # (3, B, cap, C)
             r2 = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]
-            eps = se_i * part[3, rows, None, :]
-            sig = hs_i + part[4, rows, None, :]
+            eps = se_i * part[3, blk, None, :]
+            sig = hs_i + part[4, blk, None, :]
+            if spec.has_pair_table:
+                ty_j = part[5, blk, None, :]
+                if k_eps is not None:
+                    eps = eps * k_eps(ty_i, ty_j)
+                if k_sig is not None:
+                    sig = sig * k_sig(ty_i, ty_j)
             inside = (r2 < rc2) & (r2 > 1e-12)
             r2s = torch.where(inside, r2, 1.0)
-            s2 = sig * sig / r2s
-            s6 = s2 * s2 * s2
-            coef = torch.where(inside, 4.0 * eps * (12.0 * s6 * s6 - 6.0 * s6)
-                               / r2s, 0.0)
+            if spec.pair_kind == "soft":
+                rc = float(spec.r_cut)
+                rr = torch.sqrt(r2s)
+                x = 1.0 - rr / rc
+                coef = eps * x / rr
+                e = 0.5 * eps * rc * x * x if with_energy else None
+            else:
+                s2 = sig * sig / r2s
+                s6 = s2 * s2 * s2
+                coef = 4.0 * eps * (12.0 * s6 * s6 - 6.0 * s6) / r2s
+                e = None
+                if with_energy:
+                    e = 4.0 * eps * (s6 * s6 - s6)
+                    if spec.shift_energy:
+                        sc2 = sig * sig / rc2
+                        sc6 = sc2 * sc2 * sc2
+                        e = e - 4.0 * eps * (sc6 * sc6 - sc6)
+            coef = torch.where(inside, coef, 0.0)
+            if with_energy:
+                e = torch.where(inside, e, 0.0)
+            if spec.has_bonds:
+                # not gated on r_cut: a bond stretched past the pair cut-off
+                # keeps its full bond term
+                pid_j = part[n_rows - 1, blk, None, :]
+                match = bp_i[0] == pid_j
+                for bpk in bp_i[1:]:
+                    match = match | (bpk == pid_j)
+                bonded = match & (r2 > 1e-12)
+                e_b, coef_b = _fene_wca_pair(torch.where(bonded, r2, 1.0),
+                                             eps, sig, spec)
+                coef = torch.where(bonded, coef_b, coef)
+                if with_energy:
+                    e = torch.where(bonded, e_b, e)
             cdx = coef * dx
             force = force + cdx.sum(dim=1)
             if with_energy:
-                e = 4.0 * eps * (s6 * s6 - s6)
-                if spec.shift_energy:
-                    sc2 = sig * sig / rc2
-                    sc6 = sc2 * sc2 * sc2
-                    e = e - 4.0 * eps * (sc6 * sc6 - sc6)
-                e_tot = e_tot + torch.sum(torch.where(inside, e, 0.0))
+                e_tot = e_tot + torch.sum(e)
                 w_tot = w_tot + (cdx * dx).sum(dim=(1, 2, 3))
     force = force.reshape(3, -1)
     if not with_energy:

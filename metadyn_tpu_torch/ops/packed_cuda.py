@@ -1,7 +1,9 @@
 """Wrapper of the hand-written Hopper pair-force kernel
 (``csrc/packed_lj_force.cu``), the counterpart of
-``metadyn_tpu/ops/packed_pallas2.packed_lj_force_pallas2`` in its sentinel
-layout.
+``metadyn_tpu/ops/packed_pallas2.packed_lj_force_pallas2`` in its
+orthorhombic variants: the sentinel layout, per-slot ``se``/``hs`` (or
+``se`` with a uniform σ), per-type-pair scale tables, and FENE or harmonic
+bonds.
 
 On a CUDA tensor :func:`packed_lj_force_cuda` launches the kernel or raises;
 on a CPU tensor it runs the plain version, ``ops.packed.packed_lj_force``.
@@ -11,29 +13,41 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
-from .packed import PackedSpec, PackedState, packed_lj_force
+from .packed import (
+    PackedSpec, PackedState, packed_lj_force, pair_scales_for,
+)
 
 KERNEL = "packed_lj_force"
+MAX_BOND_SLOTS = 4          # csrc/pair_terms.cuh kMaxBondSlots
+BOND_KINDS = {None: 0, "fene": 1, "harmonic": 2}
 
 
 def check_spec(spec: PackedSpec) -> None:
-    """Raise on any spec the kernel does not take."""
+    """Raise on any spec the kernel does not take: the soft pair, a uniform
+    ε without a uniform σ, the sentinel layout with bonds, tables outside
+    the per-slot ``se``/``hs`` layout, more than 4 bond slots."""
     if spec.pair_kind != "lj":
-        raise NotImplementedError(f"CUDA pair kernel: pair_kind "
-                                  f"{spec.pair_kind!r} (only 'lj')")
-    if not spec.sentinel:
         raise NotImplementedError(
-            "CUDA pair kernel: only the sentinel layout (uniform_sigma and "
-            "uniform_eps set) is ported; per-slot se/hs is not")
-    if spec.has_bonds:
-        raise NotImplementedError("CUDA pair kernel: bonds are not ported")
-    if spec.has_pair_table:
-        raise NotImplementedError("CUDA pair kernel: per-type pair tables "
-                                  "are not ported")
+            f"CUDA pair kernel: pair_kind {spec.pair_kind!r} (only 'lj'; the "
+            "soft push-off pair runs the plain roll sweep)")
+    if spec.uniform_eps is not None and spec.uniform_sigma is None:
+        raise NotImplementedError("CUDA pair kernel: a uniform epsilon with "
+                                  "per-slot sigma has no kernel layout")
+    if spec.sentinel and spec.has_bonds:
+        raise NotImplementedError("CUDA pair kernel: bonds in the sentinel "
+                                  "layout have no kernel layout")
+    if spec.has_pair_table and (spec.uniform_eps is not None
+                                or spec.uniform_sigma is not None):
+        raise NotImplementedError("CUDA pair kernel: pair tables need the "
+                                  "per-slot se/hs layout")
+    if spec.has_bonds and spec.bond_slots > MAX_BOND_SLOTS:
+        raise NotImplementedError(f"CUDA pair kernel: at most "
+                                  f"{MAX_BOND_SLOTS} bond slots")
 
 
 def check_state(state: PackedState, spec: PackedSpec, who: str) -> None:
@@ -49,12 +63,47 @@ def check_state(state: PackedState, spec: PackedSpec, who: str) -> None:
                          f"contiguous={r.is_contiguous()}")
 
 
+def slot_ptr(t: torch.Tensor, dtype, spec: PackedSpec, who: str,
+             name: str) -> int:
+    """Device pointer of a per-slot (Npad,) column, checked."""
+    if (t.dtype != dtype or not t.is_contiguous()
+            or tuple(t.shape) != (spec.n_pad,)):
+        raise ValueError(f"{who}: {name} must be contiguous {dtype} of shape "
+                         f"({spec.n_pad},); got {t.dtype} {tuple(t.shape)}")
+    return t.data_ptr()
+
+
+def bond_ptrs(state: PackedState, spec: PackedSpec, who: str) -> list:
+    """The bp0.. attrs' pointers, padded with None to MAX_BOND_SLOTS."""
+    n = spec.bond_slots if spec.has_bonds else 0
+    ptrs = [slot_ptr(state.attrs[f"bp{k}"], torch.float32, spec, who,
+                     f"bp{k}") for k in range(n)]
+    return ptrs + [None] * (MAX_BOND_SLOTS - n)
+
+
+@functools.lru_cache(maxsize=16)
+def scale_table(spec: PackedSpec, device) -> torch.Tensor:
+    """(2, nt, nt) f32 = (k_eps, k_sig) on ``device``: the plain version's
+    scale functions evaluated at every type pair in f32, so the kernel
+    reads the values the plain sweep computes."""
+    tabs = [t for t in (spec.eps_scale, spec.sigma_scale) if t is not None]
+    nt = len(tabs[0])
+    ti, tj = torch.meshgrid(torch.arange(nt, dtype=torch.float32),
+                            torch.arange(nt, dtype=torch.float32),
+                            indexing="ij")
+    out = []
+    for fn in pair_scales_for(spec):
+        k = torch.ones((nt, nt)) if fn is None else fn(ti, tj)
+        out.append(torch.as_tensor(k, dtype=torch.float32).expand(nt, nt))
+    return torch.stack(out).contiguous().to(device)
+
+
 def _function():
     lib = _build.load(KERNEL)
     fn = lib.packed_lj_force
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_float] * 7 + [ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 12
+                       + [ctypes.c_float] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.packed_lj_force_threads.argtypes = []
         lib.packed_lj_force_threads.restype = ctypes.c_int
@@ -63,7 +112,7 @@ def _function():
 
 def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
                          with_energy: bool = True) -> PackedState:
-    """LJ pair forces of the sentinel layout.
+    """Pair forces of every layout :func:`check_spec` takes.
 
     With ``with_energy`` the state also gets the potential energy and the
     diagonal virial; without, only ``f`` is replaced and the two keep their
@@ -73,9 +122,24 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
         return packed_lj_force(state, spec, with_energy=with_energy)
     if r.device.type != "cuda":
         raise ValueError(f"packed_lj_force_cuda: unsupported device {r.device}")
+    who = "packed_lj_force_cuda"
     check_spec(spec)
-    check_state(state, spec, "packed_lj_force_cuda")
+    check_state(state, spec, who)
     fn, threads = _function()
+    se_eps = spec.uniform_eps is None
+    hs_sig = spec.uniform_sigma is None
+    se = (slot_ptr(state.attrs["se"], torch.float32, spec, who, "se")
+          if se_eps else None)
+    hs = (slot_ptr(state.attrs["hs"], torch.float32, spec, who, "hs")
+          if hs_sig else None)
+    typ = table = None
+    n_types = 1
+    if spec.has_pair_table:
+        typ = slot_ptr(state.typ, torch.int32, spec, who, "typ")
+        tab = scale_table(spec, r.device)
+        n_types, table = tab.shape[1], tab.data_ptr()
+    pid = (slot_ptr(state.pid, torch.int32, spec, who, "pid")
+           if spec.has_bonds else None)
     f = torch.empty_like(r)
     if with_energy:
         n_blocks = -(-spec.n_pad // threads)
@@ -85,18 +149,22 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
         p_ptr, o_ptr = partials.data_ptr(), out.data_ptr()
     else:
         p_ptr = o_ptr = None
-    sig2 = float(spec.uniform_sigma) ** 2
-    rc2 = float(spec.r_cut) ** 2
-    eps4 = 4.0 * float(spec.uniform_eps)
-    sc6 = (sig2 / rc2) ** 3
-    e_shift = eps4 * (sc6 * sc6 - sc6) if spec.shift_energy else 0.0
+    bond_kind = BOND_KINDS[spec.bond_kind if spec.has_bonds else None]
     Lx, Ly, Lz = state.box.L_host
     cx, cy, cz = spec.cells_per_dim
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = fn(r.data_ptr(), f.data_ptr(), p_ptr, o_ptr, spec.n_pad,
-                 spec.cap, cx, cy, cz, Lx, Ly, Lz, rc2, sig2, eps4, e_shift,
-                 int(with_energy), stream)
+        err = fn(r.data_ptr(), se, hs, typ, pid, *bond_ptrs(state, spec, who),
+                 table, f.data_ptr(), p_ptr, o_ptr,
+                 spec.n_pad, spec.cap, cx, cy, cz, int(se_eps), int(hs_sig),
+                 n_types, bond_kind,
+                 spec.bond_slots if spec.has_bonds else 0,
+                 int(spec.shift_energy), int(with_energy),
+                 Lx, Ly, Lz, float(spec.r_cut) ** 2,
+                 float(spec.uniform_sigma or 0.0) ** 2,
+                 float(spec.uniform_eps or 0.0),
+                 float(spec.fene_k or 0.0), float(spec.fene_r0 or 0.0),
+                 stream)
     if err != 0:
         raise RuntimeError(f"packed_lj_force kernel launch failed: CUDA "
                            f"error {err}")

@@ -3,7 +3,10 @@
 A deposition stride is a loop over rebuild blocks of MD steps, followed by
 an energy refresh, a CV evaluation and a hill deposit.  Within a stride the
 bias grid is constant; the bias force F = −∂V/∂s · ∂s/∂r comes from the
-CVs' analytic ``accum_bias_force``.  With ``bias_every`` > 1 the CV sweeps
+CVs' analytic ``accum_bias_force`` where every CV has one, and otherwise
+from ``torch.autograd.grad`` of the stacked CV values (the reference's
+``jax.vjp`` path; the mesh S(k) CV takes it).  CVs with a ``bias_virial``
+add it to the state's virial after each force call.  With ``bias_every`` > 1 the CV sweeps
 and ∂V/∂s run once per ``bias_every`` steps and the bias force is held over
 them (multiple time stepping); the pair force stays exact every step.
 
@@ -19,9 +22,10 @@ stays on the device, and the per-stride metrics of ``chunks_per_block``
 strides go to the host in one transfer.  Random numbers come from one
 ``torch.Generator`` on the engine's device, seeded from ``seed``.
 
-Ported: grid mode with analytic-force CVs and the fused order-CV path,
-with and without ``mts_lag``.  Hill-list mode, ``hill_file``, the table
-order-CV path and the vjp path raise NotImplementedError.
+Ported: grid mode with analytic-force CVs, the autograd path and the fused
+order-CV path, with and without ``mts_lag``.  Hill-list mode,
+``hill_file``, the table order-CV path and energy CVs (well-tempered
+ensemble) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -77,37 +81,50 @@ def make_bias_force_parts(engine, cvs, system: System,
 
     When every CV implements the pair-sweep protocol (the packed order
     CVs), all values come from one fused value sweep and all bias forces
-    from one force sweep; otherwise every CV must provide
-    ``accum_bias_force``."""
+    from one force sweep; when every CV has ``accum_bias_force``, from
+    those; otherwise g = −∂V/∂s · ∂s/∂r of the whole CV stack comes from
+    autograd.  CVs with ``bias_virial`` add their per-axis k-space virial
+    to the state's after the engine's force call, as the reference does."""
     for cv in cvs:
-        if not hasattr(cv, "accum_bias_force"):
+        if getattr(cv, "needs_live_energy", False):
             raise NotImplementedError(
-                f"CV {getattr(cv, 'name', cv)}: the vjp bias-force path is "
-                "not ported; CVs need an analytic accum_bias_force")
-        if hasattr(cv, "bias_virial") or getattr(cv, "needs_live_energy",
-                                                 False):
-            raise NotImplementedError(
-                f"CV {getattr(cv, 'name', cv)}: box- or energy-coupled CVs "
-                "are not ported yet")
+                f"CV {getattr(cv, 'name', cv)}: energy CVs (the well-"
+                "tempered ensemble) are not ported yet")
     fused = (len(cvs) > 0 and hasattr(engine, "spec")
              and all(hasattr(cv, "pair_value_terms") for cv in cvs))
     if fused:
         fused_values, fused_force = make_fused_order_force(cvs, engine.spec)
+    analytic = all(hasattr(cv, "accum_bias_force") for cv in cvs)
+    vir_cvs = [(i, cv) for i, cv in enumerate(cvs)
+               if hasattr(cv, "bias_virial")]
 
     def eval_bias(state, aux, bias):
         if fused:
             s, ctx = fused_values(state)
             dVds = _grad_with_walls(bias, s, walls)
             return fused_force(state, ctx, dVds), dVds, s
-        s = cv_stack(cvs, state, system)
-        dVds = _grad_with_walls(bias, s, walls)
-        g = torch.zeros_like(engine.positions(state))
-        for i, cv in enumerate(cvs):
-            g = cv.accum_bias_force(state, system, dVds[i], g)
-        return g, dVds, s
+        if analytic:
+            s = cv_stack(cvs, state, system)
+            dVds = _grad_with_walls(bias, s, walls)
+            g = torch.zeros_like(engine.positions(state))
+            for i, cv in enumerate(cvs):
+                g = cv.accum_bias_force(state, system, dVds[i], g)
+            return g, dVds, s
+        r = engine.positions(state).detach().requires_grad_(True)
+        with torch.enable_grad():
+            s = cv_stack(cvs, engine.with_positions(state, r), system)
+        dVds = _grad_with_walls(bias, s.detach(), walls)
+        (g,) = torch.autograd.grad(s, r, grad_outputs=dVds)
+        return -g, dVds, s.detach()
 
     def apply_force(state, aux, g, dVds):
-        return engine.force_into(state, aux, extra_force=g)
+        state = engine.force_into(state, aux, extra_force=g)
+        if not vir_cvs:
+            return state
+        w = state.virial
+        for i, cv in vir_cvs:
+            w = w + cv.bias_virial(state, system, dVds[i])
+        return state.replace(virial=w)
 
     return eval_bias, apply_force
 

@@ -130,11 +130,14 @@ def test_cpu_wrapper_is_the_plain_version():
 
 
 @pytest.mark.parametrize("change", [
-    dict(uniform_sigma=None, uniform_eps=None),
+    dict(uniform_sigma=None),
     dict(fene_k=30.0, fene_r0=1.5),
     dict(pair_kind="soft"),
 ])
 def test_kernel_refuses_specs_it_does_not_take(change):
+    """The kernel takes the sentinel and per-slot layouts, tables and bonds
+    (tests/test_torch_bond_kernels.py); it refuses a uniform ε with a
+    per-slot σ, bonds in the sentinel layout and the soft pair."""
     kw = dict(r_cut=2.5, skin=0.55, cap=40, uniform_sigma=1.0,
               uniform_eps=1.0)
     spec = PackedSpec.create(10.26, 864, **{**kw, **change})
@@ -148,11 +151,14 @@ def test_kernel_refuses_specs_it_does_not_take(change):
     dict(eps_scale=[[1.0, 0.5], [0.5, 1.0]]),
 ])
 def test_plain_force_refuses_unported_physics(change):
+    """Soft pairs, bonds and tables are ported; the per-cell mask of the
+    spatial decomposition is not, in any of those layouts."""
     sampler, spec = _sampler("cpu")
     kw = dict(r_cut=2.5, skin=0.55, cap=40)
     other = PackedSpec.create(10.26, 864, **{**kw, **change})
-    with pytest.raises(NotImplementedError):
-        packed_lj_force(sampler.state, other)
+    with pytest.raises(NotImplementedError, match="cell_mask"):
+        packed_lj_force(sampler.state, other,
+                        cell_mask=torch.ones(other.n_cells))
 
 
 @pytest.mark.parametrize("kwargs", [
