@@ -99,6 +99,15 @@ CFG2_T_BAND = (0.9, 1.1)
 CFG2_PUSHOFF_STEPS = 2000
 CFG2_EPS_TABLE = [[1.0, 0.6], [0.6, 1.0]]
 WCA_RC = 2.0 ** (1.0 / 6.0)
+TRIC_STRIDE = 50
+TRIC_KT = 0.7
+TRIC_A = 1.68
+TRIC_TILT = (0.2, -0.12, 0.1)
+# from the plain path on the CPU at 4,000 particles (PERF.md §6): T dips
+# to 0.44 in the first stride from the fcc start and T - 0.7 decays by
+# ~0.8 per stride after it
+TRIC_WARM = 12
+TRIC_T_BAND = (0.6, 0.8)
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # FP32 outside the tensor cores, and HBM3.
@@ -176,6 +185,24 @@ def pair_kernel_bytes(spec, with_energy: bool, v1: bool = False) -> int:
     if spec.has_bonds:
         per_slot += 4 + 4 * spec.bond_slots             # pid, bp*
     return spec.n_pad * per_slot + (16 if with_energy else 0)
+
+
+def pair_close(tag: str, a, b, with_energy: bool) -> tuple:
+    """Hold a pair kernel's state ``a`` against the plain force's ``b``:
+    max|df| <= 1e-4 max|f| + 1e-3, PE and virial rtol 1e-5.  Returns
+    (max|df|, a report)."""
+    import numpy as np
+    df = float((a.f - b.f).abs().max())
+    fmax = float(b.f.abs().max())
+    assert np.isfinite(df) and df <= 1e-4 * fmax + 1e-3, (tag, df, fmax)
+    line = f"max|df|/max|f|={df / fmax:.3e} (max|f|={fmax:.3e})"
+    if with_energy:
+        dpe = abs(float(a.potential_energy - b.potential_energy)) / abs(
+            float(b.potential_energy))
+        dw = float(((a.virial - b.virial).abs() / b.virial.abs()).max())
+        assert dpe <= 1e-5 and dw <= 1e-5, (tag, dpe, dw)
+        line += f" rel_dPE={dpe:.3e} rel_dvirial={dw:.3e}"
+    return df, line
 
 
 def pair_kernel_bound(spec, n_pairs: int, n_bonds: int, with_energy: bool,
@@ -650,19 +677,6 @@ def config2_kernels_vs_plain(melt: dict, dev) -> dict:
     from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
     from metadyn_tpu_torch.ops.packed_v1_cuda import packed_lj_force_v1_cuda
 
-    def compare(tag, a, b, with_energy):
-        df = float((a.f - b.f).abs().max())
-        fmax = float(b.f.abs().max())
-        assert np.isfinite(df) and df <= 1e-4 * fmax + 1e-3, (tag, df, fmax)
-        line = f"max|df|/max|f|={df / fmax:.3e} (max|f|={fmax:.3e})"
-        if with_energy:
-            dpe = abs(float(a.potential_energy - b.potential_energy)) / abs(
-                float(b.potential_energy))
-            dw = float(((a.virial - b.virial).abs() / b.virial.abs()).max())
-            assert dpe <= 1e-5 and dw <= 1e-5, (tag, dpe, dw)
-            line += f" rel_dPE={dpe:.3e} rel_dvirial={dw:.3e}"
-        return df, line
-
     n_bonds = len(melt["bonds"])
     out = {}
     for layout in CFG2_LAYOUTS:
@@ -673,7 +687,7 @@ def config2_kernels_vs_plain(melt: dict, dev) -> dict:
             a = packed_lj_force_cuda(st, spec, with_energy=we)
             b = packed_lj_force(st, spec, with_energy=we)
             torch.cuda.synchronize()
-            err, line = compare(layout, a, b, we)
+            err, line = pair_close(layout, a, b, we)
             ms = cuda_ms(lambda: packed_lj_force_cuda(st, spec,
                                                       with_energy=we))
             plain = cuda_ms(lambda: packed_lj_force(st, spec,
@@ -692,8 +706,8 @@ def config2_kernels_vs_plain(melt: dict, dev) -> dict:
         plain = packed_lj_force(st, spec, with_energy=True)
         k1 = packed_lj_force_cuda(st, spec, with_energy=True)
         torch.cuda.synchronize()
-        err, line = compare(f"v1 {layout}", v1, plain, True)
-        err_k1, line_k1 = compare(f"v1 vs kernel 1 {layout}", v1, k1, True)
+        err, line = pair_close(f"v1 {layout}", v1, plain, True)
+        err_k1, line_k1 = pair_close(f"v1 vs kernel 1 {layout}", v1, k1, True)
         ms = cuda_ms(lambda: packed_lj_force_v1_cuda(st, spec))
         plain_ms = cuda_ms(lambda: packed_lj_force(st, spec,
                                                    with_energy=True),
@@ -733,6 +747,327 @@ def config2_sampler(melt: dict, dev, engine_cls=None, gamma: float = 1.0,
         seed=2, chunks_per_block=4, bias_every=1,
         walls=WallSpec.at_grid_edges(grid, k=50.0))
     return sampler, s0
+
+
+def triclinic_pack(n_cells: int, dev, engine_cls=None,
+                   sentinel: bool = False, noise: float = 0.0):
+    """examples/triclinic_packed.yaml's start on the port: fcc_lattice(
+    n_cells, 1.68) in Box.triclinic(L, L, L, 0.2, -0.12, 0.1), all types 0,
+    eps = sigma = 1, velocities from numpy seed 11 (the YAML's seed) at kT
+    0.7; LJ r_cut 2.5 without shift, skin 0.4, cap 40, rebuild every 5
+    steps.  ``sentinel`` packs the same start in the sentinel layout
+    (uniform sigma = eps = 1), the fused kernel's; ``noise`` adds Gaussian
+    displacements (numpy seed 5) for the kernel checks.  The cubic lattice
+    is not periodic under the tilted cell: the start has close contacts
+    across the z face, as the reference's has.  Returns (engine, state,
+    spec)."""
+    import numpy as np
+    from metadyn_tpu_torch import Box, PackedEngine, PackedSpec, fcc_lattice
+    pos = fcc_lattice(n_cells, TRIC_A)
+    n = pos.shape[0]
+    L = n_cells * TRIC_A
+    rng = np.random.default_rng(11)
+    vel = rng.normal(0.0, np.sqrt(TRIC_KT), (n, 3)).astype(np.float32)
+    vel -= vel.mean(axis=0)
+    if noise:
+        pos = (pos + np.random.default_rng(5).normal(0.0, noise, pos.shape)
+               ).astype(np.float32)
+    kw = dict(uniform_sigma=1.0, uniform_eps=1.0) if sentinel else {}
+    spec = PackedSpec.create(L, n, r_cut=2.5, skin=0.4, cap=40,
+                             shift_energy=False, tilt=TRIC_TILT, **kw)
+    engine = (engine_cls or PackedEngine)(spec, dev, rebuild_every=5)
+    state, overflow = engine.pack_state(
+        pos, Box.triclinic(L, L, L, dev, *TRIC_TILT), np.zeros(n, np.int32),
+        np.ones(n, np.float32), np.ones(n, np.float32), vel=vel)
+    assert not overflow, f"cell capacity overflow at pack (n_cells {n_cells})"
+    return engine, state, spec
+
+
+def triclinic_cv(spec):
+    from metadyn_tpu_torch import PackedSteinhardtQl
+    return PackedSteinhardtQl(spec, r_cut=1.49, l=6, name="q6")
+
+
+def triclinic_sampler(n_cells: int, dev, engine_cls=None, gamma: float = 1.0,
+                      stride: int = TRIC_STRIDE):
+    """The triclinic sampler through the port's entry points (the YAML's
+    engine, CV, bias and integrator, as metadyn_tpu/cli.py builds them, no
+    hill file; cli.py's start check: Q6 within the grid's range +-5%).
+    Returns (sampler, Q6 at the start)."""
+    from metadyn_tpu_torch import (
+        GridSpec, HillSpec, MetadSampler, WELL_TEMPERED,
+        make_packed_langevin_step, make_system,
+    )
+    engine, state, spec = triclinic_pack(n_cells, dev, engine_cls)
+    cv = triclinic_cv(spec)
+    system = make_system(spec.n_real, dev)
+    lo, hi = 0.0, 0.75
+    s0 = float(cv.value(state, system))
+    margin = 0.05 * (hi - lo)
+    assert lo - margin <= s0 <= hi + margin, f"Q6 = {s0} outside the grid"
+    grid = GridSpec.create([lo], [hi], [64], [0.02], dev)
+    sampler = MetadSampler(
+        system, state, engine, [cv], grid,
+        HillSpec.create(W=0.3, stride=stride, mode=WELL_TEMPERED,
+                        deltaT=4.0),
+        lambda f: make_packed_langevin_step(f, dt=0.004, kT=TRIC_KT,
+                                            gamma=gamma),
+        seed=11, chunks_per_block=16, bias_every=1)
+    return sampler, s0
+
+
+def min_image_tilted(d, box):
+    """Displacements (N, 3) (torch) to their minimum image in ``box``."""
+    import torch
+    from metadyn_tpu_torch.core.box import fractional, from_fractional
+    f = fractional(d, box)
+    return from_fractional(f - torch.round(f), box)
+
+
+def triclinic_kernels_vs_plain(dev, n_cells: int) -> dict:
+    """Phase 16 at one size: kernel 1 (b) and v1 on the tilted per-slot
+    start, kernels 2 and 3 in the validity layout with Q6 and coordination
+    without a cut-off (the pack leaves the vacant slots at 0, where a
+    coordinate test would count them), kernel 4 on the tilted sentinel
+    start; noise 0.05.  Returns per kernel (max abs error, kernel ms, plain
+    ms, bound ms, bound by)."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import PackedCoordination
+    from metadyn_tpu_torch.cv.packed_order import (
+        order_force_plain, order_values_plain,
+    )
+    from metadyn_tpu_torch.ops.packed import packed_lj_force
+    from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
+    from metadyn_tpu_torch.ops.packed_fused_cuda import (
+        fused_lj_order_force_cuda, fused_lj_order_force_plain,
+    )
+    from metadyn_tpu_torch.ops.packed_order_cuda import (
+        order_force_cuda, order_values_cuda,
+    )
+    from metadyn_tpu_torch.ops.packed_v1_cuda import packed_lj_force_v1_cuda
+
+    tag = f"triclinic N={4 * n_cells ** 3}"
+    _, st, spec = triclinic_pack(n_cells, dev, noise=0.05)
+    vac = st.pid >= spec.n_real
+    assert bool((st.r[:, vac] == 0.0).all()), "vacant slots not at 0"
+    fp, n_pad = FLOP_PER_PAIR, spec.n_pad
+    lj_pairs = pairs_within(st, spec, spec.r_cut)
+    out = {}
+
+    for we in (False, True):
+        a = packed_lj_force_cuda(st, spec, with_energy=we)
+        b = packed_lj_force(st, spec, with_energy=we)
+        torch.cuda.synchronize()
+        assert torch.all(a.f[:, vac] == 0.0)
+        err, line = pair_close("pair", a, b, we)
+        ms = cuda_ms(lambda: packed_lj_force_cuda(st, spec, with_energy=we))
+        plain = cuda_ms(lambda: packed_lj_force(st, spec, with_energy=we),
+                        calls=10)
+        bms, by = pair_kernel_bound(spec, lj_pairs, 0, we)
+        out[f"pair{'+energy' if we else ''}"] = (err, ms, plain, bms, by)
+        print(f"{tag} pair kernel se_hs tilted with_energy={we}: {line} "
+              f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bms:.5f} "
+              f"({by}; {lj_pairs} pairs, Npad {n_pad})")
+
+    v1 = packed_lj_force_v1_cuda(st, spec)
+    k1 = packed_lj_force_cuda(st, spec, with_energy=True)
+    b = packed_lj_force(st, spec, with_energy=True)
+    torch.cuda.synchronize()
+    err, line = pair_close("v1", v1, b, True)
+    err_k1, line_k1 = pair_close("v1 vs kernel 1", v1, k1, True)
+    ms = cuda_ms(lambda: packed_lj_force_v1_cuda(st, spec))
+    plain = cuda_ms(lambda: packed_lj_force(st, spec, with_energy=True),
+                    calls=10)
+    bms, by = pair_kernel_bound(spec, lj_pairs, 0, True, v1=True)
+    out["v1"] = (max(err, err_k1), ms, plain, bms, by)
+    print(f"{tag} v1 kernel tilted: vs plain {line}; vs pair kernel "
+          f"{line_k1} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+          f"bound_ms={bms:.5f} ({by})")
+
+    # kernels 2 and 3, validity layout: Q6 (the slice's) + coordination
+    # without a cut-off (every partner of the stencil, vacant ones too)
+    cvs = [triclinic_cv(spec),
+           PackedCoordination(spec, r0=1.35 * TRIC_A / np.sqrt(2),
+                              name="coord")]
+    tk = order_values_cuda(st, spec, cvs)
+    tp = order_values_plain(st, spec, cvs)
+    sk = torch.stack([cv.finalize_value(t) for cv, t in zip(cvs, tk)])
+    sp = torch.stack([cv.finalize_value(t) for cv, t in zip(cvs, tp)])
+    torch.cuda.synchronize()
+    ds = float(((sk - sp).abs() / sp.abs()).max())
+    lk = torch.cat([t.reshape(-1) for c in tk for t in c])
+    lp = torch.cat([t.reshape(-1) for c in tp for t in c])
+    err = float((lk - lp).abs().max())
+    assert np.isfinite(err) and ds <= 2e-5, (ds, sk, sp)
+    ms = cuda_ms(lambda: order_values_cuda(st, spec, cvs))
+    plain = cuda_ms(lambda: order_values_plain(st, spec, cvs), calls=10)
+    q6 = pairs_within(st, spec, cvs[0].r_cut)
+    all_pairs = pairs_within(st, spec, 1e3)
+    bms, by = bound(16 * n_pad, q6 * fp["q6_value"]
+                    + all_pairs * fp["coord_value"])
+    out["values"] = (err, ms, plain, bms, by)
+    print(f"{tag} order_values validity tilted: s={sk.tolist()} "
+          f"rel_ds={ds:.3e} max|dlane|={err:.3e} kernel_ms={ms:.4f} "
+          f"plain_ms={plain:.4f} bound_ms={bms:.5f} ({by}; q6 pairs {q6}, "
+          f"all stencil pairs {all_pairs})")
+
+    dV = torch.tensor([0.9, -1.3], device=dev)
+    auxs = [cv.grad_aux(t, dV[i]) for i, (cv, t) in enumerate(zip(cvs, tp))]
+    gk = order_force_cuda(st, spec, cvs, auxs)
+    gp = order_force_plain(st, spec, cvs, auxs)
+    torch.cuda.synchronize()
+    assert torch.all(gk[:, vac] == 0.0)
+    d = (gk - gp).abs()
+    gmax = float(gp.abs().max())
+    worst = float((d - 2e-3 * gp.abs()).max())
+    assert np.isfinite(gmax) and worst <= 2e-4 * gmax, (worst, gmax)
+    ms = cuda_ms(lambda: order_force_cuda(st, spec, cvs, auxs))
+    plain = cuda_ms(lambda: order_force_plain(st, spec, cvs, auxs), calls=10)
+    bms, by = bound(28 * n_pad, q6 * fp["q6_force"]
+                    + all_pairs * fp["coord_force"])
+    out["force"] = (float(d.max()), ms, plain, bms, by)
+    print(f"{tag} order_force validity tilted: max|dg|={float(d.max()):.3e} "
+          f"max|g|={gmax:.3e} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+          f"bound_ms={bms:.5f} ({by})")
+
+    # kernel 4: the sentinel layout on the tilted start
+    _, sst, sspec = triclinic_pack(n_cells, dev, sentinel=True, noise=0.05)
+    scvs = [triclinic_cv(sspec),
+            PackedCoordination(sspec, r0=1.35 * TRIC_A / np.sqrt(2),
+                               r_cut=2.4, name="coord")]
+    stp = order_values_plain(sst, sspec, scvs)
+    sauxs = [cv.grad_aux(t, dV[i]) for i, (cv, t) in enumerate(zip(scvs,
+                                                                   stp))]
+    fk, gk4, tk4 = fused_lj_order_force_cuda(sst, sspec, scvs, sauxs)
+    fpl, gp4, tp4 = fused_lj_order_force_plain(sst, sspec, scvs, sauxs)
+    torch.cuda.synchronize()
+    svac = sst.pid >= sspec.n_real
+    assert torch.all(fk[:, svac] == 0.0) and torch.all(gk4[:, svac] == 0.0)
+    ef = float((fk - fpl).abs().max())
+    fmax = float(fpl.abs().max())
+    assert np.isfinite(ef) and ef <= 1e-3 * fmax, (ef, fmax)
+    d4 = (gk4 - gp4).abs()
+    worst = float((d4 - 2e-3 * gp4.abs()).max())
+    assert worst <= 2e-4 * float(gp4.abs().max()), worst
+    s4k = torch.stack([cv.finalize_value(t) for cv, t in zip(scvs, tk4)])
+    s4p = torch.stack([cv.finalize_value(t) for cv, t in zip(scvs, tp4)])
+    ds4 = float(((s4k - s4p).abs() / s4p.abs()).max())
+    assert ds4 <= 2e-4, (ds4, s4k, s4p)
+    ms = cuda_ms(lambda: fused_lj_order_force_cuda(sst, sspec, scvs, sauxs))
+    plain = cuda_ms(lambda: fused_lj_order_force_plain(sst, sspec, scvs,
+                                                       sauxs), calls=10)
+    sq6 = pairs_within(sst, sspec, scvs[0].r_cut)
+    sco = pairs_within(sst, sspec, scvs[1].r_cut)
+    slj = pairs_within(sst, sspec, sspec.r_cut)
+    bms, by = bound(36 * sspec.n_pad, slj * fp["lj"]
+                    + sq6 * (fp["q6_value"] + fp["q6_force"])
+                    + sco * (fp["coord_value"] + fp["coord_force"]))
+    out["fused"] = (max(ef, float(d4.max())), ms, plain, bms, by)
+    print(f"{tag} fused_lj_order sentinel tilted: max|df_lj|={ef:.3e} "
+          f"(max|f_lj|={fmax:.3e}) max|dg|={float(d4.max()):.3e} "
+          f"rel_ds={ds4:.3e} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+          f"bound_ms={bms:.5f} ({by})")
+    return out
+
+
+def triclinic_kernel_vs_plain(dev) -> None:
+    """Phase 17: 20 steps of the triclinic slice (4,000 particles) at
+    gamma = 0, the kernel path against the plain path, from one state."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch.ops.packed import unpack_positions
+
+    finals = []
+    for plain in (False, True):
+        reset_counts()
+        with plain_order_path() if plain else contextlib.nullcontext():
+            s, _ = triclinic_sampler(10, dev, plain_force_engine() if plain
+                                     else None, gamma=0.0, stride=20)
+            m = s.run(20)[-1]
+        counts = read_counts()
+        want = ({k: 0 for k in counts} if plain else
+                {**{k: 0 for k in counts}, "pair": 23, "values": 23,
+                 "force": 21})
+        assert counts == want, (plain, counts)
+        finals.append((unpack_positions(s.state, s.engine.spec),
+                       float(np.asarray(m["cv"])[0]),
+                       float(m["potential_energy"])))
+    dpos = float(min_image_tilted(finals[0][0] - finals[1][0],
+                                  s.state.box).abs().max())
+    dq6 = abs(finals[0][1] - finals[1][1])
+    assert dpos <= 1e-3 and dq6 <= 1e-4, (dpos, dq6)
+    torch.cuda.synchronize()
+    print(f"triclinic_kernel_vs_plain gamma=0 20 steps (N=4000): "
+          f"max|dpos|={dpos:.3e} |dQ6|={dq6:.3e} "
+          f"rel_dPE={abs(finals[0][2] - finals[1][2]) / abs(finals[1][2]):.3e}"
+          f" Q6={finals[0][1]:.5f}")
+
+
+def triclinic_timed(dev, smi: str, n_cells: int = 25, warm: int = TRIC_WARM,
+                    n_runs: int = 2, n_timed: int = 3,
+                    profile: bool = True) -> dict:
+    """Phase 18: the triclinic slice timed, with the physics checks and
+    exact launch counts per stride (bias_every 1: every step one pair
+    force, one value sweep and one force sweep; the stride end one energy
+    refresh and one value sweep for the CV).  Returns the last run's
+    counts."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch.utils.profiling import device_profile
+
+    s, s0 = triclinic_sampler(n_cells, dev)
+    spec = s.engine.spec
+    n = spec.n_real
+    if n_cells == 25:
+        assert (spec.cells_per_dim, spec.cap, spec.n_pad) == ((14, 14, 14),
+                                                              40, 109760)
+    hist = s.run(TRIC_STRIDE * warm)
+    assert not any(bool(m["nlist_overflow"]) for m in hist), "warm overflow"
+    print(f"triclinic N={n} warm: Q6 at the start {s0:.5f}; {warm} strides, "
+          f"T by stride {[round(float(m['temperature']), 4) for m in hist]}")
+    per_stride = {"pair": TRIC_STRIDE + 1, "values": TRIC_STRIDE + 1,
+                  "force": TRIC_STRIDE}
+    runs = []
+    for _ in range(n_runs):
+        hills0 = s.bias.n_hills
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        hist = s.run(TRIC_STRIDE * n_timed)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        assert counts == {**{k: 0 for k in counts},
+                          **{k: n_timed * v for k, v in per_stride.items()}
+                          }, counts
+        assert s.bias.n_hills - hills0 == n_timed, s.bias.n_hills
+        for m in hist:
+            for k in ("cv", "bias_V", "hill_height", "temperature",
+                      "potential_energy"):
+                assert np.all(np.isfinite(m[k])), (k, m)
+            assert not m["nlist_overflow"], m
+            assert not m["cell_width_violation"], m
+            assert TRIC_T_BAND[0] < float(m["temperature"]) < TRIC_T_BAND[1], m
+            assert float(m["hill_height"]) > 0.0, m
+        runs.append(dt)
+        last = hist[-1]
+        print(f"triclinic N={n}: {n_timed} strides {dt:.3f} s "
+              f"{n * TRIC_STRIDE * n_timed / dt:.1f} particle-steps/s "
+              f"T={float(last['temperature']):.4f} "
+              f"PE/N={float(last['potential_energy']) / n:.4f} "
+              f"Q6={float(last['cv'][0]):.5f} V={float(last['bias_V']):.4f} "
+              f"T_range=[{min(float(m['temperature']) for m in hist):.4f}, "
+              f"{max(float(m['temperature']) for m in hist):.4f}] "
+              f"launches={counts} on {smi}")
+    if profile:
+        prof = device_profile(lambda: s.run(TRIC_STRIDE))
+        untraced_ms = 1e3 * min(runs) / n_timed
+        prof["busy_share_untraced"] = prof["busy_ms"] / untraced_ms
+        prof["tracing_overhead_ms"] = prof["wall_ms"] - untraced_ms
+        print(f"profile triclinic N={n} one stride: {json.dumps(prof)} "
+              f"on {smi}")
+    return counts
 
 
 def config2_kernel_vs_plain(melt: dict, dev) -> None:
@@ -1004,6 +1339,17 @@ def main() -> int:
     config2_kernel_vs_plain(melt, dev)
     cfg2_launches = config2_timed(melt, dev, smi[0])
 
+    # 16.-18. the triclinic slice: the tilted and validity kernels against
+    # their plain versions at both sizes, the slice against the plain path,
+    # the slice timed at 62,500 particles and at the YAML's 4,000
+    t16 = time.perf_counter()
+    tric = {n_cells: triclinic_kernels_vs_plain(dev, n_cells)
+            for n_cells in (25, 10)}
+    triclinic_kernel_vs_plain(dev)
+    tric_counts = triclinic_timed(dev, smi[0])
+    triclinic_timed(dev, smi[0], n_cells=10, n_runs=1, profile=False)
+    print(f"triclinic phases 16-18: {time.perf_counter() - t16:.1f} s")
+
     def entry(name, source, replaces, launches, nums, **extra):
         err, ms, plain_ms, bms, by = nums
         return {"name": name, "route": "cuda",
@@ -1015,30 +1361,45 @@ def main() -> int:
     variants = {
         "sentinel liq64k": (errs[False], *times[False], *liq_bound),
         **{f"{k} config2": v for k, v in cfg2.items()
-           if not k.startswith("v1")}}
+           if not k.startswith("v1")},
+        **{f"se_hs tilted{k[4:]} triclinic N={4 * c ** 3}": v
+           for c, t in tric.items() for k, v in t.items()
+           if k.startswith("pair")}}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+
+    def tric_variants(kernel, layout):
+        return {f"{layout} tilted triclinic N={4 * c ** 3}":
+                dict(zip(keys, t[kernel])) for c, t in tric.items()}
+
     print(json.dumps({"kernels": [
         entry(KERNEL, KERNEL, "metadyn_tpu/ops/packed_pallas2.py:301",
               cfg2_launches, cfg2["se_hs_table_fene"],
               launches_by_path={"liq64k bias_every=5": rates[5][1],
                                 "config3 mts_lag": lag_counts["pair"],
-                                "config2": cfg2_launches},
-              variants={k: dict(zip(("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by"), v))
-                        for k, v in variants.items()}),
+                                "config2": cfg2_launches,
+                                "triclinic": tric_counts["pair"]},
+              variants={k: dict(zip(keys, v)) for k, v in variants.items()}),
         entry("packed_order_values", packed_order_cuda.KERNEL,
               "metadyn_tpu/ops/packed_order_pallas.py:257",
-              lag_counts["values"], order["values"]),
+              lag_counts["values"], order["values"],
+              launches_by_path={"config3 mts_lag": lag_counts["values"],
+                                "triclinic": tric_counts["values"]},
+              variants=tric_variants("values", "validity")),
         entry("packed_order_force", packed_order_cuda.KERNEL,
               "metadyn_tpu/ops/packed_order_pallas.py:309",
-              exact_counts["force"], order["force"]),
+              exact_counts["force"], order["force"],
+              launches_by_path={"config3 exact": exact_counts["force"],
+                                "triclinic": tric_counts["force"]},
+              variants=tric_variants("force", "validity")),
         entry(packed_fused_cuda.KERNEL, packed_fused_cuda.KERNEL,
               "metadyn_tpu/ops/packed_fused_pallas.py:296",
-              lag_counts["fused"], order["fused"]),
+              lag_counts["fused"], order["fused"],
+              variants=tric_variants("fused", "sentinel")),
         entry(v1_lib, v1_lib, "metadyn_tpu/ops/packed_pallas.py:185", 0,
               cfg2["v1 se_hs_fene_wca"],
-              variants={k: dict(zip(("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by"), v))
-                        for k, v in cfg2.items() if k.startswith("v1")}),
+              variants={**{k: dict(zip(keys, v)) for k, v in cfg2.items()
+                           if k.startswith("v1")},
+                        **tric_variants("v1", "se_hs")}),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -9,10 +9,11 @@ with tilt factors ``(xy, xz, yz)`` defining the upper-triangular cell matrix
 
 so a lattice point is ``r = h @ f`` with fractional ``f``.
 
-The box keeps ``L`` twice: as a (3,) f32 tensor on the device for tensor
-math, and as three host floats (``L_host``, the same f32 values) so that a
-kernel launch gets the box without a device-to-host read.  The NVT box is
-constant, so the two never drift apart.
+The box keeps ``L`` and the tilt twice: as (3,) f32 tensors on the device
+for tensor math, and as host floats (``L_host``, ``tilt_host``: the same f32
+values) so that a kernel launch gets the box without a device-to-host read.
+The NVT box is constant, so the two never drift apart; a box whose tilt
+tensor and host floats disagree in presence is refused at construction.
 
 The triangular transforms are elementwise, never a matmul: a reduced
 precision matrix product there once cost the reference ~1e-3 of relative
@@ -36,6 +37,12 @@ class Box:
     L: torch.Tensor                       # (3,) f32
     L_host: tuple                         # (Lx, Ly, Lz) host floats
     tilt: Optional[torch.Tensor] = None   # (3,) f32 = (xy, xz, yz), or None
+    tilt_host: Optional[tuple] = None     # (xy, xz, yz) host floats, or None
+
+    def __post_init__(self):
+        if (self.tilt is None) != (self.tilt_host is None):
+            raise ValueError("Box: the tilt tensor and its host floats "
+                             "(tilt_host) must be given together")
 
     @classmethod
     def from_lengths(cls, Lx: float, Ly: float, Lz: float,
@@ -53,9 +60,10 @@ class Box:
                   xy: float = 0.0, xz: float = 0.0, yz: float = 0.0) -> "Box":
         """HOOMD-convention triclinic box (dimensionless tilt factors)."""
         box = cls.from_lengths(Lx, Ly, Lz, device)
-        tilt = torch.as_tensor(np.asarray([xy, xz, yz], np.float32),
-                               device=device)
-        return dataclasses.replace(box, tilt=tilt)
+        tilt = np.asarray([xy, xz, yz], np.float32)
+        return dataclasses.replace(
+            box, tilt=torch.as_tensor(tilt, device=device),
+            tilt_host=tuple(float(x) for x in tilt))
 
     @property
     def volume(self) -> torch.Tensor:
@@ -65,6 +73,15 @@ class Box:
     @property
     def is_triclinic(self) -> bool:
         return self.tilt is not None
+
+    def h_host(self) -> tuple:
+        """The cell matrix's six entries as host floats, (Lx, Ly, Lz, xy·Ly,
+        xz·Lz, yz·Lz), each product rounded to f32 as the plain sweeps form
+        it (``ops.packed.shift_rows_cart``); zero tilt when orthorhombic."""
+        L = np.asarray(self.L_host, np.float32)
+        t = np.asarray(self.tilt_host or (0.0, 0.0, 0.0), np.float32)
+        return (*(float(x) for x in L), float(t[0] * L[1]),
+                float(t[1] * L[2]), float(t[2] * L[2]))
 
     def to(self, device) -> "Box":
         return dataclasses.replace(
@@ -98,6 +115,23 @@ def h_inverse(box: Box) -> torch.Tensor:
         torch.stack([z, 1.0 / Ly, -yz / Ly]),
         torch.stack([z, z, 1.0 / Lz]),
     ])
+
+
+def perpendicular_widths(box: Box) -> torch.Tensor:
+    """(3,) f32 distances between opposite faces of the cell: V/|b×c|,
+    V/|c×a|, V/|a×b| for the columns a, b, c of h (``L`` when
+    orthorhombic).  Cross and dot products written out elementwise, in f32,
+    with no matrix product."""
+    if box.tilt is None:
+        return box.L
+    h = h_matrix(box)
+    a, b, c = h[:, 0], h[:, 1], h[:, 2]
+    bc, ca, ab = (torch.linalg.cross(b, c), torch.linalg.cross(c, a),
+                  torch.linalg.cross(a, b))
+    vol = torch.abs(torch.sum(a * bc))
+    return vol / torch.sqrt(torch.stack([torch.sum(bc * bc),
+                                         torch.sum(ca * ca),
+                                         torch.sum(ab * ab)]))
 
 
 def reciprocal_matrix(box: Box) -> torch.Tensor:

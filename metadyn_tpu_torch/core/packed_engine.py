@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .box import Box
+from .box import Box, perpendicular_widths
 from ..ops.packed import (
     PackedSpec, PackedState, needs_repack, pack_host, packed_lj_force,
     packed_temperature, repack_incremental,
@@ -121,14 +121,12 @@ class PackedEngine:
         return self._pair_force(state, True)
 
     def metrics(self, state: PackedState, aux: PackedAux) -> dict:
-        if state.box.tilt is not None:
-            raise NotImplementedError("PackedEngine.metrics: triclinic "
-                                      "boxes are not ported yet")
-        # the cell count per axis is fixed while the width L/c follows the
-        # box: a cell narrower than r_cut + skin silently misses pairs
+        # the cell count per axis is fixed while the width follows the box:
+        # a cell narrower than r_cut + skin silently misses pairs.  A tilted
+        # cell's width is its perpendicular width over the count.
         cpd = torch.as_tensor(np.asarray(self.spec.cells_per_dim, np.float32),
                               device=state.box.L.device)
-        width = state.box.L / cpd
+        width = perpendicular_widths(state.box) / cpd
         return {
             "temperature": packed_temperature(state, self.spec, self.mass),
             "potential_energy": state.potential_energy,

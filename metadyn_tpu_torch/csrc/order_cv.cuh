@@ -1,5 +1,6 @@
-// Order-CV pair sweep over the cell-major slot layout (sentinel layout):
-// the per-CV pair math and the one traversal that kernels 2, 3 and 4 share.
+// Order-CV pair sweep over the cell-major slot layout (sentinel or validity
+// layout, orthorhombic or tilted box): the per-CV pair math and the one
+// traversal that kernels 2, 3 and 4 share.
 //
 // Replaces, in metadyn_tpu/ops/:
 //   packed_order_pallas.py  order_values_pallas  (Vals)
@@ -9,7 +10,8 @@
 //
 // Layout as in packed_lj_force.cu: positions (3, Npad) f32, slot = rank * C +
 // cell; a cell's partners are the `cap` rows of each of its 27 neighbour
-// cells, seen across a box face at x_j + s * L.
+// cells, seen across a box face at x_j + h u (cell_geom.cuh: one shift per
+// neighbour cell, exactly +-L per axis in an orthorhombic box).
 //
 // Design: one thread per i slot sweeps all 27 * cap partners, i side only.
 // The TPU kernels halve the sweep (self cell weight 1, 13 cross offsets
@@ -21,11 +23,15 @@
 // forces with no atomics and no rollback buffer, deterministically, at twice
 // the pair evaluations.
 //
-// Vacancy: an explicit sentinel weight, (x_i < VACANT_THR) & (x_j <
-// VACANT_THR) & (r^2 > 1e-12), as packed_order_pallas._pair_geom applies.
-// The r^2 tests alone, which the LJ kernel relies on, do not cull a vacant
-// partner for a CV with no cut-off short of the stencil.  A vacant i slot
-// writes zero force.
+// Vacancy: an explicit weight, as packed_order_pallas._pair_geom applies it.
+// In the sentinel layout (uniform sigma and epsilon) (x_i < VACANT_THR) &
+// (x_j < VACANT_THR) & (r^2 > 1e-12).  In the validity layout (template flag
+// Valid, per-slot se/hs) (pid_i < n_real) & (pid_j < n_real) & (r^2 >
+// 1e-12), read from the int32 pids: there vacant slots are not parked at the
+// sentinel (the pack leaves them at 0 and the integrator moves them), so a
+// coordinate test would count them.  The r^2 tests alone, which the LJ
+// kernel relies on, do not cull a vacant partner for a CV with no cut-off
+// short of the stencil.  A vacant i slot writes zero force.
 //
 // CVs come as a small float descriptor in device memory, built by
 // ops/packed_order_cuda.py: per CV a header of kHdr floats
@@ -53,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cell_geom.cuh"
+
 namespace order_cv {
 
 constexpr int kThreads = 128;
@@ -70,7 +78,8 @@ struct Geom {
   int n_pad;
   int cap;
   int cx, cy, cz;
-  float Lx, Ly, Lz;
+  int n_real;  // the validity layout's vacancy bound on pid
+  cell_geom::HBox h;
 };
 
 struct LJParams {
@@ -89,20 +98,6 @@ inline int check_args(int n_cvs, int desc_len, int n_terms, int n_aux,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
-}
-
-__device__ __forceinline__ int wrap_axis(int i, int o, int c, float L,
-                                         float* shift) {
-  int j = i + o;
-  *shift = 0.0f;
-  if (j < 0) {
-    j += c;
-    *shift = -L;
-  } else if (j >= c) {
-    j -= c;
-    *shift = L;
-  }
-  return j;
 }
 
 // Horner in ascending-power coefficients c[0..n-1], from the top, as the
@@ -199,10 +194,13 @@ __device__ __forceinline__ void coord_pair(const float* h, const float* aux,
 
 // The traversal.  WithLJ adds the Lennard-Jones pair force (sentinel layout,
 // forces only) into f; Vals accumulates value terms into partials (one row
-// of n_terms per block); Grad writes the CV bias force into g.
-template <bool WithLJ, bool Vals, bool Grad>
+// of n_terms per block); Grad writes the CV bias force into g.  Valid: the
+// validity layout, vacancy from pid (otherwise from the coordinate
+// sentinel; pid is then not read and may be null).
+template <bool WithLJ, bool Vals, bool Grad, bool Valid>
 __global__ void __launch_bounds__(kThreads)
-order_sweep_kernel(const float* __restrict__ r, const float* __restrict__ desc,
+order_sweep_kernel(const float* __restrict__ r, const int* __restrict__ pid,
+                   const float* __restrict__ desc,
                    int desc_len, int n_cvs, int n_terms,
                    const float* __restrict__ aux, int n_aux, Geom p,
                    LJParams lj, float* __restrict__ f, float* __restrict__ g,
@@ -232,28 +230,25 @@ order_sweep_kernel(const float* __restrict__ r, const float* __restrict__ desc,
     const float xi = rx[s];
     const float yi = ry[s];
     const float zi = rz[s];
-    if (xi < kVacantThr) {
+    if (Valid ? pid[s] < p.n_real : xi < kVacantThr) {
       const int cell = s % C;
       const int iz = cell % p.cz;
       const int iy = (cell / p.cz) % p.cy;
       const int ix = cell / (p.cy * p.cz);
       for (int ox = -1; ox <= 1; ++ox) {
-        float sx;
-        const int jx = wrap_axis(ix, ox, p.cx, p.Lx, &sx);
         for (int oy = -1; oy <= 1; ++oy) {
-          float sy;
-          const int jy = wrap_axis(iy, oy, p.cy, p.Ly, &sy);
           for (int oz = -1; oz <= 1; ++oz) {
-            float sz;
-            const int jz = wrap_axis(iz, oz, p.cz, p.Lz, &sz);
-            const int jcell = (jx * p.cy + jy) * p.cz + jz;
+            float3 sh;
+            const int jcell = cell_geom::neighbour_cell(
+                ix, iy, iz, ox, oy, oz, p.cx, p.cy, p.cz, p.h, &sh);
             for (int k = 0; k < p.cap; ++k) {
               const int j = k * C + jcell;
               const float xj = rx[j];
-              if (!(xj < kVacantThr)) continue;  // vacant partner
-              const float dx = xi - (xj + sx);
-              const float dy = yi - (ry[j] + sy);
-              const float dz = zi - (rz[j] + sz);
+              // vacant partner
+              if (Valid ? !(pid[j] < p.n_real) : !(xj < kVacantThr)) continue;
+              const float dx = xi - (xj + sh.x);
+              const float dy = yi - (ry[j] + sh.y);
+              const float dz = zi - (rz[j] + sh.z);
               const float r2 = dx * dx + dy * dy + dz * dz;
               if (!(r2 > 1.0e-12f)) continue;  // the slot itself
               if (WithLJ && r2 < lj.rc2) {

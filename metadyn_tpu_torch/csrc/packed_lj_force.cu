@@ -2,7 +2,8 @@
 // per-slot parameters, per-type-pair scale tables and bonds.
 //
 // Replaces the TPU kernel `packed_lj_force_pallas2` in
-// metadyn_tpu/ops/packed_pallas2.py in its orthorhombic variants:
+// metadyn_tpu/ops/packed_pallas2.py in these variants, each in an
+// orthorhombic or a tilted (triclinic) box:
 //   (a) the sentinel layout: uniform sigma and epsilon, vacant slots parked
 //       at the coordinate sentinel VACANT_X (1e7) and culled by the r^2
 //       tests alone;
@@ -20,9 +21,10 @@
 //       sigma, or a harmonic spring, instead of the pair term.
 //
 // Layout (ops/packed.py): positions are a (3, Npad) f32 array, slot =
-// rank * C + cell, cell = (ix * cy + iy) * cz + iz.  A cell's partners are the
-// `cap` rows of each of the 27 neighbour cells; a neighbour that wraps past a
-// box face is seen at x_j + s * L with s in {-1, 0, 1}.
+// rank * C + cell, cell = (ix * cy + iy) * cz + iz, cells binned in fractional
+// coordinates.  A cell's partners are the `cap` rows of each of the 27
+// neighbour cells; a neighbour that wraps past a box face is seen at x_j + h u
+// with u in {-1, 0, 1}^3 (cell_geom.cuh: one shift per neighbour cell).
 //
 // What bounds it on Hopper: not device memory.  The inputs (positions, the
 // per-slot attrs, types, pids: 24-40 bytes per slot) stay resident in the
@@ -49,6 +51,7 @@
 
 #include <cuda_runtime.h>
 
+#include "cell_geom.cuh"
 #include "pair_terms.cuh"
 
 namespace {
@@ -66,7 +69,7 @@ struct Params {
   int cx, cy, cz;
   int n_types;       // table side (the table is n_types x n_types)
   int shift_energy;  // shift the LJ energy to 0 at r_cut
-  float Lx, Ly, Lz;
+  cell_geom::HBox h;
   float rc2;   // r_cut^2
   float sig2;  // uniform sigma^2 (layouts without hs)
   float eps;   // uniform epsilon (the sentinel layout)
@@ -117,20 +120,16 @@ lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
       const int iy = (cell / p.cz) % p.cy;
       const int ix = cell / (p.cy * p.cz);
       for (int ox = -1; ox <= 1; ++ox) {
-        float sx;
-        const int jx = pair_terms::wrap_axis(ix, ox, p.cx, p.Lx, &sx);
         for (int oy = -1; oy <= 1; ++oy) {
-          float sy;
-          const int jy = pair_terms::wrap_axis(iy, oy, p.cy, p.Ly, &sy);
           for (int oz = -1; oz <= 1; ++oz) {
-            float sz;
-            const int jz = pair_terms::wrap_axis(iz, oz, p.cz, p.Lz, &sz);
-            const int jcell = (jx * p.cy + jy) * p.cz + jz;
+            float3 sh;
+            const int jcell = cell_geom::neighbour_cell(
+                ix, iy, iz, ox, oy, oz, p.cx, p.cy, p.cz, p.h, &sh);
             for (int k = 0; k < p.cap; ++k) {
               const int j = k * C + jcell;
-              const float dx = xi - (rx[j] + sx);
-              const float dy = yi - (ry[j] + sy);
-              const float dz = zi - (rz[j] + sz);
+              const float dx = xi - (rx[j] + sh.x);
+              const float dy = yi - (ry[j] + sh.y);
+              const float dz = zi - (rz[j] + sh.z);
               const float r2 = dx * dx + dy * dy + dz * dz;
               bool bonded = false;
               if (Bond != kBondNone && has_partner) {
@@ -243,7 +242,9 @@ int packed_lj_force_threads() { return kThreads; }
 // 4) f32 scratch and out: (4,) f32 = (PE, Wxx, Wyy, Wzz); otherwise both may
 // be null.  Launches on `stream` and returns cudaGetLastError() (0 on
 // success), or -1 for a layout without an instantiation: the sentinel
-// layout has no table and no bonds, a table needs se and hs.
+// layout has no table and no bonds, a table needs se and hs.  Lx..Lz and
+// xyLy, xzLz, yzLz: the cell matrix (cell_geom.cuh HBox; zero tilt for an
+// orthorhombic box).
 int packed_lj_force(const float* r, const float* se, const float* hs,
                     const int* typ, const int* pid, const float* bp0,
                     const float* bp1, const float* bp2, const float* bp3,
@@ -251,13 +252,15 @@ int packed_lj_force(const float* r, const float* se, const float* hs,
                     int n_pad, int cap, int cx, int cy, int cz, int se_eps,
                     int hs_sig, int n_types, int bond_kind, int bond_slots,
                     int shift_energy, int with_energy, float Lx, float Ly,
-                    float Lz, float rc2, float sig2, float eps, float bond_k,
-                    float bond_r0, void* stream) {
+                    float Lz, float xyLy, float xzLz, float yzLz, float rc2,
+                    float sig2, float eps, float bond_k, float bond_r0,
+                    void* stream) {
   if (bond_slots < 0 || bond_slots > pair_terms::kMaxBondSlots) return -1;
   Args a{r, se, hs, typ, pid, {{bp0, bp1, bp2, bp3}, bond_slots}, table, f,
          partials, out,
-         Params{n_pad, cap, cx, cy, cz, n_types, shift_energy, Lx, Ly, Lz,
-                rc2, sig2, eps, bond_k, bond_r0}};
+         Params{n_pad, cap, cx, cy, cz, n_types, shift_energy,
+                {Lx, Ly, Lz, xyLy, xzLz, yzLz}, rc2, sig2, eps, bond_k,
+                bond_r0}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool we = with_energy != 0;
   const bool has_table = table != nullptr;

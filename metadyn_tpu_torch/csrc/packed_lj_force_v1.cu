@@ -22,12 +22,15 @@
 // neighbour cells in shared memory once (positions with the periodic shift
 // already applied, se, hs, pid + 1: 27 * cap * 6 floats, 26 KB at cap 40),
 // then each thread walks the staged rows for its own i slot of the cell.
+// Orthorhombic or tilted box: the shift of each neighbour cell is h u
+// (cell_geom.cuh), formed once per cell and thread while staging.
 // Threads are cap rounded up to a warp.  Energy and virial: a fixed-order
 // block sum into one partials row per cell and a one-block double-precision
 // second pass (pair_terms.cuh).  Every output element is written.
 
 #include <cuda_runtime.h>
 
+#include "cell_geom.cuh"
 #include "pair_terms.cuh"
 
 namespace {
@@ -44,7 +47,7 @@ struct Params {
   int cap;
   int cx, cy, cz;
   int shift_energy;
-  float Lx, Ly, Lz;
+  cell_geom::HBox h;
   float rc2;
   float bond_k;
   float bond_r0;
@@ -66,22 +69,22 @@ __global__ void lj_force_v1_kernel(const float* __restrict__ r,
   const int iy = (cell / p.cz) % p.cy;
   const int ix = cell / (p.cy * p.cz);
 
-  for (int q = threadIdx.x; q < n_stage; q += blockDim.x) {
-    const int o = q / p.cap;
-    const int k = q - o * p.cap;
-    float sx, sy, sz;
-    const int jx = pair_terms::wrap_axis(ix, o / 9 - 1, p.cx, p.Lx, &sx);
-    const int jy = pair_terms::wrap_axis(iy, (o / 3) % 3 - 1, p.cy, p.Ly,
-                                         &sy);
-    const int jz = pair_terms::wrap_axis(iz, o % 3 - 1, p.cz, p.Lz, &sz);
-    const int j = k * C + (jx * p.cy + jy) * p.cz + jz;
-    stage[q] = r[j] + sx;
-    stage[n_stage + q] = r[n_pad + j] + sy;
-    stage[2 * n_stage + q] = r[2 * n_pad + j] + sz;
-    stage[3 * n_stage + q] = se[j];
-    stage[4 * n_stage + q] = hs[j];
-    stage[5 * n_stage + q] =
-        Bond != kBondNone ? static_cast<float>(pid[j] + 1) : 0.0f;
+  for (int o = 0; o < 27; ++o) {
+    float3 sh;
+    const int jcell = cell_geom::neighbour_cell(
+        ix, iy, iz, o / 9 - 1, (o / 3) % 3 - 1, o % 3 - 1, p.cx, p.cy, p.cz,
+        p.h, &sh);
+    for (int k = threadIdx.x; k < p.cap; k += blockDim.x) {
+      const int q = o * p.cap + k;
+      const int j = k * C + jcell;
+      stage[q] = r[j] + sh.x;
+      stage[n_stage + q] = r[n_pad + j] + sh.y;
+      stage[2 * n_stage + q] = r[2 * n_pad + j] + sh.z;
+      stage[3 * n_stage + q] = se[j];
+      stage[4 * n_stage + q] = hs[j];
+      stage[5 * n_stage + q] =
+          Bond != kBondNone ? static_cast<float>(pid[j] + 1) : 0.0f;
+    }
   }
   __syncthreads();
 
@@ -162,18 +165,20 @@ extern "C" {
 // (3, n_pad) f32 out; partials: (C, 4) f32 scratch (one row per cell); out:
 // (4,) f32 = (PE, Wxx, Wyy, Wzz).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success), -1 for a cap above 1024 or an unknown
-// bond kind.
+// bond kind.  Lx..Lz and xyLy, xzLz, yzLz: the cell matrix (cell_geom.cuh
+// HBox; zero tilt for an orthorhombic box).
 int packed_lj_force_v1(const float* r, const float* se, const float* hs,
                        const int* pid, const float* bp0, const float* bp1,
                        const float* bp2, const float* bp3, float* f,
                        float* partials, float* out, int n_pad, int cap,
                        int cx, int cy, int cz, int bond_kind, int bond_slots,
                        int shift_energy, float Lx, float Ly, float Lz,
-                       float rc2, float bond_k, float bond_r0, void* stream) {
+                       float xyLy, float xzLz, float yzLz, float rc2,
+                       float bond_k, float bond_r0, void* stream) {
   if (bond_slots < 0 || bond_slots > pair_terms::kMaxBondSlots) return -1;
   BondSlots bp{{bp0, bp1, bp2, bp3}, bond_slots};
-  Params p{n_pad, cap, cx, cy, cz, shift_energy, Lx, Ly, Lz, rc2, bond_k,
-           bond_r0};
+  Params p{n_pad, cap, cx, cy, cz, shift_energy,
+           {Lx, Ly, Lz, xyLy, xzLz, yzLz}, rc2, bond_k, bond_r0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc;
   switch (bond_kind) {

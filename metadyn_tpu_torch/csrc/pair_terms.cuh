@@ -18,22 +18,6 @@ constexpr int kBondFene = 1;
 constexpr int kBondHarmonic = 2;
 constexpr int kMaxBondSlots = 4;
 
-// Neighbour index along one axis and the Cartesian periodic shift that goes
-// with it: s = floor((i + o) / c) in {-1, 0, 1}.
-__device__ __forceinline__ int wrap_axis(int i, int o, int c, float L,
-                                         float* shift) {
-  int j = i + o;
-  *shift = 0.0f;
-  if (j < 0) {
-    j += c;
-    *shift = -L;
-  } else if (j >= c) {
-    j -= c;
-    *shift = L;
-  }
-  return j;
-}
-
 // Lennard-Jones 4 eps ((s/r)^12 - (s/r)^6), shifted to 0 at r_cut when
 // `shift` is set.  eps4 = 4 eps, sig2 = sigma^2.
 template <bool WithEnergy>

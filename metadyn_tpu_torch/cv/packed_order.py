@@ -16,8 +16,9 @@ against on the card:
   only): cross-cell pairs get value weight 2, and the j-side force
   reaction −φ′(d_ij) = +φ′(d_ji) is rolled back onto j.
 - Vacancy enters through the validity weight (``pid < n_real``), so the
-  plain sweeps take both the sentinel and the validity layout; the kernels
-  take the sentinel layout only.
+  plain sweeps take both the sentinel and the validity layout, as the
+  kernels do (from the coordinate sentinel or from ``pid``); partner shifts
+  are tilt-aware in both (``ops.packed.shift_rows_cart``).
 
 The CVs keep the reference's flat-scalar protocol (``n_value_terms``,
 ``pair_value_terms_flat``, ``terms_from_flat``, ``aux_size``,

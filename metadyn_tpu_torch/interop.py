@@ -41,12 +41,13 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def box_from(obj, device) -> Box:
+    """The box with its host floats: ``L_host`` and, for a tilted box,
+    ``tilt_host`` (the kernels read the box from those)."""
     L = np.asarray(obj.L, np.float32).reshape(3)
-    box = Box.from_lengths(*L, device=device)
-    if obj.tilt is not None:
-        box = dataclasses.replace(
-            box, tilt=_t(np.asarray(obj.tilt, np.float32), device))
-    return box
+    if obj.tilt is None:
+        return Box.from_lengths(*L, device=device)
+    return Box.triclinic(*L, device,
+                         *np.asarray(obj.tilt, np.float32).reshape(3))
 
 
 def box_arrays(box: Box) -> dict:

@@ -1,9 +1,10 @@
 """Wrapper of the hand-written Hopper pair-force kernel
 (``csrc/packed_lj_force.cu``), the counterpart of
 ``metadyn_tpu/ops/packed_pallas2.packed_lj_force_pallas2`` in its
-orthorhombic variants: the sentinel layout, per-slot ``se``/``hs`` (or
-``se`` with a uniform σ), per-type-pair scale tables, and FENE or harmonic
-bonds.
+variants: the sentinel layout, per-slot ``se``/``hs`` (or ``se`` with a
+uniform σ), per-type-pair scale tables, and FENE or harmonic bonds, each in
+an orthorhombic or a tilted box (the kernel takes the cell matrix's six
+entries from ``Box.h_host``).
 
 On a CUDA tensor :func:`packed_lj_force_cuda` launches the kernel or raises;
 on a CPU tensor it runs the plain version, ``ops.packed.packed_lj_force``.
@@ -51,10 +52,9 @@ def check_spec(spec: PackedSpec) -> None:
 
 
 def check_state(state: PackedState, spec: PackedSpec, who: str) -> None:
-    """Raise on a state the kernels do not take: a tilted box, or positions
-    that are not contiguous f32 of shape (3, Npad)."""
-    if state.box.tilt is not None:
-        raise NotImplementedError(f"{who}: triclinic boxes are not ported")
+    """Raise on a state the kernels do not take: positions that are not
+    contiguous f32 of shape (3, Npad).  Any box is taken, orthorhombic or
+    tilted: the kernels read it from its host floats."""
     r = state.r
     if (r.dtype != torch.float32 or not r.is_contiguous()
             or tuple(r.shape) != (3, spec.n_pad)):
@@ -103,7 +103,7 @@ def _function():
     fn = lib.packed_lj_force
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 12
-                       + [ctypes.c_float] * 8 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 11 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.packed_lj_force_threads.argtypes = []
         lib.packed_lj_force_threads.restype = ctypes.c_int
@@ -150,7 +150,6 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
     else:
         p_ptr = o_ptr = None
     bond_kind = BOND_KINDS[spec.bond_kind if spec.has_bonds else None]
-    Lx, Ly, Lz = state.box.L_host
     cx, cy, cz = spec.cells_per_dim
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -160,7 +159,7 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
                  n_types, bond_kind,
                  spec.bond_slots if spec.has_bonds else 0,
                  int(spec.shift_energy), int(with_energy),
-                 Lx, Ly, Lz, float(spec.r_cut) ** 2,
+                 *state.box.h_host(), float(spec.r_cut) ** 2,
                  float(spec.uniform_sigma or 0.0) ** 2,
                  float(spec.uniform_eps or 0.0),
                  float(spec.fene_k or 0.0), float(spec.fene_r0 or 0.0),

@@ -1,7 +1,8 @@
 """Wrapper of the hand-written Hopper fused LJ + order-CV kernel
 (``csrc/packed_fused_lj_order.cu``), the counterpart of
 ``metadyn_tpu/ops/packed_fused_pallas.fused_lj_order_force`` in its
-recurrence mode.
+recurrence mode, in the sentinel layout (the reference's rule), in an
+orthorhombic or a tilted box.
 
 One traversal returns the LJ pair force, the order-CV bias force from the
 given (lagged) bias coefficients, and fresh CV value terms at the current
@@ -42,7 +43,7 @@ def _library():
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p, ctypes.c_int]
                        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 9 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.packed_fused_lj_order_threads.argtypes = []
         lib.packed_fused_lj_order_threads.restype = ctypes.c_int

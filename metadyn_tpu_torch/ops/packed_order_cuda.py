@@ -1,7 +1,9 @@
 """Wrappers of the hand-written Hopper order-CV kernels
 (``csrc/packed_order.cu``), the counterparts of
 ``metadyn_tpu/ops/packed_order_pallas.py`` ``order_values_pallas`` and
-``order_force_pallas`` in the sentinel layout.
+``order_force_pallas``: the sentinel layout (uniform σ and ε, vacancy by
+the coordinate sentinel) and the validity layout (per-slot ``se``/``hs``,
+vacancy by ``pid < n_real``), in an orthorhombic or a tilted box.
 
 On a CUDA tensor :func:`order_values_cuda` and :func:`order_force_cuda`
 launch their kernel or raise; on a CPU tensor they run the plain roll
@@ -25,7 +27,7 @@ import torch
 
 from . import _build
 from .packed import PackedSpec, PackedState
-from .packed_cuda import check_state
+from .packed_cuda import check_state, slot_ptr
 
 KERNEL = "packed_order"
 
@@ -113,30 +115,33 @@ def _plan(cvs: tuple, device: torch.device) -> tuple:
     return (torch.as_tensor(desc, device=device), n_vals, n_aux)
 
 
-def check_layout(state: PackedState, spec: PackedSpec, who: str) -> None:
-    """Raise on a state the order kernels do not take."""
-    if not spec.sentinel:
-        raise NotImplementedError(
-            f"{who}: only the sentinel layout (uniform_sigma and uniform_eps "
-            "set) is ported; the validity layout is not")
+def check_layout(state: PackedState, spec: PackedSpec, who: str) -> tuple:
+    """Raise on a state the order kernels do not take; return the layout
+    arguments (pid pointer, n_real): the checked int32 pids in the validity
+    layout, (None, 0) in the sentinel layout."""
     check_state(state, spec, who)
+    if spec.sentinel:
+        return None, 0
+    return slot_ptr(state.pid, torch.int32, spec, who, "pid"), spec.n_real
 
 
 def geometry_args(state: PackedState, spec: PackedSpec) -> tuple:
-    """(n_pad, cap, cx, cy, cz, Lx, Ly, Lz) as the kernels take them."""
-    return (spec.n_pad, spec.cap, *spec.cells_per_dim, *state.box.L_host)
+    """(n_pad, cap, cx, cy, cz, Lx, Ly, Lz, xy·Ly, xz·Lz, yz·Lz) as the
+    kernels take them: the cell grid and the cell matrix (``Box.h_host``)."""
+    return (spec.n_pad, spec.cap, *spec.cells_per_dim, *state.box.h_host())
 
 
 def _library():
     lib = _build.load(KERNEL)
     if lib.packed_order_values.argtypes is None:
-        geom = [ctypes.c_int] * 5 + [ctypes.c_float] * 3
+        geom = [ctypes.c_int] * 5 + [ctypes.c_float] * 6
+        layout = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         lib.packed_order_values.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
+            layout + [ctypes.c_void_p] + [ctypes.c_int] * 3
             + [ctypes.c_void_p] * 2 + geom + [ctypes.c_void_p])
         lib.packed_order_values.restype = ctypes.c_int
         lib.packed_order_force.argtypes = (
-            [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 2
+            layout + [ctypes.c_void_p] + [ctypes.c_int] * 2
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + geom
             + [ctypes.c_void_p])
         lib.packed_order_force.restype = ctypes.c_int
@@ -171,7 +176,7 @@ def order_values_cuda(state: PackedState, spec: PackedSpec, cvs,
     if _device_of(state, "order_values_cuda").type == "cpu":
         from ..cv.packed_order import order_values_plain
         return order_values_plain(state, spec, cvs, stacks=stacks)
-    check_layout(state, spec, "order_values_cuda")
+    pid, n_real = check_layout(state, spec, "order_values_cuda")
     r = state.r
     desc, n_vals, _ = _plan(tuple(cvs), r.device)
     lib = _library()
@@ -181,9 +186,9 @@ def order_values_cuda(state: PackedState, spec: PackedSpec, cvs,
     out = torch.empty(n_vals, dtype=torch.float32, device=r.device)
     with torch.cuda.device(r.device):
         err = lib.packed_order_values(
-            r.data_ptr(), desc.data_ptr(), desc.numel(), len(cvs), n_vals,
-            partials.data_ptr(), out.data_ptr(), *geometry_args(state, spec),
-            _stream(r.device))
+            r.data_ptr(), pid, n_real, desc.data_ptr(), desc.numel(),
+            len(cvs), n_vals, partials.data_ptr(), out.data_ptr(),
+            *geometry_args(state, spec), _stream(r.device))
     _raise_on(err, "packed_order_values")
     order_values_cuda.launches += 1
     return decode_value_lanes(cvs, out)
@@ -196,7 +201,7 @@ def order_force_cuda(state: PackedState, spec: PackedSpec, cvs, auxs,
     if _device_of(state, "order_force_cuda").type == "cpu":
         from ..cv.packed_order import order_force_plain
         return order_force_plain(state, spec, cvs, auxs, stacks=stacks)
-    check_layout(state, spec, "order_force_cuda")
+    pid, n_real = check_layout(state, spec, "order_force_cuda")
     r = state.r
     desc, _, n_aux = _plan(tuple(cvs), r.device)
     aux = pack_force_aux(cvs, auxs)
@@ -207,9 +212,9 @@ def order_force_cuda(state: PackedState, spec: PackedSpec, cvs, auxs,
     lib = _library()
     with torch.cuda.device(r.device):
         err = lib.packed_order_force(
-            r.data_ptr(), desc.data_ptr(), desc.numel(), len(cvs),
-            aux.data_ptr(), n_aux, g.data_ptr(), *geometry_args(state, spec),
-            _stream(r.device))
+            r.data_ptr(), pid, n_real, desc.data_ptr(), desc.numel(),
+            len(cvs), aux.data_ptr(), n_aux, g.data_ptr(),
+            *geometry_args(state, spec), _stream(r.device))
     _raise_on(err, "packed_order_force")
     order_force_cuda.launches += 1
     return g

@@ -1,10 +1,11 @@
 """Wrapper of the hand-written Hopper v1 pair-force kernel
 (``csrc/packed_lj_force_v1.cu``), the counterpart of
 ``metadyn_tpu/ops/packed_pallas.packed_lj_force_pallas``: LJ over per-slot
-``se``/``hs`` with optional FENE or harmonic bonds, always with energy and
-virial.  Like the reference's v1 it has no production caller: it is the
-cross-check of the production kernel (``ops/packed_cuda.py``) in the bonded
-layouts, written to a different design.
+``se``/``hs`` with optional FENE or harmonic bonds, in an orthorhombic or
+a tilted box, always with energy and virial.  Like the reference's v1 it
+has no production caller: it is the cross-check of the production kernel
+(``ops/packed_cuda.py``) in the per-slot and bonded layouts, written to a
+different design.
 
 On a CUDA tensor :func:`packed_lj_force_v1_cuda` launches the kernel or
 raises; on a CPU tensor it runs the plain version,
@@ -47,7 +48,7 @@ def _function():
     fn = _build.load(KERNEL).packed_lj_force_v1
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
-                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 9 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -74,7 +75,6 @@ def packed_lj_force_v1_cuda(state: PackedState,
     partials = torch.empty((spec.n_cells, 4), dtype=torch.float32,
                            device=r.device)
     out = torch.empty(4, dtype=torch.float32, device=r.device)
-    Lx, Ly, Lz = state.box.L_host
     cx, cy, cz = spec.cells_per_dim
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -83,7 +83,7 @@ def packed_lj_force_v1_cuda(state: PackedState,
                  spec.n_pad, spec.cap, cx, cy, cz,
                  BOND_KINDS[spec.bond_kind if spec.has_bonds else None],
                  spec.bond_slots if spec.has_bonds else 0,
-                 int(spec.shift_energy), Lx, Ly, Lz,
+                 int(spec.shift_energy), *state.box.h_host(),
                  float(spec.r_cut) ** 2, float(spec.fene_k or 0.0),
                  float(spec.fene_r0 or 0.0), stream)
     if err != 0:

@@ -25,10 +25,12 @@ import pytest
 import torch
 
 from metadyn_tpu_torch import (
-    Box, PackedEngine, PackedSpec, bond_partner_attrs, pair_scale_tables,
+    Box, PackedCoordination, PackedEngine, PackedSpec, bond_partner_attrs,
+    pair_scale_tables,
 )
 from metadyn_tpu_torch.ops.packed import packed_lj_force
 from metadyn_tpu_torch.ops.packed_cuda import check_spec, packed_lj_force_cuda
+from metadyn_tpu_torch.ops.packed_fused_cuda import fused_lj_order_force_cuda
 from metadyn_tpu_torch.ops.packed_v1_cuda import (
     check_spec_v1, packed_lj_force_v1_cuda,
 )
@@ -198,10 +200,23 @@ def test_v1_kernel_matches_plain_and_kernel1(cuda_device, name):
 
 @pytest.mark.cuda
 def test_kernels_refuse_a_tilted_box(cuda_device):
-    """Triclinic shifts are not ported: on a card both kernels raise."""
+    """Tilted boxes reach every kernel now, each held against its plain
+    version (tests/test_torch_triclinic_kernels.py).  What stays refused: a
+    tilt without its host floats (the box is not built), and on a tilted
+    box the fused kernel's per-slot layouts and its unported modes
+    (monomial math, cell_mask, the parts subsets)."""
     st, spec = packed_layout(cuda_device, "se_hs_fene_wca")
-    box = dataclasses.replace(
-        st.box, tilt=torch.tensor([0.1, 0.0, 0.0], device=cuda_device))
-    for fn in (packed_lj_force_cuda, packed_lj_force_v1_cuda):
-        with pytest.raises(NotImplementedError, match="triclinic"):
-            fn(st.replace(box=box), spec)
+    with pytest.raises(ValueError, match="tilt_host"):
+        dataclasses.replace(
+            st.box, tilt=torch.tensor([0.1, 0.0, 0.0], device=cuda_device))
+    tilted = st.replace(box=Box.triclinic(*st.box.L_host, cuda_device, 0.1))
+    cvs = [PackedCoordination(spec, r0=1.0)]
+    auxs = [torch.tensor(-0.1, device=cuda_device)]
+    with pytest.raises(ValueError, match="sentinel"):
+        fused_lj_order_force_cuda(tilted, spec, cvs, auxs)
+    lean = dataclasses.replace(spec, uniform_sigma=1.0, uniform_eps=1.0,
+                               fene_k=None, fene_r0=None)
+    for kw in (dict(mono=True), dict(cell_mask=torch.ones(spec.n_cells)),
+               dict(parts={"lj"})):
+        with pytest.raises(NotImplementedError):
+            fused_lj_order_force_cuda(tilted, lean, cvs, auxs, **kw)

@@ -181,10 +181,14 @@ def test_order_wrappers_refuse_what_they_do_not_take(cuda_device):
     validity = _spec(sentinel=False)
     vst = _state(cuda_device, validity)
     vcvs = _cv_sets(validity)["q6_coord"]
-    with pytest.raises(NotImplementedError, match="sentinel"):
-        poc.order_values_cuda(vst, validity, vcvs)
-    with pytest.raises(NotImplementedError, match="sentinel"):
-        poc.order_force_cuda(vst, validity, vcvs, auxs)
+    # the validity layout is taken (tests/test_torch_triclinic_kernels.py);
+    # its pids must be the int32 the kernels read
+    wide = vst.replace(pid=vst.pid.long())
+    with pytest.raises(ValueError, match="pid"):
+        poc.order_values_cuda(wide, validity, vcvs)
+    with pytest.raises(ValueError, match="pid"):
+        poc.order_force_cuda(wide, validity, vcvs, auxs)
+    # the fused kernel keeps the reference's sentinel-only rule
     with pytest.raises(ValueError, match="sentinel"):
         pfc.fused_lj_order_force_cuda(vst, validity, vcvs, auxs)
     with pytest.raises(NotImplementedError):
