@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
-Three workloads, all at full size:
+Four workloads, all at full size:
 
 - the headline one (bench.py): the 62,500-particle LJ liquid
   (bench_data/liq64k.npz) on the packed cell engine (r_cut 2.5, skin 0.55,
@@ -18,7 +18,17 @@ Three workloads, all at full size:
   LJ r_cut 2.5 with the per-type epsilon table [[1, .6], [.6, 1]] and FENE
   bonds (skin 0.4, cap 40: 343 cells, Npad 13,720), the S(k) mesh CV (32^3,
   k0 1.18, width 0.4) on an 81-point well-tempered grid over [0, 8000]
-  with walls, bias_every=1, one hill per 100-step stride.
+  with walls, bias_every=1, one hill per 100-step stride;
+- the triclinic path (examples/triclinic_packed.yaml): fcc_lattice(25,
+  1.68) (62,500 particles) in the cell tilted (0.2, -0.12, 0.1), the
+  per-slot layout, LJ r_cut 2.5 (skin 0.4, cap 40: 14^3 cells), Q6 r_cut
+  1.49 on a 64-point well-tempered grid, bias_every=1, one hill per 50-step
+  stride; once more as the YAML writes it (4,000 particles).
+
+The pair kernel and the order-CV force kernel run one block per cell over
+the real rows of its 27 neighbour cells, staged in shared memory
+(metadyn_tpu_torch/csrc/cell_stage.cuh); the values and fused kernels one
+thread per slot.
 
 Phases, one line or more each:
 
@@ -57,7 +67,17 @@ Phases, one line or more each:
  15. Config 2 timed: the production pack (no overflow, S(k0) inside the
      grid), 24 warm strides (the switch from the soft push-off to LJ
      heats the melt to T ~ 6, and T - 1 decays by ~0.77 per stride), then
-     2 runs of 3 timed strides with exact launch counts.
+     2 runs of 3 timed strides with exact launch counts;
+ 16. the triclinic kernels against their plain versions at 62,500 and
+     4,000 particles: the pair kernel (b) and v1 on the tilted per-slot
+     start, the values and force kernels in the validity layout with Q6 +
+     coordination without a cut-off and with Q6 alone (the main path's
+     CV), the fused kernel on the tilted sentinel start;
+ 17. the triclinic slice (4,000) for 20 steps at gamma = 0 on the kernels
+     and on the plain path, from one state;
+ 18. the triclinic slice timed at 62,500 particles (12 warm strides, 2
+     runs of 3 timed strides, exact launch counts, one profiled stride)
+     and at the YAML's 4,000.
 
 After each timed run one more stride runs under torch.profiler, and a line
 reports the GPU's busy share of it and the top kernels.  The launch counts
@@ -343,6 +363,50 @@ def plain_order_path():
          sm.fused_lj_order_force_cuda) = saved
 
 
+def order_force_stencil(state, spec, cvs, auxs):
+    """Kernel 3's function from its definition, an oracle that shares no
+    pair test with the kernel or with order_force_plain (both keep only
+    the pairs inside the CVs' largest cut-off): g_i = sum over the CVs
+    and over the real rows j of all 27 neighbour cells (shifted by h u)
+    with r^2 > 1e-12 of grad_cv(r_i - r_j), each CV's pair math on every
+    stencil row, no Newton halving; 0 on vacant i.  Returns (3, Npad)."""
+    import torch
+    from metadyn_tpu_torch.ops.packed import OFFSETS, _tables, shift_rows_cart
+    cap, C = spec.cap, spec.n_cells
+    cx, cy, cz = spec.cells_per_dim
+    real = state.pid < spec.n_real
+    rows = torch.cat([state.r, real[None].to(torch.float32)]).reshape(
+        4, cap, cx, cy, cz)
+    shifts = shift_rows_cart(_tables(spec, state.r.device).ushift, state.box)
+    xi = state.r.reshape(3, 1, cap, C)
+    g = torch.zeros((3, cap, C), dtype=torch.float32, device=state.r.device)
+    for oi, o in enumerate(OFFSETS):
+        part = torch.roll(rows, shifts=(-o[0], -o[1], -o[2]),
+                          dims=(2, 3, 4)).reshape(4, cap, C)
+        xj = part[:3] + shifts[oi][:, None, :]
+        d = xi - xj[:, :, None, :]                      # (3, j, i, C)
+        r2 = (d * d).sum(dim=0)
+        w = real.reshape(1, cap, C) & (part[3] > 0)[:, None, :] & (r2 > 1e-12)
+        for cv, aux in zip(cvs, auxs):
+            gc = torch.stack(cv.pair_grad_terms(d[0], d[1], d[2], r2, aux))
+            g += torch.where(w, gc, 0.0).sum(dim=1)
+    return g.reshape(3, -1)
+
+
+def force_vs_stencil(tag: str, gk, state, spec, cvs, auxs) -> None:
+    """Kernel 3's output ``gk`` against :func:`order_force_stencil`, with
+    the kernel-vs-plain tolerance (2e-3 relative + 2e-4 max|g|)."""
+    import numpy as np
+    gs = order_force_stencil(state, spec, cvs, auxs)
+    d = (gk - gs).abs()
+    gmax = float(gs.abs().max())
+    worst = float((d - 2e-3 * gs.abs()).max())
+    assert np.isfinite(gmax) and gmax > 0 and worst <= 2e-4 * gmax, (
+        tag, worst, gmax)
+    print(f"{tag} order_force vs the full-stencil definition (no cut-off "
+          f"test): max|dg|={float(d.max()):.3e} max|g|={gmax:.3e}")
+
+
 def order_kernels_vs_plain(dev) -> dict:
     """Phase 8: each order-CV kernel against its plain version at Config 3's
     shapes (fcc plus noise 0.05, cap 32).  Returns per kernel (max abs
@@ -415,6 +479,7 @@ def order_kernels_vs_plain(dev) -> dict:
     vac = st.pid >= spec.n_real
     assert torch.all(gk[:, vac] == 0.0)
     err, gmax = force_close("g", gk, gp, 2e-3, 2e-4)
+    force_vs_stencil("config3", gk, st, spec, cvs, auxs)
     out["force"] = (err,
                     cuda_ms(lambda: order_force_cuda(st, spec, cvs, auxs)),
                     cuda_ms(lambda: order_force_plain(st, spec, cvs, auxs)))
@@ -828,7 +893,8 @@ def triclinic_kernels_vs_plain(dev, n_cells: int) -> dict:
     """Phase 16 at one size: kernel 1 (b) and v1 on the tilted per-slot
     start, kernels 2 and 3 in the validity layout with Q6 and coordination
     without a cut-off (the pack leaves the vacant slots at 0, where a
-    coordinate test would count them), kernel 4 on the tilted sentinel
+    coordinate test would count them) and with Q6 alone (the main path's
+    CV), kernel 4 on the tilted sentinel
     start; noise 0.05.  Returns per kernel (max abs error, kernel ms, plain
     ms, bound ms, bound by)."""
     import numpy as np
@@ -922,12 +988,47 @@ def triclinic_kernels_vs_plain(dev, n_cells: int) -> dict:
     gmax = float(gp.abs().max())
     worst = float((d - 2e-3 * gp.abs()).max())
     assert np.isfinite(gmax) and worst <= 2e-4 * gmax, (worst, gmax)
+    force_vs_stencil(f"{tag} Q6 + coordination", gk, st, spec, cvs, auxs)
     ms = cuda_ms(lambda: order_force_cuda(st, spec, cvs, auxs))
     plain = cuda_ms(lambda: order_force_plain(st, spec, cvs, auxs), calls=10)
     bms, by = bound(28 * n_pad, q6 * fp["q6_force"]
                     + all_pairs * fp["coord_force"])
     out["force"] = (float(d.max()), ms, plain, bms, by)
     print(f"{tag} order_force validity tilted: max|dg|={float(d.max()):.3e} "
+          f"max|g|={gmax:.3e} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+          f"bound_ms={bms:.5f} ({by})")
+
+    # kernels 2 and 3 with the main path's CV alone (Q6)
+    q6cv = cvs[:1]
+    tq = order_values_plain(st, spec, q6cv)
+    lk = torch.cat([t.reshape(-1) for t in order_values_cuda(st, spec,
+                                                             q6cv)[0]])
+    lp = torch.cat([t.reshape(-1) for t in tq[0]])
+    err = float((lk - lp).abs().max())
+    assert err <= 2e-5 * float(lp.abs().max()), (err, lp)
+    ms = cuda_ms(lambda: order_values_cuda(st, spec, q6cv))
+    plain = cuda_ms(lambda: order_values_plain(st, spec, q6cv), calls=10)
+    bms, by = bound(16 * n_pad, q6 * fp["q6_value"])
+    out["values_q6"] = (err, ms, plain, bms, by)
+    qauxs = [q6cv[0].grad_aux(tq[0], dV[0])]
+    gk = order_force_cuda(st, spec, q6cv, qauxs)
+    gp = order_force_plain(st, spec, q6cv, qauxs)
+    torch.cuda.synchronize()
+    assert torch.all(gk[:, vac] == 0.0)
+    d = (gk - gp).abs()
+    gmax = float(gp.abs().max())
+    worst = float((d - 2e-3 * gp.abs()).max())
+    assert np.isfinite(gmax) and worst <= 2e-4 * gmax, (worst, gmax)
+    force_vs_stencil(f"{tag} Q6 alone", gk, st, spec, q6cv, qauxs)
+    ms = cuda_ms(lambda: order_force_cuda(st, spec, q6cv, qauxs))
+    plain = cuda_ms(lambda: order_force_plain(st, spec, q6cv, qauxs),
+                    calls=10)
+    bms, by = bound(28 * n_pad, q6 * fp["q6_force"])
+    out["force_q6"] = (float(d.max()), ms, plain, bms, by)
+    print(f"{tag} Q6 alone (the main path's CV), validity tilted: values "
+          f"max|dlane|={err:.3e} kernel_ms={out['values_q6'][1]:.4f} "
+          f"plain_ms={out['values_q6'][2]:.4f} bound_ms="
+          f"{out['values_q6'][3]:.5f}; force max|dg|={float(d.max()):.3e} "
           f"max|g|={gmax:.3e} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
           f"bound_ms={bms:.5f} ({by})")
 
@@ -1368,12 +1469,19 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 
     def tric_variants(kernel, layout):
-        return {f"{layout} tilted triclinic N={4 * c ** 3}":
-                dict(zip(keys, t[kernel])) for c, t in tric.items()}
+        out = {f"{layout} tilted triclinic N={4 * c ** 3}":
+               dict(zip(keys, t[kernel])) for c, t in tric.items()}
+        if f"{kernel}_q6" in tric[25]:
+            out.update({f"{layout} tilted Q6 alone (main path) triclinic "
+                        f"N={4 * c ** 3}": dict(zip(keys, t[f"{kernel}_q6"]))
+                        for c, t in tric.items()})
+        return out
 
+    staged = ("one block per cell over the 27 neighbour cells' real rows, "
+              "staged and compacted in shared memory (csrc/cell_stage.cuh)")
     print(json.dumps({"kernels": [
         entry(KERNEL, KERNEL, "metadyn_tpu/ops/packed_pallas2.py:301",
-              cfg2_launches, cfg2["se_hs_table_fene"],
+              cfg2_launches, cfg2["se_hs_table_fene"], design=staged,
               launches_by_path={"liq64k bias_every=5": rates[5][1],
                                 "config3 mts_lag": lag_counts["pair"],
                                 "config2": cfg2_launches,
@@ -1388,6 +1496,7 @@ def main() -> int:
         entry("packed_order_force", packed_order_cuda.KERNEL,
               "metadyn_tpu/ops/packed_order_pallas.py:309",
               exact_counts["force"], order["force"],
+              design=staged + ", prefiltered to the CVs' reach",
               launches_by_path={"config3 exact": exact_counts["force"],
                                 "triclinic": tric_counts["force"]},
               variants=tric_variants("force", "validity")),

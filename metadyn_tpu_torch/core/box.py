@@ -22,6 +22,7 @@ accuracy in wrapping and binning.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -83,10 +84,27 @@ class Box:
         return (*(float(x) for x in L), float(t[0] * L[1]),
                 float(t[1] * L[2]), float(t[2] * L[2]))
 
+    def perpendicular_widths_host(self) -> tuple:
+        """:func:`perpendicular_widths` as host floats (float64 from
+        ``h_host``): the distances between opposite faces, for kernel
+        launches that must not read the device."""
+        return _widths_of(self.h_host())
+
     def to(self, device) -> "Box":
         return dataclasses.replace(
             self, L=self.L.to(device),
             tilt=None if self.tilt is None else self.tilt.to(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _widths_of(h: tuple) -> tuple:
+    Lx, Ly, Lz, xyLy, xzLz, yzLz = h
+    a = np.array([Lx, 0.0, 0.0])
+    b = np.array([xyLy, Ly, 0.0])
+    c = np.array([xzLz, yzLz, Lz])
+    vol = abs(float(np.dot(a, np.cross(b, c))))
+    return tuple(vol / float(np.linalg.norm(np.cross(u, v)))
+                 for u, v in ((b, c), (c, a), (a, b)))
 
 
 def h_matrix(box: Box) -> torch.Tensor:

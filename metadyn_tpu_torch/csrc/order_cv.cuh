@@ -1,10 +1,12 @@
 // Order-CV pair sweep over the cell-major slot layout (sentinel or validity
-// layout, orthorhombic or tilted box): the per-CV pair math and the one
-// traversal that kernels 2, 3 and 4 share.
+// layout, orthorhombic or tilted box): the per-CV pair math that kernels 2,
+// 3 and 4 share, and the one-thread-per-slot traversal of kernels 2 and 4.
+// Kernel 3 runs the same pair math on the block-per-cell traversal of
+// cell_stage.cuh (packed_order.cu).
 //
-// Replaces, in metadyn_tpu/ops/:
+// Replaces, in metadyn_tpu/ops:
 //   packed_order_pallas.py  order_values_pallas  (Vals)
-//   packed_order_pallas.py  order_force_pallas   (Grad)
+//   packed_order_pallas.py  order_force_pallas   (Grad; packed_order.cu)
 //   packed_fused_pallas.py  fused_lj_order_force (LJ + Vals + Grad,
 //                                                 recurrence mode)
 //
@@ -111,14 +113,16 @@ __device__ __forceinline__ float horner(const float* c, int n, float x) {
 // Q_l of one ordered pair (cv/packed_order.PackedSteinhardtQl.
 // pair_value_and_grad): value terms (Re S_m, Im S_m, n_b) into vacc, and the
 // closed-form gradient of phi(d) = sum_m N_m p_m(c) Re[(g_re - i g_im) u^m]
-// into g.  r2 > 1e-12 is guaranteed by the caller.
-template <bool Vals, bool Grad>
+// into g.  r2 > 1e-12 is guaranteed by the caller.  L > 0 fixes l at
+// compile time (the caller guarantees h[1] == L), so the m and Horner loops
+// unroll; L = 0 reads l from the header.
+template <bool Vals, bool Grad, int L = 0>
 __device__ __forceinline__ void ql_pair(const float* h, const float* tab,
                                         const float* aux, float dx, float dy,
                                         float dz, float r2, float* vacc,
                                         float& gx, float& gy, float& gz) {
   if (!(r2 < h[5])) return;
-  const int l = static_cast<int>(h[1]);
+  const int l = L > 0 ? L : static_cast<int>(h[1]);
   const int vo = static_cast<int>(h[2]);
   const float* norms = tab;
   const float* coef = tab + (l + 1);

@@ -10,8 +10,10 @@ against on the card:
 - :func:`_half_partner_stacks`, :func:`_offset_pair_sweep` and
   :func:`_offset_force_sweep` walk the Newton-halved offset set (the self
   cell and the 13 lexicographically positive neighbour cells), each offset
-  a ``torch.roll`` of the (cap, cx, cy, cz) slot view, with pair terms as
-  (j_block, cap, C) broadcasts.  Halving is valid because every per-pair
+  a ``torch.roll`` of the (cap, cx, cy, cz) slot view.  Distances come as
+  (j_block, cap, C) broadcasts; the pairs of real slots within the CVs'
+  largest cut-off are gathered from them first (:func:`_gather`), and the
+  CV math runs once on those alone.  Halving is valid because every per-pair
   term is even in d (Q_l with even l: parity (−1)^l; coordination: r²
   only): cross-cell pairs get value weight 2, and the j-side force
   reaction −φ′(d_ij) = +φ′(d_ji) is rolled back onto j.
@@ -34,6 +36,7 @@ which needs the slot neighbour table.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -85,54 +88,86 @@ def _tree_add(a, b):
     return a + b
 
 
-def _pairs(state: PackedState, spec: PackedSpec, stacks):
-    """Yield (o, j rows, dx, dy, dz, r2, w) per offset and j block; w is the
-    validity weight times (r² > 1e-12), without the Newton weight."""
+def _cut2(cvs) -> float:
+    """The largest cut-off² of ``cvs`` (inf if one has none): the reach of
+    the pairs the plain sweeps gather."""
+    return max(math.inf if cv.r_cut is None else cv.r_cut ** 2 for cv in cvs)
+
+
+class _Gathered(NamedTuple):
+    """The ordered pairs of real slots with 1e-12 < r² < rc2 over the
+    Newton-halved offset set, gathered from the (B, cap, C) distance
+    broadcasts of every offset and j block before any pair math (a CV's
+    pairs are a few per cent of the stencil's)."""
+
+    blocks: list         # (o, j rows, flat indices into (B, cap, C)) each
+    d: torch.Tensor      # (3, P) displacements r_i − r_j, blocks in order
+    r2: torch.Tensor     # (P,)
+    w: torch.Tensor      # (P,) Newton weight: 1 in the self cell, else 2
+
+
+def _gather(state: PackedState, spec: PackedSpec, stacks,
+            rc2: float) -> _Gathered:
     cap, C = spec.cap, spec.n_cells
-    vi = (state.pid < spec.n_real).to(torch.float32).reshape(1, cap, C)
+    vi = (state.pid < spec.n_real).reshape(1, cap, C)
     xi = state.r.reshape(3, 1, cap, C)
     jb = _j_block(spec)
+    blocks, ds, r2s, ws = [], [], [], []
     for o, xj, vj in stacks:
         for j0 in range(0, cap, jb):
             rows = slice(j0, j0 + jb)
             d = xi - xj[:, rows, None, :]                   # (3, B, cap, C)
             r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-            w = vi * vj[rows, None, :] * (r2 > 1e-12)
-            yield o, rows, d[0], d[1], d[2], r2, w
+            near = (vi & (vj[rows, None, :] > 0) & (r2 > 1e-12)
+                    & (r2 < rc2))
+            flat = torch.nonzero(near.reshape(-1)).squeeze(1)
+            blocks.append((o, rows, flat))
+            ds.append(d.reshape(3, -1)[:, flat])
+            r2s.append(r2.reshape(-1)[flat])
+            ws.append(torch.full_like(r2s[-1],
+                                      1.0 if o == (0, 0, 0) else 2.0))
+    return _Gathered(blocks, torch.cat(ds, dim=1), torch.cat(r2s),
+                     torch.cat(ws))
 
 
 def _offset_pair_sweep(state: PackedState, spec: PackedSpec, per_pair,
-                       stacks=None):
+                       rc2: float, stacks=None):
     """Σ over pairs of ``per_pair(dx, dy, dz, r2, w)`` (a tree of sums) over
     the Newton-halved offset set with cross-cell weight 2 — valid only for
-    per-pair functions even under d → −d.  ``stacks``: prebuilt
+    per-pair functions even under d → −d — for the pairs within
+    ``rc2``, all offsets in one call.  ``stacks``: prebuilt
     :func:`_half_partner_stacks`."""
     if stacks is None:
         stacks = _half_partner_stacks(state, spec)
-    acc = None
-    for o, _, dx, dy, dz, r2, w in _pairs(state, spec, stacks):
-        if o != (0, 0, 0):
-            w = 2.0 * w
-        out = per_pair(dx, dy, dz, r2, w)
-        acc = out if acc is None else _tree_add(acc, out)
-    return acc
+    pairs = _gather(state, spec, stacks, rc2)
+    return per_pair(*pairs.d, pairs.r2, pairs.w)
 
 
 def _offset_force_sweep(state: PackedState, spec: PackedSpec, pair_grad,
-                        stacks=None) -> torch.Tensor:
-    """F_i = Σ_j w·pair_grad(d_ij) over the Newton-halved offset set, with
-    the j-side reaction rolled back from each cross offset's frame.
-    ``pair_grad(dx, dy, dz, r2)`` is the d-gradient of an even per-pair
-    scalar.  Returns (3, Npad)."""
+                        rc2: float, stacks=None) -> torch.Tensor:
+    """F_i = Σ_j pair_grad(d_ij) over the Newton-halved offset set for the
+    pairs within ``rc2``, with the j-side reaction rolled back from each
+    cross offset's frame.  ``pair_grad(dx, dy, dz, r2)`` is the
+    d-gradient of an even per-pair scalar, evaluated once on all gathered
+    pairs and scattered back into each block's (3, B, cap, C) frame for
+    the sums.  Returns (3, Npad)."""
     cap, C = spec.cap, spec.n_cells
     cx, cy, cz = spec.cells_per_dim
     if stacks is None:
         stacks = _half_partner_stacks(state, spec)
+    pairs = _gather(state, spec, stacks, rc2)
+    grads = torch.stack(pair_grad(*pairs.d, pairs.r2))      # (3, P)
     force = torch.zeros((3, cap, C), dtype=torch.float32,
                         device=state.r.device)
     react = {}
-    for o, rows, dx, dy, dz, r2, w in _pairs(state, spec, stacks):
-        wg = w * torch.stack(pair_grad(dx, dy, dz, r2))     # (3, B, cap, C)
+    start = 0
+    for o, rows, flat in pairs.blocks:
+        n_j = min(rows.stop, cap) - rows.start
+        wg = torch.zeros((3, n_j * cap * C), dtype=torch.float32,
+                         device=force.device)
+        wg[:, flat] = grads[:, start:start + flat.numel()]
+        start += flat.numel()
+        wg = wg.reshape(3, n_j, cap, C)
         force = force + wg.sum(dim=1)                       # i side
         if o != (0, 0, 0):
             if o not in react:
@@ -151,7 +186,8 @@ def order_values_plain(state: PackedState, spec: PackedSpec, cvs,
     def per_pair(dx, dy, dz, r2, w):
         return tuple(cv.pair_value_terms(dx, dy, dz, r2, w) for cv in cvs)
 
-    return _offset_pair_sweep(state, spec, per_pair, stacks=stacks)
+    return _offset_pair_sweep(state, spec, per_pair, _cut2(cvs),
+                              stacks=stacks)
 
 
 def order_force_plain(state: PackedState, spec: PackedSpec, cvs, auxs,
@@ -165,7 +201,8 @@ def order_force_plain(state: PackedState, spec: PackedSpec, cvs, auxs,
             gx, gy, gz = gx + ax, gy + ay, gz + az
         return gx, gy, gz
 
-    return _offset_force_sweep(state, spec, pair_grad, stacks=stacks)
+    return _offset_force_sweep(state, spec, pair_grad, _cut2(cvs),
+                               stacks=stacks)
 
 
 def _horner(coeffs, x: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,9 @@
 variants: the sentinel layout, per-slot ``se``/``hs`` (or ``se`` with a
 uniform σ), per-type-pair scale tables, and FENE or harmonic bonds, each in
 an orthorhombic or a tilted box (the kernel takes the cell matrix's six
-entries from ``Box.h_host``).
+entries from ``Box.h_host``).  One block per cell stages the real rows of
+its 27 neighbour cells in shared memory (``csrc/cell_stage.cuh``); a cap
+whose 27 × cap staged rows do not fit a block's shared memory raises.
 
 On a CUDA tensor :func:`packed_lj_force_cuda` launches the kernel or raises;
 on a CPU tensor it runs the plain version, ``ops.packed.packed_lj_force``.
@@ -98,16 +100,27 @@ def scale_table(spec: PackedSpec, device) -> torch.Tensor:
     return torch.stack(out).contiguous().to(device)
 
 
-def _function():
+def _library():
     lib = _build.load(KERNEL)
     fn = lib.packed_lj_force
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 12
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 13
                        + [ctypes.c_float] * 11 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.packed_lj_force_threads.argtypes = []
-        lib.packed_lj_force_threads.restype = ctypes.c_int
-    return fn, lib.packed_lj_force_threads()
+        lib.packed_lj_force_blocks.argtypes = [ctypes.c_int] * 3
+        lib.packed_lj_force_blocks.restype = ctypes.c_int
+    return lib
+
+
+def raise_on(err: int, what: str, spec: PackedSpec) -> None:
+    """Raise on a kernel's nonzero return: -1 a layout without a kernel,
+    -2 a cap whose staged rows do not fit a block's shared memory, else a
+    CUDA error of the launch."""
+    if err == -2:
+        raise RuntimeError(f"{what}: cap {spec.cap} does not fit a block's "
+                           "shared memory (27 * cap staged rows)")
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
@@ -125,7 +138,7 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
     who = "packed_lj_force_cuda"
     check_spec(spec)
     check_state(state, spec, who)
-    fn, threads = _function()
+    lib = _library()
     se_eps = spec.uniform_eps is None
     hs_sig = spec.uniform_sigma is None
     se = (slot_ptr(state.attrs["se"], torch.float32, spec, who, "se")
@@ -142,7 +155,8 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
            if spec.has_bonds else None)
     f = torch.empty_like(r)
     if with_energy:
-        n_blocks = -(-spec.n_pad // threads)
+        # one partials row per block, one block per cell
+        n_blocks = lib.packed_lj_force_blocks(*spec.cells_per_dim)
         partials = torch.empty((n_blocks, 4), dtype=torch.float32,
                                device=r.device)
         out = torch.empty(4, dtype=torch.float32, device=r.device)
@@ -153,20 +167,19 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
     cx, cy, cz = spec.cells_per_dim
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = fn(r.data_ptr(), se, hs, typ, pid, *bond_ptrs(state, spec, who),
-                 table, f.data_ptr(), p_ptr, o_ptr,
-                 spec.n_pad, spec.cap, cx, cy, cz, int(se_eps), int(hs_sig),
-                 n_types, bond_kind,
-                 spec.bond_slots if spec.has_bonds else 0,
-                 int(spec.shift_energy), int(with_energy),
-                 *state.box.h_host(), float(spec.r_cut) ** 2,
-                 float(spec.uniform_sigma or 0.0) ** 2,
-                 float(spec.uniform_eps or 0.0),
-                 float(spec.fene_k or 0.0), float(spec.fene_r0 or 0.0),
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"packed_lj_force kernel launch failed: CUDA "
-                           f"error {err}")
+        err = lib.packed_lj_force(
+            r.data_ptr(), se, hs, typ, pid, *bond_ptrs(state, spec, who),
+            table, f.data_ptr(), p_ptr, o_ptr,
+            spec.n_pad, spec.cap, cx, cy, cz, spec.n_real, int(se_eps),
+            int(hs_sig), n_types, bond_kind,
+            spec.bond_slots if spec.has_bonds else 0,
+            int(spec.shift_energy), int(with_energy),
+            *state.box.h_host(), float(spec.r_cut) ** 2,
+            float(spec.uniform_sigma or 0.0) ** 2,
+            float(spec.uniform_eps or 0.0),
+            float(spec.fene_k or 0.0), float(spec.fene_r0 or 0.0),
+            stream)
+    raise_on(err, "packed_lj_force", spec)
     packed_lj_force_cuda.launches += 1
     if not with_energy:
         return state.replace(f=f)

@@ -26,9 +26,9 @@ import torch
 
 from . import _build
 from .packed import PackedSpec, PackedState, packed_lj_force
-from .packed_cuda import check_spec, check_state
+from .packed_cuda import check_spec, check_state, raise_on
 from .packed_order_cuda import (
-    _plan, _raise_on, _stream, decode_value_lanes, geometry_args,
+    _plan, _stream, decode_value_lanes, geometry_args,
     pack_force_aux,
 )
 
@@ -88,7 +88,8 @@ def fused_lj_order_force_cuda(state: PackedState, spec: PackedSpec, cvs,
                          f"{r.device}")
     check_spec(spec)
     check_state(state, spec, "fused_lj_order_force_cuda")
-    desc, n_vals, n_aux = _plan(tuple(cvs), r.device)
+    plan = _plan(tuple(cvs), r.device)
+    desc, n_vals, n_aux = plan.desc, plan.n_vals, plan.n_aux
     aux = pack_force_aux(cvs, auxs)
     if aux.numel() != n_aux or aux.device != r.device:
         raise ValueError(f"fused_lj_order_force_cuda: {aux.numel()} aux "
@@ -109,7 +110,7 @@ def fused_lj_order_force_cuda(state: PackedState, spec: PackedSpec, cvs,
             partials.data_ptr(), out.data_ptr(), *geometry_args(state, spec),
             float(spec.r_cut) ** 2, sig2, 4.0 * float(spec.uniform_eps),
             _stream(r.device))
-    _raise_on(err, "packed_fused_lj_order")
+    raise_on(err, "packed_fused_lj_order", spec)
     fused_lj_order_force_cuda.launches += 1
     return f, g, decode_value_lanes(cvs, out)
 

@@ -5,6 +5,12 @@
 the coordinate sentinel) and the validity layout (per-slot ``se``/``hs``,
 vacancy by ``pid < n_real``), in an orthorhombic or a tilted box.
 
+The force kernel runs one block per cell over the real rows of its 27
+neighbour cells staged in shared memory (``csrc/cell_stage.cuh``), after
+a prefilter that stages only rows within reach of the cell's i rows
+(:func:`prefilter_keep` is the rule in plain PyTorch); the values kernel
+runs one thread per slot.
+
 On a CUDA tensor :func:`order_values_cuda` and :func:`order_force_cuda`
 launch their kernel or raise; on a CPU tensor they run the plain roll
 sweeps of ``cv/packed_order.py``.  There is no other fallback.  Each
@@ -21,13 +27,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import _build
-from .packed import PackedSpec, PackedState
-from .packed_cuda import check_state, slot_ptr
+from .packed import PackedSpec, PackedState, _frac3
+from .packed_cuda import check_state, raise_on, slot_ptr
 
 KERNEL = "packed_order"
 
@@ -39,6 +47,12 @@ MAX_L = 12
 MAX_TERMS = 64
 MAX_AUX = 64
 MAX_DESC = 1024
+KIND_QL = 0
+# the force kernel's CV-kind sets (csrc/packed_order.cu)
+CV_SET_QL, CV_SET_COORD, CV_SET_MIXED = 1, 2, 3
+# the prefilter radius' margin per unit of the summed perpendicular widths:
+# far above the f32 rounding of the kernel's fractional coordinates
+PREFILTER_MARGIN = 1e-4
 
 
 def lane_layout(cvs) -> tuple[list, list, int, int]:
@@ -106,13 +120,59 @@ def cv_descriptor(cvs) -> np.ndarray:
     return desc
 
 
+class Plan(NamedTuple):
+    """A CV list as the kernels take it."""
+
+    desc: torch.Tensor  # the descriptor, on the device
+    n_vals: int         # value lanes
+    n_aux: int          # aux lanes
+    cv_set: int         # CV_SET_*: the kinds the force kernel instantiates
+    l_fixed: int        # 6 if every Q_l has l = 6 (unrolled math), else 0
+    rc2_max: float      # the largest cut-off squared (inf if a CV has none)
+
+
 @functools.lru_cache(maxsize=32)
-def _plan(cvs: tuple, device: torch.device) -> tuple:
-    """(device descriptor, value lanes, aux lanes) of a CV list, uploaded
-    once per (CV list, device)."""
+def _plan(cvs: tuple, device: torch.device) -> Plan:
+    """The :class:`Plan` of a CV list, uploaded once per (CV list,
+    device)."""
     desc = cv_descriptor(cvs)
     _, _, n_aux, n_vals = lane_layout(cvs)
-    return (torch.as_tensor(desc, device=device), n_vals, n_aux)
+    heads = desc[:HDR * len(cvs)].reshape(len(cvs), HDR)
+    ql = heads[:, 0] == KIND_QL
+    cv_set = (CV_SET_QL if ql.all() else
+              CV_SET_COORD if not ql.any() else CV_SET_MIXED)
+    l_fixed = 6 if ql.any() and (heads[ql, 1] == 6).all() else 0
+    return Plan(torch.as_tensor(desc, device=device), n_vals, n_aux, cv_set,
+                l_fixed, float(heads[:, 5].max()))
+
+
+def prefilter_radius(rc2_max: float, widths) -> float:
+    """The staging prefilter's radius: the largest cut-off plus a margin of
+    PREFILTER_MARGIN × Σ perpendicular widths; inf (no prefilter) when a
+    CV has no cut-off."""
+    if not math.isfinite(rc2_max):
+        return math.inf
+    return math.sqrt(rc2_max) + PREFILTER_MARGIN * sum(widths)
+
+
+def prefilter_keep(xi: torch.Tensor, xj: torch.Tensor, box,
+                   radius: float) -> torch.Tensor:
+    """The force kernel's staging prefilter in plain PyTorch: for a cell's
+    real i rows ``xi`` (3, K) and candidate rows ``xj`` (3, M) (their
+    neighbour cell's shift applied), whether each candidate is staged.
+
+    With [lo, hi] the i rows' box in fractional coordinates, a candidate at
+    f is at least g_d·w_d from it along axis d, g_d = max(lo_d − f_d, f_d −
+    hi_d, 0), w_d the perpendicular width; kept when max_d g_d·w_d <
+    ``radius``, in any box."""
+    if not math.isfinite(radius):
+        return torch.ones(xj.shape[1], dtype=torch.bool)
+    w = torch.tensor(box.perpendicular_widths_host(), dtype=torch.float32)
+    fi, fj = _frac3(xi, box), _frac3(xj, box)
+    lo = fi.min(dim=1).values[:, None]
+    hi = fi.max(dim=1).values[:, None]
+    gap = torch.clamp(torch.maximum(lo - fj, fj - hi), min=0.0) * w[:, None]
+    return gap.max(dim=0).values < radius
 
 
 def check_layout(state: PackedState, spec: PackedSpec, who: str) -> tuple:
@@ -143,7 +203,7 @@ def _library():
         lib.packed_order_force.argtypes = (
             layout + [ctypes.c_void_p] + [ctypes.c_int] * 2
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + geom
-            + [ctypes.c_void_p])
+            + [ctypes.c_int] * 2 + [ctypes.c_float] * 5 + [ctypes.c_void_p])
         lib.packed_order_force.restype = ctypes.c_int
         lib.packed_order_threads.argtypes = []
         lib.packed_order_threads.restype = ctypes.c_int
@@ -152,11 +212,6 @@ def _library():
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def _device_of(state: PackedState, who: str) -> torch.device:
@@ -178,7 +233,8 @@ def order_values_cuda(state: PackedState, spec: PackedSpec, cvs,
         return order_values_plain(state, spec, cvs, stacks=stacks)
     pid, n_real = check_layout(state, spec, "order_values_cuda")
     r = state.r
-    desc, n_vals, _ = _plan(tuple(cvs), r.device)
+    plan = _plan(tuple(cvs), r.device)
+    desc, n_vals = plan.desc, plan.n_vals
     lib = _library()
     n_blocks = -(-spec.n_pad // lib.packed_order_threads())
     partials = torch.empty((n_blocks, n_vals), dtype=torch.float32,
@@ -189,7 +245,7 @@ def order_values_cuda(state: PackedState, spec: PackedSpec, cvs,
             r.data_ptr(), pid, n_real, desc.data_ptr(), desc.numel(),
             len(cvs), n_vals, partials.data_ptr(), out.data_ptr(),
             *geometry_args(state, spec), _stream(r.device))
-    _raise_on(err, "packed_order_values")
+    raise_on(err, "packed_order_values", spec)
     order_values_cuda.launches += 1
     return decode_value_lanes(cvs, out)
 
@@ -203,19 +259,23 @@ def order_force_cuda(state: PackedState, spec: PackedSpec, cvs, auxs,
         return order_force_plain(state, spec, cvs, auxs, stacks=stacks)
     pid, n_real = check_layout(state, spec, "order_force_cuda")
     r = state.r
-    desc, _, n_aux = _plan(tuple(cvs), r.device)
+    plan = _plan(tuple(cvs), r.device)
     aux = pack_force_aux(cvs, auxs)
-    if aux.numel() != n_aux or aux.device != r.device:
+    if aux.numel() != plan.n_aux or aux.device != r.device:
         raise ValueError(f"order_force_cuda: {aux.numel()} aux lanes on "
-                         f"{aux.device}, expected {n_aux} on {r.device}")
+                         f"{aux.device}, expected {plan.n_aux} on {r.device}")
     g = torch.empty_like(r)
+    widths = state.box.perpendicular_widths_host()
     lib = _library()
     with torch.cuda.device(r.device):
         err = lib.packed_order_force(
-            r.data_ptr(), pid, n_real, desc.data_ptr(), desc.numel(),
-            len(cvs), aux.data_ptr(), n_aux, g.data_ptr(),
-            *geometry_args(state, spec), _stream(r.device))
-    _raise_on(err, "packed_order_force")
+            r.data_ptr(), pid, n_real, plan.desc.data_ptr(),
+            plan.desc.numel(), len(cvs), aux.data_ptr(), plan.n_aux,
+            g.data_ptr(), *geometry_args(state, spec), plan.cv_set,
+            plan.l_fixed, plan.rc2_max,
+            prefilter_radius(plan.rc2_max, widths), *widths,
+            _stream(r.device))
+    raise_on(err, "packed_order_force", spec)
     order_force_cuda.launches += 1
     return g
 

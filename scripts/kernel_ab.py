@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's orthorhombic kernels of one source tree on one GPU.
+"""Time the port's kernels of one source tree on one GPU.
 
     python3 scripts/kernel_ab.py ROOT
 
@@ -10,20 +10,54 @@ ROOT is a checkout of this repository (the working tree, or an unpacked
 turns on the same card (A, B, B, A) and compare the lines.
 
 Timed, each the median of CUDA-event times over many calls after warm-up
-calls (``chip_smoke.cuda_ms``), at the main paths' shapes:
+calls (``cuda_ms`` of the chip_smoke.py beside this script, so that both
+trees are timed alike), at the main paths' shapes:
 - kernel 1 forces only and with energy on the 62,500-particle liquid
-  (bench_data/liq64k.npz, the sentinel layout);
+  (bench_data/liq64k.npz, the sentinel layout), and forces only with the
+  cap doubled to 80 (the same real rows, twice the slots to stage);
 - kernel 1 forces only and the v1 kernel on a cubic 62,500-particle fcc
   (a = 1.68, noise 0.05) in the per-slot layout (r_cut 2.5, skin 0.4,
   cap 40);
+- kernel 1 forces only and with energy in Config 2's layout (per-slot
+  se/hs, the epsilon table [[1, .6], [.6, 1]], FENE k 30 r0 1.5; r_cut
+  2.5, skin 0.4, cap 40: 7^3 cells, Npad 13,720) on 512 chains of 16
+  beads at the YAML's density (L 21.3) laid on a bcc lattice with noise
+  0.05, each chain a row of 16 sites along x (no push-off needed);
+- kernel 1 forces only on the triclinic start (chip_smoke.triclinic_pack:
+  62,500 particles, tilt (0.2, -0.12, 0.1), layout (b), noise 0.05);
 - kernels 2, 3 and 4 on Config 3's input (chip_smoke.config3_inputs, fcc
-  plus noise 0.05, Q6 + coordination).
+  plus noise 0.05, Q6 + coordination);
+- kernels 2 and 3 on the triclinic start in the validity layout with Q6
+  alone, the triclinic main path's CV.
 
 Prints one line, ``AB {json}``, with the times in ms.
 """
+import dataclasses
+import importlib.util
 import json
 import pathlib
 import sys
+
+HERE = pathlib.Path(__file__).resolve().parent.parent
+
+
+def bcc_chains(cells: int = 16, L: float = 21.3, noise: float = 0.05):
+    """2 cells^3 beads on a bcc lattice in a cubic box of side L, with
+    Gaussian noise (numpy seed 5); chains are the rows of ``cells`` sites
+    along x of one sublattice, diblock (the second half type 1).  Returns
+    (pos, types, bonds, L)."""
+    import numpy as np
+    a = L / cells
+    i, j, k = np.meshgrid(*[np.arange(cells)] * 3, indexing="ij")
+    site = np.stack([i, j, k], axis=-1).astype(np.float64)
+    pos = np.stack([site, site + 0.5], axis=0) * a - L / 2   # (2, x, y, z, 3)
+    # particle id = ((sub * cells + y) * cells + z) * cells + x
+    pos = pos.transpose(0, 2, 3, 1, 4).reshape(-1, 3)
+    pos += np.random.default_rng(5).normal(0.0, noise, pos.shape)
+    idx = np.arange(pos.shape[0]).reshape(-1, cells)
+    bonds = np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], axis=1)
+    types = (np.arange(pos.shape[0]) % cells >= cells // 2).astype(np.int32)
+    return pos.astype(np.float32), types, bonds.astype(np.int32), L
 
 
 def main(root: pathlib.Path) -> dict:
@@ -31,7 +65,10 @@ def main(root: pathlib.Path) -> dict:
     import numpy as np
     import torch
     import chip_smoke as cs
-    from metadyn_tpu_torch import Box, PackedEngine, PackedSpec, fcc_lattice
+    from metadyn_tpu_torch import (
+        Box, PackedEngine, PackedSpec, bond_partner_attrs, fcc_lattice,
+        pair_scale_tables,
+    )
     from metadyn_tpu_torch.cv.packed_order import order_values_plain
     from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
     from metadyn_tpu_torch.ops.packed_fused_cuda import (
@@ -55,8 +92,13 @@ def main(root: pathlib.Path) -> dict:
         assert not ovf
         return st
 
+    mod_spec = importlib.util.spec_from_file_location("ab_timing",
+                                                      HERE / "chip_smoke.py")
+    timing = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(timing)
+
     def ms(fn, calls=101):
-        return cs.cuda_ms(fn, calls=calls, warm=5)
+        return timing.cuda_ms(fn, calls=calls, warm=5)
 
     out = {"tree": str(root), "card": torch.cuda.get_device_name(0)}
     d = np.load(root / "bench_data" / "liq64k.npz")
@@ -67,6 +109,11 @@ def main(root: pathlib.Path) -> dict:
     st = pack(spec, d["pos"], L)
     out["k1_liq64k"] = ms(lambda: packed_lj_force_cuda(st, spec, False))
     out["k1_liq64k_energy"] = ms(lambda: packed_lj_force_cuda(st, spec, True))
+    # the same particles at twice the cap: a sweep that reads every slot
+    # of the 27 cells pays for the vacant ones
+    spec = dataclasses.replace(spec, cap=80)
+    st = pack(spec, d["pos"], L)
+    out["k1_liq64k_cap80"] = ms(lambda: packed_lj_force_cuda(st, spec, False))
 
     pos = fcc_lattice(25, 1.68)
     L = 25 * 1.68
@@ -77,6 +124,31 @@ def main(root: pathlib.Path) -> dict:
     st = pack(spec, pos, L)
     out["k1_se_hs_fcc62k"] = ms(lambda: packed_lj_force_cuda(st, spec, False))
     out["v1_se_hs_fcc62k"] = ms(lambda: packed_lj_force_v1_cuda(st, spec))
+
+    pos, types, bonds, L = bcc_chains()
+    n = pos.shape[0]
+    eps_scale, _, eps_diag, _ = pair_scale_tables([[1.0, 0.6], [0.6, 1.0]])
+    spec = PackedSpec.create(L, n, r_cut=2.5, skin=0.4, cap=40,
+                             shift_energy=False, fene_k=30.0, fene_r0=1.5,
+                             eps_scale=eps_scale)
+    assert spec.n_pad == 13720, spec.n_pad
+    st, ovf = PackedEngine(spec, dev).pack_state(
+        pos, Box.cubic(L, dev), types, eps_diag[types],
+        np.ones(n, np.float32), extra_attrs=bond_partner_attrs(bonds, n))
+    assert not ovf
+    out["k1_config2"] = ms(lambda: packed_lj_force_cuda(st, spec, False))
+    out["k1_config2_energy"] = ms(lambda: packed_lj_force_cuda(st, spec,
+                                                               True))
+
+    _, st, spec = cs.triclinic_pack(25, dev, noise=0.05)
+    out["k1_se_hs_tilted62k"] = ms(lambda: packed_lj_force_cuda(st, spec,
+                                                                False))
+    cvs = [cs.triclinic_cv(spec)]
+    auxs = [cvs[0].grad_aux(order_values_plain(st, spec, cvs)[0],
+                            torch.tensor(0.9, device=dev))]
+    out["values_tric_q6"] = ms(lambda: order_values_cuda(st, spec, cvs), 51)
+    out["force_tric_q6"] = ms(lambda: order_force_cuda(st, spec, cvs, auxs),
+                              51)
 
     pos, _, L, a, spec = cs.config3_inputs(32, noise=0.05)
     st = pack(spec, pos, L)

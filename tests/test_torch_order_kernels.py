@@ -207,10 +207,10 @@ def test_failed_launch_raises(cuda_device, monkeypatch):
     cvs = _cv_sets(spec)["q6_coord"]
     auxs = [cv.grad_aux(t, torch.tensor(1.0, device=cuda_device))
             for cv, t in zip(cvs, tpo.order_values_plain(st, spec, cvs))]
-    desc, n_vals, n_aux = poc._plan(tuple(cvs), st.r.device)
+    plan = poc._plan(tuple(cvs), st.r.device)
     oversized = torch.zeros(poc.MAX_DESC + 1, device=cuda_device)
-    oversized[:desc.numel()] = desc
-    bad_plan = lambda cvs_, dev: (oversized, n_vals, n_aux)  # noqa: E731
+    oversized[:plan.desc.numel()] = plan.desc
+    bad_plan = lambda cvs_, dev: plan._replace(desc=oversized)  # noqa: E731
     monkeypatch.setattr(poc, "_plan", bad_plan)
     monkeypatch.setattr(pfc, "_plan", bad_plan)
     before = (poc.order_values_cuda.launches, poc.order_force_cuda.launches,
