@@ -25,10 +25,10 @@ Four workloads, all at full size:
   1.49 on a 64-point well-tempered grid, bias_every=1, one hill per 50-step
   stride; once more as the YAML writes it (4,000 particles).
 
-The pair kernel and the order-CV force kernel run one block per cell over
-the real rows of its 27 neighbour cells, staged in shared memory
-(metadyn_tpu_torch/csrc/cell_stage.cuh); the values and fused kernels one
-thread per slot.
+Every kernel but v1 runs one block per cell over the real rows of its 27
+neighbour cells, staged in shared memory
+(metadyn_tpu_torch/csrc/cell_stage.cuh): the pair kernel, and the order-CV
+values, force and fused LJ + CV kernels (csrc/order_cv.cuh).
 
 Phases, one line or more each:
 
@@ -43,7 +43,10 @@ Phases, one line or more each:
   6. the strict liquid slice with bias_every=1: 1 warm stride, 2 timed;
   7. the order-CV libraries' build report (ptxas registers and spills);
   8. the order-CV kernels (values, force, fused LJ + CV) vs their plain
-     versions at Config 3's shapes on fcc plus noise, with times per call;
+     versions at Config 3's shapes on fcc plus noise, with times per call,
+     and vs their functions from the definition (every row of the 27 cells,
+     no cut-off test before the CV math: order_values_stencil,
+     order_force_stencil);
   9. the Config 3 slice (mts_lag) for 20 steps at gamma = 0 on the kernels
      and on the plain versions, from one state: positions must agree.  The
      plain path swaps the plain sweeps in where the port looks up the
@@ -72,7 +75,8 @@ Phases, one line or more each:
      4,000 particles: the pair kernel (b) and v1 on the tilted per-slot
      start, the values and force kernels in the validity layout with Q6 +
      coordination without a cut-off and with Q6 alone (the main path's
-     CV), the fused kernel on the tilted sentinel start;
+     CV), the fused kernel on the tilted sentinel start, each also against
+     the stencil definitions;
  17. the triclinic slice (4,000) for 20 steps at gamma = 0 on the kernels
      and on the plain path, from one state;
  18. the triclinic slice timed at 62,500 particles (12 warm strides, 2
@@ -393,9 +397,63 @@ def order_force_stencil(state, spec, cvs, auxs):
     return g.reshape(3, -1)
 
 
+def order_values_stencil(state, spec, cvs) -> tuple:
+    """Kernel 2's function from its definition, an oracle that shares no
+    pair test with the kernel or with order_values_plain (both keep only
+    the pairs inside the CVs' largest cut-off): per CV the sums over the
+    real i rows and the real rows j of all 27 neighbour cells (shifted by
+    h u) with r^2 > 1e-12 of its value terms, each CV's pair math on every
+    stencil row, each ordered pair once.  Returns per-CV ``terms``."""
+    import torch
+    from metadyn_tpu_torch.ops.packed import OFFSETS, _tables, shift_rows_cart
+    cap, C = spec.cap, spec.n_cells
+    cx, cy, cz = spec.cells_per_dim
+    real = state.pid < spec.n_real
+    rows = torch.cat([state.r, real[None].to(torch.float32)]).reshape(
+        4, cap, cx, cy, cz)
+    shifts = shift_rows_cart(_tables(spec, state.r.device).ushift, state.box)
+    xi = state.r.reshape(3, 1, cap, C)
+    sums = None
+    for oi, o in enumerate(OFFSETS):
+        part = torch.roll(rows, shifts=(-o[0], -o[1], -o[2]),
+                          dims=(2, 3, 4)).reshape(4, cap, C)
+        xj = part[:3] + shifts[oi][:, None, :]
+        d = xi - xj[:, :, None, :]                      # (3, j, i, C)
+        r2 = (d * d).sum(dim=0)
+        w = (real.reshape(1, cap, C) & (part[3] > 0)[:, None, :]
+             & (r2 > 1e-12)).to(torch.float32)
+        flat = [torch.cat([t.reshape(-1) for t in
+                           cv.pair_value_terms(d[0], d[1], d[2], r2, w)])
+                for cv in cvs]
+        sums = flat if sums is None else [a + b for a, b in zip(sums, flat)]
+    return tuple(cv.terms_from_flat(t) for cv, t in zip(cvs, sums))
+
+
+def values_vs_stencil(tag: str, terms, state, spec, cvs,
+                      rtol: float = 2e-5) -> None:
+    """Value lanes ``terms`` of kernel 2 or 4 against
+    :func:`order_values_stencil`, max|dlane| <= rtol max|lane| within each
+    CV."""
+    import numpy as np
+    import torch
+    ref = order_values_stencil(state, spec, cvs)
+    worst = 0.0
+    for cv, t, r in zip(cvs, terms, ref):
+        a = torch.cat([x.reshape(-1) for x in t])
+        b = torch.cat([x.reshape(-1) for x in r])
+        d = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        assert np.isfinite(d) and scale > 0 and d <= rtol * scale, (
+            tag, cv.name, d, scale)
+        worst = max(worst, d)
+    print(f"{tag} value lanes vs the full-stencil definition (no cut-off "
+          f"test): max|dlane|={worst:.3e}")
+
+
 def force_vs_stencil(tag: str, gk, state, spec, cvs, auxs) -> None:
-    """Kernel 3's output ``gk`` against :func:`order_force_stencil`, with
-    the kernel-vs-plain tolerance (2e-3 relative + 2e-4 max|g|)."""
+    """A bias force ``gk`` of kernel 3 or 4 against
+    :func:`order_force_stencil`, with the kernel-vs-plain tolerance (2e-3
+    relative + 2e-4 max|g|)."""
     import numpy as np
     gs = order_force_stencil(state, spec, cvs, auxs)
     d = (gk - gs).abs()
@@ -403,7 +461,7 @@ def force_vs_stencil(tag: str, gk, state, spec, cvs, auxs) -> None:
     worst = float((d - 2e-3 * gs.abs()).max())
     assert np.isfinite(gmax) and gmax > 0 and worst <= 2e-4 * gmax, (
         tag, worst, gmax)
-    print(f"{tag} order_force vs the full-stencil definition (no cut-off "
+    print(f"{tag} bias force vs the full-stencil definition (no cut-off "
           f"test): max|dg|={float(d.max()):.3e} max|g|={gmax:.3e}")
 
 
@@ -457,6 +515,7 @@ def order_kernels_vs_plain(dev) -> dict:
     ds = float(((sk - sp).abs() / sp.abs()).max())
     assert np.isfinite(err) and ds <= 2e-5, (ds, sk, sp)
     lanes_close("values", tk, tp, 2e-5)
+    values_vs_stencil("config3 order_values", tk, st, spec, cvs)
     out["values"] = (err, cuda_ms(lambda: order_values_cuda(st, spec, cvs)),
                      cuda_ms(lambda: order_values_plain(st, spec, cvs)))
     print(f"order_values kernel_vs_plain: s={sk.tolist()} rel_ds={ds:.3e} "
@@ -479,7 +538,7 @@ def order_kernels_vs_plain(dev) -> dict:
     vac = st.pid >= spec.n_real
     assert torch.all(gk[:, vac] == 0.0)
     err, gmax = force_close("g", gk, gp, 2e-3, 2e-4)
-    force_vs_stencil("config3", gk, st, spec, cvs, auxs)
+    force_vs_stencil("config3 order_force", gk, st, spec, cvs, auxs)
     out["force"] = (err,
                     cuda_ms(lambda: order_force_cuda(st, spec, cvs, auxs)),
                     cuda_ms(lambda: order_force_plain(st, spec, cvs, auxs)))
@@ -498,6 +557,8 @@ def order_kernels_vs_plain(dev) -> dict:
     ds4 = float(((s4k - s4p).abs() / s4p.abs()).max())
     assert ds4 <= 2e-4, (ds4, s4k, s4p)
     lanes_close("fused values", tk4, tp4, 2e-4)
+    values_vs_stencil("config3 fused_lj_order", tk4, st, spec, cvs, 2e-4)
+    force_vs_stencil("config3 fused_lj_order", gk4, st, spec, cvs, auxs)
     el = float((lanes(tk4) - lanes(tp4)).abs().max())
     out["fused"] = (
         max(ef, eg, el),
@@ -966,6 +1027,7 @@ def triclinic_kernels_vs_plain(dev, n_cells: int) -> dict:
     lp = torch.cat([t.reshape(-1) for c in tp for t in c])
     err = float((lk - lp).abs().max())
     assert np.isfinite(err) and ds <= 2e-5, (ds, sk, sp)
+    values_vs_stencil(f"{tag} Q6 + coordination", tk, st, spec, cvs)
     ms = cuda_ms(lambda: order_values_cuda(st, spec, cvs))
     plain = cuda_ms(lambda: order_values_plain(st, spec, cvs), calls=10)
     q6 = pairs_within(st, spec, cvs[0].r_cut)
@@ -1001,11 +1063,12 @@ def triclinic_kernels_vs_plain(dev, n_cells: int) -> dict:
     # kernels 2 and 3 with the main path's CV alone (Q6)
     q6cv = cvs[:1]
     tq = order_values_plain(st, spec, q6cv)
-    lk = torch.cat([t.reshape(-1) for t in order_values_cuda(st, spec,
-                                                             q6cv)[0]])
+    tkq = order_values_cuda(st, spec, q6cv)
+    lk = torch.cat([t.reshape(-1) for t in tkq[0]])
     lp = torch.cat([t.reshape(-1) for t in tq[0]])
     err = float((lk - lp).abs().max())
     assert err <= 2e-5 * float(lp.abs().max()), (err, lp)
+    values_vs_stencil(f"{tag} Q6 alone", tkq, st, spec, q6cv)
     ms = cuda_ms(lambda: order_values_cuda(st, spec, q6cv))
     plain = cuda_ms(lambda: order_values_plain(st, spec, q6cv), calls=10)
     bms, by = bound(16 * n_pad, q6 * fp["q6_value"])
@@ -1055,6 +1118,8 @@ def triclinic_kernels_vs_plain(dev, n_cells: int) -> dict:
     s4p = torch.stack([cv.finalize_value(t) for cv, t in zip(scvs, tp4)])
     ds4 = float(((s4k - s4p).abs() / s4p.abs()).max())
     assert ds4 <= 2e-4, (ds4, s4k, s4p)
+    values_vs_stencil(f"{tag} fused_lj_order", tk4, sst, sspec, scvs, 2e-4)
+    force_vs_stencil(f"{tag} fused_lj_order", gk4, sst, sspec, scvs, sauxs)
     ms = cuda_ms(lambda: fused_lj_order_force_cuda(sst, sspec, scvs, sauxs))
     plain = cuda_ms(lambda: fused_lj_order_force_plain(sst, sspec, scvs,
                                                        sauxs), calls=10)
@@ -1490,6 +1555,8 @@ def main() -> int:
         entry("packed_order_values", packed_order_cuda.KERNEL,
               "metadyn_tpu/ops/packed_order_pallas.py:257",
               lag_counts["values"], order["values"],
+              design=staged + ", prefiltered to the CVs' reach, one hit "
+              "queue across a warp's i rows, a partials row per cell",
               launches_by_path={"config3 mts_lag": lag_counts["values"],
                                 "triclinic": tric_counts["values"]},
               variants=tric_variants("values", "validity")),
@@ -1503,6 +1570,8 @@ def main() -> int:
         entry(packed_fused_cuda.KERNEL, packed_fused_cuda.KERNEL,
               "metadyn_tpu/ops/packed_fused_pallas.py:296",
               lag_counts["fused"], order["fused"],
+              design=staged + ", one staging prefiltered to the larger of "
+              "the LJ and CV cut-offs for the LJ and the CV math",
               variants=tric_variants("fused", "sentinel")),
         entry(v1_lib, v1_lib, "metadyn_tpu/ops/packed_pallas.py:185", 0,
               cfg2["v1 se_hs_fene_wca"],

@@ -1,6 +1,6 @@
 // Block-per-cell traversal over the cell-major slot layout, shared by the
-// pair kernel (packed_lj_force.cu) and the order-CV force kernel
-// (packed_order.cu).
+// pair kernel (packed_lj_force.cu) and the order-CV kernels (values, force
+// and fused LJ + CV: order_cv.cuh).
 //
 // One block owns one i cell.  It stages the rows of its 27 neighbour cells
 // in shared memory once, compacted to the rows the caller keeps, in the
@@ -11,7 +11,9 @@
 // pass the caller's cheap test (r^2 against a cut-off) are queued in order
 // and handed out one per lane, 32 at a time, to the caller's pair math, so
 // a warp runs the costly math with all lanes busy rather than once for
-// every lane that has a partner.
+// every lane that has a partner.  Where the output is one sum over all
+// pairs rather than one row per i, a warp keeps its queue across all its
+// i rows (warp_sweep_rows) and runs the math only when 32 hits are ready.
 //
 // Staging is two passes over the 27 cap rows, one warp per column (ox, oy)
 // at a time.  The lanes of a warp take the column's 3 cells along z at 10
@@ -196,6 +198,44 @@ __device__ void warp_sweep(int n_rows, int* queue, Hit hit, Pair pair) {
     }
   }
   if (lane < qn) pair(queue[lane]);
+  __syncwarp();
+}
+
+// One warp's sweep of its i rows i = first, first + stride, ... < end (staged
+// indices) over the n_rows staged rows, with one hit queue kept across the
+// rows: hit(i, q) is the cheap test, pair(i, q) the math of a hit.  The
+// queue holds the (i, q) hits in the order (i, then staged order) and runs
+// them 32 at a time, one per lane, whenever 32 are ready; the last fewer
+// than 32 run on the first lanes.  For outputs summed over every pair (no
+// per-row output).  Staged indices are below 2^16 (27 cap rows fit in 227
+// KB only for cap < 540).  Called by all 32 lanes of the warp.
+template <class Hit, class Pair>
+__device__ void warp_sweep_rows(int first, int end, int stride, int n_rows,
+                                int* queue, Hit hit, Pair pair) {
+  const int lane = threadIdx.x & 31;
+  int qn = 0;
+  for (int i = first; i < end; i += stride) {
+    for (int base = 0; base < n_rows; base += 32) {
+      const int q = base + lane;
+      const bool h = q < n_rows && hit(i, q);
+      const unsigned m = __ballot_sync(kFull, h);
+      if (h) queue[qn + __popc(m & ((1u << lane) - 1u))] = (i << 16) | q;
+      qn += __popc(m);
+      __syncwarp();
+      if (qn >= 32) {
+        const int e = queue[lane];
+        pair(e >> 16, e & 0xffff);
+        qn -= 32;
+        __syncwarp();
+        if (lane < qn) queue[lane] = queue[32 + lane];
+        __syncwarp();
+      }
+    }
+  }
+  if (lane < qn) {
+    const int e = queue[lane];
+    pair(e >> 16, e & 0xffff);
+  }
   __syncwarp();
 }
 

@@ -1,39 +1,58 @@
-// Order-CV pair sweep over the cell-major slot layout (sentinel or validity
-// layout, orthorhombic or tilted box): the per-CV pair math that kernels 2,
-// 3 and 4 share, and the one-thread-per-slot traversal of kernels 2 and 4.
-// Kernel 3 runs the same pair math on the block-per-cell traversal of
-// cell_stage.cuh (packed_order.cu).
+// Order-CV sweeps over the cell-major slot layout (sentinel or validity
+// layout, orthorhombic or tilted box): the per-CV pair math, the descriptor
+// format and the block-per-cell kernel that kernels 2, 3 and 4 share.
 //
 // Replaces, in metadyn_tpu/ops:
-//   packed_order_pallas.py  order_values_pallas  (Vals)
+//   packed_order_pallas.py  order_values_pallas  (Vals; packed_order.cu)
 //   packed_order_pallas.py  order_force_pallas   (Grad; packed_order.cu)
 //   packed_fused_pallas.py  fused_lj_order_force (LJ + Vals + Grad,
-//                                                 recurrence mode)
+//                                                 recurrence mode;
+//                                                 packed_fused_lj_order.cu)
 //
 // Layout as in packed_lj_force.cu: positions (3, Npad) f32, slot = rank * C +
 // cell; a cell's partners are the `cap` rows of each of its 27 neighbour
 // cells, seen across a box face at x_j + h u (cell_geom.cuh: one shift per
 // neighbour cell, exactly +-L per axis in an orthorhombic box).
 //
-// Design: one thread per i slot sweeps all 27 * cap partners, i side only.
-// The TPU kernels halve the sweep (self cell weight 1, 13 cross offsets
-// weight 2) and roll a j-side reaction back in an XLA pass.  Both halvings
-// rest on parity: every per-pair value term is even in d (Q_l with even l by
-// (-1)^l; coordination depends on r^2 alone), and the j-side reaction of a
-// halved force sweep equals the i-side gradient seen from j.  So summing each
-// ordered pair once with weight 1, i side only, gives the same values and
-// forces with no atomics and no rollback buffer, deterministically, at twice
-// the pair evaluations.
+// Traversal (cell_stage.cuh): one block per cell stages the kept rows of its
+// 27 neighbour cells in shared memory; the warps take the cell's real i rows
+// and queue the staged rows inside the hit radius (the largest CV cut-off,
+// or the LJ cut-off if larger), then run the pair math on the queue 32 at a
+// time.  The kernels with a per-row output (the bias force g, the LJ force
+// f) flush the queue at the end of each i row (warp_sweep); the values
+// kernel, whose output is one sum over all pairs, keeps one queue across
+// all the rows of a warp (warp_sweep_rows), so that Q6's ~12 hits per row
+// still fill all 32 lanes.
 //
-// Vacancy: an explicit weight, as packed_order_pallas._pair_geom applies it.
-// In the sentinel layout (uniform sigma and epsilon) (x_i < VACANT_THR) &
-// (x_j < VACANT_THR) & (r^2 > 1e-12).  In the validity layout (template flag
-// Valid, per-slot se/hs) (pid_i < n_real) & (pid_j < n_real) & (r^2 >
-// 1e-12), read from the int32 pids: there vacant slots are not parked at the
+// Keep rule of the staging: a real row (vacancy below), within reach of the
+// cell.  The block first takes the box of its real i rows in fractional
+// coordinates, [lo, hi] per lattice axis; a row at fractional f lies at
+// least g_d w_d from every point of that box, with g_d = max(lo_d - f_d,
+// f_d - hi_d, 0) and w_d the box's perpendicular width along axis d
+// (core/box.perpendicular_widths), since the planes of constant f_d are w_d
+// apart per unit of f_d.  A row is kept when max_d g_d w_d < R, in any box,
+// tilted or not; R is the hit radius plus a margin far above the f32
+// rounding of the test (ops/packed_order_cuda.py prefilter_radius).  A CV
+// without a cut-off (rc2 = inf) turns the prefilter off.
+// ops/packed_order_cuda.prefilter_keep is the same rule in plain PyTorch,
+// which the CPU tests check for dropped pairs.
+//
+// Sums: the i side of every ordered pair with weight 1.  The TPU kernels
+// halve the sweep (self cell weight 1, 13 cross offsets weight 2) and roll a
+// j-side reaction back in an XLA pass.  Both halvings rest on parity: every
+// per-pair value term is even in d (Q_l with even l by (-1)^l; coordination
+// depends on r^2 alone), and the j-side reaction of a halved force sweep
+// equals the i-side gradient seen from j.  So summing each ordered pair once
+// with weight 1, i side only, gives the same values and forces with no
+// atomics and no rollback buffer, deterministically, at twice the pair
+// evaluations.
+//
+// Vacancy, read only while staging: in the sentinel layout (uniform sigma
+// and epsilon) x < VACANT_THR; in the validity layout (per-slot se/hs) pid <
+// n_real, read from the int32 pids: there vacant slots are not parked at the
 // sentinel (the pack leaves them at 0 and the integrator moves them), so a
-// coordinate test would count them.  The r^2 tests alone, which the LJ
-// kernel relies on, do not cull a vacant partner for a CV with no cut-off
-// short of the stencil.  A vacant i slot writes zero force.
+// coordinate test would count them.  r^2 > 1e-12 drops the slot itself.  A
+// vacant i slot gets zero force.
 //
 // CVs come as a small float descriptor in device memory, built by
 // ops/packed_order_cuda.py: per CV a header of kHdr floats
@@ -47,26 +66,33 @@
 // coefficients (grad_aux, computed on the device each call) come from lanes
 // aux_off.. of a device buffer: no host read per call.
 //
-// What bounds it on Hopper: the partner-coordinate reads from L1/L2 (27 * cap
-// rows of 12 bytes per i slot; the (3, Npad) positions, 1.05 MB at Config 3,
-// stay in the 50 MB L2).  The CV math runs only for the ~12 (Q6) and ~50
-// (coordination) partners inside the CV cut-offs, so its run-time loops over
-// m and the local-memory value accumulators cost little beside the sweep.
+// The per-CV dispatch is out of the pair loop: the kernel is a template on
+// the set of CV kinds (Q_l only, coordination only, mixed), on l where every
+// Q_l CV has l = 6, so Q6's m and Horner loops unroll, and on the value
+// lanes: the CV lists [Q6] and [Q6, coordination] (the main paths') have
+// their lane offsets at compile time, so the per-lane value sums live in
+// registers; other lists index them at run time (local memory).
 //
-// Value sums: per-thread f32 accumulators, a warp-shuffle and shared-memory
-// reduction per block into a (n_blocks, n_terms) partials buffer that every
-// block writes in full, and a one-block second pass summing in double.
+// What bounds it on Hopper: the CV math of the in-cut pairs (~12 per slot
+// for Q6 at r_cut 1.37-1.49, ~300 FP32 operations each for the gradient,
+// about half that for the values) and the candidate tests; the inputs stay
+// in the 50 MB L2.
+//
+// Value sums: per-lane f32 sums, a shuffle tree per term in each warp, the
+// warps in order into one row of a (cells, n_terms) partials buffer that
+// every block writes in full, and a one-block second pass in double, one
+// warp per term (reduce_terms_kernel).  Every sum runs in an order fixed
+// for a given input: two calls give the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "cell_geom.cuh"
+#include "cell_stage.cuh"
 
 namespace order_cv {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr float kVacantThr = 1.0e6f;  // ops/packed.py VACANT_THR
 constexpr int kHdr = 9;
 constexpr int kMaxCVs = 8;
@@ -75,20 +101,19 @@ constexpr int kMaxAux = 64;    // aux lanes over all CVs
 constexpr int kMaxDesc = 1024; // descriptor floats
 constexpr int kQl = 0;
 constexpr int kCoord = 1;
+// the CV-kind sets (ops/packed_order_cuda.py CV_SET_*)
+constexpr int kSetQl = 1;     // every CV a Q_l
+constexpr int kSetCoord = 2;  // every CV a coordination
+constexpr int kSetMixed = 3;
+// the value-lane layouts (ops/packed_order_cuda.py LANES_*)
+constexpr int kLanesAny = 0;      // offsets from the descriptor
+constexpr int kLanesQ6 = 1;       // [Q6]: lanes 0..14
+constexpr int kLanesQ6Coord = 2;  // [Q6, coordination]: 0..14, 15
+constexpr int kQ6Terms = 15;      // Re (7), Im (7), bond count
 
-struct Geom {
-  int n_pad;
-  int cap;
-  int cx, cy, cz;
-  int n_real;  // the validity layout's vacancy bound on pid
-  cell_geom::HBox h;
-};
-
-struct LJParams {
-  float rc2;   // r_cut^2
-  float sig2;  // sigma^2
-  float eps4;  // 4 * epsilon
-};
+constexpr int kStageThreads = 256;
+constexpr int kStageWarps = kStageThreads / 32;
+constexpr int kReduceThreads = 512;
 
 // The arguments every entry point validates before a launch.  Returns 0 or
 // cudaErrorInvalidValue.
@@ -106,6 +131,7 @@ inline int check_args(int n_cvs, int desc_len, int n_terms, int n_aux,
 // reference evaluates them.
 __device__ __forceinline__ float horner(const float* c, int n, float x) {
   float p = 0.0f;
+#pragma unroll
   for (int i = n - 1; i >= 0; --i) p = p * x + c[i];
   return p;
 }
@@ -115,15 +141,17 @@ __device__ __forceinline__ float horner(const float* c, int n, float x) {
 // closed-form gradient of phi(d) = sum_m N_m p_m(c) Re[(g_re - i g_im) u^m]
 // into g.  r2 > 1e-12 is guaranteed by the caller.  L > 0 fixes l at
 // compile time (the caller guarantees h[1] == L), so the m and Horner loops
-// unroll; L = 0 reads l from the header.
-template <bool Vals, bool Grad, int L = 0>
+// unroll; L = 0 reads l from the header.  VO >= 0 fixes the value lane
+// offset at compile time (the caller guarantees h[2] == VO); VO < 0 reads
+// it from the header.
+template <bool Vals, bool Grad, int L = 0, int VO = -1>
 __device__ __forceinline__ void ql_pair(const float* h, const float* tab,
                                         const float* aux, float dx, float dy,
                                         float dz, float r2, float* vacc,
                                         float& gx, float& gy, float& gz) {
   if (!(r2 < h[5])) return;
   const int l = L > 0 ? L : static_cast<int>(h[1]);
-  const int vo = static_cast<int>(h[2]);
+  const int vo = VO >= 0 ? VO : static_cast<int>(h[2]);
   const float* norms = tab;
   const float* coef = tab + (l + 1);
   const float* dcoef = coef + (l + 1) * (l + 2) / 2;
@@ -137,6 +165,7 @@ __device__ __forceinline__ void ql_pair(const float* h, const float* tab,
   float qr = 0.0f, qi = 0.0f;  // u^(m-1)
   float D = 0.0f, E = 0.0f, F = 0.0f, BU = 0.0f;
   int co = 0, dco = 0;
+#pragma unroll
   for (int m = 0; m <= l; ++m) {
     const int nc = l - m + 1;
     const float pl = horner(coef + co, nc, cth);
@@ -176,8 +205,8 @@ __device__ __forceinline__ void ql_pair(const float* h, const float* tab,
 }
 
 // Coordination of one ordered pair (cv/packed_order.PackedCoordination):
-// s = 1 / (1 + (r/r0)^6), stretched below the cut-off.
-template <bool Vals, bool Grad>
+// s = 1 / (1 + (r/r0)^6), stretched below the cut-off.  VO as ql_pair.
+template <bool Vals, bool Grad, int VO = -1>
 __device__ __forceinline__ void coord_pair(const float* h, const float* aux,
                                            float dx, float dy, float dz,
                                            float r2, float* vacc, float& gx,
@@ -186,7 +215,9 @@ __device__ __forceinline__ void coord_pair(const float* h, const float* aux,
   const float r02 = h[6];
   const float t = r2 / r02;
   const float den = 1.0f + t * t * t;
-  if (Vals) vacc[static_cast<int>(h[2])] += (1.0f / den - h[7]) * h[8];
+  if (Vals) {
+    vacc[VO >= 0 ? VO : static_cast<int>(h[2])] += (1.0f / den - h[7]) * h[8];
+  }
   if (Grad) {
     const float dphi_dr2 = -3.0f * t * t / (r02 * (den * den)) * h[8];
     const float c = aux[static_cast<int>(h[3])] * 2.0f * dphi_dr2;
@@ -196,133 +227,361 @@ __device__ __forceinline__ void coord_pair(const float* h, const float* aux,
   }
 }
 
-// The traversal.  WithLJ adds the Lennard-Jones pair force (sentinel layout,
-// forces only) into f; Vals accumulates value terms into partials (one row
-// of n_terms per block); Grad writes the CV bias force into g.  Valid: the
-// validity layout, vacancy from pid (otherwise from the coordinate
-// sentinel; pid is then not read and may be null).
-template <bool WithLJ, bool Vals, bool Grad, bool Valid>
-__global__ void __launch_bounds__(kThreads)
-order_sweep_kernel(const float* __restrict__ r, const int* __restrict__ pid,
-                   const float* __restrict__ desc,
-                   int desc_len, int n_cvs, int n_terms,
-                   const float* __restrict__ aux, int n_aux, Geom p,
-                   LJParams lj, float* __restrict__ f, float* __restrict__ g,
-                   float* __restrict__ partials) {
+// Every CV of the descriptor on one pair.  Kinds: kSet*; L: 6 or 0 (ql_pair);
+// Lanes: kLanes* (with a fixed layout, Kinds and L are implied).
+template <bool Vals, bool Grad, int Kinds, int L, int Lanes>
+__device__ __forceinline__ void cv_pair(const float* desc, int n_cvs,
+                                        const float* aux, float dx, float dy,
+                                        float dz, float r2, float* vacc,
+                                        float& gx, float& gy, float& gz) {
+  if constexpr (Lanes != kLanesAny) {
+    ql_pair<Vals, Grad, 6, 0>(desc, desc + static_cast<int>(desc[4]), aux,
+                              dx, dy, dz, r2, vacc, gx, gy, gz);
+    if constexpr (Lanes == kLanesQ6Coord) {
+      coord_pair<Vals, Grad, kQ6Terms>(desc + kHdr, aux, dx, dy, dz, r2,
+                                       vacc, gx, gy, gz);
+    }
+  } else {
+    for (int c = 0; c < n_cvs; ++c) {
+      const float* h = desc + c * kHdr;
+      if (Kinds == kSetQl ||
+          (Kinds == kSetMixed && static_cast<int>(h[0]) == kQl)) {
+        ql_pair<Vals, Grad, L>(h, desc + static_cast<int>(h[4]), aux, dx, dy,
+                               dz, r2, vacc, gx, gy, gz);
+      } else {
+        coord_pair<Vals, Grad>(h, aux, dx, dy, dz, r2, vacc, gx, gy, gz);
+      }
+    }
+  }
+}
+
+// Value lanes a thread sums: the fixed layouts' count, else the limit.
+template <int Lanes>
+__host__ __device__ constexpr int lane_count() {
+  return Lanes == kLanesQ6       ? kQ6Terms
+         : Lanes == kLanesQ6Coord ? kQ6Terms + 1
+                                  : kMaxTerms;
+}
+
+struct StagedParams {
+  cell_stage::Grid g;
+  int n_real;      // the validity layout's vacancy bound on pid
+  float rc2_hit;   // the hit radius squared: max(LJ, largest CV cut-off)^2
+  float rc2_lj;    // the LJ cut-off squared (WithLJ)
+  float sig2;      // sigma^2 (WithLJ)
+  float eps4;      // 4 epsilon (WithLJ)
+  float pre_r;     // the prefilter radius (inf: no prefilter)
+  float wx, wy, wz;  // the box's perpendicular widths
+};
+
+// Static shared memory of order_staged_kernel, beside its dynamic rows.
+constexpr size_t kStaticSmem =
+    sizeof(float) * (kMaxDesc + kMaxAux + 6 + kStageWarps * kMaxTerms);
+
+// Dynamic shared memory: the staged rows and cell_stage's scratch.
+inline size_t staged_smem(int cap) {
+  return sizeof(float4) * cell_stage::kOffsets * cap +
+         cell_stage::scratch_bytes(cap, kStageWarps);
+}
+
+// The block-per-cell kernel.  WithLJ adds the Lennard-Jones pair force
+// (sentinel layout, forces only, uniform sigma and epsilon) into f; Vals
+// sums value terms into partials (one row of n_terms per cell); Grad writes
+// the CV bias force into g.  Valid: the validity layout, vacancy from pid
+// (otherwise from the coordinate sentinel; pid is then not read and may be
+// null).  With Vals alone, a warp keeps one hit queue across its rows.
+template <bool WithLJ, bool Vals, bool Grad, bool Valid, int Kinds, int L,
+          int Lanes>
+__global__ void __launch_bounds__(kStageThreads)
+order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
+                    const float* __restrict__ desc, int desc_len, int n_cvs,
+                    int n_terms, const float* __restrict__ aux, int n_aux,
+                    StagedParams p, float* __restrict__ f,
+                    float* __restrict__ g, float* __restrict__ partials) {
+  extern __shared__ float4 s_pos[];  // (27 cap): x, y, z with the shift
   __shared__ float s_desc[kMaxDesc];
   __shared__ float s_aux[kMaxAux];
-  for (int k = threadIdx.x; k < desc_len; k += kThreads) s_desc[k] = desc[k];
+  __shared__ float s_box[6];  // fractional lo (3) and hi (3) of the i rows
+  const int cap = p.g.cap;
+  const int n_pad = p.g.n_pad;
+  const int C = p.g.cx * p.g.cy * p.g.cz;
+  const int cell = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const cell_stage::Scratch sc = cell_stage::scratch_at(
+      s_pos + cell_stage::kOffsets * cap, cap);
+  for (int k = threadIdx.x; k < desc_len; k += kStageThreads) {
+    s_desc[k] = desc[k];
+  }
   if (Grad) {
-    for (int k = threadIdx.x; k < n_aux; k += kThreads) s_aux[k] = aux[k];
+    for (int k = threadIdx.x; k < n_aux; k += kStageThreads) s_aux[k] = aux[k];
+  }
+
+  auto real = [&](int j) -> bool {
+    return Valid ? pid[j] < p.n_real : r[j] < kVacantThr;
+  };
+  const bool pre = isfinite(p.pre_r);
+  if (pre && warp == 0) {
+    // warp 0: the box of the cell's real rows
+    float b[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY,
+                  -INFINITY};
+    for (int k = lane; k < cap; k += 32) {
+      const int s = k * C + cell;
+      if (real(s)) {
+        const float3 fr = cell_stage::fractional(
+            make_float3(r[s], r[n_pad + s], r[2 * n_pad + s]), p.g.h);
+        b[0] = fminf(b[0], fr.x);
+        b[1] = fminf(b[1], fr.y);
+        b[2] = fminf(b[2], fr.z);
+        b[3] = fmaxf(b[3], fr.x);
+        b[4] = fmaxf(b[4], fr.y);
+        b[5] = fmaxf(b[5], fr.z);
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      for (int d = 0; d < 3; ++d) {
+        b[d] = fminf(b[d], __shfl_xor_sync(cell_stage::kFull, b[d], off));
+        b[3 + d] =
+            fmaxf(b[3 + d], __shfl_xor_sync(cell_stage::kFull, b[3 + d], off));
+      }
+    }
+    if (lane == 0) {
+      for (int d = 0; d < 6; ++d) s_box[d] = b[d];
+    }
   }
   __syncthreads();
-
-  const int C = p.cx * p.cy * p.cz;
-  const int n_pad = p.n_pad;
-  const float* __restrict__ rx = r;
-  const float* __restrict__ ry = r + n_pad;
-  const float* __restrict__ rz = r + 2 * n_pad;
-  const int s = blockIdx.x * kThreads + threadIdx.x;
-
-  float vacc[kMaxTerms];
-  if (Vals) {
-    for (int t = 0; t < n_terms; ++t) vacc[t] = 0.0f;
+  auto near = [&](float3 x) -> bool {
+    const float3 fr = cell_stage::fractional(x, p.g.h);
+    const float gx = fmaxf(fmaxf(s_box[0] - fr.x, fr.x - s_box[3]), 0.0f) * p.wx;
+    const float gy = fmaxf(fmaxf(s_box[1] - fr.y, fr.y - s_box[4]), 0.0f) * p.wy;
+    const float gz = fmaxf(fmaxf(s_box[2] - fr.z, fr.z - s_box[5]), 0.0f) * p.wz;
+    return fmaxf(fmaxf(gx, gy), gz) < p.pre_r;
+  };
+  auto keep = [&](int o, int j, float3 x) -> bool {
+    return real(j) && (o == cell_stage::kSelf || !pre || near(x));
+  };
+  auto store = [&](int q, int, float3 x) {
+    s_pos[q] = make_float4(x.x, x.y, x.z, 0.0f);
+  };
+  const int n_rows = cell_stage::stage_neighbours(r, p.g, cell, sc, keep,
+                                                  store);
+  for (int k = threadIdx.x; k < cap; k += kStageThreads) {
+    if (cell_stage::own_dropped(sc, cap, k)) {
+      const int s = k * C + cell;
+      if (WithLJ) {
+        f[s] = 0.0f;
+        f[n_pad + s] = 0.0f;
+        f[2 * n_pad + s] = 0.0f;
+      }
+      if (Grad) {
+        g[s] = 0.0f;
+        g[n_pad + s] = 0.0f;
+        g[2 * n_pad + s] = 0.0f;
+      }
+    }
   }
-  float fx = 0.0f, fy = 0.0f, fz = 0.0f;
-  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
-  if (s < n_pad) {
-    const float xi = rx[s];
-    const float yi = ry[s];
-    const float zi = rz[s];
-    if (Valid ? pid[s] < p.n_real : xi < kVacantThr) {
-      const int cell = s % C;
-      const int iz = cell % p.cz;
-      const int iy = (cell / p.cz) % p.cy;
-      const int ix = cell / (p.cy * p.cz);
-      for (int ox = -1; ox <= 1; ++ox) {
-        for (int oy = -1; oy <= 1; ++oy) {
-          for (int oz = -1; oz <= 1; ++oz) {
-            float3 sh;
-            const int jcell = cell_geom::neighbour_cell(
-                ix, iy, iz, ox, oy, oz, p.cx, p.cy, p.cz, p.h, &sh);
-            for (int k = 0; k < p.cap; ++k) {
-              const int j = k * C + jcell;
-              const float xj = rx[j];
-              // vacant partner
-              if (Valid ? !(pid[j] < p.n_real) : !(xj < kVacantThr)) continue;
-              const float dx = xi - (xj + sh.x);
-              const float dy = yi - (ry[j] + sh.y);
-              const float dz = zi - (rz[j] + sh.z);
-              const float r2 = dx * dx + dy * dy + dz * dz;
-              if (!(r2 > 1.0e-12f)) continue;  // the slot itself
-              if (WithLJ && r2 < lj.rc2) {
-                const float inv = 1.0f / r2;
-                const float s2 = lj.sig2 * inv;
-                const float s6 = s2 * s2 * s2;
-                const float coef = lj.eps4 * (12.0f * s6 * s6 - 6.0f * s6) * inv;
-                fx += coef * dx;
-                fy += coef * dy;
-                fz += coef * dz;
-              }
-              for (int c = 0; c < n_cvs; ++c) {
-                const float* h = s_desc + c * kHdr;
-                if (static_cast<int>(h[0]) == kQl) {
-                  ql_pair<Vals, Grad>(h, s_desc + static_cast<int>(h[4]),
-                                      s_aux, dx, dy, dz, r2, vacc, gx, gy, gz);
-                } else {
-                  coord_pair<Vals, Grad>(h, s_aux, dx, dy, dz, r2, vacc, gx,
-                                         gy, gz);
-                }
-              }
+
+  const int i0 = sc.off[cell_stage::kSelf];
+  const int n_i = sc.off[cell_stage::kSelf + 1] - i0;
+  int* queue = sc.queue + warp * cell_stage::kQueue;
+  constexpr int kTerms = Vals ? lane_count<Lanes>() : 1;
+  // compile-time in the fixed layouts, so their loops over t unroll
+  const int nt = !Vals ? 0 : Lanes == kLanesAny ? n_terms : kTerms;
+  float vacc[kTerms];
+#pragma unroll
+  for (int t = 0; t < nt; ++t) vacc[t] = 0.0f;
+  // the pair's displacement r_i - r_j (staged row q) and r^2
+  auto geom = [&](float4 xi, int q, float* dx, float* dy, float* dz) -> float {
+    const float4 xj = s_pos[q];
+    *dx = xi.x - xj.x;
+    *dy = xi.y - xj.y;
+    *dz = xi.z - xj.z;
+    return *dx * *dx + *dy * *dy + *dz * *dz;
+  };
+  auto hit = [&](float4 xi, int q) -> bool {
+    float dx, dy, dz;
+    const float r2 = geom(xi, q, &dx, &dy, &dz);
+    return r2 > 1.0e-12f && r2 < p.rc2_hit;  // not the slot itself
+  };
+
+  if constexpr (Vals && !Grad && !WithLJ) {
+    float unused = 0.0f;
+    cell_stage::warp_sweep_rows(
+        i0 + warp, i0 + n_i, kStageWarps, n_rows, queue,
+        [&](int i, int q) { return hit(s_pos[i], q); },
+        [&](int i, int q) {
+          float dx, dy, dz;
+          const float r2 = geom(s_pos[i], q, &dx, &dy, &dz);
+          cv_pair<true, false, Kinds, L, Lanes>(s_desc, n_cvs, s_aux, dx, dy,
+                                                dz, r2, vacc, unused, unused,
+                                                unused);
+        });
+  } else {
+    for (int ii = warp; ii < n_i; ii += kStageWarps) {
+      const float4 xi = s_pos[i0 + ii];
+      float fx = 0.0f, fy = 0.0f, fz = 0.0f;
+      float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+      cell_stage::warp_sweep(
+          n_rows, queue, [&](int q) { return hit(xi, q); },
+          [&](int q) {
+            float dx, dy, dz;
+            const float r2 = geom(xi, q, &dx, &dy, &dz);
+            if (WithLJ && r2 < p.rc2_lj) {
+              const float inv = 1.0f / r2;
+              const float s2 = p.sig2 * inv;
+              const float s6 = s2 * s2 * s2;
+              const float coef = p.eps4 * (12.0f * s6 * s6 - 6.0f * s6) * inv;
+              fx += coef * dx;
+              fy += coef * dy;
+              fz += coef * dz;
             }
-          }
+            cv_pair<Vals, Grad, Kinds, L, Lanes>(s_desc, n_cvs, s_aux, dx, dy,
+                                                 dz, r2, vacc, gx, gy, gz);
+          });
+      const int s = sc.islot[ii];
+      if (WithLJ) {
+        fx = cell_stage::warp_sum(fx);
+        fy = cell_stage::warp_sum(fy);
+        fz = cell_stage::warp_sum(fz);
+        if (lane == 0) {
+          f[s] = fx;
+          f[n_pad + s] = fy;
+          f[2 * n_pad + s] = fz;
+        }
+      }
+      if (Grad) {
+        gx = cell_stage::warp_sum(gx);
+        gy = cell_stage::warp_sum(gy);
+        gz = cell_stage::warp_sum(gz);
+        if (lane == 0) {
+          g[s] = gx;
+          g[n_pad + s] = gy;
+          g[2 * n_pad + s] = gz;
         }
       }
     }
-    if (WithLJ) {
-      f[s] = fx;
-      f[n_pad + s] = fy;
-      f[2 * n_pad + s] = fz;
-    }
-    if (Grad) {
-      g[s] = gx;
-      g[n_pad + s] = gy;
-      g[2 * n_pad + s] = gz;
-    }
   }
 
   if (Vals) {
-    // warp shuffle, then the kWarps warp sums in a fixed order
-    __shared__ float sh[kWarps][kMaxTerms];
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    for (int t = 0; t < n_terms; ++t) {
-      float v = vacc[t];
-      for (int off = 16; off > 0; off >>= 1) {
-        v += __shfl_down_sync(0xffffffffu, v, off);
-      }
-      if (lane == 0) sh[warp][t] = v;
+    // a shuffle tree per term, then the warps in order into the cell's row
+    __shared__ float s_red[kStageWarps][kMaxTerms];
+#pragma unroll
+    for (int t = 0; t < nt; ++t) {
+      const float v = cell_stage::warp_sum(vacc[t]);
+      if (lane == 0) s_red[warp][t] = v;
     }
     __syncthreads();
-    for (int t = threadIdx.x; t < n_terms; t += kThreads) {
+    for (int t = threadIdx.x; t < nt; t += kStageThreads) {
       float acc = 0.0f;
-      for (int w = 0; w < kWarps; ++w) acc += sh[w][t];
-      partials[blockIdx.x * n_terms + t] = acc;
+      for (int w = 0; w < kStageWarps; ++w) acc += s_red[w][t];
+      partials[cell * nt + t] = acc;
     }
   }
 }
 
-// One block: out[t] = sum_b partials[b, t], in double, blocks in order.
-__global__ void __launch_bounds__(kThreads)
+// One block: out[t] = sum_b partials[b, t] over the n_blocks rows, in double,
+// in a fixed order: warp w takes the terms t = w, w + warps, ...; lane k of
+// the warp sums the rows k, k + 32, ... of term t in order, and a shuffle
+// tree adds the 32 lane sums.  Two calls give the same bits.
+__global__ void __launch_bounds__(kReduceThreads)
 reduce_terms_kernel(const float* __restrict__ partials, int n_blocks,
                     int n_terms, float* __restrict__ out) {
-  for (int t = threadIdx.x; t < n_terms; t += kThreads) {
+  const int lane = threadIdx.x & 31;
+  for (int t = threadIdx.x >> 5; t < n_terms; t += kReduceThreads / 32) {
     double acc = 0.0;
-    for (int b = 0; b < n_blocks; ++b) acc += partials[b * n_terms + t];
-    out[t] = static_cast<float>(acc);
+#pragma unroll 4
+    for (int b = lane; b < n_blocks; b += 32) acc += partials[b * n_terms + t];
+    for (int off = 16; off > 0; off >>= 1) {
+      acc += __shfl_down_sync(cell_stage::kFull, acc, off);
+    }
+    if (lane == 0) out[t] = static_cast<float>(acc);
   }
 }
 
-inline int n_blocks_for(int n_pad) { return (n_pad + kThreads - 1) / kThreads; }
+struct StagedArgs {
+  const float* r;
+  const int* pid;
+  const float* desc;
+  int desc_len;
+  int n_cvs;
+  int n_terms;
+  const float* aux;
+  int n_aux;
+  StagedParams p;
+  float* f;
+  float* g;
+  float* partials;  // (cells, n_terms) with Vals
+  float* out;       // (n_terms,) with Vals
+};
+
+// Launches one instantiation on a block per cell, and with Vals the second
+// pass.  Returns 0, a CUDA error of the shared-memory request, or
+// cell_stage::kSmemTooLarge when cap does not fit a block's shared memory.
+template <bool WithLJ, bool Vals, bool Grad, bool Valid, int Kinds, int L,
+          int Lanes>
+int launch_staged(const StagedArgs& a, cudaStream_t st) {
+  const size_t smem = staged_smem(a.p.g.cap);
+  auto kernel =
+      order_staged_kernel<WithLJ, Vals, Grad, Valid, Kinds, L, Lanes>;
+  const int rc = cell_stage::request_smem(kernel, smem, kStaticSmem);
+  if (rc != 0) return rc;
+  const int n_cells = a.p.g.cx * a.p.g.cy * a.p.g.cz;
+  kernel<<<n_cells, kStageThreads, smem, st>>>(
+      a.r, a.pid, a.desc, a.desc_len, a.n_cvs, a.n_terms, a.aux, a.n_aux,
+      a.p, a.f, a.g, a.partials);
+  if (Vals) {
+    reduce_terms_kernel<<<1, kReduceThreads, 0, st>>>(a.partials, n_cells,
+                                                      a.n_terms, a.out);
+  }
+  return 0;
+}
+
+// Picks the instantiation of a CV list: cv_set (kSet*), l_fixed (6 if every
+// Q_l has l = 6, else 0), lanes (kLanes*; with Vals only, else ignored).
+// Returns launch_staged's code, or cudaErrorInvalidValue for a combination
+// without an instantiation.
+template <bool WithLJ, bool Vals, bool Grad, bool Valid>
+int launch_staged_set(int cv_set, int l_fixed, int lanes,
+                      const StagedArgs& a, cudaStream_t st) {
+  constexpr int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (l_fixed != 0 && l_fixed != 6) return bad;
+  if constexpr (Vals) {
+    if (lanes == kLanesQ6) {
+      if (cv_set != kSetQl || l_fixed != 6 || a.n_cvs != 1 ||
+          a.n_terms != kQ6Terms) {
+        return bad;
+      }
+      return launch_staged<WithLJ, Vals, Grad, Valid, kSetQl, 6, kLanesQ6>(
+          a, st);
+    }
+    if (lanes == kLanesQ6Coord) {
+      if (cv_set != kSetMixed || l_fixed != 6 || a.n_cvs != 2 ||
+          a.n_terms != kQ6Terms + 1) {
+        return bad;
+      }
+      return launch_staged<WithLJ, Vals, Grad, Valid, kSetMixed, 6,
+                           kLanesQ6Coord>(a, st);
+    }
+    if (lanes != kLanesAny) return bad;
+  }
+  switch (cv_set) {
+    case kSetQl:
+      return l_fixed
+                 ? launch_staged<WithLJ, Vals, Grad, Valid, kSetQl, 6,
+                                 kLanesAny>(a, st)
+                 : launch_staged<WithLJ, Vals, Grad, Valid, kSetQl, 0,
+                                 kLanesAny>(a, st);
+    case kSetCoord:
+      return launch_staged<WithLJ, Vals, Grad, Valid, kSetCoord, 0,
+                           kLanesAny>(a, st);
+    case kSetMixed:
+      return l_fixed
+                 ? launch_staged<WithLJ, Vals, Grad, Valid, kSetMixed, 6,
+                                 kLanesAny>(a, st)
+                 : launch_staged<WithLJ, Vals, Grad, Valid, kSetMixed, 0,
+                                 kLanesAny>(a, st);
+    default: return bad;
+  }
+}
 
 }  // namespace order_cv

@@ -4,8 +4,22 @@
 // its recurrence mode.  One traversal gives the LJ pair force, the order-CV
 // bias force from the lagged bias coefficients, and the fresh value sums:
 // the trailing force call of each multiple-time-stepping sub-chunk on the
-// lagged path (sampler.make_stride_chunk).  Traversal, pair math and
-// descriptor format: order_cv.cuh.
+// lagged path (sampler.make_stride_chunk).
+//
+// It runs order_cv.cuh's block-per-cell kernel: one staging of the 27
+// neighbour cells' real rows, prefiltered to the larger of the LJ cut-off
+// and the largest CV cut-off, serves both the LJ rows and the CV rows; one
+// warp per real i row queues the staged rows inside that radius and runs
+// the LJ force (inside r_cut, forces only, uniform sigma and epsilon, as
+// the reference's kernel) and the CV value and gradient math on them, 32 at
+// a time.  f and g are written per i row (0 on vacant slots); the value
+// sums per lane go to one partials row per cell and a second pass in
+// double.  Pair math, descriptor format and prefilter: order_cv.cuh.
+//
+// What bounds it on Hopper: the CV math of the in-cut pairs and the
+// candidate tests (~60 LJ partners per row at Config 3's density, ~50 of
+// them inside the coordination cut-off, ~12 inside Q6's); the inputs stay in
+// the 50 MB L2.  No atomics: two calls give the same bits.
 
 #include "order_cv.cuh"
 
@@ -13,33 +27,37 @@ using namespace order_cv;
 
 extern "C" {
 
-int packed_fused_lj_order_threads() { return kThreads; }
-
 // r: (3, n_pad) f32; desc: desc_len f32; aux: n_aux f32 on the device;
 // f, g: (3, n_pad) f32 out (LJ force, CV bias force; 0 on vacant slots);
-// partials: (ceil(n_pad / threads), n_terms) f32 scratch; out: (n_terms,) f32
-// value sums.  Lx..Lz and xyLy, xzLz, yzLz: the cell matrix (cell_geom.cuh
-// HBox; zero tilt for an orthorhombic box).  rc2 = r_cut^2, sig2 = sigma^2,
-// eps4 = 4 epsilon.  Launches on `stream` and returns 0, a refused argument
-// (cudaErrorInvalidValue) or cudaGetLastError().
+// partials: (cx cy cz, n_terms) f32 scratch; out: (n_terms,) f32 value
+// sums.  Lx..Lz and xyLy, xzLz, yzLz: the cell matrix (cell_geom.cuh HBox;
+// zero tilt for an orthorhombic box).  rc2 = r_cut^2, sig2 = sigma^2, eps4
+// = 4 epsilon.  cv_set, l_fixed, lanes: the CV list's instantiation
+// (packed_order.cu packed_order_values); rc2_hit: max(r_cut^2, the largest
+// CV cut-off squared) (inf if a CV has none); pre_r: the prefilter radius
+// (inf: no prefilter); wx, wy, wz: the box's perpendicular widths.
+// Launches on `stream` and returns 0, a refused argument
+// (cudaErrorInvalidValue), -2 when cap does not fit a block's shared
+// memory, or a CUDA error.
 int packed_fused_lj_order(const float* r, const float* desc, int desc_len,
                           int n_cvs, int n_terms, const float* aux, int n_aux,
                           float* f, float* g, float* partials, float* out,
                           int n_pad, int cap, int cx, int cy, int cz, float Lx,
                           float Ly, float Lz, float xyLy, float xzLz,
                           float yzLz, float rc2, float sig2, float eps4,
+                          int cv_set, int l_fixed, int lanes, float rc2_hit,
+                          float pre_r, float wx, float wy, float wz,
                           void* stream) {
   const int bad = check_args(n_cvs, desc_len, n_terms, n_aux, n_pad);
   if (bad) return bad;
-  Geom p{n_pad, cap, cx, cy, cz, 0, {Lx, Ly, Lz, xyLy, xzLz, yzLz}};
-  LJParams lj{rc2, sig2, eps4};
-  const int n_blocks = n_blocks_for(n_pad);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  order_sweep_kernel<true, true, true, false><<<n_blocks, kThreads, 0, st>>>(
-      r, nullptr, desc, desc_len, n_cvs, n_terms, aux, n_aux, p, lj, f, g,
-      partials);
-  reduce_terms_kernel<<<1, kThreads, 0, st>>>(partials, n_blocks, n_terms,
-                                              out);
+  const StagedArgs a{
+      r, nullptr, desc, desc_len, n_cvs, n_terms, aux, n_aux,
+      StagedParams{{n_pad, cap, cx, cy, cz, {Lx, Ly, Lz, xyLy, xzLz, yzLz}},
+                   0, rc2_hit, rc2, sig2, eps4, pre_r, wx, wy, wz},
+      f, g, partials, out};
+  const int rc = launch_staged_set<true, true, true, false>(
+      cv_set, l_fixed, lanes, a, static_cast<cudaStream_t>(stream));
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,7 +2,10 @@
 (``csrc/packed_fused_lj_order.cu``), the counterpart of
 ``metadyn_tpu/ops/packed_fused_pallas.fused_lj_order_force`` in its
 recurrence mode, in the sentinel layout (the reference's rule), in an
-orthorhombic or a tilted box.
+orthorhombic or a tilted box.  One block per cell stages the real rows of
+its 27 neighbour cells once, prefiltered to the larger of the LJ cut-off
+and the largest CV cut-off (:func:`fused_reach`), for both the LJ and the
+CV math (``csrc/order_cv.cuh``).
 
 One traversal returns the LJ pair force, the order-CV bias force from the
 given (lagged) bias coefficients, and fresh CV value terms at the current
@@ -29,7 +32,7 @@ from .packed import PackedSpec, PackedState, packed_lj_force
 from .packed_cuda import check_spec, check_state, raise_on
 from .packed_order_cuda import (
     _plan, _stream, decode_value_lanes, geometry_args,
-    pack_force_aux,
+    pack_force_aux, prefilter_radius,
 )
 
 KERNEL = "packed_fused_lj_order"
@@ -43,11 +46,18 @@ def _library():
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p, ctypes.c_int]
                        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_float] * 9 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 9 + [ctypes.c_int] * 3
+                       + [ctypes.c_float] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.packed_fused_lj_order_threads.argtypes = []
-        lib.packed_fused_lj_order_threads.restype = ctypes.c_int
     return lib
+
+
+def fused_reach(r_cut: float, rc2_max: float, widths) -> tuple:
+    """(hit radius², prefilter radius) of the fused kernel: the larger of
+    the LJ cut-off and the CVs' largest cut-off (inf if a CV has none),
+    and the staging prefilter's radius around it."""
+    rc2_hit = max(float(r_cut) ** 2, rc2_max)
+    return rc2_hit, prefilter_radius(rc2_hit, widths)
 
 
 def fused_lj_order_force_plain(state: PackedState, spec: PackedSpec, cvs,
@@ -95,20 +105,22 @@ def fused_lj_order_force_cuda(state: PackedState, spec: PackedSpec, cvs,
         raise ValueError(f"fused_lj_order_force_cuda: {aux.numel()} aux "
                          f"lanes on {aux.device}, expected {n_aux} on "
                          f"{r.device}")
-    lib = _library()
-    n_blocks = -(-spec.n_pad // lib.packed_fused_lj_order_threads())
     f = torch.empty_like(r)
     g = torch.empty_like(r)
-    partials = torch.empty((n_blocks, n_vals), dtype=torch.float32,
+    partials = torch.empty((spec.n_cells, n_vals), dtype=torch.float32,
                            device=r.device)
     out = torch.empty(n_vals, dtype=torch.float32, device=r.device)
     sig2 = float(spec.uniform_sigma) ** 2
+    widths = state.box.perpendicular_widths_host()
+    rc2_hit, pre_r = fused_reach(spec.r_cut, plan.rc2_max, widths)
+    lib = _library()
     with torch.cuda.device(r.device):
         err = lib.packed_fused_lj_order(
             r.data_ptr(), desc.data_ptr(), desc.numel(), len(cvs), n_vals,
             aux.data_ptr(), n_aux, f.data_ptr(), g.data_ptr(),
             partials.data_ptr(), out.data_ptr(), *geometry_args(state, spec),
             float(spec.r_cut) ** 2, sig2, 4.0 * float(spec.uniform_eps),
+            plan.cv_set, plan.l_fixed, plan.lanes, rc2_hit, pre_r, *widths,
             _stream(r.device))
     raise_on(err, "packed_fused_lj_order", spec)
     fused_lj_order_force_cuda.launches += 1

@@ -5,11 +5,13 @@
 the coordinate sentinel) and the validity layout (per-slot ``se``/``hs``,
 vacancy by ``pid < n_real``), in an orthorhombic or a tilted box.
 
-The force kernel runs one block per cell over the real rows of its 27
-neighbour cells staged in shared memory (``csrc/cell_stage.cuh``), after
-a prefilter that stages only rows within reach of the cell's i rows
-(:func:`prefilter_keep` is the rule in plain PyTorch); the values kernel
-runs one thread per slot.
+Both kernels run one block per cell over the real rows of its 27
+neighbour cells staged in shared memory (``csrc/cell_stage.cuh``,
+``csrc/order_cv.cuh``), after a prefilter that stages only rows within
+reach of the cell's i rows (:func:`prefilter_keep` is the rule in plain
+PyTorch).  The force kernel writes one row of g per i row; the values
+kernel keeps one queue of hits across a warp's rows and writes one row of
+value partials per cell, summed in double by a second pass.
 
 On a CUDA tensor :func:`order_values_cuda` and :func:`order_force_cuda`
 launch their kernel or raise; on a CPU tensor they run the plain roll
@@ -48,8 +50,11 @@ MAX_TERMS = 64
 MAX_AUX = 64
 MAX_DESC = 1024
 KIND_QL = 0
-# the force kernel's CV-kind sets (csrc/packed_order.cu)
+# the kernels' CV-kind sets and value-lane layouts (csrc/order_cv.cuh):
+# LANES_Q6 is the CV list [Q6], LANES_Q6_COORD [Q6, coordination], whose
+# value lanes the kernels know at compile time
 CV_SET_QL, CV_SET_COORD, CV_SET_MIXED = 1, 2, 3
+LANES_ANY, LANES_Q6, LANES_Q6_COORD = 0, 1, 2
 # the prefilter radius' margin per unit of the summed perpendicular widths:
 # far above the f32 rounding of the kernel's fractional coordinates
 PREFILTER_MARGIN = 1e-4
@@ -126,9 +131,10 @@ class Plan(NamedTuple):
     desc: torch.Tensor  # the descriptor, on the device
     n_vals: int         # value lanes
     n_aux: int          # aux lanes
-    cv_set: int         # CV_SET_*: the kinds the force kernel instantiates
+    cv_set: int         # CV_SET_*: the kinds the kernels instantiate
     l_fixed: int        # 6 if every Q_l has l = 6 (unrolled math), else 0
     rc2_max: float      # the largest cut-off squared (inf if a CV has none)
+    lanes: int          # LANES_*: the value-lane layout
 
 
 @functools.lru_cache(maxsize=32)
@@ -142,8 +148,12 @@ def _plan(cvs: tuple, device: torch.device) -> Plan:
     cv_set = (CV_SET_QL if ql.all() else
               CV_SET_COORD if not ql.any() else CV_SET_MIXED)
     l_fixed = 6 if ql.any() and (heads[ql, 1] == 6).all() else 0
+    q6 = ql[0] and heads[0, 1] == 6
+    lanes = (LANES_Q6 if q6 and len(cvs) == 1 else
+             LANES_Q6_COORD if q6 and len(cvs) == 2 and not ql[1] else
+             LANES_ANY)
     return Plan(torch.as_tensor(desc, device=device), n_vals, n_aux, cv_set,
-                l_fixed, float(heads[:, 5].max()))
+                l_fixed, float(heads[:, 5].max()), lanes)
 
 
 def prefilter_radius(rc2_max: float, widths) -> float:
@@ -157,7 +167,7 @@ def prefilter_radius(rc2_max: float, widths) -> float:
 
 def prefilter_keep(xi: torch.Tensor, xj: torch.Tensor, box,
                    radius: float) -> torch.Tensor:
-    """The force kernel's staging prefilter in plain PyTorch: for a cell's
+    """The kernels' staging prefilter in plain PyTorch: for a cell's
     real i rows ``xi`` (3, K) and candidate rows ``xj`` (3, M) (their
     neighbour cell's shift applied), whether each candidate is staged.
 
@@ -198,15 +208,14 @@ def _library():
         layout = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         lib.packed_order_values.argtypes = (
             layout + [ctypes.c_void_p] + [ctypes.c_int] * 3
-            + [ctypes.c_void_p] * 2 + geom + [ctypes.c_void_p])
+            + [ctypes.c_void_p] * 2 + geom + [ctypes.c_int] * 3
+            + [ctypes.c_float] * 5 + [ctypes.c_void_p])
         lib.packed_order_values.restype = ctypes.c_int
         lib.packed_order_force.argtypes = (
             layout + [ctypes.c_void_p] + [ctypes.c_int] * 2
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + geom
             + [ctypes.c_int] * 2 + [ctypes.c_float] * 5 + [ctypes.c_void_p])
         lib.packed_order_force.restype = ctypes.c_int
-        lib.packed_order_threads.argtypes = []
-        lib.packed_order_threads.restype = ctypes.c_int
     return lib
 
 
@@ -235,16 +244,19 @@ def order_values_cuda(state: PackedState, spec: PackedSpec, cvs,
     r = state.r
     plan = _plan(tuple(cvs), r.device)
     desc, n_vals = plan.desc, plan.n_vals
-    lib = _library()
-    n_blocks = -(-spec.n_pad // lib.packed_order_threads())
-    partials = torch.empty((n_blocks, n_vals), dtype=torch.float32,
+    partials = torch.empty((spec.n_cells, n_vals), dtype=torch.float32,
                            device=r.device)
     out = torch.empty(n_vals, dtype=torch.float32, device=r.device)
+    widths = state.box.perpendicular_widths_host()
+    lib = _library()
     with torch.cuda.device(r.device):
         err = lib.packed_order_values(
             r.data_ptr(), pid, n_real, desc.data_ptr(), desc.numel(),
             len(cvs), n_vals, partials.data_ptr(), out.data_ptr(),
-            *geometry_args(state, spec), _stream(r.device))
+            *geometry_args(state, spec), plan.cv_set, plan.l_fixed,
+            plan.lanes, plan.rc2_max,
+            prefilter_radius(plan.rc2_max, widths), *widths,
+            _stream(r.device))
     raise_on(err, "packed_order_values", spec)
     order_values_cuda.launches += 1
     return decode_value_lanes(cvs, out)

@@ -28,7 +28,16 @@ trees are timed alike), at the main paths' shapes:
 - kernels 2, 3 and 4 on Config 3's input (chip_smoke.config3_inputs, fcc
   plus noise 0.05, Q6 + coordination);
 - kernels 2 and 3 on the triclinic start in the validity layout with Q6
-  alone, the triclinic main path's CV.
+  alone, the triclinic main path's CV;
+- kernel 4 on the triclinic start in the sentinel layout (tilted) with Q6
+  and coordination (r0 1.35 a / sqrt 2, r_cut 2.4), as chip_smoke.py's
+  phase 16 holds it.
+
+The order-CV kernels (2, 3, 4) are also timed on the device alone, under
+the keys ending in ``_dev``: each call is queued behind a device sleep of
+~1 ms, so that the host's launch is out of the span and the CUDA events
+bracket only the kernel's own work (for kernels 2 and 4 the sweep and the
+second pass).  Compare those only with each other.
 
 Prints one line, ``AB {json}``, with the times in ms.
 """
@@ -60,14 +69,35 @@ def bcc_chains(cells: int = 16, L: float = 21.3, noise: float = 0.05):
     return pos.astype(np.float32), types, bonds.astype(np.int32), L
 
 
+def device_ms(fn, calls: int = 51, warm: int = 5) -> float:
+    """Median device time of ``fn()`` in ms: each call is enqueued while the
+    device sleeps (~2e6 cycles), between two CUDA events."""
+    import statistics
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
 def main(root: pathlib.Path) -> dict:
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
     import chip_smoke as cs
     from metadyn_tpu_torch import (
-        Box, PackedEngine, PackedSpec, bond_partner_attrs, fcc_lattice,
-        pair_scale_tables,
+        Box, PackedCoordination, PackedEngine, PackedSpec, bond_partner_attrs,
+        fcc_lattice, pair_scale_tables,
     )
     from metadyn_tpu_torch.cv.packed_order import order_values_plain
     from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
@@ -149,6 +179,21 @@ def main(root: pathlib.Path) -> dict:
     out["values_tric_q6"] = ms(lambda: order_values_cuda(st, spec, cvs), 51)
     out["force_tric_q6"] = ms(lambda: order_force_cuda(st, spec, cvs, auxs),
                               51)
+    out["values_tric_q6_dev"] = device_ms(
+        lambda: order_values_cuda(st, spec, cvs))
+    out["force_tric_q6_dev"] = device_ms(
+        lambda: order_force_cuda(st, spec, cvs, auxs))
+    _, st, spec = cs.triclinic_pack(25, dev, sentinel=True, noise=0.05)
+    cvs = [cs.triclinic_cv(spec),
+           PackedCoordination(spec, r0=1.35 * cs.TRIC_A / np.sqrt(2),
+                              r_cut=2.4, name="coord")]
+    dV = torch.tensor([0.9, -1.3], device=dev)
+    auxs = [cv.grad_aux(t, dV[i]) for i, (cv, t) in
+            enumerate(zip(cvs, order_values_plain(st, spec, cvs)))]
+    out["fused_tric"] = ms(
+        lambda: fused_lj_order_force_cuda(st, spec, cvs, auxs), 51)
+    out["fused_tric_dev"] = device_ms(
+        lambda: fused_lj_order_force_cuda(st, spec, cvs, auxs))
 
     pos, _, L, a, spec = cs.config3_inputs(32, noise=0.05)
     st = pack(spec, pos, L)
@@ -160,6 +205,11 @@ def main(root: pathlib.Path) -> dict:
     out["force_cfg3"] = ms(lambda: order_force_cuda(st, spec, cvs, auxs), 51)
     out["fused_cfg3"] = ms(
         lambda: fused_lj_order_force_cuda(st, spec, cvs, auxs), 51)
+    out["values_cfg3_dev"] = device_ms(lambda: order_values_cuda(st, spec, cvs))
+    out["force_cfg3_dev"] = device_ms(
+        lambda: order_force_cuda(st, spec, cvs, auxs))
+    out["fused_cfg3_dev"] = device_ms(
+        lambda: fused_lj_order_force_cuda(st, spec, cvs, auxs))
     return out
 
 

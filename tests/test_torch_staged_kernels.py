@@ -1,28 +1,37 @@
 """The block-per-cell kernels over staged neighbour rows: the pair kernel
-(``csrc/packed_lj_force.cu``, every layout) and the order-CV force kernel
-(``csrc/packed_order.cu``), with the staging of ``csrc/cell_stage.cuh``.
+(``csrc/packed_lj_force.cu``, every layout), the order-CV values and force
+kernels (``csrc/packed_order.cu``) and the fused LJ + order-CV kernel
+(``csrc/packed_fused_lj_order.cu``), with the staging of
+``csrc/cell_stage.cuh``.
 
-On the CPU: the force kernel's staging prefilter (its plain mirror,
+On the CPU: the order kernels' staging prefilter (its plain mirror,
 ``ops.packed_order_cuda.prefilter_keep``) drops no pair inside the cut-off,
 in orthorhombic and tilted boxes (hypothesis over boxes, tilts and
-positions), and does drop rows out of reach.
+positions), also at the fused kernel's radius (``ops.packed_fused_cuda.
+fused_reach``: no pair inside the LJ or the CV cut-off), and does drop rows
+out of reach.
 
 On a card (``cuda`` tests, skipped elsewhere), against the plain versions
-(``ops.packed.packed_lj_force``, ``cv.packed_order.order_force_plain``):
-every pair-kernel layout, (a) sentinel, (b) per-slot ``se``/``hs`` or
-``se`` with a uniform σ, (c) tables, (d) FENE or harmonic bonds, forces
-only and with energy, orthorhombic and tilted; the force kernel in the
-sentinel and validity layouts, orthorhombic and tilted, for each CV-kind
-set; and the traps of the staging: a cell filled to a cap that is not a
-multiple of 32, empty cells, a vacant slot moved next to a real particle,
-two vacant slots 1e-4 apart, a bond across a box face, a CV without a
-cut-off (prefilter off), a cap whose rows do not fit shared memory.  Two
-calls on one input give the same bits.
+(``ops.packed.packed_lj_force``, ``cv.packed_order.order_values_plain``
+and ``order_force_plain``, ``ops.packed_fused_cuda.
+fused_lj_order_force_plain``): every pair-kernel layout, (a) sentinel, (b)
+per-slot ``se``/``hs`` or ``se`` with a uniform σ, (c) tables, (d) FENE or
+harmonic bonds, forces only and with energy, orthorhombic and tilted; the
+values and force kernels in the sentinel and validity layouts,
+orthorhombic and tilted, for each CV-kind set; the fused kernel (sentinel
+layout) orthorhombic and tilted for Q6, coordination and both; and the
+traps of the staging: a cell filled to a cap that is not a multiple of 32,
+empty cells, a vacant slot moved next to a real particle, two vacant slots
+1e-4 apart, a bond across a box face, a CV without a cut-off (prefilter
+off), a cap whose rows do not fit shared memory.  Two calls on one input
+give the same bits.
 
 Inputs: ``fcc_lattice(6, 1.68)`` plus Gaussian noise from numpy seeds (864
 particles, 3³ cells, r_cut 2.5, skin 0.4).  Tolerances as chip_smoke.py:
-pair forces max|Δf| ≤ 1e-4·max|f| + 1e-3, PE and virial rtol 1e-5; bias
-forces rtol 2e-3 and atol 2e-4·max (f32 sums in another order).
+pair forces max|Δf| ≤ 1e-4·max|f| + 1e-3, PE and virial rtol 1e-5; CV
+values max|Δlane| ≤ 2e-5·max|lane| of each CV; bias forces rtol 2e-3 and
+atol 2e-4·max (f32 sums in another order); the fused kernel's LJ force
+atol 1e-3·max, its value lanes 2e-4·max|lane| of each CV.
 
 This file imports no jax:
 
@@ -40,6 +49,7 @@ from metadyn_tpu_torch import (
     bond_partner_attrs, fcc_lattice, pair_scale_tables,
 )
 from metadyn_tpu_torch.cv import packed_order as tpo
+from metadyn_tpu_torch.ops import packed_fused_cuda as pfc
 from metadyn_tpu_torch.ops import packed_order_cuda as poc
 from metadyn_tpu_torch.ops.packed import pack_host, packed_lj_force
 from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
@@ -168,6 +178,63 @@ def check_order_force(st, spec, cvs):
     return g
 
 
+def assert_lanes_close(cvs, terms, ref, rtol):
+    """max|Δlane| ≤ rtol·max|lane| within each CV's value lanes."""
+    for cv, t, r in zip(cvs, terms, ref):
+        a = torch.cat([x.reshape(-1) for x in t])
+        b = torch.cat([x.reshape(-1) for x in r])
+        scale = float(b.abs().max())
+        d = float((a - b).abs().max())
+        assert scale > 0 and np.isfinite(d) and d <= rtol * scale, (
+            cv.name, d, scale)
+
+
+def check_order_values(st, spec, cvs):
+    """Kernel 2 against the plain sweep; a second call gives the same
+    bits."""
+    before = poc.order_values_cuda.launches
+    terms = poc.order_values_cuda(st, spec, cvs)
+    terms2 = poc.order_values_cuda(st, spec, cvs)
+    ref = tpo.order_values_plain(st, spec, cvs)
+    torch.cuda.synchronize()
+    assert poc.order_values_cuda.launches == before + 2
+    assert_lanes_close(cvs, terms, ref, 2e-5)
+    for t, t2 in zip(terms, terms2):
+        for x, x2 in zip(t, t2):
+            assert torch.equal(x, x2)
+    return terms
+
+
+def check_fused(st, spec, cvs):
+    """Kernel 4 against its plain chain (f, g and the value lanes); zero
+    forces on vacant slots; a second call gives the same bits."""
+    ref = tpo.order_values_plain(st, spec, cvs)
+    auxs = [cv.grad_aux(t, torch.tensor(DV[i], device=st.r.device))
+            for i, (cv, t) in enumerate(zip(cvs, ref))]
+    before = pfc.fused_lj_order_force_cuda.launches
+    f, g, terms = pfc.fused_lj_order_force_cuda(st, spec, cvs, auxs)
+    f2, g2, terms2 = pfc.fused_lj_order_force_cuda(st, spec, cvs, auxs)
+    f_ref, g_ref, terms_ref = pfc.fused_lj_order_force_plain(st, spec, cvs,
+                                                             auxs)
+    torch.cuda.synchronize()
+    assert pfc.fused_lj_order_force_cuda.launches == before + 2
+    fmax = float(f_ref.abs().max())
+    df = float((f - f_ref).abs().max())
+    assert np.isfinite(df) and df <= 1e-3 * fmax, (df, fmax)
+    gmax = float(g_ref.abs().max())
+    assert gmax > 1e-4
+    d = (g - g_ref).abs()
+    assert float((d - 2e-3 * g_ref.abs()).max()) <= 2e-4 * gmax, (
+        float(d.max()), gmax)
+    assert_lanes_close(cvs, terms, terms_ref, 2e-4)
+    vac = st.pid >= spec.n_real
+    assert torch.all(f[:, vac] == 0.0) and torch.all(g[:, vac] == 0.0)
+    assert torch.equal(f, f2) and torch.equal(g, g2)
+    for t, t2 in zip(terms, terms2):
+        for x, x2 in zip(t, t2):
+            assert torch.equal(x, x2)
+
+
 def cv_set(name: str, spec):
     return {"q6": [PackedSteinhardtQl(spec, r_cut=1.49, l=6)],
             "q4": [PackedSteinhardtQl(spec, r_cut=1.49, l=4)],
@@ -260,6 +327,51 @@ def test_prefilter_drops_no_pair_within_cut(tilted, data):
     within = (d2 < rc * rc).any(dim=0)
     assert bool(within.any())
     assert not bool((within & ~keep).any()), int((within & ~keep).sum())
+
+
+@pytest.mark.parametrize("tilted", [False, True], ids=["ortho", "tilted"])
+@settings(max_examples=40, deadline=None)
+@given(data=hst.data())
+def test_fused_prefilter_drops_no_pair_within_cut(tilted, data):
+    """The fused kernel stages once for the LJ and the CV math: at its
+    radius (``fused_reach``) every candidate within the LJ cut-off or the
+    CV cut-off of some i row of the cell is kept; a CV without a cut-off
+    keeps every row."""
+    Ls = data.draw(hst.tuples(*[hst.floats(8.0, 30.0)] * 3), label="L")
+    tilt = (data.draw(hst.tuples(*[hst.floats(-0.5, 0.5)] * 3),
+                      label="tilt") if tilted else None)
+    rc_lj = data.draw(hst.floats(0.3, 2.6), label="r_cut")
+    rc_cv = data.draw(hst.one_of(hst.floats(0.3, 2.6), hst.none()),
+                      label="cv r_cut")
+    seed = data.draw(hst.integers(0, 2**31 - 1), label="seed")
+    box = _box(Ls, tilt)
+    rng = np.random.default_rng(seed)
+    cpd = rng.integers(3, 6, size=3)
+    cell = rng.integers(0, cpd)
+    lo = (cell / cpd - 0.5)[:, None]
+    fi = lo + rng.uniform(-0.25, 1.25, (3, 24)) / cpd[:, None]
+    xi = _cart(torch.as_tensor(fi), box)
+    # candidates near the i rows at the scale of each cut-off
+    scale = np.repeat([rc_lj, rc_cv or rc_lj], 100)
+    near = xi[:, rng.integers(0, 24, 200)] + torch.as_tensor(
+        rng.normal(0.0, 1.0, (3, 200)) * scale)
+    wide = _cart(torch.as_tensor(lo + rng.uniform(-1.0, 2.0, (3, 200))
+                                 / cpd[:, None]), box)
+    xj = torch.cat([near, wide], dim=1)
+    rc2_cv = math.inf if rc_cv is None else rc_cv * rc_cv
+    rc2_hit, radius = pfc.fused_reach(rc_lj, rc2_cv,
+                                      box.perpendicular_widths_host())
+    assert rc2_hit == max(rc_lj * rc_lj, rc2_cv)
+    keep = poc.prefilter_keep(xi.float(), xj.float(), box, radius)
+    if rc_cv is None:
+        assert bool(keep.all())
+        return
+    d2 = ((xi[:, :, None] - xj[:, None, :]) ** 2).sum(0)
+    for rc in (rc_lj, rc_cv):
+        within = (d2 < rc * rc).any(dim=0)
+        assert bool(within.any())
+        assert not bool((within & ~keep).any()), (rc, int((within
+                                                           & ~keep).sum()))
 
 
 @pytest.mark.parametrize("tilted", [False, True], ids=["ortho", "tilted"])
@@ -400,3 +512,91 @@ def test_order_force_kernel_edge_cells(cuda_device, layout, case):
     if case == "empty_cells":
         assert (occupancy(st, spec) == 0).any()
     check_order_force(st, spec, cv_set("q6_coord", spec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cvs", ["q6", "q4", "coord", "q6_coord",
+                                 "coord_no_cut"])
+@pytest.mark.parametrize("tilt", [None, TILT], ids=["ortho", "tilted"])
+@pytest.mark.parametrize("layout", ["a_sentinel", "b_se_hs"],
+                         ids=["sentinel", "validity"])
+def test_order_values_kernel_matches_plain(cuda_device, layout, tilt, cvs):
+    """Kernel 2 for each CV-kind set (the fixed value lanes of [Q6] and
+    [Q6, coordination], and the lanes read from the descriptor); in the
+    validity layout with vacant slots next to real ones and two vacant
+    slots 1e-4 apart."""
+    st, spec = pack(cuda_device, fcc_positions(), layout, tilt)
+    if not spec.sentinel:
+        st, moved = vacant_near_real(st, spec)
+        assert moved
+        st = vacant_pair(st, spec)
+    check_order_values(st, spec, cv_set(cvs, spec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full_cap", "empty_cells"])
+@pytest.mark.parametrize("layout", ["a_sentinel", "b_se_hs"],
+                         ids=["sentinel", "validity"])
+def test_order_values_kernel_edge_cells(cuda_device, layout, case):
+    pos = fcc_positions()
+    if case == "full_cap":
+        extra = pos[:3] + np.float32(A_LAT / 2) * np.eye(3, dtype=np.float32)
+        pos = np.concatenate([pos, extra])
+        st, spec = pack(cuda_device, pos, layout, cap=64)
+        cap = int(occupancy(st, spec).max())
+        assert cap % 32 != 0
+    else:
+        pos = pos[pos[:, 0] < 0.0]
+        cap = 37
+    st, spec = pack(cuda_device, pos, layout, tilt=TILT, cap=cap)
+    if case == "full_cap":
+        assert int(occupancy(st, spec).max()) == spec.cap
+    else:
+        assert (occupancy(st, spec) == 0).any()
+    for name in ("q6", "q6_coord", "coord_no_cut"):
+        check_order_values(st, spec, cv_set(name, spec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cvs", ["q6", "coord", "q6_coord"])
+@pytest.mark.parametrize("tilt", [None, TILT], ids=["ortho", "tilted"])
+def test_fused_kernel_matches_plain(cuda_device, tilt, cvs):
+    st, spec = pack(cuda_device, fcc_positions(), "a_sentinel", tilt)
+    check_fused(st, spec, cv_set(cvs, spec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full_cap", "empty_cells"])
+def test_fused_kernel_edge_cells(cuda_device, case):
+    pos = fcc_positions()
+    if case == "full_cap":
+        extra = pos[:3] + np.float32(A_LAT / 2) * np.eye(3, dtype=np.float32)
+        pos = np.concatenate([pos, extra])
+        st, spec = pack(cuda_device, pos, "a_sentinel", cap=64)
+        cap = int(occupancy(st, spec).max())
+        assert cap % 32 != 0
+    else:
+        pos = pos[pos[:, 0] < 0.0]
+        cap = 37
+    st, spec = pack(cuda_device, pos, "a_sentinel", tilt=TILT, cap=cap)
+    if case == "empty_cells":
+        assert (occupancy(st, spec) == 0).any()
+    check_fused(st, spec, cv_set("q6_coord", spec))
+
+
+@pytest.mark.cuda
+def test_values_and_fused_cap_too_large_raise(cuda_device):
+    """27 × cap staged rows past a block's shared memory: kernels 2 and 4
+    raise, with no plain fallback and no launch counted."""
+    st, spec = pack(cuda_device, fcc_positions(), "a_sentinel", cap=2048)
+    cvs = cv_set("q6_coord", spec)
+    auxs = [cv.grad_aux(t, torch.tensor(1.0, device=cuda_device))
+            for cv, t in zip(cvs, tpo.order_values_plain(st, spec, cvs))]
+    before = (poc.order_values_cuda.launches,
+              pfc.fused_lj_order_force_cuda.launches)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        poc.order_values_cuda(st, spec, cvs)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        pfc.fused_lj_order_force_cuda(st, spec, cvs, auxs)
+    assert (poc.order_values_cuda.launches,
+            pfc.fused_lj_order_force_cuda.launches) == before
