@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
-Four workloads, all at full size:
+Five workloads, all at full size:
 
 - the headline one (bench.py): the 62,500-particle LJ liquid
   (bench_data/liq64k.npz) on the packed cell engine (r_cut 2.5, skin 0.55,
@@ -23,12 +23,25 @@ Four workloads, all at full size:
   1.68) (62,500 particles) in the cell tilted (0.2, -0.12, 0.1), the
   per-slot layout, LJ r_cut 2.5 (skin 0.4, cap 40: 14^3 cells), Q6 r_cut
   1.49 on a 64-point well-tempered grid, bias_every=1, one hill per 50-step
-  stride; once more as the YAML writes it (4,000 particles).
+  stride; once more as the YAML writes it (4,000 particles);
+- Config 5 (examples/config5_flux_1m.py): flux-tempered metadynamics on
+  65,536 diblock chains of 16 beads (1,048,576 beads, L = 107.25, rho
+  0.85; chain starts on a jittered grid, persistence 0.9), relaxed by the
+  packed soft push-off (A = 100, FENE, r_cut 1, skin 1, 53^3 cells, cap 46:
+  Npad 6,848,342; 1000 steps, then 500 at A = 1000, which the script
+  lacks: without them the melt blows up at the switch, as phase 20
+  shows), then WCA + FENE with a uniform sigma (skin 0.5, cap
+  48: 66^3 cells, Npad 13,799,808, a repack check every step), the S(k)
+  mesh CV (48^3, k0 = 2 pi 4 / L, width 0.3) and FluxTemperedSampler on
+  a 101-point grid over [0, max(8 S(k0), 10)], stride 50, update_period
+  4, bias_every 1.
 
 Every kernel but v1 runs one block per cell over the real rows of its 27
 neighbour cells, staged in shared memory
 (metadyn_tpu_torch/csrc/cell_stage.cuh): the pair kernel, and the order-CV
-values, force and fused LJ + CV kernels (csrc/order_cv.cuh).
+values, force and fused LJ + CV kernels (csrc/order_cv.cuh).  The pair
+kernel also runs the soft push-off pair (its soft layout), for which the
+JAX package has no Pallas kernel.
 
 Phases, one line or more each:
 
@@ -58,8 +71,9 @@ Phases, one line or more each:
      warm strides (one is too few: from the fcc start the temperature is
      still ~0.48 after 200 steps), 2 timed strides, exact launch counts.
  12. the v1 pair kernel's build report (built in phase 2 with the others);
- 13. the Config 2 push-off (soft pair on the plain sweep, timed on its own
-     line), then on the relaxed melt: the pair kernel in each per-slot
+ 13. the Config 2 push-off (the pair kernel's soft layout, timed on its own
+     line, exactly one launch per step), then on the relaxed melt: the
+     pair kernel in each per-slot
      layout (Config 2's table + FENE; FENE with the WCA r_cut of
      examples/config2_diblock_sk.py; Config 5's se + uniform sigma + FENE;
      se/hs alone), forces only and with energy, and the v1 kernel, each
@@ -81,15 +95,34 @@ Phases, one line or more each:
      and on the plain path, from one state;
  18. the triclinic slice timed at 62,500 particles (12 warm strides, 2
      runs of 3 timed strides, exact launch counts, one profiled stride)
-     and at the YAML's 4,000.
+     and at the YAML's 4,000;
+ 19. the pair kernel's soft layout (its build report, then against the
+     plain sweep, forces only and with energy, with times per call and the
+     bound) at Config 2's push-off start (8,192 beads) and at Config 5's
+     (1,048,576 beads, Npad 6,848,342);
+ 20. Config 5's push-off witness at the JAX example's --chains 128
+     (2,048 beads): after the script's push-off alone one production
+     period blows up, after the second stage it stays in a T band; then
+     Config 5 at 1,024 chains (16,384 beads, the same density), relaxed
+     on the soft kernel: one update period (stride 10 x update_period 2)
+     at gamma = 0 through FluxTemperedSampler on the kernel engine and on
+     the plain-force engine, from one state: positions, the histograms
+     the update consumes and V after it must agree;
+ 21. Config 5 at 1,048,576 beads: the push-off on the soft kernel (timed,
+     peak memory), the production pack with the pair kernel against the
+     plain force on it, one warm period and two timed ones (rate, exact
+     launch counts: 51 per stride, T in a band, peak memory), one
+     profiled period, and one more, whose bias update the round-trip
+     gate's cap forces; the gate's bookkeeping over all five.
 
 After each timed run one more stride runs under torch.profiler, and a line
 reports the GPU's busy share of it and the top kernels.  The launch counts
 of each path are set to 0 just before its timed strides and read just
 after: the pair kernel's from phases 5 and 15, the values and fused
 kernels' from phase 10, the force kernel's from phase 11 (the lagged path
-never runs it inside a stride); the v1 kernel has no production caller and
-no main-path launches.
+never runs it inside a stride), the soft layout's from the 1M push-off
+(phase 21; it runs no launch inside a stride); the v1 kernel has no
+production caller and no main-path launches.
 
 Then a JSON line describing each kernel: its time, its plain version's,
 its launches on the main path, and its bound: the larger of the bytes it
@@ -132,6 +165,22 @@ TRIC_TILT = (0.2, -0.12, 0.1)
 # ~0.8 per stride after it
 TRIC_WARM = 12
 TRIC_T_BAND = (0.6, 0.8)
+CFG5_CHAIN_LEN = 16
+CFG5_STRIDE = 50
+CFG5_PERIOD = 4
+CFG5_PUSHOFF_STEPS = 1000
+CFG5_PUSHOFF2_STEPS = 500
+CFG5_PUSHOFF2_A = 1000.0
+CFG5_TIMED_PERIODS = 2
+# phase 20's push-off witness (config5_pushoff_witness): the JAX package's
+# example blows up at --chains 128 (PERF.md §6, PR 7)
+CFG5_WITNESS_CHAINS = 128
+CFG5_BLOWUP_T = 100.0
+CFG5_WITNESS_T_BAND = (0.5, 10.0)
+# T over the two timed periods fell from 2.33 to 1.26 in the first 1M run
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md §5): the switch from the push-off
+# heats the melt to T ~4.5 and gamma 2 cools it by ~1/e per 250 steps
+CFG5_T_BAND = (1.0, 3.0)
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # FP32 outside the tensor cores, and HBM3.
@@ -144,8 +193,9 @@ PEAK_BYTES = 3.35e12  # B/s
 # recurrence over m = 0..6; its bias force twice that); a coordination
 # pair (the switching function; its force).  Estimates to within ~50%:
 # the bound they give is a floor, not a prediction.
-FLOP_PER_PAIR = {"lj": 24, "lj_energy": 37, "bond": 45, "q6_value": 150,
-                 "q6_force": 300, "coord_value": 20, "coord_force": 30}
+FLOP_PER_PAIR = {"lj": 24, "lj_energy": 37, "soft": 20, "soft_energy": 34,
+                 "bond": 45, "q6_value": 150, "q6_force": 300,
+                 "coord_value": 20, "coord_force": 30}
 
 
 def cuda_ms(fn, calls: int = 25, warm: int = 3) -> float:
@@ -231,15 +281,63 @@ def pair_close(tag: str, a, b, with_energy: bool) -> tuple:
 
 def pair_kernel_bound(spec, n_pairs: int, n_bonds: int, with_energy: bool,
                       v1: bool = False) -> tuple:
-    flops = (n_pairs * FLOP_PER_PAIR["lj_energy" if with_energy else "lj"]
+    kind = spec.pair_kind + ("_energy" if with_energy else "")
+    flops = (n_pairs * FLOP_PER_PAIR[kind]
              + n_bonds * FLOP_PER_PAIR["bond"])
     return bound(pair_kernel_bytes(spec, with_energy, v1), flops)
 
 
-def ptxas_lines(name: str) -> list:
+def pair_kernel_vs_plain(label: str, key: str, st, spec, n_bonds: int,
+                         calls: int = 25, plain_calls: int = 10,
+                         plain_warm: int = 3) -> dict:
+    """The pair kernel against the plain pair force on ``st``, forces only
+    and with energy (pair_close), with times per call and the bound; one
+    line each.  Returns {key, key + "+energy": (max abs error, kernel ms,
+    plain ms, bound ms, bound by)}."""
+    import torch
+    from metadyn_tpu_torch.ops.packed import packed_lj_force
+    from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
+
+    pairs = pairs_within(st, spec, spec.r_cut)
+    out = {}
+    for we in (False, True):
+        a = packed_lj_force_cuda(st, spec, with_energy=we)
+        b = packed_lj_force(st, spec, with_energy=we)
+        torch.cuda.synchronize()
+        err, line = pair_close(f"{label} {key}", a, b, we)
+        del a, b
+        ms = cuda_ms(lambda: packed_lj_force_cuda(st, spec, with_energy=we),
+                     calls=calls)
+        plain = cuda_ms(lambda: packed_lj_force(st, spec, with_energy=we),
+                        calls=plain_calls, warm=plain_warm)
+        bms, by = pair_kernel_bound(spec, pairs, n_bonds, we)
+        out[f"{key}{'+energy' if we else ''}"] = (err, ms, plain, bms, by)
+        print(f"{label} {key} with_energy={we} kernel_vs_plain: {line} "
+              f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bms:.5f} "
+              f"({by}; {pairs} pairs within r_cut, {n_bonds} bonds, cap "
+              f"{spec.cap}, {spec.cells_per_dim[0]}^3 cells, Npad "
+              f"{spec.n_pad})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def ptxas_lines(name: str, pattern: str = None) -> list:
+    """ptxas's register and spill lines in library ``name``'s build log;
+    with ``pattern``, only those of the entry functions whose mangled name
+    matches it, each after that name."""
+    import re
     from metadyn_tpu_torch.ops import _build
-    return [ln.strip() for ln in _build.log_path(name).read_text().splitlines()
-            if "registers" in ln or "spill" in ln]
+    out, fn = [], None
+    for ln in _build.log_path(name).read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1)
+        elif "registers" in ln or "spill" in ln:
+            if pattern is None:
+                out.append(ln.strip())
+            elif fn and re.search(pattern, fn):
+                out.append(f"{fn}: {ln.split(':', 1)[-1].strip()}")
+    return out
 
 
 def build_all(names) -> dict:
@@ -688,59 +786,124 @@ def config3_timed(dev, mts_lag: bool, warm: tuple, n_runs: int, n_timed: int,
     return runs[-1][1]
 
 
-def config2_pushoff(dev, smi: str) -> dict:
-    """The Config 2 start: examples/config2_diblock_sk.yaml's melt (512
-    chains of 16, L = 21.3, numpy seed 0), relaxed by the JAX package's
-    packed soft push-off (examples/config5_flux_1m.py): pair_kind soft with
-    A = 100 through eps_i, FENE bonds, r_cut 1 and skin 1, cap from the
-    measured occupancy (x1.4 + 6), rebuild every 5 steps, Langevin dt
-    0.002 and gamma 2, CFG2_PUSHOFF_STEPS steps.  The soft pair has no
-    kernel: this runs the plain roll sweep on the card."""
+def diblock_melt(n_chains: int, chain_len: int, L: float, **melt_kw) -> dict:
+    """polymer_melt (numpy seed 0) with diblock types: the first half of
+    every chain A (0), the rest B (1); and its bond-partner attrs."""
     import numpy as np
-    import torch
-    from metadyn_tpu_torch import (
-        Box, PackedEngine, PackedSpec, bond_partner_attrs,
-        make_packed_langevin_step, polymer_melt,
-    )
-    from metadyn_tpu_torch.ops.packed import unpack_positions
+    from metadyn_tpu_torch import bond_partner_attrs, polymer_melt
 
-    n_chains, chain_len, L = 512, 16, 21.3
-    pos, bonds = polymer_melt(n_chains, chain_len, L, seed=0)
+    pos, bonds = polymer_melt(n_chains, chain_len, L, seed=0, **melt_kw)
     n = pos.shape[0]
     t = np.zeros((n_chains, chain_len), np.int32)
     t[:, chain_len // 2:] = 1
-    types = t.reshape(-1)
+    return {"pos": pos, "bonds": bonds, "types": t.reshape(-1), "L": L,
+            "n": n, "bp": bond_partner_attrs(bonds, n)}
+
+
+def pushoff_pack(melt: dict, dev):
+    """The JAX package's packed soft push-off start
+    (examples/config5_flux_1m.py:59-92) on the port: pair_kind soft with A
+    = 100 through eps_i, FENE bonds, r_cut 1 and skin 1, floor(L/2) cells
+    per side, cap from the measured occupancy (x1.4 + 6), rebuild every 5
+    steps.  Returns (engine, state, spec)."""
+    import numpy as np
+    from metadyn_tpu_torch import Box, PackedEngine, PackedSpec
+
+    pos, L, n = melt["pos"], melt["L"], melt["n"]
     cpd = int(np.floor(L / 2.0))
     cell = np.floor((pos / L + 0.5) * cpd).astype(np.int64) % cpd
     occ0 = int(np.bincount((cell[:, 0] * cpd + cell[:, 1]) * cpd
                            + cell[:, 2]).max())
-    spec = PackedSpec.create(L, n, r_cut=1.0, skin=1.0, cap=int(occ0 * 1.4) + 6,
-                             pair_kind="soft", fene_k=30.0, fene_r0=1.5)
+    spec = PackedSpec.create(L, n, r_cut=1.0, skin=1.0,
+                             cap=int(occ0 * 1.4) + 6, pair_kind="soft",
+                             fene_k=30.0, fene_r0=1.5)
     engine = PackedEngine(spec, dev, rebuild_every=5)
     st, overflow = engine.pack_state(
-        pos, Box.cubic(L, dev), types, np.full(n, 100.0, np.float32),
-        np.ones(n, np.float32), extra_attrs=bond_partner_attrs(bonds, n))
+        pos, Box.cubic(L, dev), melt["types"], np.full(n, 100.0, np.float32),
+        np.ones(n, np.float32), extra_attrs=melt["bp"])
     assert not overflow, "cell capacity overflow at the push-off pack"
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    return engine, st, spec
+
+
+def pushoff_run(engine, st, steps: int, seed: int = 99):
+    """The push-off: Langevin dt 0.002, kT 1, gamma 2 (a generator seeded
+    from ``seed``), forces only, a rebuild check every 5 steps.  Returns
+    (state, aux)."""
+    import torch
+    from metadyn_tpu_torch import make_packed_langevin_step
+
     st, aux = engine.init(st)
-    step = make_packed_langevin_step(lambda s_: engine.force_into(s_, aux),
+    step = make_packed_langevin_step(lambda s_: engine.force_into(s_, None),
                                      dt=0.002, kT=1.0, gamma=2.0)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(99)
-    for _ in range(CFG2_PUSHOFF_STEPS // 5):
+    gen = torch.Generator(device=st.r.device)
+    gen.manual_seed(seed)
+    for _ in range(steps // 5):
         st, aux = engine.rebuild(st, aux)
         for _ in range(5):
             st = step(st, gen)
+    return st, aux
+
+
+def config5_pushoff(engine, st):
+    """Config 5's push-off: examples/config5_flux_1m.py's 1000 soft steps
+    at A = 100, then config5_second_stage.  The script's push-off alone
+    leaves non-bonded contacts near r = 0.5, where the production WCA force
+    (~2e5) blows the melt up within the first production steps at dt
+    0.002: the JAX package's example does so at 2,048 beads (PERF.md §6),
+    and phase 20 shows it on the port (config5_pushoff_witness).  Returns
+    (state, aux); the engine launches the kernel CFG5_PUSHOFF_STEPS +
+    CFG5_PUSHOFF2_STEPS + 2 times."""
+    st, aux = pushoff_run(engine, st, CFG5_PUSHOFF_STEPS)
+    assert not bool(aux.overflow), "overflow during the push-off"
+    return config5_second_stage(engine, st)
+
+
+def config5_second_stage(engine, st):
+    """The push-off's second stage, which the script lacks:
+    CFG5_PUSHOFF2_STEPS more soft steps at A = CFG5_PUSHOFF2_A (se scaled
+    by sqrt(A / 100); seed 98).  Returns (state, aux)."""
+    scale = (CFG5_PUSHOFF2_A / 100.0) ** 0.5
+    st = st.replace(attrs={**st.attrs, "se": st.attrs["se"] * scale})
+    return pushoff_run(engine, st, CFG5_PUSHOFF2_STEPS, seed=98)
+
+
+def relaxed_of(st, spec) -> tuple:
+    """(positions, velocities) by particle, numpy, checked finite."""
+    import numpy as np
+    from metadyn_tpu_torch.ops.packed import unpack_positions
+    pos = unpack_positions(st, spec).cpu().numpy()
+    vel = st.v[:, st.slot_of.long()].T.cpu().numpy()
+    assert np.isfinite(pos).all() and np.isfinite(vel).all()
+    return pos, vel
+
+
+def config2_pushoff(dev, smi: str) -> dict:
+    """Phase 13's start: examples/config2_diblock_sk.yaml's melt (512
+    chains of 16, L = 21.3, numpy seed 0), relaxed by the packed soft
+    push-off (pushoff_pack) for CFG2_PUSHOFF_STEPS steps on the pair
+    kernel's soft layout: exactly one launch per step and one for the
+    init."""
+    import torch
+
+    melt = diblock_melt(512, 16, 21.3)
+    engine, st, spec = pushoff_pack(melt, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    st, aux = pushoff_run(engine, st, CFG2_PUSHOFF_STEPS)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    counts = read_counts()
+    assert counts == {**{k: 0 for k in counts},
+                      "pair": CFG2_PUSHOFF_STEPS + 1}, counts
     assert not bool(aux.overflow), "overflow during the push-off"
-    relaxed = unpack_positions(st, spec).cpu().numpy()
-    assert np.isfinite(relaxed).all()
-    print(f"config2 push-off: {CFG2_PUSHOFF_STEPS} soft steps (plain sweep, "
-          f"cap {spec.cap}, Npad {spec.n_pad}) {dt:.3f} s "
-          f"{n * CFG2_PUSHOFF_STEPS / dt:.1f} particle-steps/s on {smi}")
-    return {"pos": relaxed, "bonds": bonds, "types": types, "L": L, "n": n}
+    relaxed, _ = relaxed_of(st, spec)
+    n = melt["n"]
+    print(f"config2 push-off: {CFG2_PUSHOFF_STEPS} soft steps (pair kernel, "
+          f"soft layout; cap {spec.cap}, Npad {spec.n_pad}) {dt:.3f} s "
+          f"{n * CFG2_PUSHOFF_STEPS / dt:.1f} particle-steps/s "
+          f"launches={counts['pair']} on {smi}")
+    return {**melt, "pos": relaxed}
 
 
 # the per-slot layouts of phase 13 on the Config 2 melt: name ->
@@ -767,7 +930,7 @@ def config2_pack(melt: dict, dev, layout: str = "se_hs_table_fene",
     coefficients (+1 A, -1 B) as a slot attr when ``cv`` is given."""
     import numpy as np
     from metadyn_tpu_torch import (
-        Box, PackedEngine, PackedSpec, bond_partner_attrs, pair_scale_tables,
+        Box, PackedEngine, PackedSpec, pair_scale_tables,
     )
     n, types = melt["n"], melt["types"]
     kw, table = CFG2_LAYOUTS[layout]
@@ -782,7 +945,7 @@ def config2_pack(melt: dict, dev, layout: str = "se_hs_table_fene",
     vel -= vel.mean(axis=0)
     extra = {}
     if spec.has_bonds:
-        extra.update(bond_partner_attrs(melt["bonds"], n))
+        extra.update(melt["bp"])
     if cv is not None:
         extra[cv.attr_name] = np.asarray([1.0, -1.0], np.float32)[types]
     state, overflow = engine.pack_state(
@@ -797,7 +960,6 @@ def config2_kernels_vs_plain(melt: dict, dev) -> dict:
     against the plain pair force (and v1 against the pair kernel) on the
     relaxed Config 2 melt.  Returns per variant (max abs error, kernel ms,
     plain ms, bound ms, bound by)."""
-    import numpy as np
     import torch
     from metadyn_tpu_torch.ops.packed import packed_lj_force
     from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
@@ -807,25 +969,9 @@ def config2_kernels_vs_plain(melt: dict, dev) -> dict:
     out = {}
     for layout in CFG2_LAYOUTS:
         _, st, spec = config2_pack(melt, dev, layout)
-        pairs = pairs_within(st, spec, spec.r_cut)
         nb = n_bonds if spec.has_bonds else 0
-        for we in (False, True):
-            a = packed_lj_force_cuda(st, spec, with_energy=we)
-            b = packed_lj_force(st, spec, with_energy=we)
-            torch.cuda.synchronize()
-            err, line = pair_close(layout, a, b, we)
-            ms = cuda_ms(lambda: packed_lj_force_cuda(st, spec,
-                                                      with_energy=we))
-            plain = cuda_ms(lambda: packed_lj_force(st, spec,
-                                                    with_energy=we),
-                            calls=10)
-            bms, by = pair_kernel_bound(spec, pairs, nb, we)
-            out[f"{layout}{'+energy' if we else ''}"] = (err, ms, plain,
-                                                         bms, by)
-            print(f"config2 pair kernel {layout} with_energy={we} "
-                  f"kernel_vs_plain: {line} kernel_ms={ms:.4f} "
-                  f"plain_ms={plain:.4f} bound_ms={bms:.5f} ({by}; "
-                  f"{pairs} pairs, {nb} bonds, Npad {spec.n_pad})")
+        out.update(pair_kernel_vs_plain("config2 pair kernel", layout, st,
+                                        spec, nb))
         if spec.has_pair_table or spec.uniform_sigma is not None:
             continue
         v1 = packed_lj_force_v1_cuda(st, spec)
@@ -838,7 +984,8 @@ def config2_kernels_vs_plain(melt: dict, dev) -> dict:
         plain_ms = cuda_ms(lambda: packed_lj_force(st, spec,
                                                    with_energy=True),
                            calls=10)
-        bms, by = pair_kernel_bound(spec, pairs, nb, True, v1=True)
+        bms, by = pair_kernel_bound(spec, pairs_within(st, spec, spec.r_cut),
+                                    nb, True, v1=True)
         out[f"v1 {layout}"] = (max(err, err_k1), ms, plain_ms, bms, by)
         print(f"config2 v1 kernel {layout}: vs plain {line}; vs pair kernel "
               f"{line_k1} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -1322,7 +1469,316 @@ def config2_timed(melt: dict, dev, smi: str, warm: int = 24,
     return counts["pair"]
 
 
+# lj_force_kernel<SeEps, HsSig, Table, Bond, Soft = true, WithEnergy>
+SOFT_KERNELS = r"lj_force_kernelILb1ELb1ELb0ELi[01]ELb1E"
+
+
+def soft_kernel_vs_plain(melt: dict, dev, tag: str, calls: int = 25,
+                         plain_calls: int = 10, plain_warm: int = 3):
+    """Phase 19: the pair kernel's soft layout against the plain sweep at a
+    push-off start, forces only and with energy, with times per call and
+    the bound.  Returns ((engine, state, spec), per mode (max abs error,
+    kernel ms, plain ms, bound ms, bound by))."""
+    engine, st, spec = pushoff_pack(melt, dev)
+    out = pair_kernel_vs_plain("soft pair kernel", f"soft {tag}", st, spec,
+                               len(melt["bonds"]), calls, plain_calls,
+                               plain_warm)
+    return (engine, st, spec), out
+
+
+@contextlib.contextmanager
+def recorded_updates():
+    """Records the histograms each bias update of FluxTemperedSampler
+    consumes (numpy, by interop.flux_state_arrays), by wrapping
+    flux_sampler.update_bias where the sampler looks it up."""
+    import metadyn_tpu_torch.flux_sampler as fs
+    from metadyn_tpu_torch.interop import flux_state_arrays
+    real, seen = fs.update_bias, []
+
+    def update_bias(bias, flux, *args, **kw):
+        seen.append(flux_state_arrays(flux))
+        return real(bias, flux, *args, **kw)
+
+    fs.update_bias = update_bias
+    try:
+        yield seen
+    finally:
+        fs.update_bias = real
+
+
+def config5_melt(n_chains: int) -> dict:
+    """examples/config5_flux_1m.py's melt: n_chains diblock chains of 16 at
+    rho 0.85, chain starts on a jittered grid, persistence 0.9."""
+    n = n_chains * CFG5_CHAIN_LEN
+    L = float((n / 0.85) ** (1.0 / 3.0))
+    return diblock_melt(n_chains, CFG5_CHAIN_LEN, L, grid_starts=True,
+                        persistence=0.9)
+
+
+def config5_sampler(melt: dict, pos, vel, dev, engine_cls=None,
+                    gamma: float = 2.0, stride: int = CFG5_STRIDE,
+                    update_period: int = CFG5_PERIOD, **kw):
+    """examples/config5_flux_1m.py's production phase on the port: WCA
+    (r_cut 2^(1/6), uniform sigma 1) + FENE, skin 0.5, cap 48, a repack
+    check every step; PackedMesh 48^3 with k0 = 2 pi 4 / L, width 0.3, the
+    mesh coefficients +1 (A) and -1 (B); FluxTemperedSampler on [0, hi],
+    hi = max(8 S(k0), 10), 101 points, sigma hi/40, kT 1, BAOAB dt 0.002,
+    seed 0, bias_every 1.  Returns (sampler, S(k0) at the start, hi)."""
+    import numpy as np
+    from metadyn_tpu_torch import (
+        Box, FluxTemperedSampler, GridSpec, PackedEngine, PackedMesh,
+        PackedSpec, make_packed_langevin_step, make_system,
+    )
+    n, L, types = melt["n"], melt["L"], melt["types"]
+    spec = PackedSpec.create(L, n, r_cut=WCA_RC, skin=0.5, cap=48,
+                             fene_k=30.0, fene_r0=1.5, uniform_sigma=1.0)
+    engine = (engine_cls or PackedEngine)(spec, dev)
+    cv = PackedMesh.create((48, 48, 48), L, n_real=n,
+                           k0=2 * np.pi * 4 / L, width=0.3, name="dsa")
+    st, overflow = engine.pack_state(
+        pos, Box.cubic(L, dev), types, np.ones(n, np.float32),
+        np.ones(n, np.float32), vel=vel,
+        extra_attrs={**melt["bp"], cv.attr_name: np.asarray(
+            [1.0, -1.0], np.float32)[types]})
+    assert not overflow, "cell capacity overflow at the production pack"
+    system = make_system(n, dev, types=types, bonds=melt["bonds"])
+    s0 = float(cv.value(st, system))
+    hi = max(8.0 * s0, 10.0)
+    assert 0.0 <= s0 <= hi, f"S(k0) = {s0} outside the grid [0, {hi}]"
+    sampler = FluxTemperedSampler(
+        system, st, engine, [cv],
+        GridSpec.create([0.0], [hi], [101], [hi / 40], dev),
+        lambda f: make_packed_langevin_step(f, dt=0.002, kT=1.0,
+                                            gamma=gamma),
+        kT=1.0, stride=stride, update_period=update_period, seed=0,
+        bias_every=1, **kw)
+    return sampler, s0, hi
+
+
+def closest_nonbonded(melt: dict, pos) -> float:
+    """The smallest minimum-image distance between two beads that share no
+    bond (numpy, all pairs: for a few thousand beads)."""
+    import numpy as np
+    n, L = melt["n"], melt["L"]
+    d = pos[:, None, :] - pos[None, :, :]
+    d -= L * np.round(d / L)
+    r2 = (d * d).sum(axis=-1)
+    r2[np.arange(n), np.arange(n)] = np.inf
+    a, b = np.asarray(melt["bonds"]).T
+    r2[a, b] = r2[b, a] = np.inf
+    return float(np.sqrt(r2.min()))
+
+
+def config5_pushoff_witness(dev, smi: str) -> None:
+    """Phase 20's first part: why config5_pushoff adds a second stage to
+    examples/config5_flux_1m.py's push-off.  At the size where the JAX
+    package's example shows the blow-up (--chains 128: 2,048 beads, L
+    13.4, the same melt), after the script's push-off alone and after the
+    second stage as well: the closest non-bonded pair, then one production
+    period (stride 50 x update_period 4, 200 steps, gamma 2, as the script
+    runs it; the plain-force engine) with T by stride.  The first must blow
+    up (T above CFG5_BLOWUP_T, or not finite), the second stay inside
+    CFG5_WITNESS_T_BAND."""
+    import numpy as np
+
+    melt = config5_melt(CFG5_WITNESS_CHAINS)
+    engine, st, spec = pushoff_pack(melt, dev)
+    st, aux = pushoff_run(engine, st, CFG5_PUSHOFF_STEPS)
+    assert not bool(aux.overflow), "overflow during the push-off"
+    stage1 = relaxed_of(st, spec)
+    st, aux = config5_second_stage(engine, st)
+    assert not bool(aux.overflow), "overflow during the push-off"
+    stage2 = relaxed_of(st, spec)
+    out = {}
+    for tag, (pos, vel) in (("script", stage1), ("two_stage", stage2)):
+        s, _, _ = config5_sampler(melt, pos, vel, dev, plain_force_engine())
+        (m,) = s.run(CFG5_STRIDE * CFG5_PERIOD)
+        out[tag] = (closest_nonbonded(melt, pos),
+                    [float(t) for t in m["temperature"]])
+    print(f"config5 push-off witness N={melt['n']} (plain-force production, "
+          f"200 steps): " + "; ".join(
+              f"{tag}: closest non-bonded r={r:.4f}, T by stride {T}"
+              for tag, (r, T) in out.items()) + f" on {smi}")
+    T1, T2 = np.asarray(out["script"][1]), np.asarray(out["two_stage"][1])
+    assert not np.all(np.isfinite(T1)) or T1.max() > CFG5_BLOWUP_T, out
+    assert np.all((CFG5_WITNESS_T_BAND[0] < T2)
+                  & (T2 < CFG5_WITNESS_T_BAND[1])), out
+
+
+def config5_kernel_vs_plain(dev) -> None:
+    """Phase 20: Config 5 at 1,024 chains of 16 (16,384 beads, the same
+    density), relaxed by the push-off on the soft kernel; one update
+    period at stride 10 x update_period 2 (the ungated cadence, so the
+    period ends in an update) at gamma = 0 through FluxTemperedSampler,
+    on the kernel engine and on the plain-force engine, from one state:
+    positions by particle, the histograms the update consumes, V after it,
+    and the per-stride metrics."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch.ops.packed import unpack_positions
+
+    melt = config5_melt(1024)
+    engine, st, spec = pushoff_pack(melt, dev)
+    st, aux = config5_pushoff(engine, st)
+    assert not bool(aux.overflow), "overflow during the push-off"
+    pos, vel = relaxed_of(st, spec)
+    runs = []
+    for plain in (False, True):
+        reset_counts()
+        s, s0, hi = config5_sampler(
+            melt, pos, vel, dev, plain_force_engine() if plain else None,
+            gamma=0.0, stride=10, update_period=2, min_round_trips=0)
+        with recorded_updates() as seen:
+            (m,) = s.run(20)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        # kernel path: init and the prime, then 10 steps and a refresh per
+        # stride
+        assert counts["pair"] == (0 if plain else 2 + 2 * 11), counts
+        assert len(seen) == 1 and s.n_updates == 1 and m["update_applied"]
+        assert not np.any(m["nlist_overflow"]), m
+        runs.append((unpack_positions(s.state, s.engine.spec).cpu().numpy(),
+                     seen[0], s.bias.grid.V.cpu().numpy(), m))
+    (pk, hk, Vk, mk), (pp, hp, Vp, mp) = runs
+    L = melt["L"]
+    dpos = pk - pp
+    dpos -= L * np.round(dpos / L)
+    dpos = float(np.abs(dpos).max())
+    assert dpos <= 1e-3, dpos
+    for k in ("hist", "flux_up", "flux_down", "prev_bin"):
+        np.testing.assert_array_equal(hk[k], hp[k], err_msg=k)
+    assert np.isfinite(Vk).all()
+    np.testing.assert_allclose(Vk, Vp, rtol=1e-4, atol=1e-4)
+    for k in ("cv", "temperature", "potential_energy"):
+        np.testing.assert_allclose(mk[k], mp[k], rtol=1e-4, err_msg=k)
+    print(f"config5_kernel_vs_plain gamma=0 N={melt['n']} 20 steps: "
+          f"max|dpos|={dpos:.3e} hist equal ({int(hk['hist'].sum())} "
+          f"visits, {int(hk['flux_up'].sum())} up, "
+          f"{int(hk['flux_down'].sum())} down) "
+          f"max|dV|={float(np.abs(Vk - Vp).max()):.3e} "
+          f"S(k0)={[round(float(x), 4) for x in np.ravel(mk['cv'])]} "
+          f"grid [0, {hi:.3f}]")
+
+
+# (beads, cells per side, cap, Npad) of the 1M push-off and production
+CFG5_SIZES = ((1048576, 53, 46, 6848342), (1048576, 66, 48, 13799808))
+
+
+def config5_1m(soft: tuple, melt: dict, dev, smi: str,
+               sizes=CFG5_SIZES) -> dict:
+    """Phase 21: Config 5 at 1,048,576 beads.  The push-off from phase 19's
+    start on the soft kernel (timed, peak memory); the production pack
+    with kernel 1 against the plain force on it; one warm period and two
+    timed ones with exact launch counts and the physics checks; one
+    profiled period; one more that ends in the first bias update; the
+    gate's bookkeeping over all of them.  Returns the numbers for the
+    kernels line."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch.utils.profiling import device_profile
+
+    engine, st, spec = soft
+    n = melt["n"]
+    assert (n, spec.cells_per_dim[0], spec.cap, spec.n_pad) == sizes[0], (
+        n, spec)
+    gib = 2.0 ** 30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    st, aux = config5_pushoff(engine, st)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    push_peak = torch.cuda.max_memory_allocated() / gib
+    steps = CFG5_PUSHOFF_STEPS + CFG5_PUSHOFF2_STEPS
+    assert counts == {**{k: 0 for k in counts}, "pair": steps + 2}, counts
+    assert not bool(aux.overflow), "overflow during the push-off"
+    pos, vel = relaxed_of(st, spec)
+    push_launches = counts["pair"]
+    print(f"config5 push-off N={n}: {CFG5_PUSHOFF_STEPS} soft steps at A "
+          f"100 and {CFG5_PUSHOFF2_STEPS} at A {CFG5_PUSHOFF2_A:g} (pair "
+          f"kernel, soft layout; cap {spec.cap}, Npad {spec.n_pad}) "
+          f"{dt:.3f} s {n * steps / dt:.1f} particle-steps/s "
+          f"peak_mem={push_peak:.3f} GiB launches={push_launches} on {smi}")
+    del engine, st, aux
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    s, s0, hi = config5_sampler(melt, pos, vel, dev)
+    pspec = s.engine.spec
+    assert (n, pspec.cells_per_dim[0], pspec.cap, pspec.n_pad) == sizes[1], (
+        pspec)
+    # kernel 1 against the plain force on the production start
+    prod = pair_kernel_vs_plain(
+        "config5 pair kernel", f"se_usig_fene_wca config5 N={n}", s.state,
+        pspec, len(melt["bonds"]), plain_calls=2, plain_warm=1)
+
+    stride, period = s.stride, s.update_period
+    per_period = stride * period
+    warm = s.run(per_period)
+    temps = [round(float(t), 4) for m in warm for t in m["temperature"]]
+    print(f"config5 N={n} warm: S(k0) at the start {s0:.4f}, grid [0, "
+          f"{hi:.4f}]; 1 period, T by stride {temps}")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    timed = s.run(CFG5_TIMED_PERIODS * per_period)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    steps = CFG5_TIMED_PERIODS * per_period
+    temps = [round(float(t), 4) for m in timed for t in m["temperature"]]
+    last = timed[-1]
+    print(f"config5 N={n}: {CFG5_TIMED_PERIODS} periods ({steps} steps) "
+          f"{dt:.3f} s {n * steps / dt:.1f} particle-steps/s "
+          f"T by stride {temps} "
+          f"PE/N={float(last['potential_energy'][-1]) / n:.4f} "
+          f"S(k0)={float(last['cv'][-1][0]):.4f} "
+          f"round_trips={[m['round_trips'] for m in timed]} "
+          f"update_applied={[m['update_applied'] for m in timed]} "
+          f"n_updates={s.n_updates} launches={counts} on {smi}")
+    assert counts == {**{k: 0 for k in counts},
+                      "pair": CFG5_TIMED_PERIODS * period
+                      * (stride + 1)}, counts
+    prof = device_profile(lambda: s.run(per_period))
+    untraced_ms = 1e3 * dt / CFG5_TIMED_PERIODS
+    prof["busy_share_untraced"] = prof["busy_ms"] / untraced_ms
+    prof["tracing_overhead_ms"] = prof["wall_ms"] - untraced_ms
+    prof["busy_ms_per_stride"] = prof["busy_ms"] / period
+    prod_peak = torch.cuda.max_memory_allocated() / gib
+    print(f"profile config5 N={n} one period ({period} strides): "
+          f"{json.dumps(prof)} peak_mem_production={prod_peak:.3f} GiB "
+          f"on {smi}")
+    # one more period: with no round trip the gate's cap
+    # (max_defer_periods 4) forces the first bias update here
+    (last,) = s.run(per_period)
+    V = s.bias.grid.V.cpu().numpy()
+    print(f"config5 N={n} period {len(s.history)}: round_trips="
+          f"{last['round_trips']} update_applied={last['update_applied']} "
+          f"n_updates={s.n_updates} V in [{V.min():.4f}, {V.max():.4f}]")
+    assert last["update_applied"] and s.n_updates >= 1, last
+    assert np.isfinite(V).all() and np.abs(V).max() > 0.0
+    hist = s.history
+    for m in hist:
+        for k in ("cv", "temperature", "potential_energy"):
+            assert np.all(np.isfinite(m[k])), (k, m)
+        assert not np.any(m["nlist_overflow"]), m
+        assert not np.any(m["cell_width_violation"]), m
+        if not m["update_applied"]:
+            assert m["round_trips"] < 1.0, m
+    for m in timed:
+        t = np.asarray(m["temperature"])
+        assert np.all((CFG5_T_BAND[0] < t) & (t < CFG5_T_BAND[1])), t
+    assert s.n_updates == sum(bool(m["update_applied"]) for m in hist)
+    assert len(hist) == 3 + CFG5_TIMED_PERIODS
+    return {"push_launches": push_launches, "launches": counts["pair"],
+            "variants": prod}
+
+
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -1516,6 +1972,26 @@ def main() -> int:
     triclinic_timed(dev, smi[0], n_cells=10, n_runs=1, profile=False)
     print(f"triclinic phases 16-18: {time.perf_counter() - t16:.1f} s")
 
+    # 19.-21. Config 5: the soft layout against the plain sweep at both
+    # push-off starts; the push-off witness at 2,048 beads and the slice
+    # against the plain path at 16,384; the 1M push-off and flux-tempered
+    # run
+    t19 = time.perf_counter()
+    for ln in ptxas_lines(KERNEL, SOFT_KERNELS):
+        print(f"build: csrc/{KERNEL}.cu soft layout {ln}")
+    _, soft2 = soft_kernel_vs_plain(diblock_melt(512, 16, 21.3), dev,
+                                    "config2 N=8192")
+    melt5 = config5_melt(65536)
+    soft5_start, soft5 = soft_kernel_vs_plain(
+        melt5, dev, f"config5 N={melt5['n']}", calls=10, plain_calls=2,
+        plain_warm=1)
+    config5_pushoff_witness(dev, smi[0])
+    config5_kernel_vs_plain(dev)
+    cfg5 = config5_1m(soft5_start, melt5, dev, smi[0])
+    del soft5_start
+    print(f"config5 phases 19-21: {time.perf_counter() - t19:.1f} s")
+    print(f"chip_smoke wall: {time.perf_counter() - t_main:.1f} s")
+
     def entry(name, source, replaces, launches, nums, **extra):
         err, ms, plain_ms, bms, by = nums
         return {"name": name, "route": "cuda",
@@ -1530,7 +2006,8 @@ def main() -> int:
            if not k.startswith("v1")},
         **{f"se_hs tilted{k[4:]} triclinic N={4 * c ** 3}": v
            for c, t in tric.items() for k, v in t.items()
-           if k.startswith("pair")}}
+           if k.startswith("pair")},
+        **cfg5["variants"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 
     def tric_variants(kernel, layout):
@@ -1550,8 +2027,23 @@ def main() -> int:
               launches_by_path={"liq64k bias_every=5": rates[5][1],
                                 "config3 mts_lag": lag_counts["pair"],
                                 "config2": cfg2_launches,
-                                "triclinic": tric_counts["pair"]},
+                                "triclinic": tric_counts["pair"],
+                                "config5 N=1048576 (2 periods of 4 "
+                                "strides)": cfg5["launches"]},
               variants={k: dict(zip(keys, v)) for k, v in variants.items()}),
+        entry(f"{KERNEL} soft layout", KERNEL,
+              "XLA roll sweep, metadyn_tpu/ops/packed.py:830 (no "
+              "pallas_call)", cfg5["push_launches"],
+              soft5[f"soft config5 N={melt5['n']}"],
+              design=staged + "; the soft pair on the per-slot se/hs "
+              "layout with FENE bonds (a layout of the port alone)",
+              launches_by_path={"config5 push-off N=1048576 (1000 + 500 "
+                                "steps and two inits)": cfg5["push_launches"],
+                                "config2 push-off (2000 steps and the "
+                                "init)": CFG2_PUSHOFF_STEPS + 1,
+                                "per stride": 0},
+              variants={k: dict(zip(keys, v))
+                        for k, v in {**soft2, **soft5}.items()}),
         entry("packed_order_values", packed_order_cuda.KERNEL,
               "metadyn_tpu/ops/packed_order_pallas.py:257",
               lag_counts["values"], order["values"],

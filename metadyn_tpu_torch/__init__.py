@@ -22,7 +22,11 @@ from .bias.grid import BiasGrid, GridSpec
 from .bias.metad import (
     STANDARD, WELL_TEMPERED, BiasState, HillSpec, WallSpec, free_energy,
 )
+from .bias.flux import (
+    FLUX, VISITS, FluxState, accumulate, bin_of, round_trips, update_bias,
+)
 from .sampler import MetadSampler, lag_supported
+from .flux_sampler import FluxTemperedSampler
 from .utils.lattice import fcc_lattice, polymer_melt
 
 __all__ = [
@@ -32,6 +36,7 @@ __all__ = [
     "PackedMesh", "PackedCoordination",
     "PackedSteinhardtQl", "make_fused_order_force", "BiasGrid", "GridSpec",
     "STANDARD", "WELL_TEMPERED", "BiasState", "HillSpec", "WallSpec",
-    "free_energy", "MetadSampler", "lag_supported", "fcc_lattice",
-    "polymer_melt",
+    "free_energy", "FLUX", "VISITS", "FluxState", "accumulate", "bin_of",
+    "round_trips", "update_bias", "MetadSampler", "lag_supported",
+    "FluxTemperedSampler", "fcc_lattice", "polymer_melt",
 ]

@@ -1,12 +1,13 @@
 """PackedEngine — the MD engine over the slot-layout state (counterpart of
 ``metadyn_tpu/core/packed_engine.py``).
 
-On a CUDA device every LJ pair-force call goes to the hand-written kernel
+On a CUDA device every pair-force call goes to the hand-written kernel
 (``ops/packed_cuda.py``); on the CPU to the plain roll sweep.  There is no
-fallback between the two.  The soft push-off pair (``pair_kind="soft"``)
-has no kernel in the reference either: its engine routes it to the XLA
-roll path on every backend, and this engine to the plain roll sweep, its
-port, on both devices.
+fallback between the two.  That holds for the soft push-off pair
+(``pair_kind="soft"``) too: the reference has no Pallas kernel for it and
+routes it to its XLA roll sweep on every backend, while this engine sends
+it to the pair kernel's soft layout on CUDA (a layout of the port alone)
+and to the plain sweep on the CPU.
 """
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ import torch
 
 from .box import Box, perpendicular_widths
 from ..ops.packed import (
-    PackedSpec, PackedState, needs_repack, pack_host, packed_lj_force,
-    packed_temperature, repack_incremental,
+    PackedSpec, PackedState, needs_repack, pack_host, packed_temperature,
+    repack_incremental,
 )
 from ..ops.packed_cuda import check_spec, packed_lj_force_cuda
 
@@ -57,8 +58,7 @@ class PackedEngine:
             if not torch.cuda.is_available():
                 raise RuntimeError("PackedEngine: a CUDA device was asked "
                                    "for, but torch finds no CUDA device")
-            if spec.pair_kind == "lj":
-                check_spec(spec)
+            check_spec(spec)
             # the reference runs f32 at full precision: no TF32 products
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -88,8 +88,6 @@ class PackedEngine:
     # --- protocol ---------------------------------------------------------
     def _pair_force(self, state: PackedState,
                     with_energy: bool) -> PackedState:
-        if self.spec.pair_kind == "soft":
-            return packed_lj_force(state, self.spec, with_energy=with_energy)
         return packed_lj_force_cuda(state, self.spec, with_energy=with_energy)
 
     def init(self, state: PackedState):

@@ -1,5 +1,6 @@
 // Pair force over the cell-major slot layout: Lennard-Jones with optional
-// per-slot parameters, per-type-pair scale tables and bonds.
+// per-slot parameters, per-type-pair scale tables and bonds, or the soft
+// push-off pair.
 //
 // Replaces the TPU kernel `packed_lj_force_pallas2` in
 // metadyn_tpu/ops/packed_pallas2.py in these variants, each in an
@@ -17,7 +18,14 @@
 //   (d) bonds on (b) or (c): partners matched by pid through the bp attrs
 //       (partner pid + 1, 0 = none), at any distance, not gated on r_cut;
 //       a bonded pair gets FENE + WCA at the pair's (table-scaled) eps and
-//       sigma, or a harmonic spring, instead of the pair term.
+//       sigma, or a harmonic spring, instead of the pair term;
+//   (s) the soft (DPD-conservative) pair on (b) with per-slot hs, with or
+//       without FENE bonds: u = A rc/2 (1 - r/rc)^2, A = se_i se_j, the
+//       push-off that relaxes a random-walk melt's overlaps.  The JAX
+//       package has no Pallas kernel for it: it runs the XLA roll sweep
+//       (metadyn_tpu/ops/packed.py:830, packed_lj_force with pair_kind
+//       "soft"), whose port is the plain sweep of ops/packed.py.  Bonded
+//       pairs keep the bond term of (d).
 //
 // Layout (ops/packed.py): positions are a (3, Npad) f32 array, slot =
 // rank * C + cell, cell = (ix * cy + iy) * cz + iz, cells binned in fractional
@@ -37,13 +45,13 @@
 // The vacancy rule of the compaction is per layout: (a) x < VACANT_THR;
 // (b), (c) se > 0; (d) pid < n_real, every real row, since a bonded
 // partner counts at any distance and an i row is live with se = 0 if it
-// has a partner.  One warp takes one real i row of the cell at a time; its
-// lanes split the staged rows, queue those inside r_cut (or bonded) and
-// run the pair math on the queue 32 at a time.  The warp's three force sums
-// meet in a shuffle tree and lane 0 writes the i slot.  No Newton
-// halving, so no thread writes another slot's force: no atomics and a
-// deterministic result, at twice the pair evaluations of the halved TPU
-// kernel.  The layout is a set of template flags, so each variant compiles
+// has a partner; (s) as (b), or as (d) with bonds.  One warp takes one
+// real i row of the cell at a time; its lanes split the staged rows, queue
+// those inside r_cut (or bonded) and run the pair math on the queue 32 at
+// a time.  The warp's three force sums meet in a shuffle tree and lane 0
+// writes the i slot.  No Newton halving, so no thread writes another
+// slot's force: no atomics and a deterministic result, at twice the pair
+// evaluations of the halved TPU kernel.  The layout is a set of template flags, so each variant compiles
 // only the loads and tests it needs.
 //
 // Energy and diagonal virial are 1/2 of the sums over ordered pairs: per-
@@ -77,6 +85,7 @@ struct Params {
   int n_types;       // table side (the table is n_types x n_types)
   int shift_energy;  // shift the LJ energy to 0 at r_cut
   float rc2;   // r_cut^2
+  float rc;    // r_cut (the soft pair)
   float sig2;  // uniform sigma^2 (layouts without hs)
   float eps;   // uniform epsilon (the sentinel layout)
   float bond_k;
@@ -99,8 +108,10 @@ size_t smem_bytes(int cap, int n_types) {
 }
 
 // SeEps: eps from se (else uniform, vacancy by the coordinate sentinel);
-// HsSig: sigma from hs (else uniform); Table: scale tables; Bond: kBond*.
-template <bool SeEps, bool HsSig, bool Table, int Bond, bool WithEnergy>
+// HsSig: sigma from hs (else uniform); Table: scale tables; Bond: kBond*;
+// Soft: the soft pair in place of LJ (with SeEps and HsSig only).
+template <bool SeEps, bool HsSig, bool Table, int Bond, bool Soft,
+          bool WithEnergy>
 __global__ void __launch_bounds__(kThreads)
 lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
                 const float* __restrict__ hs, const int* __restrict__ typ,
@@ -218,12 +229,16 @@ lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
             sig2 = sig * sig;
           }
           float e = 0.0f;
-          const float coef =
-              bonded ? pair_terms::bond_term<Bond, WithEnergy>(
-                           r2, eps, sig2, p.bond_k, p.bond_r0, &e)
-                     : pair_terms::lj_term<WithEnergy>(
-                           r2, 4.0f * eps, sig2, p.rc2,
-                           p.shift_energy != 0, &e);
+          float coef;
+          if (bonded) {
+            coef = pair_terms::bond_term<Bond, WithEnergy>(
+                r2, eps, sig2, p.bond_k, p.bond_r0, &e);
+          } else if (Soft) {
+            coef = pair_terms::soft_term<WithEnergy>(r2, eps, p.rc, &e);
+          } else {
+            coef = pair_terms::lj_term<WithEnergy>(
+                r2, 4.0f * eps, sig2, p.rc2, p.shift_energy != 0, &e);
+          }
           fx += coef * dx;
           fy += coef * dy;
           fz += coef * dz;
@@ -266,11 +281,12 @@ struct Args {
 // Launches one variant: 0, a CUDA error of the shared-memory request or
 // the launch, or cell_stage::kSmemTooLarge when cap does not fit a block's
 // shared memory.
-template <bool SeEps, bool HsSig, bool Table, int Bond, bool WithEnergy>
+template <bool SeEps, bool HsSig, bool Table, int Bond, bool Soft,
+          bool WithEnergy>
 int launch_one(const Args& a, cudaStream_t st) {
   const int n_blocks = a.p.g.cx * a.p.g.cy * a.p.g.cz;
   const size_t smem = smem_bytes<HsSig, Table, Bond>(a.p.g.cap, a.p.n_types);
-  auto kernel = lj_force_kernel<SeEps, HsSig, Table, Bond, WithEnergy>;
+  auto kernel = lj_force_kernel<SeEps, HsSig, Table, Bond, Soft, WithEnergy>;
   // beside the static array of pair_terms::block_partials
   const int rc = cell_stage::request_smem(kernel, smem, sizeof(float) * 128);
   if (rc != 0) return rc;
@@ -284,10 +300,11 @@ int launch_one(const Args& a, cudaStream_t st) {
   return 0;
 }
 
-template <bool SeEps, bool HsSig, bool Table, int Bond>
+template <bool SeEps, bool HsSig, bool Table, int Bond, bool Soft = false>
 int launch(const Args& a, bool with_energy, cudaStream_t st) {
-  return with_energy ? launch_one<SeEps, HsSig, Table, Bond, true>(a, st)
-                     : launch_one<SeEps, HsSig, Table, Bond, false>(a, st);
+  return with_energy
+             ? launch_one<SeEps, HsSig, Table, Bond, Soft, true>(a, st)
+             : launch_one<SeEps, HsSig, Table, Bond, Soft, false>(a, st);
 }
 
 constexpr int kNoLayout = -1;
@@ -299,6 +316,17 @@ int launch_bond(int bond_kind, const Args& a, bool we, cudaStream_t st) {
     case kBondFene: return launch<SeEps, HsSig, Table, kBondFene>(a, we, st);
     case kBondHarmonic:
       return launch<SeEps, HsSig, Table, kBondHarmonic>(a, we, st);
+    default: return kNoLayout;
+  }
+}
+
+// The soft pair: per-slot se and hs, no table, no bonds or FENE bonds.
+int launch_soft(int bond_kind, const Args& a, bool we, cudaStream_t st) {
+  switch (bond_kind) {
+    case kBondNone:
+      return launch<true, true, false, kBondNone, true>(a, we, st);
+    case kBondFene:
+      return launch<true, true, false, kBondFene, true>(a, we, st);
     default: return kNoLayout;
   }
 }
@@ -320,9 +348,11 @@ int packed_lj_force_blocks(int cx, int cy, int cz) { return cx * cy * cz; }
 // null.  Launches on `stream` and returns cudaGetLastError() (0 on
 // success), a CUDA error of the shared-memory request, -1 for a layout
 // without an instantiation (the sentinel layout has no table and no bonds,
-// a table needs se and hs), or -2 when cap does not fit a block's shared
-// memory.  Lx..Lz and xyLy, xzLz, yzLz: the cell matrix (cell_geom.cuh
-// HBox; zero tilt for an orthorhombic box).
+// a table needs se and hs, the soft pair needs se and hs, no table and no
+// bond or a FENE one), or -2 when cap does not fit a block's shared
+// memory.  soft != 0 selects the soft pair (cut at r_cut) in place of LJ.
+// Lx..Lz and xyLy, xzLz, yzLz: the cell matrix (cell_geom.cuh HBox; zero
+// tilt for an orthorhombic box).
 int packed_lj_force(const float* r, const float* se, const float* hs,
                     const int* typ, const int* pid, const float* bp0,
                     const float* bp1, const float* bp2, const float* bp3,
@@ -330,22 +360,26 @@ int packed_lj_force(const float* r, const float* se, const float* hs,
                     int n_pad, int cap, int cx, int cy, int cz, int n_real,
                     int se_eps, int hs_sig, int n_types, int bond_kind,
                     int bond_slots, int shift_energy, int with_energy,
-                    float Lx, float Ly, float Lz, float xyLy, float xzLz,
-                    float yzLz, float rc2, float sig2, float eps,
-                    float bond_k, float bond_r0, void* stream) {
+                    int soft, float Lx, float Ly, float Lz, float xyLy,
+                    float xzLz, float yzLz, float rc2, float r_cut,
+                    float sig2, float eps, float bond_k, float bond_r0,
+                    void* stream) {
   if (bond_slots < 0 || bond_slots > pair_terms::kMaxBondSlots) {
     return kNoLayout;
   }
   Args a{r, se, hs, typ, pid, {{bp0, bp1, bp2, bp3}, bond_slots}, table, f,
          partials, out,
          Params{{n_pad, cap, cx, cy, cz, {Lx, Ly, Lz, xyLy, xzLz, yzLz}},
-                n_real, n_types, shift_energy, rc2, sig2, eps, bond_k,
+                n_real, n_types, shift_energy, rc2, r_cut, sig2, eps, bond_k,
                 bond_r0}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool we = with_energy != 0;
   const bool has_table = table != nullptr;
   int rc;
-  if (!se_eps) {
+  if (soft) {
+    rc = (se_eps && hs_sig && !has_table) ? launch_soft(bond_kind, a, we, st)
+                                          : kNoLayout;
+  } else if (!se_eps) {
     rc = (!hs_sig && !has_table && bond_kind == kBondNone)
              ? launch<false, false, false, kBondNone>(a, we, st)
              : kNoLayout;

@@ -39,6 +39,17 @@ __device__ __forceinline__ float lj_term(float r2, float eps4, float sig2,
   return eps4 * (12.0f * s12 - 6.0f * s6) * inv;
 }
 
+// The soft (DPD-conservative) push-off pair u = a rc/2 (1 - r/rc)^2 inside
+// rc, a = eps_ij: a finite force at r -> 0, so overlapping beads separate.
+template <bool WithEnergy>
+__device__ __forceinline__ float soft_term(float r2, float a, float rc,
+                                           float* e) {
+  const float r = sqrtf(r2);
+  const float x = 1.0f - r / rc;
+  if (WithEnergy) *e = 0.5f * a * rc * x * x;
+  return a * x / r;
+}
+
 // The bond term that replaces the pair term of a bonded pair, at any
 // distance: FENE -k r0^2/2 ln(1 - r^2/r0^2) (the argument clipped at 0.99)
 // plus WCA at the pair's eps and sigma (Kremer-Grest), or the harmonic

@@ -125,6 +125,9 @@ class PackedMesh:
             np.asarray(u_k, np.float32), device=device))
         # the integer mode grid (3, nx, ny, nz) per device: static
         self._modes = {}
+        # arange(n) % mesh size per (device, n slots): where the scatter
+        # entries of zero-weight slots go (see _rho_k2)
+        self._spread = {}
 
     @classmethod
     def create(cls, mesh_shape, box_L, n_real: int, k0=None,
@@ -176,12 +179,28 @@ class PackedMesh:
 
     def _rho_k2(self, state: PackedState) -> torch.Tensor:
         """|ρ̂(k)|² on the (nx, ny, nz) mesh.  All stencil nodes go into the
-        flat mesh in one ``index_add``."""
+        flat mesh in one ``index_add``.
+
+        A slot of weight 0 (a vacant slot) adds nothing, but vacant slots
+        sit together (at 0 in the per-slot layout, at the sentinel in the
+        other), so their entries would all land on one node and serialize
+        the scatter's atomic adds on a GPU (at Config 5's 13.8M slots that
+        scatter was most of the device time, PERF.md §6).  Slot j's entries
+        go to node j mod M instead, which changes no sum and no gradient
+        (its value is 0 for every position).  The gate is the slot's
+        weight, not the entry's: a real bead on a mesh plane has a CIC
+        entry of value 0 whose derivative is not 0, and its gradient must
+        read its own node."""
         nx, ny, nz = self.mesh_shape
         w = state.attrs[self.attr_name]
         f3 = _frac3(state.r, state.box)
         ax = [axis_stencil((f3[d] + 0.5) * n_d, self.assign_order)
               for d, n_d in enumerate((nx, ny, nz))]
+        live = w != 0.0
+        spread = self._spread.get((w.device, w.shape[0]))
+        if spread is None:
+            spread = self._spread[(w.device, w.shape[0])] = torch.remainder(
+                torch.arange(w.shape[0], device=w.device), nx * ny * nz)
         idx, val = [], []
         for cx_, wx in ax[0][1]:
             for cy_, wy in ax[1][1]:
@@ -189,11 +208,12 @@ class PackedMesh:
                     ix = torch.remainder(ax[0][0] + cx_, nx)
                     iy = torch.remainder(ax[1][0] + cy_, ny)
                     iz = torch.remainder(ax[2][0] + cz_, nz)
-                    idx.append((ix * ny + iy) * nz + iz)
+                    idx.append(torch.where(live, (ix * ny + iy) * nz + iz,
+                                           spread))
                     val.append(w * wx * wy * wz)
+        idx, val = torch.cat(idx), torch.cat(val)
         rho = torch.zeros(nx * ny * nz, dtype=torch.float32,
-                          device=w.device).index_add(
-            0, torch.cat(idx), torch.cat(val))
+                          device=w.device).index_add(0, idx, val)
         rho_k = torch.fft.fftn(rho.reshape(nx, ny, nz))
         return rho_k.real * rho_k.real + rho_k.imag * rho_k.imag
 

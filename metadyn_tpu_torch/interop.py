@@ -10,7 +10,8 @@ values under the reference's field names, ready for its constructors.
 Covered: ``PackedState`` with its ``Box`` (``typ`` and every attr: the
 bond partners ``bp*``, the CV coefficients ``lam_*``/``mesh_*``, the lagged
 path's ``held_g*``), ``PackedSpec`` (every field: scale tables, bonds,
-``pair_kind``), ``GridSpec``, ``BiasState`` (V, dV, n_hills), the lamellar
+``pair_kind``), ``GridSpec``, ``BiasState`` (V, dV, n_hills), the flux
+histograms ``FluxState`` (hist, flux_up, flux_down, prev_bin), the lamellar
 CV's lattice vectors and phases, the packed order CVs' parameters (Q_l and
 coordination) and the packed mesh CV's.
 """
@@ -21,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .bias.flux import FluxState
 from .bias.grid import BiasGrid, GridSpec
 from .bias.metad import BiasState
 from .core.box import Box
@@ -102,6 +104,19 @@ def bias_state_arrays(bias: BiasState) -> dict:
     return {"V": _np(bias.grid.V), "dV": _np(bias.grid.dV),
             "n_hills": np.int32(bias.n_hills),
             "spec": grid_spec_arrays(bias.grid.spec)}
+
+
+def flux_state_from(obj, device) -> FluxState:
+    return FluxState(hist=_t(obj.hist, device),
+                     flux_up=_t(obj.flux_up, device),
+                     flux_down=_t(obj.flux_down, device),
+                     prev_bin=_t(np.asarray(obj.prev_bin, np.int32), device))
+
+
+def flux_state_arrays(flux: FluxState) -> dict:
+    return {"hist": _np(flux.hist), "flux_up": _np(flux.flux_up),
+            "flux_down": _np(flux.flux_down),
+            "prev_bin": np.int32(flux.prev_bin.item())}
 
 
 def lamellar_from(obj, device) -> PackedLamellar:

@@ -4,9 +4,13 @@
 variants: the sentinel layout, per-slot ``se``/``hs`` (or ``se`` with a
 uniform σ), per-type-pair scale tables, and FENE or harmonic bonds, each in
 an orthorhombic or a tilted box (the kernel takes the cell matrix's six
-entries from ``Box.h_host``).  One block per cell stages the real rows of
-its 27 neighbour cells in shared memory (``csrc/cell_stage.cuh``); a cap
-whose 27 × cap staged rows do not fit a block's shared memory raises.
+entries from ``Box.h_host``); and the soft push-off pair
+(``pair_kind="soft"``) in the per-slot ``se``/``hs`` layout, with or
+without FENE bonds, which the reference runs as its XLA roll sweep
+(``metadyn_tpu/ops/packed.py:830``): a layout of the port alone.  One
+block per cell stages the real rows of its 27 neighbour cells in shared
+memory (``csrc/cell_stage.cuh``); a cap whose 27 × cap staged rows do not
+fit a block's shared memory raises.
 
 On a CUDA tensor :func:`packed_lj_force_cuda` launches the kernel or raises;
 on a CPU tensor it runs the plain version, ``ops.packed.packed_lj_force``.
@@ -31,13 +35,21 @@ BOND_KINDS = {None: 0, "fene": 1, "harmonic": 2}
 
 
 def check_spec(spec: PackedSpec) -> None:
-    """Raise on any spec the kernel does not take: the soft pair, a uniform
-    ε without a uniform σ, the sentinel layout with bonds, tables outside
-    the per-slot ``se``/``hs`` layout, more than 4 bond slots."""
-    if spec.pair_kind != "lj":
+    """Raise on any spec the kernel does not take: a uniform ε without a
+    uniform σ, the sentinel layout with bonds, tables outside the per-slot
+    ``se``/``hs`` layout, more than 4 bond slots, and the soft pair outside
+    the per-slot ``se``/``hs`` layout without tables, with no bonds or FENE
+    bonds."""
+    if spec.pair_kind not in ("lj", "soft"):
         raise NotImplementedError(
-            f"CUDA pair kernel: pair_kind {spec.pair_kind!r} (only 'lj'; the "
-            "soft push-off pair runs the plain roll sweep)")
+            f"CUDA pair kernel: pair_kind {spec.pair_kind!r}")
+    if spec.pair_kind == "soft" and (
+            spec.uniform_eps is not None or spec.uniform_sigma is not None
+            or spec.has_pair_table
+            or (spec.has_bonds and spec.bond_kind != "fene")):
+        raise NotImplementedError(
+            "CUDA pair kernel: the soft pair needs the per-slot se/hs "
+            "layout without tables, with no bonds or FENE bonds")
     if spec.uniform_eps is not None and spec.uniform_sigma is None:
         raise NotImplementedError("CUDA pair kernel: a uniform epsilon with "
                                   "per-slot sigma has no kernel layout")
@@ -104,8 +116,8 @@ def _library():
     lib = _build.load(KERNEL)
     fn = lib.packed_lj_force
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 13
-                       + [ctypes.c_float] * 11 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 14
+                       + [ctypes.c_float] * 12 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.packed_lj_force_blocks.argtypes = [ctypes.c_int] * 3
         lib.packed_lj_force_blocks.restype = ctypes.c_int
@@ -174,7 +186,8 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
             int(hs_sig), n_types, bond_kind,
             spec.bond_slots if spec.has_bonds else 0,
             int(spec.shift_energy), int(with_energy),
-            *state.box.h_host(), float(spec.r_cut) ** 2,
+            int(spec.pair_kind == "soft"),
+            *state.box.h_host(), float(spec.r_cut) ** 2, float(spec.r_cut),
             float(spec.uniform_sigma or 0.0) ** 2,
             float(spec.uniform_eps or 0.0),
             float(spec.fene_k or 0.0), float(spec.fene_r0 or 0.0),

@@ -7,7 +7,8 @@ Inputs: the lattice melt of tests/test_torch_bond_kernels.py (64 chains of
 8 beads, L = 8.44) in Config 2's per-slot layout, mode +1 for A and −1 for
 B, a 16³ mesh, k0 = 2π·2/L, width 0.4.  Tolerances: value rtol 1e-5
 (f32 scatter and FFT in another order), gradient max|Δ| ≤ 1e-4·max|g|,
-virial rtol 1e-4.
+virial rtol 1e-4.  A bead moved exactly onto a mesh plane (CIC weight 0
+toward one node, derivative not 0) gets its gradient at the same tolerance.
 """
 import numpy as np
 import pytest
@@ -86,6 +87,48 @@ def test_mesh_value_grad_and_virial_match_reference(order):
     w = cv.bias_virial(st, system, torch.tensor(dV))
     np.testing.assert_allclose(w.numpy(), jw, rtol=1e-4,
                                atol=1e-4 * np.abs(jw).max())
+
+
+def _on_plane(x, L, n):
+    """The f32 coordinate nearest ``x`` at which the port's CIC weight
+    toward the +1 node is exactly 0: the bead sits on a mesh plane."""
+    Lt = torch.tensor(L, dtype=torch.float32)
+    m = (x / L + 0.5) * n
+    c = np.float32(L * ((np.floor(m - 0.5) + 0.5) / n - 0.5))
+    for _ in range(64):
+        t = (torch.tensor(c) / Lt + 0.5) * n - 0.5
+        t = float(t - torch.floor(t))
+        if t == 0.0:
+            return c
+        c = np.nextafter(c, np.float32(np.inf if t > 0.5 else -np.inf))
+    raise AssertionError("no f32 coordinate on the plane")
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2], ids=["x", "y", "z"])
+def test_mesh_grad_of_a_bead_on_a_mesh_plane_matches_reference(axis):
+    """A real bead exactly on a mesh plane has a CIC entry of value 0 whose
+    derivative is not 0; the scatter must keep that entry on its own node,
+    or the bead's bias force reads the wrong node's gradient."""
+    jst, jcv, jsys, n = _case(2)
+    st = interop.packed_state_from(jst, "cpu")
+    cv = interop.mesh_from(jcv, "cpu")
+    j = int(np.flatnonzero(st.pid.numpy() < n)[5])
+    c = _on_plane(float(st.r[axis, j]), float(st.box.L[axis]), MESH[axis])
+    r0 = st.r.clone()
+    r0[axis, j] = torch.tensor(c)
+    _, taps = axis_stencil(
+        (r0[axis, j:j + 1] / st.box.L[axis] + 0.5) * MESH[axis], 2)
+    assert float(taps[1][1][0]) == 0.0
+
+    jg = np.asarray(jax.jit(jax.grad(
+        lambda r: jcv.value(jst.replace(r=r), jsys)))(
+        jst.r.at[axis, j].set(jnp.float32(c))))
+    r = r0.requires_grad_(True)
+    (grad,) = torch.autograd.grad(
+        cv.value(st.replace(r=r), make_system(n, "cpu")), r)
+    assert abs(jg[axis, j]) > 1e-2 * np.abs(jg).max()
+    np.testing.assert_allclose(grad.numpy(), jg, rtol=0,
+                               atol=1e-4 * np.abs(jg).max())
 
 
 @pytest.mark.parametrize("order", [2, 3])
