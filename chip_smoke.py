@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
-Five workloads, all at full size:
+Five workloads, all at full size, then the example YAMLs through the
+port's CLI (phase 22):
 
 - the headline one (bench.py): the 62,500-particle LJ liquid
   (bench_data/liq64k.npz) on the packed cell engine (r_cut 2.5, skin 0.55,
@@ -114,6 +115,18 @@ Phases, one line or more each:
      launch counts: 51 per stride, T in a band, peak memory), one
      profiled period, and one more, whose bias update the round-trip
      gate's cap forces; the gate's bookkeeping over all five.
+ 22. the CLI (metadyn_tpu_torch.cli.CliRun, what ``python -m
+     metadyn_tpu_torch.cli run`` runs): examples/config2_diblock_sk.yaml,
+     config3_nucleation_2dcv.yaml, config5_flux.yaml and
+     triclinic_packed.yaml read by the port's reader and run as written,
+     at full size and n_steps (the melts with the build's push-off), only
+     the output paths moved: exact launches of the build and the run, the
+     hill file, grid dump and CSV log read back, T of the last stride in
+     its band, wall seconds and the run's rate; the triclinic YAML's
+     resume leg (K steps with a checkpoint, --resume for K more) against
+     a straight 2K-step run, bit for bit; and the device-to-host copies of
+     one report block of config3's CLI run against phase 10's directly
+     built sampler over the same strides.
 
 After each timed run one more stride runs under torch.profiler, and a line
 reports the GPU's busy share of it and the top kernels.  The launch counts
@@ -139,6 +152,7 @@ Run from the repository root:  python3 chip_smoke.py
 import contextlib
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -800,50 +814,6 @@ def diblock_melt(n_chains: int, chain_len: int, L: float, **melt_kw) -> dict:
             "n": n, "bp": bond_partner_attrs(bonds, n)}
 
 
-def pushoff_pack(melt: dict, dev):
-    """The JAX package's packed soft push-off start
-    (examples/config5_flux_1m.py:59-92) on the port: pair_kind soft with A
-    = 100 through eps_i, FENE bonds, r_cut 1 and skin 1, floor(L/2) cells
-    per side, cap from the measured occupancy (x1.4 + 6), rebuild every 5
-    steps.  Returns (engine, state, spec)."""
-    import numpy as np
-    from metadyn_tpu_torch import Box, PackedEngine, PackedSpec
-
-    pos, L, n = melt["pos"], melt["L"], melt["n"]
-    cpd = int(np.floor(L / 2.0))
-    cell = np.floor((pos / L + 0.5) * cpd).astype(np.int64) % cpd
-    occ0 = int(np.bincount((cell[:, 0] * cpd + cell[:, 1]) * cpd
-                           + cell[:, 2]).max())
-    spec = PackedSpec.create(L, n, r_cut=1.0, skin=1.0,
-                             cap=int(occ0 * 1.4) + 6, pair_kind="soft",
-                             fene_k=30.0, fene_r0=1.5)
-    engine = PackedEngine(spec, dev, rebuild_every=5)
-    st, overflow = engine.pack_state(
-        pos, Box.cubic(L, dev), melt["types"], np.full(n, 100.0, np.float32),
-        np.ones(n, np.float32), extra_attrs=melt["bp"])
-    assert not overflow, "cell capacity overflow at the push-off pack"
-    return engine, st, spec
-
-
-def pushoff_run(engine, st, steps: int, seed: int = 99):
-    """The push-off: Langevin dt 0.002, kT 1, gamma 2 (a generator seeded
-    from ``seed``), forces only, a rebuild check every 5 steps.  Returns
-    (state, aux)."""
-    import torch
-    from metadyn_tpu_torch import make_packed_langevin_step
-
-    st, aux = engine.init(st)
-    step = make_packed_langevin_step(lambda s_: engine.force_into(s_, None),
-                                     dt=0.002, kT=1.0, gamma=2.0)
-    gen = torch.Generator(device=st.r.device)
-    gen.manual_seed(seed)
-    for _ in range(steps // 5):
-        st, aux = engine.rebuild(st, aux)
-        for _ in range(5):
-            st = step(st, gen)
-    return st, aux
-
-
 def config5_pushoff(engine, st):
     """Config 5's push-off: examples/config5_flux_1m.py's 1000 soft steps
     at A = 100, then config5_second_stage.  The script's push-off alone
@@ -853,6 +823,7 @@ def config5_pushoff(engine, st):
     and phase 20 shows it on the port (config5_pushoff_witness).  Returns
     (state, aux); the engine launches the kernel CFG5_PUSHOFF_STEPS +
     CFG5_PUSHOFF2_STEPS + 2 times."""
+    from metadyn_tpu_torch.core.pushoff import pushoff_run
     st, aux = pushoff_run(engine, st, CFG5_PUSHOFF_STEPS)
     assert not bool(aux.overflow), "overflow during the push-off"
     return config5_second_stage(engine, st)
@@ -862,6 +833,7 @@ def config5_second_stage(engine, st):
     """The push-off's second stage, which the script lacks:
     CFG5_PUSHOFF2_STEPS more soft steps at A = CFG5_PUSHOFF2_A (se scaled
     by sqrt(A / 100); seed 98).  Returns (state, aux)."""
+    from metadyn_tpu_torch.core.pushoff import pushoff_run
     scale = (CFG5_PUSHOFF2_A / 100.0) ** 0.5
     st = st.replace(attrs={**st.attrs, "se": st.attrs["se"] * scale})
     return pushoff_run(engine, st, CFG5_PUSHOFF2_STEPS, seed=98)
@@ -883,10 +855,12 @@ def config2_pushoff(dev, smi: str) -> dict:
     push-off (pushoff_pack) for CFG2_PUSHOFF_STEPS steps on the pair
     kernel's soft layout: exactly one launch per step and one for the
     init."""
+    from metadyn_tpu_torch.core.pushoff import pushoff_pack, pushoff_run
     import torch
 
     melt = diblock_melt(512, 16, 21.3)
-    engine, st, spec = pushoff_pack(melt, dev)
+    engine, st, spec = pushoff_pack(melt["pos"], melt["L"], melt["types"],
+                                    melt["bp"], dev)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1479,7 +1453,9 @@ def soft_kernel_vs_plain(melt: dict, dev, tag: str, calls: int = 25,
     push-off start, forces only and with energy, with times per call and
     the bound.  Returns ((engine, state, spec), per mode (max abs error,
     kernel ms, plain ms, bound ms, bound by))."""
-    engine, st, spec = pushoff_pack(melt, dev)
+    from metadyn_tpu_torch.core.pushoff import pushoff_pack
+    engine, st, spec = pushoff_pack(melt["pos"], melt["L"], melt["types"],
+                                    melt["bp"], dev)
     out = pair_kernel_vs_plain("soft pair kernel", f"soft {tag}", st, spec,
                                len(melt["bonds"]), calls, plain_calls,
                                plain_warm)
@@ -1579,10 +1555,12 @@ def config5_pushoff_witness(dev, smi: str) -> None:
     runs it; the plain-force engine) with T by stride.  The first must blow
     up (T above CFG5_BLOWUP_T, or not finite), the second stay inside
     CFG5_WITNESS_T_BAND."""
+    from metadyn_tpu_torch.core.pushoff import pushoff_pack, pushoff_run
     import numpy as np
 
     melt = config5_melt(CFG5_WITNESS_CHAINS)
-    engine, st, spec = pushoff_pack(melt, dev)
+    engine, st, spec = pushoff_pack(melt["pos"], melt["L"], melt["types"],
+                                    melt["bp"], dev)
     st, aux = pushoff_run(engine, st, CFG5_PUSHOFF_STEPS)
     assert not bool(aux.overflow), "overflow during the push-off"
     stage1 = relaxed_of(st, spec)
@@ -1613,12 +1591,14 @@ def config5_kernel_vs_plain(dev) -> None:
     on the kernel engine and on the plain-force engine, from one state:
     positions by particle, the histograms the update consumes, V after it,
     and the per-stride metrics."""
+    from metadyn_tpu_torch.core.pushoff import pushoff_pack
     import numpy as np
     import torch
     from metadyn_tpu_torch.ops.packed import unpack_positions
 
     melt = config5_melt(1024)
-    engine, st, spec = pushoff_pack(melt, dev)
+    engine, st, spec = pushoff_pack(melt["pos"], melt["L"], melt["types"],
+                                    melt["bp"], dev)
     st, aux = config5_pushoff(engine, st)
     assert not bool(aux.overflow), "overflow during the push-off"
     pos, vel = relaxed_of(st, spec)
@@ -1775,6 +1755,248 @@ def config5_1m(soft: tuple, melt: dict, dev, smi: str,
     assert len(hist) == 3 + CFG5_TIMED_PERIODS
     return {"push_launches": push_launches, "launches": counts["pair"],
             "variants": prod}
+
+
+# Phase 22: the packed example YAMLs through the port's CLI, as written
+# (only the output paths move).  Per YAML: the T band of the last stride
+# (PERF.md §2: the direct paths' bands; config5_flux.yaml's melt thermalizes
+# as config2's), and the exact kernel launches of the build (the production
+# engine's init and first biased force; the start-in-grid check's CV
+# values; config3's lag seed) and per stride of the run, derived as phases
+# 10, 15 and 18 derive theirs.  A melt's build also runs its push-off on
+# the pair kernel's soft layout, counted by the same counter: its init and
+# one launch per step.
+CLI_YAMLS = {
+    "config2_diblock_sk": dict(
+        band=CFG2_T_BAND, build={"pair": 2}, per_stride={"pair": 101}),
+    "config3_nucleation_2dcv": dict(
+        band=CFG3_T_BAND, build={"pair": 2, "values": 2 + 2, "force": 2},
+        per_stride={"pair": 91, "fused": 10, "values": 2}),
+    "config5_flux": dict(
+        band=CFG2_T_BAND, build={"pair": 2}, per_stride={"pair": 51}),
+    "triclinic_packed": dict(
+        band=TRIC_T_BAND, build={"pair": 2, "values": 2, "force": 1},
+        per_stride={"pair": 51, "values": 51, "force": 50}),
+}
+# A YAML whose pack overflows its cap as written (the reference's CLI
+# refuses it too) runs once more at this cap, as phase 10 retries Config 3
+# at cap 36: config5_flux.yaml's cap 40 leaves 22% over the mean of 32.8
+# beads per cell, and over init seeds 0-7 the post-push-off maxima are
+# 39-43 in both packages, over 40 in 3 of 8 seeds in the JAX package's CLI
+# and 4 of 8 in the port, the YAML's own seed among the port's
+# (scripts/pushoff_occupancy.py; ROADMAP.md §3).
+CLI_RETRY_CAP = 48
+# the metric keys of a metadynamics run, the CSV log's columns (one per
+# element: cv_0, ...)
+METAD_KEYS = ("bias_V", "cell_width_violation", "cv", "cv_out_of_grid",
+              "hill_height", "nlist_overflow", "nlist_stale",
+              "potential_energy", "step", "temperature")
+
+
+def cli_yaml(name: str, out_dir: pathlib.Path, **output) -> dict:
+    """examples/<name>.yaml read by the port's reader, its output paths moved
+    into ``out_dir`` and ``output`` added."""
+    from metadyn_tpu_torch.io.config import load_config
+    cfg = load_config(ROOT / "examples" / f"{name}.yaml")
+    out = cfg.setdefault("output", {})
+    out.update(output)
+    for k in ("hill_file", "log_file", "grid_file", "checkpoint"):
+        if k in out:
+            out[k] = str(out_dir / pathlib.Path(out[k]).name)
+    return cfg
+
+
+def cli_checks(name: str, cfg: dict, runner) -> list:
+    """What one CLI run wrote, read back with the port's readers: the hill
+    file's rows and columns, the grid dump, the CSV log's columns with no
+    overflow, T of the last stride in the band.  Returns the failures."""
+    import numpy as np
+    from metadyn_tpu_torch.io.grid_file import load_grid
+    from metadyn_tpu_torch.io.hill_log import read_hills
+    from metadyn_tpu_torch.io.metrics import read_csv
+
+    bad = []
+    out, mcfg = cfg["output"], cfg["metadynamics"]
+    n_steps = int(cfg["run"]["n_steps"])
+    flux = mcfg.get("mode") == "flux_tempered"
+    n_hills = 0 if flux else n_steps // int(mcfg["stride"])
+    if "hill_file" in out:
+        h = read_hills(out["hill_file"])
+        d = len(cfg["cvs"])
+        if h["step"].shape[0] != n_hills or h["center"].shape != (n_hills, d):
+            bad.append(f"hill file: {h['step'].shape[0]} rows, centres "
+                       f"{h['center'].shape}, want {n_hills} x {d}")
+        if h["cv_names"] != [f"cv_{c['name']}" for c in cfg["cvs"]]:
+            bad.append(f"hill file columns {h['cv_names']}")
+    if "grid_file" in out:
+        bias, meta = load_grid(out["grid_file"])
+        mode = mcfg.get("mode", "standard")
+        if meta["mode"] != mode or (not flux and bias.n_hills != n_hills):
+            bad.append(f"grid dump: {meta}, {bias.n_hills} hills")
+        if not np.isfinite(bias.grid.V.numpy()).all():
+            bad.append("grid dump: V not finite")
+    hist = runner.sampler.history
+    if "log_file" in out:
+        log = read_csv(out["log_file"])
+        over = [v for k, v in log.items() if k.startswith("nlist_overflow")]
+        if not all((v == 0).all() for v in over) or not over:
+            bad.append("log: nlist_overflow set")
+        if len(next(iter(log.values()))) != len(hist):
+            bad.append(f"log: {len(next(iter(log.values())))} rows for "
+                       f"{len(hist)} metric rows")
+        if not flux:
+            want = sorted(
+                k if np.ndim(hist[0][k]) == 0 else f"{k}_{i}"
+                for k in METAD_KEYS
+                for i in range(max(1, np.size(hist[0][k]))))
+            if sorted(log) != want:
+                bad.append(f"log columns {sorted(log)}")
+    temps = np.concatenate([np.atleast_1d(m["temperature"]) for m in hist])
+    band = CLI_YAMLS[name]["band"]
+    if not (np.isfinite(temps).all() and band[0] < temps[-1] < band[1]):
+        bad.append(f"T of the last stride {temps[-1]:.4f} outside {band}")
+    return bad
+
+
+def cli_yamls(dev, smi: str) -> dict:
+    """Phase 22: the four packed example YAMLs through
+    metadyn_tpu_torch.cli.CliRun on the card, at full size and full n_steps
+    (config2_diblock_sk, config3_nucleation_2dcv and config5_flux with the
+    build's push-off, triclinic_packed), then the triclinic resume leg and
+    the device-to-host transfers per report block of config3's CLI run
+    against phase 10's directly built sampler.  Every check of the phase is
+    gathered and the phase fails at its end, after printing them all.
+    Returns {yaml: (build counts, run counts)}."""
+    import tempfile
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import PackedEngine
+    from metadyn_tpu_torch.cli import CliRun
+    from metadyn_tpu_torch.utils.profiling import device_profile
+
+    t22 = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    bad, counts, runners = [], {}, {}
+    for name, want in CLI_YAMLS.items():
+        d = tmp / name
+        d.mkdir()
+        cfg = cli_yaml(name, d)
+        retry = ""
+        for cap in (cfg["engine"].get("cap"), CLI_RETRY_CAP):
+            cfg["engine"]["cap"] = cap
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                runner = CliRun(cfg, device=dev)
+            except RuntimeError as e:
+                # the reference refuses a pack overflow too; the cap is
+                # the example's, its margin the push-off's draw
+                if "overflow at pack" not in str(e) or cap == CLI_RETRY_CAP:
+                    raise
+                retry = (f" (as written, cap {cap}: refused, '{e}'; run at "
+                         f"cap {CLI_RETRY_CAP})")
+                print(f"cli {name}: as written, cap {cap}: {e}; retry at "
+                      f"cap {CLI_RETRY_CAP}")
+                continue
+            break
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        st = runner.sampler.state
+        spec = runner.sampler.engine.spec
+        occ = int((st.pid < spec.n_real).reshape(spec.cap, spec.n_cells)
+                  .sum(0).max())
+        build_counts = read_counts()
+        reset_counts()
+        t1 = time.perf_counter()
+        runner.run()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t1
+        run_counts = read_counts()
+        n = runner.sampler.engine.spec.n_real
+        n_steps = runner.n_steps
+        mcfg = cfg["metadynamics"]
+        strides = n_steps // int(mcfg["stride"])
+        want_build = {k: want["build"].get(k, 0) for k in build_counts}
+        pushoff = int(cfg["system"]["init"].get("prerelax_steps", 0))
+        if pushoff:
+            want_build["pair"] += pushoff + 1
+        want_run = {k: strides * want["per_stride"].get(k, 0)
+                    for k in run_counts}
+        if build_counts != want_build:
+            bad.append(f"{name}: build launches {build_counts}, want "
+                       f"{want_build}")
+        if run_counts != want_run:
+            bad.append(f"{name}: run launches {run_counts}, want {want_run}")
+        bad += [f"{name}: {b}" for b in cli_checks(name, cfg, runner)]
+        counts[name] = (build_counts, run_counts)
+        runners[name] = runner
+        last = runner.sampler.history[-1]
+        t_last = float(np.atleast_1d(last["temperature"])[-1])
+        print(f"cli {name}: N={n}{retry} cap {spec.cap} (the pack's "
+              f"largest cell {occ}) build {t_build:.3f} s (push-off "
+              f"{pushoff} steps)"
+              f" run {n_steps} steps {t_run:.3f} s wall "
+              f"{t_build + t_run:.3f} s {n * n_steps / t_run:.1f} "
+              f"particle-steps/s T_last={t_last:.4f} "
+              f"build_launches={build_counts} run_launches={run_counts} "
+              f"on {smi}")
+
+    # the resume leg: K steps with a checkpoint, --resume for K more,
+    # against one straight run of 2K steps
+    name = "triclinic_packed"
+    legs = {}
+    for leg in ("resumed", "straight"):
+        d = tmp / f"resume_{leg}"
+        d.mkdir()
+        cfg = cli_yaml(name, d, checkpoint="ck.npz", grid_file="grid.npz")
+        k = int(cfg["run"]["n_steps"])
+        if leg == "straight":
+            cfg["run"]["n_steps"] = 2 * k
+            CliRun(cfg, device=dev).run()
+        else:
+            CliRun(cfg, device=dev).run()
+            CliRun(cfg, resume=True, device=dev).run()
+        legs[leg] = cfg["output"]
+    from metadyn_tpu_torch.io.grid_file import load_grid
+    same_hills = (open(legs["resumed"]["hill_file"], "rb").read()
+                  == open(legs["straight"]["hill_file"], "rb").read())
+    va = load_grid(legs["resumed"]["grid_file"])[0].grid.V
+    vb = load_grid(legs["straight"]["grid_file"])[0].grid.V
+    dv = float((va - vb).abs().max())
+    if not (same_hills and torch.equal(va, vb)):
+        bad.append(f"resume leg: hill files equal {same_hills}, "
+                   f"max|dV| {dv:.3e}")
+    print(f"cli {name} resume leg: {k} + {k} steps (--resume) against "
+          f"{2 * k} straight: hill files equal={same_hills} grid V "
+          f"bitwise equal={torch.equal(va, vb)} max|dV|={dv:.3e}")
+
+    # device-to-host transfers per report block: config3's CLI run against
+    # phase 10's directly built sampler, over the same strides
+    r3 = runners["config3_nucleation_2dcv"]
+    block = r3.report
+    direct = (config3_sampler(PackedEngine, dev, 32, True)
+              or config3_sampler(PackedEngine, dev, 36, True))
+    direct.run(CFG3_STRIDE)
+    p_cli = device_profile(lambda: r3.advance(block))
+    p_dir = device_profile(lambda: direct.run(block))
+    n_blocks = -(-block // CFG3_STRIDE // r3.sampler._block)
+    if p_cli["d2h_count"] > p_dir["d2h_count"] + n_blocks:
+        bad.append(f"config3 CLI d2h {p_cli['d2h_count']} > direct "
+                   f"{p_dir['d2h_count']} + {n_blocks}")
+    print(f"cli config3 d2h per report block ({block} steps, "
+          f"{block // CFG3_STRIDE} strides, chunks_per_block "
+          f"{r3.sampler._block}): cli {p_cli['d2h_count']} direct "
+          f"(phase 10's sampler, chunks_per_block 2) {p_dir['d2h_count']}; "
+          f"busy_ms cli {p_cli['busy_ms']:.1f} direct "
+          f"{p_dir['busy_ms']:.1f}; wall_ms cli {p_cli['wall_ms']:.1f} "
+          f"direct {p_dir['wall_ms']:.1f} on {smi}")
+    print(f"cli phase 22: {time.perf_counter() - t22:.1f} s")
+    shutil.rmtree(tmp, ignore_errors=True)
+    for b in bad:
+        print(f"cli FAILED: {b}", file=sys.stderr)
+    assert not bad, bad
+    return counts
 
 
 def main() -> int:
@@ -1990,7 +2212,24 @@ def main() -> int:
     cfg5 = config5_1m(soft5_start, melt5, dev, smi[0])
     del soft5_start
     print(f"config5 phases 19-21: {time.perf_counter() - t19:.1f} s")
+
+    # 22. the packed example YAMLs through the port's CLI, the resume leg,
+    # the CLI's host transfers against the direct sampler's
+    cli = cli_yamls(dev, smi[0])
     print(f"chip_smoke wall: {time.perf_counter() - t_main:.1f} s")
+
+    def cli_launches(kernel: str) -> dict:
+        """This kernel's launches on the CLI paths: each YAML's build (the
+        melts' push-off on the soft layout is in the pair kernel's) and
+        run."""
+        out = {}
+        for name, (build, run) in cli.items():
+            if build[kernel]:
+                out[f"cli {name} build"] = build[kernel]
+            if run[kernel]:
+                out[f"cli {name} run ({int(run[kernel])} in all)"] = run[
+                    kernel]
+        return out
 
     def entry(name, source, replaces, launches, nums, **extra):
         err, ms, plain_ms, bms, by = nums
@@ -2029,7 +2268,8 @@ def main() -> int:
                                 "config2": cfg2_launches,
                                 "triclinic": tric_counts["pair"],
                                 "config5 N=1048576 (2 periods of 4 "
-                                "strides)": cfg5["launches"]},
+                                "strides)": cfg5["launches"],
+                                **cli_launches("pair")},
               variants={k: dict(zip(keys, v)) for k, v in variants.items()}),
         entry(f"{KERNEL} soft layout", KERNEL,
               "XLA roll sweep, metadyn_tpu/ops/packed.py:830 (no "
@@ -2041,6 +2281,11 @@ def main() -> int:
                                 "steps and two inits)": cfg5["push_launches"],
                                 "config2 push-off (2000 steps and the "
                                 "init)": CFG2_PUSHOFF_STEPS + 1,
+                                "cli config2_diblock_sk push-off (in its "
+                                "build)": cli["config2_diblock_sk"][0][
+                                    "pair"] - 2,
+                                "cli config5_flux push-off (in its build)":
+                                cli["config5_flux"][0]["pair"] - 2,
                                 "per stride": 0},
               variants={k: dict(zip(keys, v))
                         for k, v in {**soft2, **soft5}.items()}),
@@ -2050,20 +2295,24 @@ def main() -> int:
               design=staged + ", prefiltered to the CVs' reach, one hit "
               "queue across a warp's i rows, a partials row per cell",
               launches_by_path={"config3 mts_lag": lag_counts["values"],
-                                "triclinic": tric_counts["values"]},
+                                "triclinic": tric_counts["values"],
+                                **cli_launches("values")},
               variants=tric_variants("values", "validity")),
         entry("packed_order_force", packed_order_cuda.KERNEL,
               "metadyn_tpu/ops/packed_order_pallas.py:309",
               exact_counts["force"], order["force"],
               design=staged + ", prefiltered to the CVs' reach",
               launches_by_path={"config3 exact": exact_counts["force"],
-                                "triclinic": tric_counts["force"]},
+                                "triclinic": tric_counts["force"],
+                                **cli_launches("force")},
               variants=tric_variants("force", "validity")),
         entry(packed_fused_cuda.KERNEL, packed_fused_cuda.KERNEL,
               "metadyn_tpu/ops/packed_fused_pallas.py:296",
               lag_counts["fused"], order["fused"],
               design=staged + ", one staging prefiltered to the larger of "
               "the LJ and CV cut-offs for the LJ and the CV math",
+              launches_by_path={"config3 mts_lag": lag_counts["fused"],
+                                **cli_launches("fused")},
               variants=tric_variants("fused", "sentinel")),
         entry(v1_lib, v1_lib, "metadyn_tpu/ops/packed_pallas.py:185", 0,
               cfg2["v1 se_hs_fene_wca"],

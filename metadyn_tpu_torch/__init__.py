@@ -27,7 +27,7 @@ from .bias.flux import (
 )
 from .sampler import MetadSampler, lag_supported
 from .flux_sampler import FluxTemperedSampler
-from .utils.lattice import fcc_lattice, polymer_melt
+from .utils.lattice import fcc_lattice, polymer_melt, sc_lattice
 
 __all__ = [
     "Box", "System", "make_system", "PackedAux", "PackedEngine",
@@ -38,5 +38,5 @@ __all__ = [
     "STANDARD", "WELL_TEMPERED", "BiasState", "HillSpec", "WallSpec",
     "free_energy", "FLUX", "VISITS", "FluxState", "accumulate", "bin_of",
     "round_trips", "update_bias", "MetadSampler", "lag_supported",
-    "FluxTemperedSampler", "fcc_lattice", "polymer_melt",
+    "FluxTemperedSampler", "fcc_lattice", "polymer_melt", "sc_lattice",
 ]

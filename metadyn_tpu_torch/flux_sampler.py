@@ -15,8 +15,10 @@ the CV and metrics.  The per-stride metrics of a period and its round-trip
 count go to the host in one transfer.  Random numbers come from one
 ``torch.Generator`` on the engine's device, seeded from ``seed``.
 
-Not ported: multiple walkers (``mesh``, ROADMAP queue 1 item 5) and
-checkpoints (the ``io/`` surface, item 8) raise NotImplementedError.
+A checkpoint holds the carry, the bias, the update count, the deferral
+count and, after ``begin_measurement``, the measurement's accumulators.
+Not ported: multiple walkers (``mesh``, ROADMAP queue 1 item 5) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from .bias.flux import FLUX, FluxState, accumulate, round_trips, update_bias
 from .bias.grid import GridSpec
 from .bias.metad import BiasState, WallSpec
 from .core.state import System
+from .io.checkpoint import load_checkpoint, save_checkpoint
 from .sampler import _metrics_to_host, cv_stack, make_bias_force_parts
 from .utils.profiling import phase
 
@@ -219,12 +222,25 @@ class FluxTemperedSampler:
         return out
 
     def save_checkpoint(self, path: str) -> None:
-        raise NotImplementedError("checkpoints (the io/ surface) are not "
-                                  "ported yet (ROADMAP queue 1, item 8)")
+        """Persist the carry and the bias with the gain schedule's position
+        (the bias lives outside the carry: a carry-only checkpoint would
+        resume with a zero bias and a reset schedule), and the
+        measurement's accumulators after :meth:`begin_measurement`."""
+        extra = {"n_updates": self.n_updates, "deferred": self._deferred}
+        if self._meas_h is not None:
+            extra.update(meas_h=self._meas_h, meas_V=self._meas_V,
+                         meas_n=self._meas_n)
+        save_checkpoint(path, (self.carry, self.bias), extra=extra)
 
     def load_checkpoint(self, path: str) -> None:
-        raise NotImplementedError("checkpoints (the io/ surface) are not "
-                                  "ported yet (ROADMAP queue 1, item 8)")
+        (self.carry, self.bias), extras = load_checkpoint(
+            path, (self.carry, self.bias))
+        self.n_updates = int(extras["n_updates"])
+        self._deferred = int(extras.get("deferred", 0))
+        if "meas_h" in extras:
+            self._meas_h = np.asarray(extras["meas_h"])
+            self._meas_V = np.asarray(extras["meas_V"])
+            self._meas_n = int(extras["meas_n"])
 
     def begin_measurement(self) -> None:
         """Start (or reset) the reweighted-FES measurement: later periods

@@ -22,10 +22,17 @@ stays on the device, and the per-stride metrics of ``chunks_per_block``
 strides go to the host in one transfer.  Random numbers come from one
 ``torch.Generator`` on the engine's device, seeded from ``seed``.
 
+The hill log (``hill_file``) is written from those host metrics: a
+stride's hill record (step, centre, height) is its ``step``, ``cv`` and
+``hill_height`` metrics, so the log adds no device-to-host transfer.
+``save_checkpoint``/``load_checkpoint`` persist the whole carry, the
+generator's state included (``io/checkpoint.py``): a resumed run repeats
+the straight one bit for bit.
+
 Ported: grid mode with analytic-force CVs, the autograd path and the fused
-order-CV path, with and without ``mts_lag``.  Hill-list mode,
-``hill_file``, the table order-CV path and energy CVs (well-tempered
-ensemble) raise NotImplementedError.
+order-CV path, with and without ``mts_lag``.  Hill-list mode, the table
+order-CV path and energy CVs (well-tempered ensemble) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -42,6 +49,8 @@ from .bias.metad import (
 from .bias.grid import GridSpec
 from .core.state import System
 from .cv.packed_order import make_fused_order_force
+from .io.checkpoint import load_checkpoint, save_checkpoint
+from .io.hill_log import HillLog
 from .ops.packed_fused_cuda import fused_lj_order_force_cuda
 from .utils.profiling import phase
 
@@ -361,6 +370,7 @@ class MetadSampler:
         integrator_factory,
         seed: int = 0,
         hill_file: Optional[str] = None,
+        overwrite: bool = False,
         initial_bias: Optional[BiasState] = None,
         chunks_per_block: int = 64,
         walls: Optional[WallSpec] = None,
@@ -370,8 +380,10 @@ class MetadSampler:
         add_hills: bool = True,
         mts_lag: bool = False,
     ):
-        """``bias_every`` > 1 holds the bias force for that many MD steps
-        between CV evaluations.  ``add_hills=False`` freezes the bias.
+        """``hill_file`` logs every hill (appending unless ``overwrite``;
+        no log when ``add_hills`` is False).  ``bias_every`` > 1 holds the
+        bias force for that many MD steps between CV evaluations.
+        ``add_hills=False`` freezes the bias.
         ``chunks_per_block`` strides' metrics go to the host in one
         transfer.  ``mts_lag=True`` (``bias_every`` > 1, the sentinel-layout
         packed engine and order CVs) runs each sub-chunk's last force call
@@ -381,9 +393,6 @@ class MetadSampler:
             raise NotImplementedError(
                 "hill-list mode (grid_spec=None, hill_sigma, spill_grid) is "
                 "not ported yet; pass a GridSpec")
-        if hill_file is not None:
-            raise NotImplementedError("hill_file (the hill log) is not "
-                                      "ported yet")
         if len(cvs) != grid_spec.ndim:
             raise ValueError("one grid dimension per CV")
         self.engine = engine
@@ -423,6 +432,8 @@ class MetadSampler:
             bias_every=bias_every, bias_parts=self._bias_parts,
             add_hills=add_hills, lag_parts=lag_parts)
         self._block = chunks_per_block
+        self.hill_log = (HillLog(hill_file, self, overwrite=overwrite)
+                         if hill_file and add_hills else None)
         self.history: list[dict] = []
 
     @property
@@ -447,10 +458,26 @@ class MetadSampler:
             for _ in range(n):
                 self.carry, _rec, metrics = self._chunk(self.carry)
                 block.append(metrics)
-            out.extend(_metrics_to_host(block))
+            host = _metrics_to_host(block)
+            if self.hill_log is not None:
+                # the block's hill records, from the same transfer
+                self.hill_log.append(HillRecord(
+                    step=np.asarray([m["step"] for m in host]),
+                    center=np.stack([m["cv"] for m in host]),
+                    height=np.stack([m["hill_height"] for m in host])))
+            out.extend(host)
             remaining -= n
         self.history.extend(out)
         return out
+
+    def save_checkpoint(self, path: str) -> None:
+        """Persist the carry atomically to ``path``."""
+        save_checkpoint(path, self.carry)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore the carry saved by :meth:`save_checkpoint` into this
+        sampler (built as the saving one was)."""
+        self.carry, _ = load_checkpoint(path, self.carry)
 
     def free_energy(self, kT: float) -> np.ndarray:
         """FES estimate on the bias grid."""

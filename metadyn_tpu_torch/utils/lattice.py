@@ -1,9 +1,16 @@
 """Initial particle configurations, host-side numpy (counterpart of
-``metadyn_tpu/utils/lattice.py``; the fcc lattice and the bead-spring melt
-are ported, the simple-cubic lattice waits)."""
+``metadyn_tpu/utils/lattice.py``: the same builders, the same numbers)."""
 from __future__ import annotations
 
 import numpy as np
+
+
+def sc_lattice(n_per_side: int, spacing: float) -> np.ndarray:
+    """Simple-cubic lattice of n_per_side³ sites centred on the origin."""
+    g = (np.arange(n_per_side) - (n_per_side - 1) / 2.0) * spacing
+    x, y, z = np.meshgrid(g, g, g, indexing="ij")
+    return np.stack([x.ravel(), y.ravel(), z.ravel()],
+                    axis=1).astype(np.float32)
 
 
 def fcc_lattice(n_cells: int, a: float) -> np.ndarray:

@@ -29,7 +29,8 @@ def device_profile(fn, top: int = 8) -> dict:
     synchronize; the profiler's own host overhead is in it), ``busy_ms``
     (the union of the GPU kernel and copy intervals), ``busy_share`` =
     busy_ms / wall_ms, ``device_ops`` (the kernels and copies the device
-    ran), ``d2h_ms`` (device-to-host copies: the host syncs), and the
+    ran), ``d2h_ms`` and ``d2h_count`` (device-to-host copies: the host
+    syncs), and the
     ``top`` kernels by summed device time, grouped by the first 60
     characters of their names."""
     from torch.profiler import ProfilerActivity, profile
@@ -46,6 +47,7 @@ def device_profile(fn, top: int = 8) -> dict:
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False))
     busy_us, end, by_name = 0.0, float("-inf"), defaultdict(float)
+    d2h_count = sum(name.startswith("Memcpy DtoH") for _, _, name in spans)
     for s, e, name in spans:
         by_name[name[:60]] += e - s
         if e > end:
@@ -55,5 +57,5 @@ def device_profile(fn, top: int = 8) -> dict:
     d2h_us = sum(v for k, v in by_name.items() if k.startswith("Memcpy DtoH"))
     return {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3,
             "busy_share": busy_us / 1e3 / wall_ms, "device_ops": len(spans),
-            "d2h_ms": d2h_us / 1e3,
+            "d2h_ms": d2h_us / 1e3, "d2h_count": d2h_count,
             "top_ms": {k: v / 1e3 for k, v in kernels}}

@@ -40,6 +40,9 @@ rtol and atol 1e-4; positions by particle at the end of each segment atol
 bin in the two packages (their CVs differ by f32 rounding); none does
 here.
 """
+import os
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -61,8 +64,9 @@ from metadyn_tpu.integrate.packed import (
 from metadyn_tpu.ops import packed as jp
 
 from metadyn_tpu_torch import (
-    Box, FluxTemperedSampler, GridSpec, PackedEngine, PackedMesh, PackedSpec,
-    bond_partner_attrs, make_packed_langevin_step, make_system,
+    Box, FluxTemperedSampler, GridSpec, HillSpec, MetadSampler, PackedEngine,
+    PackedMesh, PackedSpec, bond_partner_attrs, make_packed_langevin_step,
+    make_system,
 )
 from metadyn_tpu_torch import interop
 from metadyn_tpu_torch.ops.packed import unpack_positions
@@ -294,8 +298,10 @@ def _small_setup():
 @pytest.mark.parametrize("case", ["two_cvs", "mesh", "checkpoints"])
 def test_flux_sampler_refusals(case):
     """Two CVs raise the reference's AssertionError; multiple walkers
-    (``mesh``) and checkpoints are not ported and raise
-    NotImplementedError naming their ROADMAP item."""
+    (``mesh``) are not ported and raise NotImplementedError naming their
+    ROADMAP item.  Checkpoints are ported; loading one saved by a
+    ``MetadSampler`` (another carry) raises ValueError, and a failed load
+    leaves the sampler as it was."""
     system, state, engine, cv = _small_setup()
     integ = lambda f: make_packed_langevin_step(f, dt=0.002, kT=1.0)  # noqa
     if case == "two_cvs":
@@ -317,6 +323,12 @@ def test_flux_sampler_refusals(case):
         return
     s = FluxTemperedSampler(system, state, engine, [cv], g, integ, kT=1.0,
                             stride=10, update_period=1)
-    for fn in (s.save_checkpoint, s.load_checkpoint):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            fn("unused.npz")
+    m = MetadSampler(system, state, engine, [cv], g,
+                     HillSpec.create(W=0.1, stride=10), integ)
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "metad.npz")
+        m.save_checkpoint(ck)
+        carry = s.carry
+        with pytest.raises(ValueError, match="structure"):
+            s.load_checkpoint(ck)
+        assert s.carry is carry and s.n_updates == 0

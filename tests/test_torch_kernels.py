@@ -164,15 +164,18 @@ def test_plain_force_refuses_unported_physics(change):
 @pytest.mark.parametrize("kwargs", [
     dict(grid_spec=None, hill_sigma=[0.01, 0.01]),
     dict(mts_lag=True, bias_every=5),
-    dict(hill_file="hills.txt"),
+    dict(hill_file="hills.txt", spill_grid="grid"),
 ])
 def test_sampler_refuses_unported_modes(kwargs):
-    """Unported modes raise NotImplementedError.  ``mts_lag`` is ported, but
-    refused here for the reference's reason: the lagged path takes order
-    CVs only, and these CVs are lamellar."""
+    """Unported modes raise NotImplementedError: hill-list mode, and its
+    spill grid even beside a hill log (the hill log itself is ported).
+    ``mts_lag`` is ported, but refused here for the reference's reason: the
+    lagged path takes order CVs only, and these CVs are lamellar."""
     sampler, _ = _sampler("cpu")
     args = dict(grid_spec=sampler.grid_spec)
     args.update(kwargs)
+    if args.get("spill_grid") == "grid":
+        args["spill_grid"] = sampler.grid_spec
     if kwargs.get("mts_lag"):
         assert not lag_supported(sampler.engine, sampler.cvs)
         refused = pytest.raises(ValueError, match="order CVs only")
