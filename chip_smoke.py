@@ -127,6 +127,30 @@ Phases, one line or more each:
      a straight 2K-step run, bit for bit; and the device-to-host copies of
      one report block of config3's CLI run against phase 10's directly
      built sampler over the same strides.
+ 23. Config 1 (examples/config1_lj_lamellar.yaml: 864 particles, the
+     all-pairs engine with row_block 216, one lamellar CV by autograd,
+     standard metadynamics, 500 steps of stride 25) through CliRun as
+     written (only the output paths moved), then with integrator.kind
+     nvt_nh and nvt_bdp: build and run wall seconds, particle-steps/s, 20
+     hill records, T of the last stride in its band, V finite with max >
+     0, the files read back, no packed kernel launched;
+ 24. the three engines against each other on liq64k's 62,500 particles:
+     AllPairsEngine (row_block 1024), NeighborEngine (CellSpec.create(L,
+     n, 2.5, skin=0.4)) and PackedEngine with the pair kernel in its
+     sentinel layout (bench.py's spec) from the same positions (forces,
+     PE, virial; the pair kernel's launches counted); the half-skin
+     witness (particles past skin/2 after 5 and 10 steps); then
+     MetadSampler on NeighborEngine with bench.py's CVs as particle-order
+     LamellarOPs, its 64x64 well-tempered grid and walls, stride 500,
+     bias_every 5, the list rebuilt every 5 steps: 1 warm and 2 timed
+     strides (rate, peak memory, no overflow, no stale list, T in
+     0.9-1.1) and one profiled stride;
+ 25. the double-well sampler of scripts/fes_oracle.py (one
+     particle, ForceField(external=) by autograd through the sampler's
+     callable adapter, AxisPosition, well-tempered): 200 strides of 50
+     steps, ms per step, 200 hills and a finite bias.  The oracle proper
+     (the FES within 0.1 kT) is that script, and the slow tests of
+     tests/test_torch_fes_oracle.py.
 
 After each timed run one more stride runs under torch.profiler, and a line
 reports the GPU's busy share of it and the top kernels.  The launch counts
@@ -135,7 +159,10 @@ after: the pair kernel's from phases 5 and 15, the values and fused
 kernels' from phase 10, the force kernel's from phase 11 (the lagged path
 never runs it inside a stride), the soft layout's from the 1M push-off
 (phase 21; it runs no launch inside a stride); the v1 kernel has no
-production caller and no main-path launches.
+production caller and no main-path launches.  Phase 24's cross-check
+launches the pair kernel twice (the packed engine's init and its energy
+refresh); phases 23 and 25 launch none (the particle-order path is plain
+PyTorch, as the reference runs it as XLA).
 
 Then a JSON line describing each kernel: its time, its plain version's,
 its launches on the main path, and its bound: the larger of the bytes it
@@ -1999,6 +2026,282 @@ def cli_yamls(dev, smi: str) -> dict:
     return counts
 
 
+# Phase 23: Config 1 (examples/config1_lj_lamellar.yaml) through the CLI:
+# T of the last stride (kT 1.5; from the fcc start at kT 1.5 the liquid
+# warms to ~1.35-1.45 by step 500: the JAX package's CLI on the CPU gave
+# 1.350, the port on the CPU 1.39-1.44 over seeds 1-4)
+CFG1_T_BAND = (1.3, 1.7)
+CFG1_KINDS = ("langevin", "nvt_nh", "nvt_bdp")
+
+
+def config1_cli(dev, smi: str) -> dict:
+    """Phase 23: examples/config1_lj_lamellar.yaml through
+    metadyn_tpu_torch.cli.CliRun on the card, as written (only the output
+    paths moved: 864 particles, all-pairs, row_block 216, 500 steps,
+    stride 25), then with integrator.kind nvt_nh and nvt_bdp.  Per run:
+    build and run wall seconds and particle-steps/s; 20 hill records, T of
+    the last stride in its band, V finite with max > 0, the hill file, CSV
+    log and grid dump read back; no packed kernel launched.  Returns
+    {kind: rate}."""
+    import tempfile
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch.cli import CliRun
+    from metadyn_tpu_torch.io.grid_file import load_grid
+    from metadyn_tpu_torch.io.hill_log import read_hills
+    from metadyn_tpu_torch.io.metrics import read_csv
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_cfg1_"))
+    bad, rates = [], {}
+    for kind in CFG1_KINDS:
+        d = tmp / kind
+        d.mkdir()
+        cfg = cli_yaml("config1_lj_lamellar", d)
+        cfg["integrator"]["kind"] = kind
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        runner = CliRun(cfg, device=dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        runner.run()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t1
+        n = runner.sampler.state.n
+        n_steps = runner.n_steps
+        n_hills = n_steps // int(cfg["metadynamics"]["stride"])
+        out = cfg["output"]
+        h = read_hills(out["hill_file"])
+        bias, meta = load_grid(out["grid_file"])
+        V = bias.grid.V.numpy()
+        log = read_csv(out["log_file"])
+        hist = runner.sampler.history
+        t_last = float(hist[-1]["temperature"])
+        if h["step"].shape[0] != n_hills or bias.n_hills != n_hills:
+            bad.append(f"{kind}: {h['step'].shape[0]} hill rows, grid "
+                       f"{bias.n_hills} hills, want {n_hills}")
+        if not (np.isfinite(V).all() and V.max() > 0.0):
+            bad.append(f"{kind}: V finite {np.isfinite(V).all()}, max "
+                       f"{V.max()}")
+        if len(log["step"]) != len(hist) or log["nlist_overflow"].any():
+            bad.append(f"{kind}: log rows {len(log['step'])} for "
+                       f"{len(hist)} strides, overflow "
+                       f"{log['nlist_overflow'].any()}")
+        if not CFG1_T_BAND[0] < t_last < CFG1_T_BAND[1]:
+            bad.append(f"{kind}: T of the last stride {t_last:.4f} outside "
+                       f"{CFG1_T_BAND}")
+        if any(read_counts().values()):
+            bad.append(f"{kind}: packed kernels launched {read_counts()}")
+        rates[kind] = n * n_steps / t_run
+        print(f"config1 cli {kind}: N={n} build {t_build:.3f} s run "
+              f"{n_steps} steps {t_run:.3f} s {rates[kind]:.1f} "
+              f"particle-steps/s {1e3 * t_run / n_steps:.3f} ms/step "
+              f"T_last={t_last:.4f} hills={h['step'].shape[0]} "
+              f"V_max={V.max():.4f} mode={meta['mode']} on {smi}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    for b in bad:
+        print(f"config1 FAILED: {b}", file=sys.stderr)
+    assert not bad, bad
+    return rates
+
+
+# Phase 24's neighbour-list sampler rebuilds its list every 5 steps: at
+# liq64k (T 1, dt 0.005) a 10-step block moves ~40 particles past skin/2 =
+# 0.2 (the witness line of each run; the first run, NVIDIA H100 80GB HBM3,
+# 700 W: 43, max 0.2295), and at skin 0.55 the trigger still fired by the
+# second stride, so some steps of those blocks ran on a stale list
+NB_REBUILD = 5
+
+
+def pid_order_forces(state):
+    """(n, 3) forces of a packed state, by particle id."""
+    return state.f[:, state.slot_of.long()].T
+
+
+def engines_cross_check(dev, smi: str) -> dict:
+    """Phase 24: the three engines on liq64k's 62,500 particles
+    (bench_data/liq64k.npz): AllPairsEngine (row_block 1024),
+    NeighborEngine (CellSpec.create(L, n, 2.5, skin=0.4)) and PackedEngine
+    with the pair kernel in its sentinel layout (bench.py's spec), LJ r_cut
+    2.5 unshifted, from the same positions: forces max|df| <= 1e-4 max|f| +
+    1e-3, PE and virial rtol 1e-4; then the half-skin witness and
+    MetadSampler on NeighborEngine with bench.py's CVs as particle-order
+    LamellarOPs.  Returns the pair kernel's launches in the cross-check."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import (
+        AllPairsEngine, Box, CellSpec, GridSpec, HillSpec, LamellarOP,
+        MetadSampler, NeighborEngine, PackedEngine, PackedSpec, WallSpec,
+        WELL_TEMPERED, lj_kernel, lj_tables, make_langevin_step, make_state,
+        make_system,
+    )
+    from metadyn_tpu_torch.core.box import minimum_image
+    from metadyn_tpu_torch.utils.profiling import device_profile
+
+    t24 = time.perf_counter()
+    d = np.load(ROOT / "bench_data" / "liq64k.npz")
+    pos, vel, L = d["pos"], d["vel"], float(d["L"])
+    n = pos.shape[0]
+    system = make_system(n, dev)
+    box = Box.cubic(L, dev)
+    params = lj_tables(1, r_cut=2.5, shift=False, device=dev)
+    state0 = make_state(pos, box, vel=vel, device=dev)
+    res, peak = {}, {}
+    ap = AllPairsEngine(system, pair_params=params, pair_kernel=lj_kernel,
+                        row_block=1024, device=dev)
+    cell = CellSpec.create(L, n, 2.5, skin=0.4)
+    nb = NeighborEngine(system, cell, params, lj_kernel, rebuild_every=10,
+                        device=dev)
+    for name, eng in (("all_pairs", ap), ("neighbor", nb)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st, aux = eng.init(state0)
+        torch.cuda.synchronize()
+        res[name] = (st.force, st.potential_energy, st.virial,
+                     time.perf_counter() - t0, aux)
+        peak[name] = torch.cuda.max_memory_allocated()
+    spec = PackedSpec.create(L, n, r_cut=2.5, skin=0.55, cap=40,
+                             shift_energy=False, uniform_sigma=1.0,
+                             uniform_eps=1.0)
+    pk = PackedEngine(spec, dev, rebuild_every=10)
+    pst, ovf = pk.pack_state(pos, box, np.zeros(n, np.int32),
+                             np.ones(n, np.float32), np.ones(n, np.float32),
+                             vel=vel)
+    assert not ovf, "cell capacity overflow at pack (phase 24)"
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    pst, paux = pk.init(pst)
+    pst = pk.refresh_energy(pst, paux)
+    torch.cuda.synchronize()
+    launches = read_counts()["pair"]
+    res["packed"] = (pid_order_forces(pst), pst.potential_energy,
+                     pst.virial, time.perf_counter() - t0, None)
+    f_ref = res["all_pairs"][0]
+    fmax = float(f_ref.abs().max())
+    lines = []
+    for name in ("neighbor", "packed"):
+        f, pe, w = res[name][:3]
+        df = float((f - f_ref).abs().max())
+        dpe = abs(float(pe - res["all_pairs"][1])) / abs(
+            float(res["all_pairs"][1]))
+        dw = float(((w - res["all_pairs"][2]).abs()
+                    / res["all_pairs"][2].abs()).max())
+        lines.append(f"{name} vs all_pairs: max|df|={df:.3e} "
+                     f"(max|f|={fmax:.3e}) rel_dPE={dpe:.3e} "
+                     f"rel_dvirial={dw:.3e}")
+        assert np.isfinite(df) and df <= 1e-4 * fmax + 1e-3, (name, df)
+        assert dpe <= 1e-4 and dw <= 1e-4, (name, dpe, dw)
+    nb_aux = res["neighbor"][4]
+    assert not bool(nb_aux.overflow), "neighbour list overflow (phase 24)"
+    print(f"engines N={n}: " + "; ".join(lines) + "; first force call s: "
+          + ", ".join(f"{k} {v[3]:.3f}" for k, v in res.items())
+          + f"; pair kernel launches {launches}; {cell}; peak memory "
+          "of the first force call (the neighbour list's build in it): "
+          + ", ".join(f"{k} {v / 2 ** 30:.2f} GiB" for k, v in peak.items())
+          + f" on {smi}")
+    del res, f_ref
+
+    # the half-skin witness: 10 steps on the skin-0.4 list, counting the
+    # particles beyond skin/2 (the rebuild's stale trigger) after 5 and 10
+    torch.cuda.synchronize()
+    g = torch.Generator(device=dev).manual_seed(0)
+    st, aux = nb.init(state0)
+    step = make_langevin_step(lambda s: nb.force_into(s, aux), system,
+                              0.005, KT, 1.0)
+    p0, witness = st.pos, []
+    for i in range(10):
+        st = step(st, g)
+        if i + 1 in (NB_REBUILD, 10):
+            disp = torch.linalg.vector_norm(
+                minimum_image(st.pos - p0, st.box), dim=1)
+            witness.append(f"after {i + 1} steps max displacement "
+                           f"{float(disp.max()):.4f}, "
+                           f"{int((disp > 0.2).sum())} particles beyond 0.2")
+    _, aux = nb.rebuild(st, aux)
+    print(f"neighbor half-skin witness (skin 0.4, skin/2 = 0.2): "
+          f"{'; '.join(witness)}; stale after a 10-step block="
+          f"{bool(aux.stale)}")
+
+    # the sampler on NeighborEngine: bench.py's CVs, grid and bias cadence,
+    # the list rebuilt every NB_REBUILD steps (see NB_REBUILD)
+    gspec = GridSpec.create([-0.06, -0.06], [0.06, 0.06], [64, 64],
+                            [0.004, 0.004], dev)
+    nb = NeighborEngine(system, cell, params, lj_kernel,
+                        rebuild_every=NB_REBUILD, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sampler = MetadSampler(
+        system, state0, nb,
+        [LamellarOP.create([1.0], [[0, 0, 3]], name="a", device=dev),
+         LamellarOP.create([1.0], [[0, 3, 0]], name="b", device=dev)],
+        gspec, HillSpec.create(W=0.1, stride=STRIDE, mode=WELL_TEMPERED,
+                               deltaT=5.0),
+        lambda f: make_langevin_step(f, system, dt=0.005, kT=KT, gamma=1.0),
+        seed=0, bias_every=5, chunks_per_block=8,
+        walls=WallSpec.at_grid_edges(gspec, k=2000.0))
+    sampler.run(STRIDE)                                     # warm stride
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = sampler.run(2 * STRIDE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rate = n * 2 * STRIDE / dt
+    peak = torch.cuda.max_memory_allocated()
+    assert not any(read_counts().values()), read_counts()
+    for m in hist:
+        assert not m["nlist_overflow"], m
+        assert not m["nlist_stale"], m
+        assert 0.9 < float(m["temperature"]) < 1.1, m
+        for k in ("cv", "bias_V", "hill_height", "potential_energy"):
+            assert np.all(np.isfinite(m[k])), (k, m)
+    prof = device_profile(lambda: sampler.run(STRIDE))
+    prof["busy_share_untraced"] = prof["busy_ms"] / (1e3 * dt / 2)
+    last = hist[-1]
+    print(f"neighbor sampler (skin 0.4, rebuild_every {NB_REBUILD}, "
+          f"bias_every 5): "
+          f"2 strides {dt:.3f} s {rate:.1f} particle-steps/s "
+          f"T={float(last['temperature']):.4f} "
+          f"PE/N={float(last['potential_energy']) / n:.4f} "
+          f"cv={last['cv'].tolist()} peak {peak / 2 ** 30:.2f} GiB on {smi}")
+    print(f"profile neighbor sampler one stride: {json.dumps(prof)} "
+          f"on {smi}")
+    print(f"engines phase 24: {time.perf_counter() - t24:.1f} s")
+    return launches
+
+
+def double_well_card(dev, smi: str) -> None:
+    """Phase 25: the double-well sampler (scripts/fes_oracle.py's,
+    ForceField(external=) through the sampler's callable adapter) on the
+    card: 200 strides of 50 steps, ms per step, 200 hills, a finite bias
+    that rose above 0."""
+    import importlib.util
+    import numpy as np
+    import torch
+    # the oracle's own sampler, loaded by path (scripts/ is no package)
+    spec = importlib.util.spec_from_file_location(
+        "fes_oracle", ROOT / "scripts" / "fes_oracle.py")
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+
+    s = oracle.double_well_sampler(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = s.run(200 * 50)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    V = s.bias.grid.V.cpu().numpy()
+    assert s.bias.n_hills == 200 and len(hist) == 200, s.bias.n_hills
+    assert np.isfinite(V).all() and V.max() > 0.0, V.max()
+    print(f"double well: 200 strides of 50 steps {dt:.3f} s "
+          f"{1e3 * dt / 10000:.4f} ms/step hills={s.bias.n_hills} "
+          f"V_max={V.max():.4f} x_last={float(hist[-1]['cv'][0]):.4f} "
+          f"on {smi}")
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -2216,6 +2519,15 @@ def main() -> int:
     # 22. the packed example YAMLs through the port's CLI, the resume leg,
     # the CLI's host transfers against the direct sampler's
     cli = cli_yamls(dev, smi[0])
+
+    # 23.-25. the particle-order engines: Config 1 through the CLI, the
+    # three engines against each other at 62,500 particles and the
+    # neighbour-list sampler, the double-well sampler
+    t23 = time.perf_counter()
+    config1_cli(dev, smi[0])
+    cross_launches = engines_cross_check(dev, smi[0])
+    double_well_card(dev, smi[0])
+    print(f"particle-order phases 23-25: {time.perf_counter() - t23:.1f} s")
     print(f"chip_smoke wall: {time.perf_counter() - t_main:.1f} s")
 
     def cli_launches(kernel: str) -> dict:
@@ -2269,7 +2581,9 @@ def main() -> int:
                                 "triclinic": tric_counts["pair"],
                                 "config5 N=1048576 (2 periods of 4 "
                                 "strides)": cfg5["launches"],
-                                **cli_launches("pair")},
+                                **cli_launches("pair"),
+                                "engines cross-check N=62500 (phase 24: "
+                                "init and energy refresh)": cross_launches},
               variants={k: dict(zip(keys, v)) for k, v in variants.items()}),
         entry(f"{KERNEL} soft layout", KERNEL,
               "XLA roll sweep, metadyn_tpu/ops/packed.py:830 (no "

@@ -1,19 +1,40 @@
 """metadyn_tpu_torch — the PyTorch and CUDA port of ``metadyn_tpu``.
 
 Same module layout and data contracts as the JAX package, which stays the
-reference.  On a CUDA device the pair force and the order-CV sweeps run as
-hand-written Hopper kernels (``csrc/``, built with nvcc at first use); on
-the CPU everything runs as plain PyTorch.  This package imports torch and
+reference.  On a CUDA device the packed engine's pair force and order-CV
+sweeps run as hand-written Hopper kernels (``csrc/``, built with nvcc at
+first use); on the CPU everything runs as plain PyTorch.  The
+particle-order engines (all-pairs, neighbour list), their integrators and
+CVs are plain PyTorch on every device, as the reference runs them as XLA.  This package imports torch and
 numpy, never jax.
 """
 
-from .core.box import Box
-from .core.state import System, make_system
+from .core.box import Box, minimum_image, unwrap
+from .core.state import (
+    State, System, kinetic_energy, make_state, make_system, temperature,
+    thermal_velocities,
+)
+from .core.engine import (
+    AllPairsEngine, EngineAux, NeighborEngine, run_md_blocks,
+)
+from .core.forcefield import ForceField
 from .core.packed_engine import PackedAux, PackedEngine
 from .ops.packed import (
     PackedSpec, PackedState, bond_partner_attrs, pair_scale_tables,
 )
 from .integrate.packed import make_packed_langevin_step, make_packed_nve_step
+from .integrate.base import run_steps
+from .integrate.langevin import make_langevin_step, make_nve_step
+from .integrate.nvt import make_nvt_bdp_step, make_nvt_nh_step
+from .ops.cell_list import CellSpec, build_neighbor_list
+from .ops.pairs import (
+    PairParams, lj_kernel, lj_tables, soft_kernel, soft_tables, wca_tables,
+    xplor_tables,
+)
+from .cv.lamellar import LamellarOP
+from .cv.mesh import MeshOrderParameter
+from .cv.simple import AxisPosition
+from .cv.steinhardt import SteinhardtQl
 from .cv.packed import PackedLamellar, PackedMesh
 from .cv.packed_order import (
     PackedCoordination, PackedSteinhardtQl, make_fused_order_force,
@@ -30,7 +51,15 @@ from .flux_sampler import FluxTemperedSampler
 from .utils.lattice import fcc_lattice, polymer_melt, sc_lattice
 
 __all__ = [
-    "Box", "System", "make_system", "PackedAux", "PackedEngine",
+    "Box", "minimum_image", "unwrap", "State", "System", "kinetic_energy",
+    "make_state", "make_system", "temperature", "thermal_velocities",
+    "AllPairsEngine", "EngineAux", "NeighborEngine", "run_md_blocks",
+    "ForceField", "run_steps", "make_langevin_step", "make_nve_step",
+    "make_nvt_bdp_step", "make_nvt_nh_step", "CellSpec",
+    "build_neighbor_list", "PairParams", "lj_kernel", "lj_tables",
+    "soft_kernel", "soft_tables", "wca_tables", "xplor_tables",
+    "LamellarOP", "MeshOrderParameter", "AxisPosition", "SteinhardtQl",
+    "PackedAux", "PackedEngine",
     "PackedSpec", "PackedState", "bond_partner_attrs", "pair_scale_tables",
     "make_packed_langevin_step", "make_packed_nve_step", "PackedLamellar",
     "PackedMesh", "PackedCoordination",

@@ -6,26 +6,28 @@
     python -m metadyn_tpu_torch.cli rdf traj.dcd ...
 
 ``run`` reads the reference's YAML schema (``io/config.py``, no PyYAML) and
-drives the packed engine on one replica: inits ``fcc``, ``sc`` and ``melt``
-(with the push-off of ``init.prerelax_steps``, ``core/pushoff.
-prerelax_melt``), tilted boxes, diblock types and per-type-pair tables,
-FENE or harmonic bonds, the LJ, WCA and soft pairs; the lamellar, mesh,
-Q6 and coordination CVs; Langevin and NVE; standard, well-tempered and
-flux-tempered metadynamics, with ``restart_from_grid``, edge walls,
-``add_hills``, ``bias_every`` and ``mts_lag``.  Its outputs are the
-reference's files: the hill log, the CSV metrics, grid dumps (also every
-``grid_every`` steps, ``{step}`` in the name numbering them), checkpoints
-(every ``checkpoint_every`` steps; ``--resume`` loads one and runs
-``n_steps`` more).  Like the reference's, a packed run writes no
-trajectory frames (``output.trajectory`` gets a note; ``rdf`` reads the
-``.dcd`` and npz files of ``io/trajectory.py``).  It runs on CUDA
-unless ``--device cpu`` is given, and exits with an error when no CUDA
-device is found: it never falls back to the CPU.
+drives one replica on the packed engine or, with ``engine.kind:
+all_pairs``, on the particle-order all-pairs engine: inits ``fcc``, ``sc``
+and ``melt`` (with the push-off of ``init.prerelax_steps``, ``core/
+pushoff.prerelax_melt``), tilted boxes, diblock types and per-type-pair
+tables, FENE or harmonic bonds, the LJ, WCA and soft pairs; the lamellar,
+mesh, Q6 and coordination CVs (all-pairs: lamellar, mesh and Steinhardt
+Q_l, by autograd); Langevin and NVE (all-pairs: Langevin, Nosé–Hoover
+``nvt_nh`` and ``nvt_bdp``); standard, well-tempered and flux-tempered
+metadynamics, with ``restart_from_grid``, edge walls, ``add_hills``,
+``bias_every`` and ``mts_lag``.  Its outputs are the reference's files:
+the hill log, the CSV metrics, grid dumps (also every ``grid_every``
+steps, ``{step}`` in the name numbering them), checkpoints (every
+``checkpoint_every`` steps; ``--resume`` loads one and runs ``n_steps``
+more) and, for the all-pairs engine, trajectory frames (``.dcd`` or npz,
+``io/trajectory.py``) at every report; like the reference's, a packed run
+writes no frames.  It runs on CUDA unless ``--device cpu`` is given, and
+exits with an error when no CUDA device is found: it never falls back to
+the CPU.
 
 What the port lacks raises NotImplementedError at build time, naming its
-item of ROADMAP.md's queue 1: the all-pairs engine and the particle-order
-integrators (item 7), walkers (item 5), ``spatial_devices`` (item 9),
-``nbr_table`` (item 6), the ``wte`` CV (item 2), the ``msd`` and
+item of ROADMAP.md's queue 1: walkers (item 5), ``spatial_devices`` (item
+9), ``nbr_table`` (item 6), the ``wte`` CV (item 2), the ``msd`` and
 ``aspect_ratio`` CVs and NPT (item 3), hill-list mode (item 4) and GSD
 trajectories (item 8).
 """
@@ -38,9 +40,6 @@ import sys
 import numpy as np
 
 UNPORTED = {
-    "all_pairs": ("the particle-order engines (engine.kind: all_pairs)", 7),
-    "nvt_nh": ("the integrator kind nvt_nh (particle-order engines)", 7),
-    "nvt_bdp": ("the integrator kind nvt_bdp (particle-order engines)", 7),
     "walkers": ("multiple walkers (metadynamics.n_walkers > 1)", 5),
     "spatial_devices": ("the spatial decomposition "
                         "(engine.spatial_devices)", 9),
@@ -65,8 +64,6 @@ def refuse(what: str):
 def check_ported(cfg: dict) -> None:
     """Raise ``refuse(...)`` for the first key or kind the port lacks."""
     eng = cfg["engine"]
-    if eng.get("kind") != "packed":
-        raise refuse("all_pairs")
     if int(cfg["metadynamics"].get("n_walkers", 1)) > 1:
         raise refuse("walkers")
     sp = eng.get("spatial_devices", 1) or 1
@@ -80,8 +77,8 @@ def check_ported(cfg: dict) -> None:
         if "grid" not in c:
             raise refuse("hill_list")
     icfg = cfg["integrator"]
-    if icfg.get("kind", "langevin") in ("nvt_nh", "nvt_bdp", "npt_scr"):
-        raise refuse(icfg["kind"])
+    if icfg.get("kind", "langevin") == "npt_scr":
+        raise refuse("npt_scr")
     if bool(icfg.get("box_bias", False)):
         raise refuse("box_bias")
     if str(cfg.get("output", {}).get("trajectory", "")).endswith(".gsd"):
@@ -131,6 +128,34 @@ def _build_packed_cvs(cvs_cfg, spec, n: int, types, n_types: int, device):
     return cvs, extra_attrs
 
 
+def _build_particle_cvs(cvs_cfg, system, L, device):
+    """The particle-order CVs: lamellar, mesh and Steinhardt Q_l (their
+    bias forces by autograd)."""
+    from .cv.lamellar import LamellarOP
+    from .cv.mesh import MeshOrderParameter
+    from .cv.steinhardt import SteinhardtQl
+
+    cvs = []
+    for c in cvs_cfg:
+        kind = c["kind"]
+        mode = c.get("mode", [1.0] * system.n_types)
+        if kind == "lamellar":
+            cvs.append(LamellarOP.create(
+                mode=mode, lattice_vectors=[c["lattice_vector"]],
+                name=c["name"], device=device))
+        elif kind == "mesh":
+            cvs.append(MeshOrderParameter.create(
+                tuple(c["mesh"]), L, mode=mode, k0=c["k0"],
+                width=c.get("width", 0.5), name=c["name"],
+                assign_order=_assign_order(c), device=device))
+        elif kind == "steinhardt":
+            cvs.append(SteinhardtQl(r_cut=c["r_cut"], l=c.get("l", 6),
+                                    name=c["name"]))
+        else:
+            raise ValueError(f"unknown cv kind {kind}")
+    return cvs
+
+
 def _grid_from_cfg(cvs_cfg, device):
     from .bias.grid import GridSpec
     return GridSpec.create(
@@ -141,20 +166,33 @@ def _grid_from_cfg(cvs_cfg, device):
         periodic=[bool(c["grid"].get("periodic", False)) for c in cvs_cfg])
 
 
-def _integrator_factory(icfg: dict):
+def _integrator_factory(icfg: dict, system, packed: bool):
+    from .integrate.langevin import make_langevin_step
+    from .integrate.nvt import make_nvt_bdp_step, make_nvt_nh_step
     from .integrate.packed import (
         make_packed_langevin_step, make_packed_nve_step,
     )
     kind = icfg.get("kind", "langevin")
     dt = float(icfg["dt"])
     kT = float(icfg.get("kT", 1.0))
+    if packed:
+        if kind == "langevin":
+            return lambda f: make_packed_langevin_step(
+                f, dt=dt, kT=kT, gamma=float(icfg.get("gamma", 1.0)))
+        if kind == "nve":
+            return lambda f: make_packed_nve_step(f, dt=dt)
+        raise ValueError(f"packed engine supports langevin/nve/npt_scr, "
+                         f"got {kind}")
     if kind == "langevin":
-        return lambda f: make_packed_langevin_step(
-            f, dt=dt, kT=kT, gamma=float(icfg.get("gamma", 1.0)))
-    if kind == "nve":
-        return lambda f: make_packed_nve_step(f, dt=dt)
-    raise ValueError(f"packed engine supports langevin/nve/npt_scr, "
-                     f"got {kind}")
+        return lambda f: make_langevin_step(
+            f, system, dt=dt, kT=kT, gamma=float(icfg.get("gamma", 1.0)))
+    if kind == "nvt_nh":
+        return lambda f: make_nvt_nh_step(
+            f, system, dt=dt, kT=kT, tau=float(icfg.get("tau", 0.5)))
+    if kind == "nvt_bdp":
+        return lambda f: make_nvt_bdp_step(
+            f, system, dt=dt, kT=kT, tau=float(icfg.get("tau", 0.5)))
+    raise ValueError(f"unknown integrator kind {kind}")
 
 
 def _initial_positions(cfg: dict, kT: float, device):
@@ -210,11 +248,15 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
     (sampler, cfg)."""
     from .bias.metad import HillSpec, WallSpec
     from .core.box import Box
+    from .core.engine import AllPairsEngine
     from .core.packed_engine import PackedEngine
-    from .core.state import make_system
+    from .core.state import make_state, make_system
     from .flux_sampler import FluxTemperedSampler
     from .io.grid_file import load_grid
     from .ops.packed import PackedSpec, bond_partner_attrs, pair_scale_tables
+    from .ops.pairs import (
+        lj_kernel, lj_tables, soft_kernel, soft_tables, wca_tables,
+    )
     from .sampler import MetadSampler
 
     check_ported(cfg)
@@ -254,51 +296,67 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
     cvs_cfg = cfg.get("cvs", [])
     mcfg = cfg["metadynamics"]
     mode = mcfg.get("mode", "standard")
-    r_cut = float(pair.get("r_cut", 2.0 ** (1 / 6)
-                           if pair["kind"] == "wca" else 2.5))
-    # engine.bonds {kind: fene|harmonic, k, r0}; engine.fene the legacy
-    # spelling (kind fene)
-    fene = eng_cfg.get("bonds", eng_cfg.get("fene"))
-    eps_tab = pair.get("eps_table")
-    sig_tab = pair.get("sigma_table")
-    eps_i = np.ones(n, np.float32)
-    sigma_i = np.ones(n, np.float32)
-    eps_scale = sigma_scale = None
-    if eps_tab is not None:
-        eps_scale, sigma_scale, ed, sd = pair_scale_tables(eps_tab, sig_tab)
-        eps_i = ed[types]
-        if sd is not None:
-            sigma_i = sd[types]
-    elif sig_tab is not None:
-        raise ValueError("sigma_table requires eps_table")
-    spec = PackedSpec.create(
-        L, n, r_cut=r_cut,
-        skin=float(eng_cfg.get("skin", 0.4)),
-        cap=eng_cfg.get("cap"),
-        shift_energy=bool(pair.get("shift", pair["kind"] == "wca")),
-        fene_k=None if fene is None else float(fene["k"]),
-        fene_r0=None if fene is None else float(fene["r0"]),
-        bond_kind=(fene or {}).get("kind", "fene"),
-        uniform_sigma=eng_cfg.get("uniform_sigma"),
-        uniform_eps=eng_cfg.get("uniform_eps"),
-        pair_kind="soft" if pair["kind"] == "soft" else "lj",
-        eps_scale=eps_scale, sigma_scale=sigma_scale, tilt=tilt)
-    engine = PackedEngine(spec, device,
-                          rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
-                          with_energy=bool(eng_cfg.get("with_energy", False)))
-    cvs, extra_attrs = _build_packed_cvs(cvs_cfg, spec, n, types,
-                                         system.n_types, device)
-    if fene is not None:
-        if bonds is None:
-            raise ValueError("engine bonds (fene/bonds) need init kind melt")
-        extra_attrs.update(bond_partner_attrs(bonds, n))
-    state, ovf = engine.pack_state(pos, box, types, eps_i=eps_i,
-                                   sigma_i=sigma_i, vel=vel,
-                                   extra_attrs=extra_attrs)
-    if ovf:
-        raise RuntimeError("cell capacity overflow at pack: raise "
-                           "engine.cap")
-    integ = _integrator_factory(icfg)
+    packed = eng_cfg["kind"] == "packed"
+    if packed:
+        r_cut = float(pair.get("r_cut", 2.0 ** (1 / 6)
+                               if pair["kind"] == "wca" else 2.5))
+        # engine.bonds {kind: fene|harmonic, k, r0}; engine.fene the legacy
+        # spelling (kind fene)
+        fene = eng_cfg.get("bonds", eng_cfg.get("fene"))
+        eps_tab = pair.get("eps_table")
+        sig_tab = pair.get("sigma_table")
+        eps_i = np.ones(n, np.float32)
+        sigma_i = np.ones(n, np.float32)
+        eps_scale = sigma_scale = None
+        if eps_tab is not None:
+            eps_scale, sigma_scale, ed, sd = pair_scale_tables(eps_tab,
+                                                               sig_tab)
+            eps_i = ed[types]
+            if sd is not None:
+                sigma_i = sd[types]
+        elif sig_tab is not None:
+            raise ValueError("sigma_table requires eps_table")
+        spec = PackedSpec.create(
+            L, n, r_cut=r_cut,
+            skin=float(eng_cfg.get("skin", 0.4)),
+            cap=eng_cfg.get("cap"),
+            shift_energy=bool(pair.get("shift", pair["kind"] == "wca")),
+            fene_k=None if fene is None else float(fene["k"]),
+            fene_r0=None if fene is None else float(fene["r0"]),
+            bond_kind=(fene or {}).get("kind", "fene"),
+            uniform_sigma=eng_cfg.get("uniform_sigma"),
+            uniform_eps=eng_cfg.get("uniform_eps"),
+            pair_kind="soft" if pair["kind"] == "soft" else "lj",
+            eps_scale=eps_scale, sigma_scale=sigma_scale, tilt=tilt)
+        engine = PackedEngine(
+            spec, device, rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
+            with_energy=bool(eng_cfg.get("with_energy", False)))
+        cvs, extra_attrs = _build_packed_cvs(cvs_cfg, spec, n, types,
+                                             system.n_types, device)
+        if fene is not None:
+            if bonds is None:
+                raise ValueError("engine bonds (fene/bonds) need init "
+                                 "kind melt")
+            extra_attrs.update(bond_partner_attrs(bonds, n))
+        state, ovf = engine.pack_state(pos, box, types, eps_i=eps_i,
+                                       sigma_i=sigma_i, vel=vel,
+                                       extra_attrs=extra_attrs)
+        if ovf:
+            raise RuntimeError("cell capacity overflow at pack: raise "
+                               "engine.cap")
+    else:
+        tables = {"lj": lj_tables, "wca": wca_tables, "soft": soft_tables}
+        kern = {"lj": lj_kernel, "wca": lj_kernel,
+                "soft": soft_kernel}[pair["kind"]]
+        params = tables[pair["kind"]](
+            system.n_types, device=device,
+            **{k: v for k, v in pair.items() if k != "kind"})
+        engine = AllPairsEngine(system, pair_params=params, pair_kernel=kern,
+                                row_block=int(eng_cfg.get("row_block", 1024)),
+                                device=device)
+        state = make_state(pos, box, vel=vel, device=device)
+        cvs = _build_particle_cvs(cvs_cfg, system, L, device)
+    integ = _integrator_factory(icfg, system, packed)
 
     # --- metadynamics ----------------------------------------------------
     grid = _grid_from_cfg(cvs_cfg, device)
@@ -397,11 +455,17 @@ class CliRun:
                        if "log_file" in out else None)
         self.ckpt_every = int(out.get("checkpoint_every", 0))
         self.grid_every = int(out.get("grid_every", 0))
+        self.traj = None
         if "trajectory" in out:
             # the reference appends frames only for states with particle-
             # order positions, which packed states lack
-            print("note: output.trajectory: packed runs write no frames",
-                  file=sys.stderr)
+            if hasattr(self.sampler.state, "pos"):
+                from .io.trajectory import make_trajectory_writer
+                self.traj = make_trajectory_writer(out["trajectory"],
+                                                   overwrite=not resume)
+            else:
+                print("note: output.trajectory: packed runs write no "
+                      "frames", file=sys.stderr)
         self.n_steps = int(cfg["run"]["n_steps"])
         self.report = int(cfg["run"].get("report_every", self.n_steps))
         if resume:
@@ -458,6 +522,10 @@ class CliRun:
             print(f"warning: a CV left its bias grid by step {done}; "
                   f"deposits clamp to the edge node (widen grid.min/max "
                   f"if this persists)", file=sys.stderr, flush=True)
+        if self.traj is not None:
+            st = self.sampler.state
+            self.traj.append(st.pos.cpu().numpy(), st.image.cpu().numpy(),
+                             st.box.L.cpu().numpy(), done)
         if self.ckpt_every and done % self.ckpt_every == 0:
             self.save_ckpt()
         if self.grid_every and done % self.grid_every == 0 \

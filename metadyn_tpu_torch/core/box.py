@@ -184,6 +184,15 @@ def from_fractional(frac: torch.Tensor, box: Box) -> torch.Tensor:
     return torch.stack([r0, r1, r2], dim=-1)
 
 
+def minimum_image(dr: torch.Tensor, box: Box) -> torch.Tensor:
+    """Minimum-image displacement vectors ``dr`` (..., 3).  A tilted box
+    rounds in fractional coordinates, elementwise (HOOMD's convention:
+    exact for ranges below half the smallest perpendicular width)."""
+    if box.tilt is None:
+        return dr - box.L * torch.round(dr / box.L)
+    return dr - from_fractional(torch.round(fractional(dr, box)), box)
+
+
 def wrap(pos: torch.Tensor, box: Box) -> tuple[torch.Tensor, torch.Tensor]:
     """Wrap positions into the primary cell (fractional [-1/2, 1/2) per
     lattice axis).  Returns (wrapped, image_shift) with the int32 count of
@@ -193,3 +202,11 @@ def wrap(pos: torch.Tensor, box: Box) -> tuple[torch.Tensor, torch.Tensor]:
         return pos - box.L * shift, shift.to(torch.int32)
     shift = torch.floor(fractional(pos, box) + 0.5)
     return pos - from_fractional(shift, box), shift.to(torch.int32)
+
+
+def unwrap(pos: torch.Tensor, image: torch.Tensor, box: Box) -> torch.Tensor:
+    """Unwrapped coordinates from wrapped positions and int32 images (the
+    images count lattice vectors)."""
+    if box.tilt is None:
+        return pos + image.to(pos.dtype) * box.L
+    return pos + from_fractional(image.to(pos.dtype), box)

@@ -8,16 +8,14 @@ at pack and repack time, so vacant slots contribute exactly zero.
 """
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 from torch import nn
 
-from ..core.box import reciprocal_matrix
 from ..core.state import System
 from ..ops.packed import PackedState, _frac3
-from .mesh import axis_stencil
+from .lamellar import wave_vectors
+from .mesh import assign, power, window
 
 
 class PackedLamellar(nn.Module):
@@ -58,12 +56,8 @@ class PackedLamellar(nn.Module):
         return f"cv_{self.name}"
 
     def wave_vectors(self, state: PackedState) -> torch.Tensor:
-        """(M, 3) k = 2π n @ h⁻¹, as an elementwise sum of products (exact
-        f32 for the diagonal orthorhombic h⁻¹; no matmul precision mode
-        involved)."""
-        B = reciprocal_matrix(state.box)
-        k = (self.lattice_vectors[:, :, None] * B[None, :, :]).sum(dim=1)
-        return 2.0 * math.pi * k
+        """(M, 3) k = 2π n @ h⁻¹ (``cv/lamellar.wave_vectors``)."""
+        return wave_vectors(self.lattice_vectors, state.box)
 
     def value(self, state: PackedState, system: System) -> torch.Tensor:
         amp = state.attrs[self.attr_name]
@@ -123,8 +117,6 @@ class PackedMesh:
         self.assign_order = int(assign_order)
         self.u_k = (None if u_k is None else torch.as_tensor(
             np.asarray(u_k, np.float32), device=device))
-        # the integer mode grid (3, nx, ny, nz) per device: static
-        self._modes = {}
         # arange(n) % mesh size per (device, n slots): where the scatter
         # entries of zero-weight slots go (see _rho_k2)
         self._spread = {}
@@ -150,72 +142,28 @@ class PackedMesh:
     def _kernels(self, box):
         """(u, vir) at ``box``, vir the per-axis stack (3, nx, ny, nz) of
         u'(|k|)·k_d²/|k|."""
-        dev = box.L.device
         if self.u_k is not None:
+            dev = box.L.device
             return self.u_k.to(dev), torch.zeros(
                 (3,) + self.mesh_shape, dtype=torch.float32, device=dev)
-        mg = self._modes.get(dev)
-        if mg is None:
-            mgrid = np.meshgrid(*[np.fft.fftfreq(n_) * n_
-                                  for n_ in self.mesh_shape], indexing="ij")
-            mg = self._modes[dev] = torch.as_tensor(
-                np.stack(mgrid).astype(np.float32), device=dev)
-        if box.tilt is None:
-            kd2 = (2.0 * math.pi * mg / box.L[:, None, None, None]) ** 2
-        else:
-            B = reciprocal_matrix(box)
-            kd2 = torch.stack([
-                (2.0 * math.pi * (mg[0] * B[0, d] + mg[1] * B[1, d]
-                                  + mg[2] * B[2, d])) ** 2
-                for d in range(3)])
-        kmag = torch.sqrt(torch.sum(kd2, dim=0))
-        u = torch.exp(-0.5 * ((kmag - self.k0) / self.width) ** 2)
-        uprime = -((kmag - self.k0) / self.width ** 2) * u
-        safe = torch.where(kmag > 0.0, kmag, 1.0)
-        vir = uprime[None] * kd2 / safe
-        u = torch.where(kmag == 0.0, 0.0, u)
-        vir = torch.where(kmag[None] == 0.0, 0.0, vir)
-        return u, vir
+        return window(self.mesh_shape, self.k0, self.width, box)
 
     def _rho_k2(self, state: PackedState) -> torch.Tensor:
-        """|ρ̂(k)|² on the (nx, ny, nz) mesh.  All stencil nodes go into the
-        flat mesh in one ``index_add``.
-
-        A slot of weight 0 (a vacant slot) adds nothing, but vacant slots
-        sit together (at 0 in the per-slot layout, at the sentinel in the
-        other), so their entries would all land on one node and serialize
-        the scatter's atomic adds on a GPU (at Config 5's 13.8M slots that
-        scatter was most of the device time, PERF.md §6).  Slot j's entries
-        go to node j mod M instead, which changes no sum and no gradient
-        (its value is 0 for every position).  The gate is the slot's
-        weight, not the entry's: a real bead on a mesh plane has a CIC
-        entry of value 0 whose derivative is not 0, and its gradient must
-        read its own node."""
-        nx, ny, nz = self.mesh_shape
+        """|ρ̂(k)|² on the (nx, ny, nz) mesh (``cv/mesh.assign``: the
+        entries of zero-weight slots, the vacant ones, go to node j mod M
+        of their slot j, so they do not pile onto one node; at Config 5's
+        13.8M slots the piled scatter was most of the device time,
+        PERF.md §6)."""
         w = state.attrs[self.attr_name]
         f3 = _frac3(state.r, state.box)
-        ax = [axis_stencil((f3[d] + 0.5) * n_d, self.assign_order)
-              for d, n_d in enumerate((nx, ny, nz))]
-        live = w != 0.0
         spread = self._spread.get((w.device, w.shape[0]))
         if spread is None:
+            nx, ny, nz = self.mesh_shape
             spread = self._spread[(w.device, w.shape[0])] = torch.remainder(
                 torch.arange(w.shape[0], device=w.device), nx * ny * nz)
-        idx, val = [], []
-        for cx_, wx in ax[0][1]:
-            for cy_, wy in ax[1][1]:
-                for cz_, wz in ax[2][1]:
-                    ix = torch.remainder(ax[0][0] + cx_, nx)
-                    iy = torch.remainder(ax[1][0] + cy_, ny)
-                    iz = torch.remainder(ax[2][0] + cz_, nz)
-                    idx.append(torch.where(live, (ix * ny + iy) * nz + iz,
-                                           spread))
-                    val.append(w * wx * wy * wz)
-        idx, val = torch.cat(idx), torch.cat(val)
-        rho = torch.zeros(nx * ny * nz, dtype=torch.float32,
-                          device=w.device).index_add(0, idx, val)
-        rho_k = torch.fft.fftn(rho.reshape(nx, ny, nz))
-        return rho_k.real * rho_k.real + rho_k.imag * rho_k.imag
+        rho = assign((f3[0], f3[1], f3[2]), w, self.mesh_shape,
+                     self.assign_order, spread=spread)
+        return power(rho, self.mesh_shape)
 
     def value(self, state: PackedState, system: System) -> torch.Tensor:
         u, _ = self._kernels(state.box)

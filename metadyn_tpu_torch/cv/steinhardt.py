@@ -6,18 +6,22 @@ Spherical harmonics are evaluated singularity-free in Cartesian form:
 Y_lm = N_lm · p_lm(cosθ) · (sinθ e^{iφ})^m, where p_lm = P_l^m / sin^mθ is
 a polynomial in cosθ and (sinθ e^{iφ})^m = ((x+iy)/r)^m.
 
-Only the helpers the packed order CVs need are ported: the p_lm and N_lm
-tables (numpy, the same numbers the CUDA kernels upload) and
-:func:`ql_from_sums`.  The particle-order ``SteinhardtQl`` waits for the
-particle-order engines.
+The p_lm and N_lm tables are numpy (the same numbers the CUDA kernels of
+the packed order CVs upload).  ``SteinhardtQl`` is the particle-order CV:
+a global Q_l over every bond within r_cut, swept over all pairs in row
+blocks; its bias force comes from autograd through
+:func:`ylm_bond_sums`.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
 import torch
+
+from ..core.box import minimum_image
 
 
 @lru_cache(maxsize=None)
@@ -63,3 +67,65 @@ def ql_from_sums(re: torch.Tensor, im: torch.Tensor, n_bonds: torch.Tensor,
     q2 = (re[0] ** 2 + im[0] ** 2) + 2.0 * torch.sum(re[1:] ** 2 + im[1:] ** 2)
     nb = torch.clamp(n_bonds, min=1.0)
     return torch.sqrt(4.0 * math.pi / (2 * l + 1) * q2) / nb
+
+
+def ylm_bond_sums(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor,
+                  weight: torch.Tensor, l: int):
+    """Σ_bonds w·Y_lm for m = 0..l as (re, im), each (l + 1,).  ``dx``,
+    ``dy``, ``dz`` and ``weight`` are (B,)."""
+    r2 = dx * dx + dy * dy + dz * dz
+    # the guard comes before the sqrt: d√0 is inf, and a zero weight does
+    # not keep an inf out of the gradient
+    r = torch.sqrt(torch.where(r2 > 1e-12, r2, 1.0))
+    c = dz / r                                       # cosθ
+    ux, uy = dx / r, dy / r
+    coeffs = _plm_over_sinm_coeffs(l)
+    norms = _norms(l)
+    re, im = [], []
+    pr, pi = torch.ones_like(c), torch.zeros_like(c)  # ((x + iy)/r)^0
+    for m in range(l + 1):
+        pl = torch.zeros_like(c)
+        for a in coeffs[m][::-1]:
+            pl = pl * c + float(a)
+        re.append(torch.sum(weight * float(norms[m]) * pl * pr))
+        im.append(torch.sum(weight * float(norms[m]) * pl * pi))
+        pr, pi = pr * ux - pi * uy, pr * uy + pi * ux
+    return torch.stack(re), torch.stack(im)
+
+
+@dataclass(frozen=True)
+class SteinhardtQl:
+    """Global Q_l over all pair bonds within ``r_cut`` (both directions of
+    a bond counted, as a full neighbour list counts them), in blocks of
+    ``row_block`` rows."""
+
+    r_cut: float = 1.5
+    l: int = 6
+    row_block: int = 512
+    name: str = "q6"
+
+    @property
+    def log_name(self) -> str:
+        return f"cv_{self.name}"
+
+    def value(self, state, system) -> torch.Tensor:
+        pos = state.pos
+        n = pos.shape[0]
+        rb = min(self.row_block, n)
+        n_blocks = -(-n // rb)
+        pos_p = torch.cat([pos, pos.new_zeros((n_blocks * rb - n, 3))])
+        cols = torch.arange(n, device=pos.device)
+        re_t = im_t = nb = 0.0
+        for b in range(n_blocks):
+            rid = torch.arange(b * rb, (b + 1) * rb, device=pos.device)
+            dr = minimum_image(pos_p[b * rb:(b + 1) * rb, None, :]
+                               - pos[None, :, :], state.box)
+            r2 = torch.sum(dr * dr, dim=-1)
+            ok = ((r2 < self.r_cut ** 2) & (rid[:, None] != cols[None, :])
+                  & (rid[:, None] < n))
+            w = ok.to(torch.float32).reshape(-1)
+            re, im = ylm_bond_sums(dr[..., 0].reshape(-1),
+                                   dr[..., 1].reshape(-1),
+                                   dr[..., 2].reshape(-1), w, self.l)
+            re_t, im_t, nb = re_t + re, im_t + im, nb + torch.sum(w)
+        return ql_from_sums(re_t, im_t, nb, self.l)

@@ -13,7 +13,9 @@ path's ``held_g*``), ``PackedSpec`` (every field: scale tables, bonds,
 ``pair_kind``), ``GridSpec``, ``BiasState`` (V, dV, n_hills), the flux
 histograms ``FluxState`` (hist, flux_up, flux_down, prev_bin), the lamellar
 CV's lattice vectors and phases, the packed order CVs' parameters (Q_l and
-coordination) and the packed mesh CV's.
+coordination) and the packed mesh CV's; and the particle-order path:
+``State``, ``PairParams``, ``CellSpec``, and the CVs ``LamellarOP``,
+``MeshOrderParameter`` and ``SteinhardtQl``.
 """
 from __future__ import annotations
 
@@ -26,9 +28,15 @@ from .bias.flux import FluxState
 from .bias.grid import BiasGrid, GridSpec
 from .bias.metad import BiasState
 from .core.box import Box
+from .core.state import State
+from .cv.lamellar import LamellarOP
+from .cv.mesh import MeshOrderParameter
 from .cv.packed import PackedLamellar, PackedMesh
 from .cv.packed_order import PackedCoordination, PackedSteinhardtQl
+from .cv.steinhardt import SteinhardtQl
+from .ops.cell_list import CellSpec
 from .ops.packed import PackedSpec, PackedState
+from .ops.pairs import PairParams
 
 _STATE_TENSORS = ("r", "v", "f", "image", "ref_r", "pid", "typ", "slot_of",
                   "potential_energy", "virial")
@@ -166,3 +174,57 @@ def mesh_arrays(cv: PackedMesh) -> dict:
             "k0": cv.k0, "width": cv.width, "mesh_shape": cv.mesh_shape,
             "n_real": cv.n_real, "name": cv.name,
             "assign_order": cv.assign_order}
+
+
+_PARTICLE_TENSORS = ("pos", "vel", "force", "image", "potential_energy",
+                     "virial", "xi")
+
+
+def state_from(obj, device) -> State:
+    """The particle-order ``State`` (``image`` int32)."""
+    fields = {k: _t(getattr(obj, k), device) for k in _PARTICLE_TENSORS}
+    fields["image"] = fields["image"].to(torch.int32)
+    return State(**fields, box=box_from(obj.box, device))
+
+
+def state_arrays(state: State) -> dict:
+    """Fields of ``state`` as numpy; ``box`` is a dict (see box_arrays)."""
+    out = {k: _np(getattr(state, k)) for k in _PARTICLE_TENSORS}
+    out["box"] = box_arrays(state.box)
+    return out
+
+
+def pair_params_from(obj, device) -> PairParams:
+    r_on = getattr(obj, "r_on", None)
+    return PairParams(epsilon=_t(obj.epsilon, device),
+                      sigma=_t(obj.sigma, device),
+                      r_cut=_t(obj.r_cut, device),
+                      shift_const=_t(obj.shift_const, device),
+                      r_on=None if r_on is None else _t(r_on, device))
+
+
+def cell_spec_from(obj) -> CellSpec:
+    return CellSpec(cells_per_dim=tuple(int(c) for c in obj.cells_per_dim),
+                    cell_capacity=int(obj.cell_capacity),
+                    max_neighbors=int(obj.max_neighbors),
+                    r_cut=float(obj.r_cut), skin=float(obj.skin))
+
+
+def lamellar_op_from(obj, device) -> LamellarOP:
+    return LamellarOP(mode=_t(obj.mode, device),
+                      lattice_vectors=_t(obj.lattice_vectors, device),
+                      phases=_t(obj.phases, device), name=obj.name)
+
+
+def mesh_op_from(obj, device) -> MeshOrderParameter:
+    return MeshOrderParameter(
+        mode=_t(obj.mode, device),
+        u_k=None if obj.u_k is None else _t(obj.u_k, device),
+        k0=obj.k0, width=float(obj.width),
+        mesh_shape=tuple(int(x) for x in obj.mesh_shape), name=obj.name,
+        assign_order=int(obj.assign_order))
+
+
+def steinhardt_ql_from(obj) -> SteinhardtQl:
+    return SteinhardtQl(r_cut=float(obj.r_cut), l=int(obj.l),
+                        row_block=int(obj.row_block), name=obj.name)

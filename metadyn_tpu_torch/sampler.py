@@ -20,7 +20,13 @@ the bias force from the previous sub-chunk's CV terms and fresh terms
 The reference's ``lax.scan`` loops are Python loops here; the device state
 stays on the device, and the per-stride metrics of ``chunks_per_block``
 strides go to the host in one transfer.  Random numbers come from one
-``torch.Generator`` on the engine's device, seeded from ``seed``.
+``torch.Generator`` on the engine's device (for a plain force callable,
+the state's), seeded from ``seed``.
+
+The engine is the packed engine, a particle-order engine
+(``core/engine.py``) or a plain apply-style ``force_apply(state) ->
+state`` on the particle-order ``State`` (:class:`_CallableEngine` adapts
+it: a ``ForceField.bind``, as the double-well oracle uses).
 
 The hill log (``hill_file``) is written from those host metrics: a
 stride's hill record (step, centre, height) is its ``step``, ``cv`` and
@@ -29,8 +35,9 @@ stride's hill record (step, centre, height) is its ``step``, ``cv`` and
 generator's state included (``io/checkpoint.py``): a resumed run repeats
 the straight one bit for bit.
 
-Ported: grid mode with analytic-force CVs, the autograd path and the fused
-order-CV path, with and without ``mts_lag``.  Hill-list mode, the table
+Ported: grid mode with analytic-force CVs, the autograd path (the packed
+mesh CV and every particle-order CV) and the fused order-CV path, with
+and without ``mts_lag``.  Hill-list mode, the table
 order-CV path and energy CVs (well-tempered ensemble) raise
 NotImplementedError.
 """
@@ -47,7 +54,8 @@ from .bias.metad import (
     free_energy,
 )
 from .bias.grid import GridSpec
-from .core.state import System
+from .core.engine import EngineAux
+from .core.state import System, temperature
 from .cv.packed_order import make_fused_order_force
 from .io.checkpoint import load_checkpoint, save_checkpoint
 from .io.hill_log import HillLog
@@ -65,6 +73,46 @@ class SamplerCarry:
     # lagged-MTS context: the CV value terms of the last fused call
     # (see make_lagged_parts); None outside mts_lag runs
     ctx: object = None
+
+
+class _CallableEngine:
+    """A plain apply-style ``force_apply(state) -> state`` on the
+    particle-order ``State`` as a rebuild-free engine."""
+
+    rebuild_every: int = 10 ** 9
+
+    def __init__(self, fn: Callable, system: System):
+        self.fn = fn
+        self.system = system
+
+    def init(self, state):
+        return self.fn(state), EngineAux.create(state.pos.device)
+
+    def rebuild(self, state, aux):
+        return state, aux
+
+    def force_into(self, state, aux, extra_force=None):
+        state = self.fn(state)
+        if extra_force is not None:
+            state = state.replace(force=state.force + extra_force)
+        return state
+
+    def positions(self, state):
+        return state.pos
+
+    def with_positions(self, state, r):
+        return state.replace(pos=r)
+
+    def refresh_energy(self, state, aux):
+        return state
+
+    def metrics(self, state, aux):
+        return {
+            "temperature": temperature(state, self.system),
+            "potential_energy": state.potential_energy,
+            "nlist_overflow": aux.overflow,
+            "nlist_stale": aux.stale,
+        }
 
 
 def cv_stack(cvs, state, system: System) -> torch.Tensor:
@@ -356,8 +404,11 @@ def _metrics_to_host(metrics: list) -> list:
 class MetadSampler:
     """User-facing entry point mirroring ``mode_metadynamics`` (grid mode).
 
-    ``engine`` is a :class:`~metadyn_tpu_torch.core.packed_engine.
-    PackedEngine`; the sampler works on its device."""
+    ``engine`` is an engine-protocol object (the packed engine, or the
+    particle-order ``AllPairsEngine`` and ``NeighborEngine``) or a plain
+    apply-style ``force_apply(state) -> state`` on the particle-order
+    state; the sampler works on the engine's device (a callable's: the
+    state's)."""
 
     def __init__(
         self,
@@ -395,6 +446,8 @@ class MetadSampler:
                 "not ported yet; pass a GridSpec")
         if len(cvs) != grid_spec.ndim:
             raise ValueError("one grid dimension per CV")
+        if not hasattr(engine, "force_into"):
+            engine = _CallableEngine(engine, system)
         self.engine = engine
         self.system = system
         self.cvs = list(cvs)
@@ -423,7 +476,8 @@ class MetadSampler:
             g0, ctx0 = lag_parts[0](state, bias)
             state = with_held_g(state, g0)
 
-        generator = torch.Generator(device=engine.device)
+        generator = torch.Generator(
+            device=getattr(engine, "device", engine.positions(state).device))
         generator.manual_seed(seed)
         self.carry = SamplerCarry(state=state, bias=bias, aux=aux,
                                   generator=generator, step=0, ctx=ctx0)

@@ -18,8 +18,10 @@
 - ``rdf`` on a port-written DCD against the reference's command on the
   same file (rtol 1e-6; ``sum-hills`` and ``fes`` are held on a run's
   files in tests/test_torch_cli_runs.py).
-- A refusal per unported kind, each naming its ROADMAP item, the four
-  example YAMLs the port refuses among them; and no silent CPU fallback.
+- A refusal per unported kind, each naming its ROADMAP item, the three
+  example YAMLs the port refuses and a Config 1 variant with an MSD CV
+  among them; the NVT kinds on the packed engine raise the reference's
+  ValueError; and no silent CPU fallback.
 """
 import contextlib
 import json
@@ -209,18 +211,25 @@ def test_prerelax_force_at_step0_matches_reference(seed):
                                float(ref.potential_energy), rtol=1e-5)
 
 
+# name -> (overrides, the item the refusal names).  Config 1 runs on the
+# port since the particle-order engines (ROADMAP queue 1, item 7); its
+# case now holds a Config 1 variant that stays refused, with an MSD CV.
 REFUSED_YAMLS = {
-    "config1_lj_lamellar": "item 7",
-    "config4_walkers": "item 5",
-    "config4_walkers_sk_dd": "item 5",
-    "config6_wte": "item 2",
+    "config1_lj_lamellar": (dict(cvs=[{
+        "name": "m", "kind": "msd",
+        "grid": {"min": 0, "max": 1, "num_points": 5, "sigma": 0.1}}]),
+        "item 3"),
+    "config4_walkers": ({}, "item 5"),
+    "config4_walkers_sk_dd": ({}, "item 5"),
+    "config6_wte": ({}, "item 2"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED_YAMLS))
 def test_refused_example_yaml_names_its_item(tmp_path, name):
-    p = write_cfg(shrunk(name, tmp_path), tmp_path / "cfg.json")
-    with pytest.raises(NotImplementedError, match=REFUSED_YAMLS[name]):
+    over, item = REFUSED_YAMLS[name]
+    p = write_cfg(shrunk(name, tmp_path, **over), tmp_path / "cfg.json")
+    with pytest.raises(NotImplementedError, match=item):
         cli.main(["run", p, "--device", "cpu"])
 
 
@@ -238,8 +247,12 @@ REFUSED_KEYS = {
     "npt_scr": (dict(integrator={"kind": "npt_scr", "pressure": 1.0}),
                 "item 3"),
     "box_bias": (dict(integrator={"box_bias": True}), "item 3"),
-    "nvt_nh": (dict(integrator={"kind": "nvt_nh"}), "item 7"),
-    "nvt_bdp": (dict(integrator={"kind": "nvt_bdp"}), "item 7"),
+    # the NVT integrators run on the particle-order engines since item 7;
+    # on this packed YAML they raise the reference CLI's own ValueError
+    "nvt_nh": (dict(integrator={"kind": "nvt_nh"}),
+               "packed engine supports langevin/nve/npt_scr"),
+    "nvt_bdp": (dict(integrator={"kind": "nvt_bdp"}),
+                "packed engine supports langevin/nve/npt_scr"),
     "hill_list": (dict(cvs=[{"name": "q6", "kind": "steinhardt",
                              "r_cut": 1.49, "sigma": 0.02}]), "item 4"),
     "gsd": (dict(output={"trajectory": "t.gsd"}), "item 8"),
@@ -251,7 +264,9 @@ def test_unported_keys_raise_naming_their_item(case):
     over, item = REFUSED_KEYS[case]
     cfg = shrunk("triclinic_packed", system={"init": {"n_cells": 6}},
                  **over)
-    with pytest.raises(NotImplementedError, match=item):
+    error = (NotImplementedError if item.startswith("item ")
+             else ValueError)
+    with pytest.raises(error, match=item):
         cli.build_sampler(cfg, device="cpu")
 
 
