@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
 Five workloads, all at full size, then the example YAMLs through the
-port's CLI (phase 22):
+port's CLI (phase 22), the particle-order path (phases 23-25) and Config 3
+on the x-slab decomposition (phases 26-27):
 
 - the headline one (bench.py): the 62,500-particle LJ liquid
   (bench_data/liq64k.npz) on the packed cell engine (r_cut 2.5, skin 0.55,
@@ -151,6 +152,23 @@ Phases, one line or more each:
      steps, ms per step, 200 hills and a finite bias.  The oracle proper
      (the FES within 0.1 kT) is that script, and the slow tests of
      tests/test_torch_fes_oracle.py.
+ 26. the slab path's kernel variants against their plain versions on
+     Config 3 (fcc + noise 0.05, cap 32) cut into 2 and 1 x-slabs, on each
+     shard's extended grid (9 x 14 x 14 and 16 x 14 x 14 cells): kernel 2
+     with the interior cell_mask, kernel 4 in the monomial mode unmasked
+     and masked, kernel 1's masked energy and virial; the shards' masked
+     value sums against the unsharded kernel; kernel 4's monomial mode
+     against its recurrence mode on the whole 62,500 grid; times per call
+     and bounds;
+ 27. Config 3 on parallel/spatial.SpatialPackedEngine with 2 shards on
+     the one card: 20 lagged steps at gamma = 0 against PackedEngine
+     (positions to 1e-3, CVs rtol 1e-4, PE rtol 1e-5; the slab path's
+     variants launched); the sharded repack against repack_incremental
+     bit for bit (1 and 2 shards); Config 3 lagged timed with 1 and 2
+     shards as phase 10 times it (exact launches per stride, one profiled
+     stride); the CLI with engine.spatial_devices = 2, which must raise
+     the reference's too-few-devices error on one card and runs where two
+     are visible.
 
 After each timed run one more stride runs under torch.profiler, and a line
 reports the GPU's busy share of it and the top kernels.  The launch counts
@@ -158,8 +176,12 @@ of each path are set to 0 just before its timed strides and read just
 after: the pair kernel's from phases 5 and 15, the values and fused
 kernels' from phase 10, the force kernel's from phase 11 (the lagged path
 never runs it inside a stride), the soft layout's from the 1M push-off
-(phase 21; it runs no launch inside a stride); the v1 kernel has no
-production caller and no main-path launches.  Phase 24's cross-check
+(phase 21; it runs no launch inside a stride), the slab path's variants
+from phase 27 (the masked fused kernel and the masked energy per timed
+stride, the masked values kernel in the run with the sampler's
+construction, where the lag's exact seed runs it); the v1 kernel and the
+unmasked monomial mode have no production caller and no main-path
+launches.  Phase 24's cross-check
 launches the pair kernel twice (the packed engine's init and its energy
 refresh); phases 23 and 25 launch none (the particle-order path is plain
 PyTorch, as the reference runs it as XLA).
@@ -232,11 +254,14 @@ PEAK_BYTES = 3.35e12  # B/s
 # (difference, r^2, the power chain, coefficient, 3 accumulations) and
 # with energy and virial; a FENE + WCA bond; a Q_6 bond (the Y_6m
 # recurrence over m = 0..6; its bias force twice that); a coordination
-# pair (the switching function; its force).  Estimates to within ~50%:
+# pair (the switching function; its force); a Q_6 bond in the monomial
+# mode (u and the monomials of degrees 2, 3 and 6, 28 sums: 77; the
+# degree-5 monomials, three 21-term dot products and the projection: 164).  Estimates to within ~50%:
 # the bound they give is a floor, not a prediction.
 FLOP_PER_PAIR = {"lj": 24, "lj_energy": 37, "soft": 20, "soft_energy": 34,
                  "bond": 45, "q6_value": 150, "q6_force": 300,
-                 "coord_value": 20, "coord_force": 30}
+                 "coord_value": 20, "coord_force": 30,
+                 "q6_mono_value": 77, "q6_mono_force": 164}
 
 
 def cuda_ms(fn, calls: int = 25, warm: int = 3) -> float:
@@ -266,9 +291,11 @@ def bound(nbytes: float, flops: float) -> tuple:
                                        else "operations")
 
 
-def pairs_within(state, spec, rc: float) -> int:
+def pairs_within(state, spec, rc: float, cell_mask=None) -> int:
     """Unordered pairs of real slots closer than ``rc``, by a roll sweep
-    over the 27 neighbour cells: the pair work these inputs need."""
+    over the 27 neighbour cells: the pair work these inputs need.  With
+    ``cell_mask`` (C,), only the ordered pairs whose i cell is masked in
+    count, halved: the work of a function weighted by the mask."""
     import torch
     from metadyn_tpu_torch.ops.packed import OFFSETS, _tables, shift_rows_cart
     cap, C = spec.cap, spec.n_cells
@@ -278,6 +305,8 @@ def pairs_within(state, spec, rc: float) -> int:
     shifts = shift_rows_cart(_tables(spec, state.r.device).ushift, state.box)
     xi = state.r.reshape(3, 1, cap, C)
     real_i = real.reshape(1, cap, C)
+    if cell_mask is not None:
+        real_i = real_i & (cell_mask > 0).reshape(1, 1, C)
     count = 0
     for oi, o in enumerate(OFFSETS):
         back = (-o[0], -o[1], -o[2])
@@ -300,6 +329,37 @@ def pair_kernel_bytes(spec, with_energy: bool, v1: bool = False) -> int:
     if spec.has_bonds:
         per_slot += 4 + 4 * spec.bond_slots             # pid, bp*
     return spec.n_pad * per_slot + (16 if with_energy else 0)
+
+
+def lanes_of(terms):
+    """Per-CV terms → one flat lane tensor."""
+    import torch
+    return torch.cat([t.reshape(-1) for cv_t in terms for t in cv_t])
+
+
+def lanes_close(name: str, cvs, terms, ref, rtol: float) -> float:
+    """max|Δlane| ≤ rtol·max|lane| within each CV's lanes; returns the
+    largest max|Δlane|."""
+    import numpy as np
+    worst = 0.0
+    for cv, t, r in zip(cvs, terms, ref):
+        d = float((lanes_of([t]) - lanes_of([r])).abs().max())
+        scale = float(lanes_of([r]).abs().max())
+        assert np.isfinite(d) and d <= rtol * scale, (name, cv.name, d, scale)
+        worst = max(worst, d)
+    return worst
+
+
+def force_close(name: str, a, b, rtol: float, atol_frac: float) -> tuple:
+    """|a − b| ≤ rtol·|b| + atol_frac·max|b|; returns (max|a − b|,
+    max|b|)."""
+    import numpy as np
+    d = (a - b).abs()
+    bmax = float(b.abs().max())
+    worst = float((d - rtol * b.abs()).max())
+    assert np.isfinite(bmax) and worst <= atol_frac * bmax, (name, worst,
+                                                              bmax)
+    return float(d.max()), bmax
 
 
 def pair_close(tag: str, a, b, with_energy: bool) -> tuple:
@@ -423,7 +483,8 @@ def config3_cvs(spec, a):
 def config3_sampler(engine_cls, dev, cap: int, mts_lag: bool,
                     gamma: float = 1.0, stride: int = CFG3_STRIDE):
     """The Config 3 sampler through the port's entry points, or None if the
-    initial pack overflows ``cap``."""
+    initial pack overflows ``cap``.  ``engine_cls(spec, dev,
+    rebuild_every=10)`` builds the engine."""
     import numpy as np
     from metadyn_tpu_torch import (
         Box, GridSpec, HillSpec, MetadSampler, WallSpec, WELL_TEMPERED,
@@ -463,6 +524,8 @@ def plain_force_engine():
 
 
 def counters() -> dict:
+    """name -> (wrapper, counter attribute): each wrapper's launches, and
+    those of the slab path's variants (counted apart as well)."""
     from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
     from metadyn_tpu_torch.ops.packed_fused_cuda import (
         fused_lj_order_force_cuda,
@@ -471,18 +534,25 @@ def counters() -> dict:
         order_force_cuda, order_values_cuda,
     )
     from metadyn_tpu_torch.ops.packed_v1_cuda import packed_lj_force_v1_cuda
-    return {"pair": packed_lj_force_cuda, "values": order_values_cuda,
-            "force": order_force_cuda, "fused": fused_lj_order_force_cuda,
-            "v1": packed_lj_force_v1_cuda}
+    return {"pair": (packed_lj_force_cuda, "launches"),
+            "values": (order_values_cuda, "launches"),
+            "force": (order_force_cuda, "launches"),
+            "fused": (fused_lj_order_force_cuda, "launches"),
+            "v1": (packed_lj_force_v1_cuda, "launches"),
+            "pair masked": (packed_lj_force_cuda, "masked_launches"),
+            "values masked": (order_values_cuda, "masked_launches"),
+            "fused mono": (fused_lj_order_force_cuda, "mono_launches"),
+            "fused mono masked": (fused_lj_order_force_cuda,
+                                  "masked_launches")}
 
 
 def reset_counts() -> None:
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {k: fn.launches for k, fn in counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
 
 
 @contextlib.contextmanager
@@ -633,41 +703,22 @@ def order_kernels_vs_plain(dev) -> dict:
     dV = torch.tensor([0.9, -1.3], device=dev)
     out = {}
 
-    def lanes(terms):
-        return torch.cat([t.reshape(-1) for cv_t in terms for t in cv_t])
-
-    def lanes_close(name, terms, ref, rtol):
-        """max|Δlane| ≤ rtol·max|lane| within each CV's lanes."""
-        for cv, t, r in zip(cvs, terms, ref):
-            d = float((lanes([t]) - lanes([r])).abs().max())
-            scale = float(lanes([r]).abs().max())
-            assert np.isfinite(d) and d <= rtol * scale, (name, cv.name, d,
-                                                          scale)
-
     # kernel 2: value terms and s
     tk = order_values_cuda(st, spec, cvs)
     tp = order_values_plain(st, spec, cvs)
     sk = torch.stack([cv.finalize_value(t) for cv, t in zip(cvs, tk)])
     sp = torch.stack([cv.finalize_value(t) for cv, t in zip(cvs, tp)])
     torch.cuda.synchronize()
-    err = float((lanes(tk) - lanes(tp)).abs().max())
+    err = float((lanes_of(tk) - lanes_of(tp)).abs().max())
     ds = float(((sk - sp).abs() / sp.abs()).max())
     assert np.isfinite(err) and ds <= 2e-5, (ds, sk, sp)
-    lanes_close("values", tk, tp, 2e-5)
+    lanes_close("values", cvs, tk, tp, 2e-5)
     values_vs_stencil("config3 order_values", tk, st, spec, cvs)
     out["values"] = (err, cuda_ms(lambda: order_values_cuda(st, spec, cvs)),
                      cuda_ms(lambda: order_values_plain(st, spec, cvs)))
     print(f"order_values kernel_vs_plain: s={sk.tolist()} rel_ds={ds:.3e} "
           f"max|dlane|={err:.3e} kernel_ms={out['values'][1]:.4f} "
           f"plain_ms={out['values'][2]:.4f}")
-
-    def force_close(name, a_, b_, rtol, atol_frac):
-        d = (a_ - b_).abs()
-        bmax = float(b_.abs().max())
-        worst = float((d - rtol * b_.abs()).max())
-        assert np.isfinite(bmax) and worst <= atol_frac * bmax, (name, worst,
-                                                                  bmax)
-        return float(d.max()), bmax
 
     # kernel 3: bias force
     auxs = [cv.grad_aux(t, dV[i]) for i, (cv, t) in enumerate(zip(cvs, tp))]
@@ -695,10 +746,10 @@ def order_kernels_vs_plain(dev) -> dict:
     s4p = torch.stack([cv.finalize_value(t) for cv, t in zip(cvs, tp4)])
     ds4 = float(((s4k - s4p).abs() / s4p.abs()).max())
     assert ds4 <= 2e-4, (ds4, s4k, s4p)
-    lanes_close("fused values", tk4, tp4, 2e-4)
+    lanes_close("fused values", cvs, tk4, tp4, 2e-4)
     values_vs_stencil("config3 fused_lj_order", tk4, st, spec, cvs, 2e-4)
     force_vs_stencil("config3 fused_lj_order", gk4, st, spec, cvs, auxs)
-    el = float((lanes(tk4) - lanes(tp4)).abs().max())
+    el = float((lanes_of(tk4) - lanes_of(tp4)).abs().max())
     out["fused"] = (
         max(ef, eg, el),
         cuda_ms(lambda: fused_lj_order_force_cuda(st, spec, cvs, auxs)),
@@ -761,17 +812,22 @@ def config3_kernel_vs_plain(dev) -> None:
 
 
 def config3_timed(dev, mts_lag: bool, warm: tuple, n_runs: int, n_timed: int,
-                  per_stride: dict, smi: str) -> dict:
-    """Phases 10 and 11: Config 3 timed, with the physics checks and exact
-    launch counts per stride.  Returns the launch counts of the last run."""
+                  per_stride: dict, smi: str, engine_cls=None,
+                  tag: str = None, out: dict = None) -> dict:
+    """Phases 10, 11 and 27: Config 3 timed, with the physics checks and
+    exact launch counts per stride.  Returns the launch counts of the last
+    run; ``out`` gets the rate, the profile and the launches of the timed
+    sampler's construction (its seed evaluation)."""
     from metadyn_tpu_torch import PackedEngine
     from metadyn_tpu_torch.utils.profiling import device_profile
     import numpy as np
     import torch
 
-    tag = f"config3 mts_lag={mts_lag}"
+    tag = tag or f"config3 mts_lag={mts_lag}"
     for cap in (32, 36):
-        s = config3_sampler(PackedEngine, dev, cap, mts_lag)
+        reset_counts()
+        s = config3_sampler(engine_cls or PackedEngine, dev, cap, mts_lag)
+        built = read_counts()
         if s is None:
             print(f"{tag}: cap {cap} overflows at pack")
             continue
@@ -824,6 +880,9 @@ def config3_timed(dev, mts_lag: bool, warm: tuple, n_runs: int, n_timed: int,
     prof["busy_share_untraced"] = prof["busy_ms"] / untraced_ms
     prof["tracing_overhead_ms"] = prof["wall_ms"] - untraced_ms
     print(f"profile {tag} one stride: {json.dumps(prof)} on {smi}")
+    if out is not None:
+        out.update(rates=[n * CFG3_STRIDE * n_timed / r[0] for r in runs],
+                   profile=prof, build=built)
     return runs[-1][1]
 
 
@@ -2302,6 +2361,389 @@ def double_well_card(dev, smi: str) -> None:
           f"on {smi}")
 
 
+# phases 26-27 (the slab decomposition, parallel/spatial.py): Config 3 cut
+# into SPATIAL_SHARDS x-slabs of the 14 x-planes on the one card
+SPATIAL_SHARDS = 2
+
+
+def spatial_ext_states(st, spec, n_dev: int, dev) -> tuple:
+    """Config 3's state cut into ``n_dev`` slabs on ``dev`` (the islands'
+    halo extension, parallel/spatial.Slabs.halo_states): per shard an
+    extended PackedState with the columns both the kernels and their plain
+    versions read (r, pid, se, hs).  Returns (slabs, states)."""
+    from metadyn_tpu_torch.parallel.spatial import Slabs
+    slabs = Slabs(spec, [dev] * n_dev)
+    return slabs, slabs.halo_states(st, pid=True, attrs=("se", "hs"))
+
+
+def spatial_engine(n_dev: int):
+    """An engine_cls for config3_sampler: SpatialPackedEngine with n_dev
+    shards on the one card."""
+    from metadyn_tpu_torch.parallel.spatial import SpatialPackedEngine
+
+    def make(spec, dev, rebuild_every):
+        return SpatialPackedEngine(spec, [dev] * n_dev,
+                                   rebuild_every=rebuild_every)
+    return make
+
+
+def spatial_kernels_vs_plain(dev) -> dict:
+    """Phase 26: the kernel variants of the slab path against their plain
+    versions at its shapes: Config 3 (fcc + noise 0.05, cap 32) cut into 1
+    and SPATIAL_SHARDS slabs, on each shard's extended grid: kernel 2 with
+    the interior mask, kernel 4 in the monomial mode unmasked and masked,
+    kernel 1's masked energy and virial; then kernel 4's monomial mode
+    against its recurrence mode on the whole 62,500 grid.  Gates of §2:
+    values lanes rtol 2e-5, fused lanes 2e-4, bias forces rtol 2e-3 + 2e-4
+    max, LJ forces 1e-3 max, pair forces 1e-4 max + 1e-3, PE and virial
+    rtol 1e-5.  Returns per variant and grid (max abs error, kernel ms,
+    plain ms, bound ms, bound by)."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import Box, PackedEngine
+    from metadyn_tpu_torch.cv.packed_order import order_values_plain
+    from metadyn_tpu_torch.ops.packed import packed_lj_force
+    from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
+    from metadyn_tpu_torch.ops.packed_fused_cuda import (
+        fused_lj_order_force_cuda, fused_lj_order_force_plain,
+    )
+    from metadyn_tpu_torch.ops.packed_order_cuda import order_values_cuda
+
+    pos, vel, L, a, spec = config3_inputs(32, noise=0.05)
+    n = pos.shape[0]
+    engine = PackedEngine(spec, dev, rebuild_every=10)
+    st, overflow = engine.pack_state(
+        pos, Box.cubic(L, dev), np.zeros(n, np.int32), np.ones(n, np.float32),
+        np.ones(n, np.float32), vel=vel)
+    assert not overflow, "cell capacity overflow at pack (phase 26)"
+    cvs = config3_cvs(spec, a)
+    dV = torch.tensor([0.9, -1.3], device=dev)
+    auxs = [cv.grad_aux(t, dV[i]) for i, (cv, t)
+            in enumerate(zip(cvs, order_values_plain(st, spec, cvs)))]
+    fp = FLOP_PER_PAIR
+    out = {}
+
+    def fused_flops(sx, se, mask, mono):
+        q6v, q6f = (("q6_mono_value", "q6_mono_force") if mono
+                    else ("q6_value", "q6_force"))
+        q6, co, lj = (pairs_within(se, sx, rc)
+                      for rc in (cvs[0].r_cut, cvs[1].r_cut, sx.r_cut))
+        q6m, com = (pairs_within(se, sx, rc, mask) if mask is not None
+                    else p for rc, p in ((cvs[0].r_cut, q6),
+                                         (cvs[1].r_cut, co)))
+        return (lj * fp["lj"] + q6 * fp[q6f] + co * fp["coord_force"]
+                + q6m * fp[q6v] + com * fp["coord_value"])
+
+    for n_dev in (SPATIAL_SHARDS, 1):
+        slabs, exts = spatial_ext_states(st, spec, n_dev, dev)
+        sx = slabs.spec_ext
+        tag = f"shards={n_dev} ext {sx.cells_per_dim}"
+        summed = None
+        for k, se in enumerate(exts):
+            m = slabs.interior[k]
+            first = k == 0
+            # kernel 2 with the interior mask
+            tk = order_values_cuda(se, sx, cvs, cell_mask=m)
+            tp = order_values_plain(se, sx, cvs, cell_mask=m)
+            torch.cuda.synchronize()
+            err = lanes_close(f"{tag} values masked", cvs, tk, tp, 2e-5)
+            summed = tk if summed is None else tuple(
+                tuple(x + y for x, y in zip(u, v)) for u, v in zip(summed, tk))
+            if first:
+                q6m, com = (pairs_within(se, sx, cv.r_cut, m) for cv in cvs)
+                out[("values masked", n_dev)] = (
+                    err, cuda_ms(lambda: order_values_cuda(se, sx, cvs,
+                                                           cell_mask=m)),
+                    cuda_ms(lambda: order_values_plain(se, sx, cvs,
+                                                       cell_mask=m),
+                            calls=10),
+                    *bound(12 * sx.n_pad + 4 * sx.n_cells,
+                           q6m * fp["q6_value"] + com * fp["coord_value"]))
+            # kernel 4 in the monomial mode, unmasked and masked
+            for key, mask in (("fused mono", None), ("fused mono masked", m)):
+                fk, gk, tk4 = fused_lj_order_force_cuda(
+                    se, sx, cvs, auxs, mono=True, cell_mask=mask)
+                fpl, gpl, tp4 = fused_lj_order_force_plain(
+                    se, sx, cvs, auxs, mono=True, cell_mask=mask)
+                torch.cuda.synchronize()
+                ef, fmax = force_close(f"{tag} {key} f_lj", fk, fpl, 0.0, 1e-3)
+                eg, gmax = force_close(f"{tag} {key} g", gk, gpl, 2e-3, 2e-4)
+                el = lanes_close(f"{tag} {key} lanes", cvs, tk4, tp4, 2e-4)
+                if first:
+                    out[(key, n_dev)] = (
+                        max(ef, eg, el),
+                        cuda_ms(lambda: fused_lj_order_force_cuda(
+                            se, sx, cvs, auxs, mono=True, cell_mask=mask)),
+                        cuda_ms(lambda: fused_lj_order_force_plain(
+                            se, sx, cvs, auxs, mono=True, cell_mask=mask),
+                            calls=10),
+                        *bound(36 * sx.n_pad + 4 * sx.n_cells * (
+                            mask is not None),
+                            fused_flops(sx, se, mask, True)))
+                print(f"phase 26 {tag} shard {k} {key} kernel_vs_plain: "
+                      f"max|df_lj|={ef:.3e} (max|f_lj|={fmax:.3e}) "
+                      f"max|dg|={eg:.3e} (max|g|={gmax:.3e}) "
+                      f"max|dlane|={el:.3e}")
+            # kernel 1's energy and virial under the interior mask
+            ak = packed_lj_force_cuda(se, sx, with_energy=True, cell_mask=m)
+            bp = packed_lj_force(se, sx, with_energy=True, cell_mask=m)
+            torch.cuda.synchronize()
+            e1, line = pair_close(f"{tag} pair masked energy", ak, bp, True)
+            if first:
+                lj = pairs_within(se, sx, sx.r_cut)
+                ljm = pairs_within(se, sx, sx.r_cut, m)
+                out[("pair masked energy", n_dev)] = (
+                    e1, cuda_ms(lambda: packed_lj_force_cuda(
+                        se, sx, with_energy=True, cell_mask=m)),
+                    cuda_ms(lambda: packed_lj_force(
+                        se, sx, with_energy=True, cell_mask=m), calls=10),
+                    *bound(pair_kernel_bytes(sx, True) + 4 * sx.n_cells,
+                           lj * fp["lj"]
+                           + ljm * (fp["lj_energy"] - fp["lj"])))
+            print(f"phase 26 {tag} shard {k} values masked max|dlane|="
+                  f"{err:.3e}; pair masked energy {line}")
+        # the shards' masked sums against the unmasked kernel on the grid
+        whole = order_values_cuda(st, spec, cvs)
+        torch.cuda.synchronize()
+        es = lanes_close(f"{tag} summed masked values", cvs, summed, whole,
+                         2e-5)
+        print(f"phase 26 {tag}: the shards' masked value sums vs the "
+              f"unsharded kernel max|dlane|={es:.3e}")
+
+    # kernel 4's monomial mode against its recurrence mode, whole grid
+    fm, gm, tm = fused_lj_order_force_cuda(st, spec, cvs, auxs, mono=True)
+    fr, gr, tr = fused_lj_order_force_cuda(st, spec, cvs, auxs)
+    sm = torch.stack([cv.finalize_value(t) for cv, t in zip(cvs, tm)])
+    sr = torch.stack([cv.finalize_value(t) for cv, t in zip(cvs, tr)])
+    torch.cuda.synchronize()
+    ds = float(((sm - sr).abs() / sr.abs()).max())
+    el = lanes_close("mono vs recurrence lanes", cvs, tm, tr, 2e-5)
+    assert ds <= 2e-5, (ds, sm, sr)
+    ef, _ = force_close("mono vs recurrence f_lj", fm, fr, 0.0, 1e-3)
+    eg, gmax = force_close("mono vs recurrence g", gm, gr, 2e-3, 2e-4)
+    mono_ms = cuda_ms(lambda: fused_lj_order_force_cuda(st, spec, cvs, auxs,
+                                                        mono=True))
+    rec_ms = cuda_ms(lambda: fused_lj_order_force_cuda(st, spec, cvs, auxs))
+    fpl, gpl, tpl = fused_lj_order_force_plain(st, spec, cvs, auxs,
+                                               mono=True)
+    torch.cuda.synchronize()
+    force_close("mono vs plain mono g, whole grid", gm, gpl, 2e-3, 2e-4)
+    lanes_close("mono vs plain mono lanes, whole grid", cvs, tm, tpl, 2e-4)
+    out[("fused mono", "whole")] = (
+        max(ef, eg, el), mono_ms,
+        cuda_ms(lambda: fused_lj_order_force_plain(st, spec, cvs, auxs,
+                                                   mono=True), calls=10),
+        *bound(36 * spec.n_pad, fused_flops(spec, st, None, True)))
+    print(f"phase 26 fused mono vs recurrence N={n} whole grid: "
+          f"rel_ds={ds:.3e} s_mono={sm.tolist()} s_rec={sr.tolist()} "
+          f"max|dlane|={el:.3e} max|df_lj|={ef:.3e} max|dg|={eg:.3e} "
+          f"(max|g|={gmax:.3e}) mono_ms={mono_ms:.4f} "
+          f"recurrence_ms={rec_ms:.4f}")
+    for (key, grid), v in out.items():
+        print(f"phase 26 {key} [{grid}]: max_abs_err={v[0]:.3e} "
+              f"kernel_ms={v[1]:.4f} plain_ms={v[2]:.4f} "
+              f"bound_ms={v[3]:.5f} ({v[4]})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def spatial_slice(dev, smi: str, unsharded_rates: list) -> dict:
+    """Phase 27: Config 3 on SpatialPackedEngine.  (1) 20 lagged steps at
+    gamma = 0 with SPATIAL_SHARDS shards against PackedEngine, both on the
+    kernels, from one state: positions to 1e-3, CV values rtol 1e-4, PE
+    rtol 1e-5; (2) the sharded repack against repack_incremental on a
+    displaced state, bit for bit; (3) Config 3 lagged timed with 1 and
+    SPATIAL_SHARDS shards as phase 10 times it, with exact launches per
+    stride; (4) the CLI with engine.spatial_devices = 2: the reference's
+    too-few-devices error where one card is visible, a short run where
+    two are.  Returns {shards: (launches per timed run, rates, profile,
+    launches of the timed sampler's construction)} and under "slice" the
+    launches of (1)'s sharded run, construction included."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import PackedEngine
+    from metadyn_tpu_torch.ops.packed import (
+        repack_incremental, unpack_positions,
+    )
+    from metadyn_tpu_torch.parallel.spatial import make_sharded_repack
+
+    t27 = time.perf_counter()
+    finals = []
+    for cls in (PackedEngine, spatial_engine(SPATIAL_SHARDS)):
+        reset_counts()
+        s = config3_sampler(cls, dev, 32, mts_lag=True, gamma=0.0, stride=20)
+        assert s is not None, "cell capacity overflow at pack (phase 27)"
+        m = s.run(20)[-1]
+        counts = read_counts()
+        assert all(counts[k] > 0 for k in ("pair", "values", "fused")), counts
+        if cls is not PackedEngine:
+            # the slab path's variants: the seed's masked values, the
+            # masked energy of each refresh, the masked mono fused kernel
+            assert all(counts[k] > 0 for k in (
+                "values masked", "pair masked", "fused mono masked")), counts
+        finals.append((unpack_positions(s.state, s.engine.spec).cpu().numpy(),
+                       np.asarray(m["cv"]), float(m["potential_energy"]),
+                       counts))
+    L = float(s.state.box.L_host[0])
+    dpos = finals[0][0] - finals[1][0]
+    dpos -= L * np.round(dpos / L)
+    dpos = float(np.abs(dpos).max())
+    dcv = float(np.max(np.abs(finals[0][1] - finals[1][1])
+                       / np.abs(finals[0][1])))
+    dpe = abs(finals[0][2] - finals[1][2]) / abs(finals[0][2])
+    assert dpos <= 1e-3 and dcv <= 1e-4 and dpe <= 1e-5, (dpos, dcv, dpe)
+    print(f"phase 27 spatial shards={SPATIAL_SHARDS} vs PackedEngine "
+          f"mts_lag gamma=0 20 steps: max|dpos|={dpos:.3e} rel_dcv={dcv:.3e} "
+          f"rel_dPE={dpe:.3e} cv={finals[1][1].tolist()} "
+          f"launches={finals[1][3]} (unsharded {finals[0][3]})")
+
+    # the sharded repack, bit for bit, on the run's state displaced
+    spec = s.engine.spec
+    st = s.state
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    disp = 0.15 * torch.randn(st.r.shape, generator=gen, device=dev)
+    st = st.replace(r=torch.where((st.pid < spec.n_real)[None], st.r + disp,
+                                  st.r))
+    ref, bad_ref = repack_incremental(st, spec)
+    for n_dev in (1, SPATIAL_SHARDS):
+        out, bad = make_sharded_repack(spec, [dev] * n_dev)(st)
+        assert not bool(bad_ref) and not bool(bad), (bad_ref, bad)
+        for k in ("r", "v", "f", "image", "pid", "typ", "slot_of"):
+            assert torch.equal(getattr(out, k), getattr(ref, k)), k
+        for k in ref.attrs:
+            assert torch.equal(out.attrs[k], ref.attrs[k]), k
+        moved = int((ref.pid != st.pid).sum())
+        print(f"phase 27 sharded repack shards={n_dev}: bit for bit against "
+              f"repack_incremental ({moved} of {spec.n_pad} slots changed; "
+              f"attrs {sorted(ref.attrs)})")
+
+    # Config 3 lagged, timed as phase 10 times it
+    res = {"slice": finals[1][3]}
+    for n_dev in (1, SPATIAL_SHARDS):
+        got = {}
+        counts = config3_timed(
+            dev, True, warm=(2, 2), n_runs=2, n_timed=4,
+            per_stride={"pair": 91 * n_dev, "pair masked": n_dev,
+                        "fused": 10 * n_dev,
+                        "fused mono masked": 10 * n_dev, "values": 2},
+            smi=smi, engine_cls=spatial_engine(n_dev),
+            tag=f"config3 mts_lag=True spatial shards={n_dev}", out=got)
+        # the masked values kernel runs in the seed evaluation only
+        assert got["build"]["values masked"] > 0, got["build"]
+        res[n_dev] = (counts, got["rates"], got["profile"], got["build"])
+    print(f"phase 27 config3 lagged particle-steps/s: unsharded (phase 10) "
+          f"{unsharded_rates}; "
+          + "; ".join(f"shards={k} {res[k][1]}" for k in (1, SPATIAL_SHARDS))
+          + f" on {smi}; launches of the timed samplers' construction: "
+          + "; ".join(f"shards={k} {res[k][3]}" for k in (1, SPATIAL_SHARDS)))
+
+    # the CLI with engine.spatial_devices = 2
+    import tempfile
+    import metadyn_tpu_torch.cli as cli
+    out_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_sp_"))
+    cfg = cli_yaml("config3_nucleation_2dcv", out_dir)
+    cfg["engine"]["spatial_devices"] = 2
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        try:
+            cli.CliRun(cfg, device="cuda")
+        except ValueError as e:
+            msg = str(e)
+        else:
+            raise AssertionError("spatial_devices=2 on one card did not "
+                                 "raise")
+        want = f"engine.spatial_devices=2 but only {n_cards} devices are " \
+               f"visible"
+        assert msg == want, msg
+        print(f"phase 27 cli spatial_devices=2 on {n_cards} card: {msg!r}")
+    else:
+        # 13 x-planes at the YAML's skin 0.4 and cap 48 do not split in two:
+        # bench_config3's spec (skin 0.3, cap 32: 14^3 cells)
+        cfg["engine"].update(skin=0.3, cap=32)
+        cfg["run"]["n_steps"] = 200
+        t0 = time.perf_counter()
+        run = cli.CliRun(cfg, device="cuda")
+        run.run()
+        bad = cli_checks("config3_nucleation_2dcv", cfg, run)
+        assert not bad, bad
+        print(f"phase 27 cli spatial_devices=2 on {n_cards} cards: 200 steps "
+              f"in {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"spatial phase 27: {time.perf_counter() - t27:.1f} s")
+    return res
+
+
+def spatial_entries(sp_kern: dict, sp: dict, entry, keys) -> list:
+    """The kernels line's entries of the slab path's variants (phases 26
+    and 27): each timed on shard 0's extended grid of the 2-shard path,
+    with the 1-shard grid (and, for the monomial mode, the whole unsharded
+    grid) as variants; launches from phase 27's runs: ``launches`` is the
+    timed 2-shard run's (4 strides), or, for the masked values kernel,
+    which runs only in the sampler's seed evaluation, that sampler's
+    construction."""
+    n2 = SPATIAL_SHARDS
+    per_stride = {n: sp[n][0] for n in (1, n2)}
+    built = {n: sp[n][3] for n in (1, n2)}
+
+    def grids(key):
+        out = {f"shards={g} extended grid" if g != "whole" else
+               "unsharded grid (62,500)": dict(zip(keys, v))
+               for (k, g), v in sp_kern.items() if k == key}
+        return out
+
+    def by_path(count_key):
+        out = {}
+        for n in (1, n2):
+            out[f"config3 mts_lag spatial shards={n} (4 timed strides)"] = \
+                per_stride[n][count_key]
+            out[f"config3 mts_lag spatial shards={n} (construction of the "
+                "timed sampler)"] = built[n][count_key]
+        out[f"config3 mts_lag spatial shards={n2}, 20 steps at gamma 0 "
+            "(construction included)"] = sp["slice"][count_key]
+        return out
+
+    staged = "the staged block-per-cell kernel (csrc/cell_stage.cuh)"
+    return [
+        entry("packed_order_values cell_mask", "packed_order",
+              "metadyn_tpu/ops/packed_order_pallas.py:257 (cell_mask: "
+              ":258,263,274-294)", built[n2]["values masked"],
+              sp_kern[("values masked", n2)],
+              design=staged + "; each cell's partials row times its weight",
+              launches_by_path=by_path("values masked"),
+              variants=grids("values masked")),
+        entry("packed_fused_lj_order mono", "packed_fused_lj_order",
+              "metadyn_tpu/ops/packed_fused_pallas.py:296 (mono: :50-66,"
+              "104-122,171-215,261-292)", per_stride[n2]["fused mono"],
+              sp_kern[("fused mono", n2)],
+              design=staged + "; Q_6 in the monomial basis, monomials "
+              "built by degree halving in registers (the slab path runs "
+              "it masked only)",
+              launches_by_path=by_path("fused mono"),
+              variants=grids("fused mono")),
+        entry("packed_fused_lj_order mono cell_mask",
+              "packed_fused_lj_order",
+              "metadyn_tpu/ops/packed_fused_pallas.py:296 (mono + "
+              "cell_mask: :306-310,332-337)",
+              per_stride[n2]["fused mono masked"],
+              sp_kern[("fused mono masked", n2)],
+              design=staged + "; the monomial mode, each cell's partials "
+              "row times its weight",
+              launches_by_path=by_path("fused mono masked"),
+              variants=grids("fused mono masked")),
+        entry("packed_lj_force cell_mask energy", "packed_lj_force",
+              "XLA packed_lj_force(cell_mask=) in the reference's spatial "
+              "island, metadyn_tpu/parallel/spatial.py:276 (its Pallas "
+              "kernel, packed_pallas2.py:301, is forces only there)",
+              per_stride[n2]["pair masked"],
+              sp_kern[("pair masked energy", n2)],
+              design=staged + "; each block's energy and virial sums "
+              "times its cell's weight",
+              launches_by_path=by_path("pair masked"),
+              variants=grids("pair masked energy")),
+    ]
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -2467,9 +2909,11 @@ def main() -> int:
     config3_kernel_vs_plain(dev)
 
     # 10./11. Config 3 timed, lagged and exact
+    lag_out = {}
     lag_counts = config3_timed(
         dev, True, warm=(2, 2), n_runs=2, n_timed=4,
-        per_stride={"pair": 91, "fused": 10, "values": 2}, smi=smi[0])
+        per_stride={"pair": 91, "fused": 10, "values": 2}, smi=smi[0],
+        out=lag_out)
     exact_counts = config3_timed(
         dev, False, warm=(2, 2), n_runs=1, n_timed=2,
         per_stride={"pair": 101, "values": 12, "force": 10}, smi=smi[0])
@@ -2528,6 +2972,15 @@ def main() -> int:
     cross_launches = engines_cross_check(dev, smi[0])
     double_well_card(dev, smi[0])
     print(f"particle-order phases 23-25: {time.perf_counter() - t23:.1f} s")
+
+    # 26.-27. the slab decomposition: its kernel variants against their
+    # plain versions on the extended grids, the slice against PackedEngine,
+    # the sharded repack bit for bit, Config 3 timed with 1 and 2 shards,
+    # the CLI's spatial_devices
+    t26 = time.perf_counter()
+    sp_kern = spatial_kernels_vs_plain(dev)
+    sp = spatial_slice(dev, smi[0], lag_out["rates"])
+    print(f"spatial phases 26-27: {time.perf_counter() - t26:.1f} s")
     print(f"chip_smoke wall: {time.perf_counter() - t_main:.1f} s")
 
     def cli_launches(kernel: str) -> dict:
@@ -2628,7 +3081,9 @@ def main() -> int:
               launches_by_path={"config3 mts_lag": lag_counts["fused"],
                                 **cli_launches("fused")},
               variants=tric_variants("fused", "sentinel")),
-        entry(v1_lib, v1_lib, "metadyn_tpu/ops/packed_pallas.py:185", 0,
+        *spatial_entries(sp_kern, sp, entry, keys),
+        entry(v1_lib, v1_lib, "metadyn_tpu/ops/packed_pallas.py:185",
+              lag_counts["v1"],
               cfg2["v1 se_hs_fene_wca"],
               variants={**{k: dict(zip(keys, v)) for k, v in cfg2.items()
                            if k.startswith("v1")},

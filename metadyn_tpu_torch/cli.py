@@ -6,7 +6,10 @@
     python -m metadyn_tpu_torch.cli rdf traj.dcd ...
 
 ``run`` reads the reference's YAML schema (``io/config.py``, no PyYAML) and
-drives one replica on the packed engine or, with ``engine.kind:
+drives one replica on the packed engine (with an integer
+``engine.spatial_devices`` > 1 on ``parallel/spatial.SpatialPackedEngine``,
+the x-slab decomposition: its shards on the first N cards under CUDA, N
+virtual shards of the CPU under ``--device cpu``) or, with ``engine.kind:
 all_pairs``, on the particle-order all-pairs engine: inits ``fcc``, ``sc``
 and ``melt`` (with the push-off of ``init.prerelax_steps``, ``core/
 pushoff.prerelax_melt``), tilted boxes, diblock types and per-type-pair
@@ -26,10 +29,11 @@ exits with an error when no CUDA device is found: it never falls back to
 the CPU.
 
 What the port lacks raises NotImplementedError at build time, naming its
-item of ROADMAP.md's queue 1: walkers (item 5), ``spatial_devices`` (item
-9), ``nbr_table`` (item 6), the ``wte`` CV (item 2), the ``msd`` and
-``aspect_ratio`` CVs and NPT (item 3), hill-list mode (item 4) and GSD
-trajectories (item 8).
+item of ROADMAP.md's queue 1: walkers (item 5), the 2-D decomposition (a
+list ``spatial_devices``) and the distributed mesh CV under
+``spatial_devices`` (item 9), ``nbr_table`` (item 6), the ``wte`` CV (item
+2), the ``msd`` and ``aspect_ratio`` CVs and NPT (item 3), hill-list mode
+(item 4) and GSD trajectories (item 8).
 """
 from __future__ import annotations
 
@@ -41,8 +45,10 @@ import numpy as np
 
 UNPORTED = {
     "walkers": ("multiple walkers (metadynamics.n_walkers > 1)", 5),
-    "spatial_devices": ("the spatial decomposition "
-                        "(engine.spatial_devices)", 9),
+    "spatial_2d": ("the 2-D spatial decomposition (engine.spatial_devices "
+                   "as a list: parallel/spatial2d.py)", 9),
+    "spatial_mesh": ("the distributed mesh CV under engine.spatial_devices "
+                     "(parallel/mesh.py)", 9),
     "nbr_table": ("the neighbour-table path (engine.nbr_table)", 6),
     "wte": ("the energy CV (cvs kind: wte)", 2),
     "msd": ("the MSD CV (cvs kind: msd)", 3),
@@ -67,8 +73,10 @@ def check_ported(cfg: dict) -> None:
     if int(cfg["metadynamics"].get("n_walkers", 1)) > 1:
         raise refuse("walkers")
     sp = eng.get("spatial_devices", 1) or 1
-    if isinstance(sp, (list, tuple)) or int(sp) > 1:
-        raise refuse("spatial_devices")
+    if isinstance(sp, (list, tuple)):
+        raise refuse("spatial_2d")
+    if int(sp) > 1 and any(c["kind"] == "mesh" for c in cfg.get("cvs", [])):
+        raise refuse("spatial_mesh")
     if eng.get("nbr_table") is not None:
         raise refuse("nbr_table")
     for c in cfg.get("cvs", []):
@@ -243,6 +251,21 @@ def _check_start_in_grid(cvs, cvs_cfg, grid, state, system) -> None:
                 f"CV (or its normalization).")
 
 
+def _spatial_devices(n: int, device) -> list:
+    """The shards' devices: the first ``n`` cards under CUDA (raising the
+    reference's error when fewer are visible), ``n`` virtual shards of the
+    CPU otherwise."""
+    import torch
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return [dev] * n
+    have = torch.cuda.device_count()
+    if have < n:
+        raise ValueError(f"engine.spatial_devices={n} but only {have} "
+                         "devices are visible")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
     """The sampler a config describes, on ``device``.  Returns
     (sampler, cfg)."""
@@ -328,9 +351,25 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
             uniform_eps=eng_cfg.get("uniform_eps"),
             pair_kind="soft" if pair["kind"] == "soft" else "lj",
             eps_scale=eps_scale, sigma_scale=sigma_scale, tilt=tilt)
-        engine = PackedEngine(
-            spec, device, rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
-            with_energy=bool(eng_cfg.get("with_energy", False)))
+        sp_dev = int(eng_cfg.get("spatial_devices", 1) or 1)
+        if sp_dev > 1:
+            from .parallel.spatial import SpatialPackedEngine
+            # the schema's pair_pallas: false is the reference's XLA pair
+            # island, which computes the energy and virial on every force
+            # call: with_energy here
+            pair_k, order_k = (eng_cfg.get("pair_pallas"),
+                               eng_cfg.get("order_pallas"))
+            engine = SpatialPackedEngine(
+                spec, _spatial_devices(sp_dev, device),
+                rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
+                with_energy=(bool(eng_cfg.get("with_energy", False))
+                             or (pair_k is not None and not pair_k)),
+                order_pallas=order_k is None or bool(order_k))
+        else:
+            engine = PackedEngine(
+                spec, device,
+                rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
+                with_energy=bool(eng_cfg.get("with_energy", False)))
         cvs, extra_attrs = _build_packed_cvs(cvs_cfg, spec, n, types,
                                              system.n_types, device)
         if fene is not None:

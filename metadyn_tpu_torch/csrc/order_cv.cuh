@@ -3,10 +3,13 @@
 // format and the block-per-cell kernel that kernels 2, 3 and 4 share.
 //
 // Replaces, in metadyn_tpu/ops:
-//   packed_order_pallas.py  order_values_pallas  (Vals; packed_order.cu)
+//   packed_order_pallas.py  order_values_pallas  (Vals, cell_mask optional;
+//                                                 packed_order.cu)
 //   packed_order_pallas.py  order_force_pallas   (Grad; packed_order.cu)
-//   packed_fused_pallas.py  fused_lj_order_force (LJ + Vals + Grad,
-//                                                 recurrence mode;
+//   packed_fused_pallas.py  fused_lj_order_force (LJ + Vals + Grad, the
+//                                                 recurrence and the
+//                                                 monomial mode, cell_mask
+//                                                 optional;
 //                                                 packed_fused_lj_order.cu)
 //
 // Layout as in packed_lj_force.cu: positions (3, Npad) f32, slot = rank * C +
@@ -83,6 +86,24 @@
 // every block writes in full, and a one-block second pass in double, one
 // warp per term (reduce_terms_kernel).  Every sum runs in an order fixed
 // for a given input: two calls give the same bits.
+//
+// Cell mask (the spatial decomposition's per-i-cell weight: 1 on a shard's
+// interior cells, 0 on its ghost planes; metadyn_tpu/parallel/spatial.py):
+// each block's partials row is multiplied by its cell's weight, so every
+// ordered pair counts with the weight of its i cell, and the forces stay
+// unmasked.  The TPU kernels halve the pairs and weight a cross-cell pair
+// by its i cell with weight 2; summed over the shards both give the global
+// value sums, each ordered pair on exactly one shard.
+//
+// Monomial mode (Mono; metadyn_tpu/cv/ylm_mono.py, the fused kernel's
+// mono=True): Q_l with l = 6 in the homogeneous-monomial basis of the unit
+// bond vector u.  Its value lanes hold sum mono_6(u) (28) and the bond
+// count; its bias force per pair is g_a = b_a . mono_5(u) for a = x, y, z
+// (three aux vectors of 21, from the CV's mono_force_vecs), projected off
+// u and divided by r.  The monomials are built by degree halving in the
+// reference's order (build_mono, cv/ylm_mono.py _split_plan), so every
+// monomial is the same f32 product as the plain version's.  Coordination
+// keeps its math.  l = 6 alone: its 63 + 1 aux lanes fill kMaxAux.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -110,6 +131,13 @@ constexpr int kLanesAny = 0;      // offsets from the descriptor
 constexpr int kLanesQ6 = 1;       // [Q6]: lanes 0..14
 constexpr int kLanesQ6Coord = 2;  // [Q6, coordination]: 0..14, 15
 constexpr int kQ6Terms = 15;      // Re (7), Im (7), bond count
+constexpr int kQ6MonoTerms = 29;  // mono_6 sums (28), bond count
+
+// Q6's value lanes in the recurrence (15) or the monomial mode (29).
+template <bool Mono>
+__host__ __device__ constexpr int q6_terms() {
+  return Mono ? kQ6MonoTerms : kQ6Terms;
+}
 
 constexpr int kStageThreads = 256;
 constexpr int kStageWarps = kStageThreads / 32;
@@ -204,6 +232,78 @@ __device__ __forceinline__ void ql_pair(const float* h, const float* tab,
   }
 }
 
+// The number of homogeneous monomials of degree d, and the position of
+// ux^i uy^j uz^(d-i-j) in cv/ylm_mono.py's mono_powers(d) order (i from d
+// down to 0, then j from d - i down to 0).
+__host__ __device__ constexpr int n_mono(int d) {
+  return (d + 1) * (d + 2) / 2;
+}
+__host__ __device__ constexpr int mono_index(int d, int i, int j) {
+  return (d - i) * (d - i + 1) / 2 + (d - i - j);
+}
+
+// The degree-D monomials from those of degree hi = D - D/2 (mh) and lo =
+// D/2 (ml): each the product of the greedy split of its exponents, as
+// cv/ylm_mono.py _split_plan plans it.  Both loops unroll, so every index
+// is a constant and the arrays stay in registers.
+template <int D>
+__device__ __forceinline__ void build_mono(const float* mh, const float* ml,
+                                           float* out) {
+  constexpr int hi = D - D / 2;
+  constexpr int lo = D / 2;
+#pragma unroll
+  for (int i = D; i >= 0; --i) {
+#pragma unroll
+    for (int j = D - i; j >= 0; --j) {
+      const int i2 = i < hi ? i : hi;
+      const int j2 = j < hi - i2 ? j : hi - i2;
+      out[mono_index(D, i, j)] =
+          mh[mono_index(hi, i2, j2)] * ml[mono_index(lo, i - i2, j - j2)];
+    }
+  }
+}
+
+// Q_6 of one ordered pair in the monomial mode (cv/packed_order.
+// PackedSteinhardtQl pair_mono_sums and pair_mono_grad_terms): value lanes
+// sum mono_6(u) and the bond count; gradient (g - u (u . g)) / r with g_a =
+// b_a . mono_5(u), the b_a at aux lanes h[3] + 21 a.  VO as ql_pair.
+template <bool Vals, bool Grad, int VO = -1>
+__device__ __forceinline__ void ql_mono_pair(const float* h, const float* aux,
+                                             float dx, float dy, float dz,
+                                             float r2, float* vacc, float& gx,
+                                             float& gy, float& gz) {
+  if (!(r2 < h[5])) return;
+  const float inv_r = rsqrtf(r2);
+  const float m1[3] = {dx * inv_r, dy * inv_r, dz * inv_r};
+  float m2[n_mono(2)], m3[n_mono(3)];
+  build_mono<2>(m1, m1, m2);
+  build_mono<3>(m2, m1, m3);
+  if (Vals) {
+    const int vo = VO >= 0 ? VO : static_cast<int>(h[2]);
+    float m6[n_mono(6)];
+    build_mono<6>(m3, m3, m6);
+#pragma unroll
+    for (int t = 0; t < n_mono(6); ++t) vacc[vo + t] += m6[t];
+    vacc[vo + n_mono(6)] += 1.0f;
+  }
+  if (Grad) {
+    float m5[n_mono(5)];
+    build_mono<5>(m3, m2, m5);
+    const float* b = aux + static_cast<int>(h[3]);
+    float gux = 0.0f, guy = 0.0f, guz = 0.0f;
+#pragma unroll
+    for (int t = 0; t < n_mono(5); ++t) {
+      gux += b[t] * m5[t];
+      guy += b[n_mono(5) + t] * m5[t];
+      guz += b[2 * n_mono(5) + t] * m5[t];
+    }
+    const float dot = m1[0] * gux + m1[1] * guy + m1[2] * guz;
+    gx += (gux - m1[0] * dot) * inv_r;
+    gy += (guy - m1[1] * dot) * inv_r;
+    gz += (guz - m1[2] * dot) * inv_r;
+  }
+}
+
 // Coordination of one ordered pair (cv/packed_order.PackedCoordination):
 // s = 1 / (1 + (r/r0)^6), stretched below the cut-off.  VO as ql_pair.
 template <bool Vals, bool Grad, int VO = -1>
@@ -228,26 +328,37 @@ __device__ __forceinline__ void coord_pair(const float* h, const float* aux,
 }
 
 // Every CV of the descriptor on one pair.  Kinds: kSet*; L: 6 or 0 (ql_pair);
-// Lanes: kLanes* (with a fixed layout, Kinds and L are implied).
-template <bool Vals, bool Grad, int Kinds, int L, int Lanes>
+// Lanes: kLanes* (with a fixed layout, Kinds and L are implied); Mono: Q_l
+// in the monomial mode (L = 6).
+template <bool Vals, bool Grad, int Kinds, int L, int Lanes, bool Mono>
 __device__ __forceinline__ void cv_pair(const float* desc, int n_cvs,
                                         const float* aux, float dx, float dy,
                                         float dz, float r2, float* vacc,
                                         float& gx, float& gy, float& gz) {
+  static_assert(!Mono || L == 6, "the monomial mode is Q_6's");
   if constexpr (Lanes != kLanesAny) {
-    ql_pair<Vals, Grad, 6, 0>(desc, desc + static_cast<int>(desc[4]), aux,
-                              dx, dy, dz, r2, vacc, gx, gy, gz);
+    if constexpr (Mono) {
+      ql_mono_pair<Vals, Grad, 0>(desc, aux, dx, dy, dz, r2, vacc, gx, gy,
+                                  gz);
+    } else {
+      ql_pair<Vals, Grad, 6, 0>(desc, desc + static_cast<int>(desc[4]), aux,
+                                dx, dy, dz, r2, vacc, gx, gy, gz);
+    }
     if constexpr (Lanes == kLanesQ6Coord) {
-      coord_pair<Vals, Grad, kQ6Terms>(desc + kHdr, aux, dx, dy, dz, r2,
-                                       vacc, gx, gy, gz);
+      coord_pair<Vals, Grad, q6_terms<Mono>()>(desc + kHdr, aux, dx, dy, dz,
+                                               r2, vacc, gx, gy, gz);
     }
   } else {
     for (int c = 0; c < n_cvs; ++c) {
       const float* h = desc + c * kHdr;
       if (Kinds == kSetQl ||
           (Kinds == kSetMixed && static_cast<int>(h[0]) == kQl)) {
-        ql_pair<Vals, Grad, L>(h, desc + static_cast<int>(h[4]), aux, dx, dy,
-                               dz, r2, vacc, gx, gy, gz);
+        if constexpr (Mono) {
+          ql_mono_pair<Vals, Grad>(h, aux, dx, dy, dz, r2, vacc, gx, gy, gz);
+        } else {
+          ql_pair<Vals, Grad, L>(h, desc + static_cast<int>(h[4]), aux, dx,
+                                 dy, dz, r2, vacc, gx, gy, gz);
+        }
       } else {
         coord_pair<Vals, Grad>(h, aux, dx, dy, dz, r2, vacc, gx, gy, gz);
       }
@@ -256,10 +367,10 @@ __device__ __forceinline__ void cv_pair(const float* desc, int n_cvs,
 }
 
 // Value lanes a thread sums: the fixed layouts' count, else the limit.
-template <int Lanes>
+template <int Lanes, bool Mono>
 __host__ __device__ constexpr int lane_count() {
-  return Lanes == kLanesQ6       ? kQ6Terms
-         : Lanes == kLanesQ6Coord ? kQ6Terms + 1
+  return Lanes == kLanesQ6       ? q6_terms<Mono>()
+         : Lanes == kLanesQ6Coord ? q6_terms<Mono>() + 1
                                   : kMaxTerms;
 }
 
@@ -286,18 +397,21 @@ inline size_t staged_smem(int cap) {
 
 // The block-per-cell kernel.  WithLJ adds the Lennard-Jones pair force
 // (sentinel layout, forces only, uniform sigma and epsilon) into f; Vals
-// sums value terms into partials (one row of n_terms per cell); Grad writes
-// the CV bias force into g.  Valid: the validity layout, vacancy from pid
-// (otherwise from the coordinate sentinel; pid is then not read and may be
-// null).  With Vals alone, a warp keeps one hit queue across its rows.
+// sums value terms into partials (one row of n_terms per cell, times the
+// cell's weight in cell_mask where it is not null); Grad writes the CV bias
+// force into g.  Valid: the validity layout, vacancy from pid (otherwise
+// from the coordinate sentinel; pid is then not read and may be null).
+// Mono: Q_l in the monomial mode.  With Vals alone, a warp keeps one hit
+// queue across its rows.
 template <bool WithLJ, bool Vals, bool Grad, bool Valid, int Kinds, int L,
-          int Lanes>
+          int Lanes, bool Mono>
 __global__ void __launch_bounds__(kStageThreads)
 order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
                     const float* __restrict__ desc, int desc_len, int n_cvs,
                     int n_terms, const float* __restrict__ aux, int n_aux,
                     StagedParams p, float* __restrict__ f,
-                    float* __restrict__ g, float* __restrict__ partials) {
+                    float* __restrict__ g, float* __restrict__ partials,
+                    const float* __restrict__ cell_mask) {
   extern __shared__ float4 s_pos[];  // (27 cap): x, y, z with the shift
   __shared__ float s_desc[kMaxDesc];
   __shared__ float s_aux[kMaxAux];
@@ -384,7 +498,7 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
   const int i0 = sc.off[cell_stage::kSelf];
   const int n_i = sc.off[cell_stage::kSelf + 1] - i0;
   int* queue = sc.queue + warp * cell_stage::kQueue;
-  constexpr int kTerms = Vals ? lane_count<Lanes>() : 1;
+  constexpr int kTerms = Vals ? lane_count<Lanes, Mono>() : 1;
   // compile-time in the fixed layouts, so their loops over t unroll
   const int nt = !Vals ? 0 : Lanes == kLanesAny ? n_terms : kTerms;
   float vacc[kTerms];
@@ -412,9 +526,9 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
         [&](int i, int q) {
           float dx, dy, dz;
           const float r2 = geom(s_pos[i], q, &dx, &dy, &dz);
-          cv_pair<true, false, Kinds, L, Lanes>(s_desc, n_cvs, s_aux, dx, dy,
-                                                dz, r2, vacc, unused, unused,
-                                                unused);
+          cv_pair<true, false, Kinds, L, Lanes, Mono>(
+              s_desc, n_cvs, s_aux, dx, dy, dz, r2, vacc, unused, unused,
+              unused);
         });
   } else {
     for (int ii = warp; ii < n_i; ii += kStageWarps) {
@@ -435,8 +549,8 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
               fy += coef * dy;
               fz += coef * dz;
             }
-            cv_pair<Vals, Grad, Kinds, L, Lanes>(s_desc, n_cvs, s_aux, dx, dy,
-                                                 dz, r2, vacc, gx, gy, gz);
+            cv_pair<Vals, Grad, Kinds, L, Lanes, Mono>(
+                s_desc, n_cvs, s_aux, dx, dy, dz, r2, vacc, gx, gy, gz);
           });
       const int s = sc.islot[ii];
       if (WithLJ) {
@@ -471,10 +585,11 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
       if (lane == 0) s_red[warp][t] = v;
     }
     __syncthreads();
+    const float m = cell_mask != nullptr ? cell_mask[cell] : 1.0f;
     for (int t = threadIdx.x; t < nt; t += kStageThreads) {
       float acc = 0.0f;
       for (int w = 0; w < kStageWarps; ++w) acc += s_red[w][t];
-      partials[cell * nt + t] = acc;
+      partials[cell * nt + t] = acc * m;
     }
   }
 }
@@ -512,23 +627,24 @@ struct StagedArgs {
   float* g;
   float* partials;  // (cells, n_terms) with Vals
   float* out;       // (n_terms,) with Vals
+  const float* cell_mask;  // (cells,) value weights with Vals, or null
 };
 
 // Launches one instantiation on a block per cell, and with Vals the second
 // pass.  Returns 0, a CUDA error of the shared-memory request, or
 // cell_stage::kSmemTooLarge when cap does not fit a block's shared memory.
 template <bool WithLJ, bool Vals, bool Grad, bool Valid, int Kinds, int L,
-          int Lanes>
+          int Lanes, bool Mono = false>
 int launch_staged(const StagedArgs& a, cudaStream_t st) {
   const size_t smem = staged_smem(a.p.g.cap);
   auto kernel =
-      order_staged_kernel<WithLJ, Vals, Grad, Valid, Kinds, L, Lanes>;
+      order_staged_kernel<WithLJ, Vals, Grad, Valid, Kinds, L, Lanes, Mono>;
   const int rc = cell_stage::request_smem(kernel, smem, kStaticSmem);
   if (rc != 0) return rc;
   const int n_cells = a.p.g.cx * a.p.g.cy * a.p.g.cz;
   kernel<<<n_cells, kStageThreads, smem, st>>>(
       a.r, a.pid, a.desc, a.desc_len, a.n_cvs, a.n_terms, a.aux, a.n_aux,
-      a.p, a.f, a.g, a.partials);
+      a.p, a.f, a.g, a.partials, a.cell_mask);
   if (Vals) {
     reduce_terms_kernel<<<1, kReduceThreads, 0, st>>>(a.partials, n_cells,
                                                       a.n_terms, a.out);
@@ -538,49 +654,59 @@ int launch_staged(const StagedArgs& a, cudaStream_t st) {
 
 // Picks the instantiation of a CV list: cv_set (kSet*), l_fixed (6 if every
 // Q_l has l = 6, else 0), lanes (kLanes*; with Vals only, else ignored).
+// Mono (the fused kernel's monomial mode) needs a Q_l and l_fixed = 6.
 // Returns launch_staged's code, or cudaErrorInvalidValue for a combination
 // without an instantiation.
-template <bool WithLJ, bool Vals, bool Grad, bool Valid>
+template <bool WithLJ, bool Vals, bool Grad, bool Valid, bool Mono = false>
 int launch_staged_set(int cv_set, int l_fixed, int lanes,
                       const StagedArgs& a, cudaStream_t st) {
   constexpr int bad = static_cast<int>(cudaErrorInvalidValue);
   if (l_fixed != 0 && l_fixed != 6) return bad;
+  if (Mono && (l_fixed != 6 || cv_set == kSetCoord)) return bad;
   if constexpr (Vals) {
     if (lanes == kLanesQ6) {
       if (cv_set != kSetQl || l_fixed != 6 || a.n_cvs != 1 ||
-          a.n_terms != kQ6Terms) {
+          a.n_terms != q6_terms<Mono>()) {
         return bad;
       }
-      return launch_staged<WithLJ, Vals, Grad, Valid, kSetQl, 6, kLanesQ6>(
-          a, st);
+      return launch_staged<WithLJ, Vals, Grad, Valid, kSetQl, 6, kLanesQ6,
+                           Mono>(a, st);
     }
     if (lanes == kLanesQ6Coord) {
       if (cv_set != kSetMixed || l_fixed != 6 || a.n_cvs != 2 ||
-          a.n_terms != kQ6Terms + 1) {
+          a.n_terms != q6_terms<Mono>() + 1) {
         return bad;
       }
       return launch_staged<WithLJ, Vals, Grad, Valid, kSetMixed, 6,
-                           kLanesQ6Coord>(a, st);
+                           kLanesQ6Coord, Mono>(a, st);
     }
     if (lanes != kLanesAny) return bad;
   }
-  switch (cv_set) {
-    case kSetQl:
-      return l_fixed
-                 ? launch_staged<WithLJ, Vals, Grad, Valid, kSetQl, 6,
-                                 kLanesAny>(a, st)
-                 : launch_staged<WithLJ, Vals, Grad, Valid, kSetQl, 0,
-                                 kLanesAny>(a, st);
-    case kSetCoord:
-      return launch_staged<WithLJ, Vals, Grad, Valid, kSetCoord, 0,
-                           kLanesAny>(a, st);
-    case kSetMixed:
-      return l_fixed
-                 ? launch_staged<WithLJ, Vals, Grad, Valid, kSetMixed, 6,
-                                 kLanesAny>(a, st)
-                 : launch_staged<WithLJ, Vals, Grad, Valid, kSetMixed, 0,
-                                 kLanesAny>(a, st);
-    default: return bad;
+  if constexpr (Mono) {
+    return cv_set == kSetQl
+               ? launch_staged<WithLJ, Vals, Grad, Valid, kSetQl, 6,
+                               kLanesAny, true>(a, st)
+               : launch_staged<WithLJ, Vals, Grad, Valid, kSetMixed, 6,
+                               kLanesAny, true>(a, st);
+  } else {
+    switch (cv_set) {
+      case kSetQl:
+        return l_fixed
+                   ? launch_staged<WithLJ, Vals, Grad, Valid, kSetQl, 6,
+                                   kLanesAny>(a, st)
+                   : launch_staged<WithLJ, Vals, Grad, Valid, kSetQl, 0,
+                                   kLanesAny>(a, st);
+      case kSetCoord:
+        return launch_staged<WithLJ, Vals, Grad, Valid, kSetCoord, 0,
+                             kLanesAny>(a, st);
+      case kSetMixed:
+        return l_fixed
+                   ? launch_staged<WithLJ, Vals, Grad, Valid, kSetMixed, 6,
+                                   kLanesAny>(a, st)
+                   : launch_staged<WithLJ, Vals, Grad, Valid, kSetMixed, 0,
+                                   kLanesAny>(a, st);
+      default: return bad;
+    }
   }
 }
 

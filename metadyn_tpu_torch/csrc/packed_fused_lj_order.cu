@@ -1,10 +1,13 @@
 // Fused LJ + order-CV sweep over the cell-major slot layout (sentinel
 // layout, orthorhombic or tilted box): the hand-written Hopper counterpart of
 // metadyn_tpu/ops/packed_fused_pallas.py fused_lj_order_force (kernel 4) in
-// its recurrence mode.  One traversal gives the LJ pair force, the order-CV
-// bias force from the lagged bias coefficients, and the fresh value sums:
-// the trailing force call of each multiple-time-stepping sub-chunk on the
-// lagged path (sampler.make_stride_chunk).
+// its recurrence mode and its monomial mode (mono, Q_6 in the monomial basis
+// of cv/ylm_mono.py; order_cv.cuh), with the cell mask of the value sums
+// (the spatial decomposition's).  One traversal gives the LJ pair force,
+// the order-CV bias force from the lagged bias coefficients, and the fresh
+// value sums: the trailing force call of each multiple-time-stepping
+// sub-chunk on the lagged path (sampler.make_stride_chunk), on one grid or
+// on each shard's halo-extended grid (parallel/spatial.py).
 //
 // It runs order_cv.cuh's block-per-cell kernel: one staging of the 27
 // neighbour cells' real rows, prefiltered to the larger of the LJ cut-off
@@ -35,7 +38,10 @@ extern "C" {
 // = 4 epsilon.  cv_set, l_fixed, lanes: the CV list's instantiation
 // (packed_order.cu packed_order_values); rc2_hit: max(r_cut^2, the largest
 // CV cut-off squared) (inf if a CV has none); pre_r: the prefilter radius
-// (inf: no prefilter); wx, wy, wz: the box's perpendicular widths.
+// (inf: no prefilter); wx, wy, wz: the box's perpendicular widths; mono:
+// nonzero for the monomial mode (aux and value lanes in its layout,
+// order_cv.cuh); cell_mask: (cx cy cz,) f32 weights of each cell's value
+// sums, or null.
 // Launches on `stream` and returns 0, a refused argument
 // (cudaErrorInvalidValue), -2 when cap does not fit a block's shared
 // memory, or a CUDA error.
@@ -47,16 +53,20 @@ int packed_fused_lj_order(const float* r, const float* desc, int desc_len,
                           float yzLz, float rc2, float sig2, float eps4,
                           int cv_set, int l_fixed, int lanes, float rc2_hit,
                           float pre_r, float wx, float wy, float wz,
-                          void* stream) {
+                          int mono, const float* cell_mask, void* stream) {
   const int bad = check_args(n_cvs, desc_len, n_terms, n_aux, n_pad);
   if (bad) return bad;
   const StagedArgs a{
       r, nullptr, desc, desc_len, n_cvs, n_terms, aux, n_aux,
       StagedParams{{n_pad, cap, cx, cy, cz, {Lx, Ly, Lz, xyLy, xzLz, yzLz}},
                    0, rc2_hit, rc2, sig2, eps4, pre_r, wx, wy, wz},
-      f, g, partials, out};
-  const int rc = launch_staged_set<true, true, true, false>(
-      cv_set, l_fixed, lanes, a, static_cast<cudaStream_t>(stream));
+      f, g, partials, out, cell_mask};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rc =
+      mono ? launch_staged_set<true, true, true, false, true>(cv_set, l_fixed,
+                                                              lanes, a, st)
+           : launch_staged_set<true, true, true, false>(cv_set, l_fixed,
+                                                        lanes, a, st);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

@@ -58,7 +58,13 @@
 // lane sums, a fixed-order block sum into one row of a (cells, 4) partials
 // buffer that every block writes in full, and a one-block second pass in
 // double (pair_terms.cuh).  With WithEnergy = false none of this is
-// compiled in.
+// compiled in.  An optional per-cell mask (the spatial decomposition's:
+// 1 on a shard's interior cells, 0 on its ghost planes) weights each
+// block's sums by its i cell, the forces unmasked: the i-cell-masked sums
+// of metadyn_tpu/ops/packed.py packed_lj_force(cell_mask=), which the
+// reference's spatial engine runs as XLA because its Pallas kernel halves
+// the pairs (metadyn_tpu/parallel/spatial.py:270-278).  Here every ordered
+// pair is summed on its i side, so the mask is exact.
 //
 // Every output element is written: slots the compaction dropped (vacant)
 // get f = 0.
@@ -117,7 +123,8 @@ lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
                 const float* __restrict__ hs, const int* __restrict__ typ,
                 const int* __restrict__ pid, BondSlots bp,
                 const float* __restrict__ table, float* __restrict__ f,
-                float* __restrict__ partials, Params p) {
+                float* __restrict__ partials,
+                const float* __restrict__ cell_mask, Params p) {
   extern __shared__ float4 s_pos[];  // (27 cap): x, y, z with the shift, se
   const int cap = p.g.cap;
   const int n_pad = p.g.n_pad;
@@ -259,7 +266,8 @@ lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
     }
   }
   if (WithEnergy) {
-    float acc[4] = {pe, wxx, wyy, wzz};  // PE, Wxx, Wyy, Wzz
+    const float m = cell_mask != nullptr ? cell_mask[cell] : 1.0f;
+    float acc[4] = {pe * m, wxx * m, wyy * m, wzz * m};  // PE, Wxx, Wyy, Wzz
     pair_terms::block_partials(acc, partials);
   }
 }
@@ -275,6 +283,7 @@ struct Args {
   float* f;
   float* partials;
   float* out;
+  const float* cell_mask;
   Params p;
 };
 
@@ -292,7 +301,7 @@ int launch_one(const Args& a, cudaStream_t st) {
   if (rc != 0) return rc;
   kernel<<<n_blocks, kThreads, smem, st>>>(a.r, a.se, a.hs, a.typ, a.pid,
                                            a.bp, a.table, a.f, a.partials,
-                                           a.p);
+                                           a.cell_mask, a.p);
   if (WithEnergy) {
     pair_terms::reduce_partials_kernel<<<1, pair_terms::kReduceThreads, 0,
                                          st>>>(a.partials, n_blocks, a.out);
@@ -345,7 +354,9 @@ int packed_lj_force_blocks(int cx, int cy, int cz) { return cx * cy * cz; }
 // bond_slots bond-partner attrs; table: (2, n_types, n_types) f32 = (k_eps,
 // k_sig) or null.  With with_energy != 0, partials: (cx cy cz, 4) f32
 // scratch and out: (4,) f32 = (PE, Wxx, Wyy, Wzz); otherwise both may be
-// null.  Launches on `stream` and returns cudaGetLastError() (0 on
+// null; cell_mask: (cx cy cz,) f32 per-cell weights of the energy and
+// virial sums, or null (weight 1).  Launches on `stream` and returns
+// cudaGetLastError() (0 on
 // success), a CUDA error of the shared-memory request, -1 for a layout
 // without an instantiation (the sentinel layout has no table and no bonds,
 // a table needs se and hs, the soft pair needs se and hs, no table and no
@@ -357,7 +368,7 @@ int packed_lj_force(const float* r, const float* se, const float* hs,
                     const int* typ, const int* pid, const float* bp0,
                     const float* bp1, const float* bp2, const float* bp3,
                     const float* table, float* f, float* partials, float* out,
-                    int n_pad, int cap, int cx, int cy, int cz, int n_real,
+                    const float* cell_mask, int n_pad, int cap, int cx, int cy, int cz, int n_real,
                     int se_eps, int hs_sig, int n_types, int bond_kind,
                     int bond_slots, int shift_energy, int with_energy,
                     int soft, float Lx, float Ly, float Lz, float xyLy,
@@ -368,7 +379,7 @@ int packed_lj_force(const float* r, const float* se, const float* hs,
     return kNoLayout;
   }
   Args a{r, se, hs, typ, pid, {{bp0, bp1, bp2, bp3}, bond_slots}, table, f,
-         partials, out,
+         partials, out, cell_mask,
          Params{{n_pad, cap, cx, cy, cz, {Lx, Ly, Lz, xyLy, xzLz, yzLz}},
                 n_real, n_types, shift_energy, rc2, r_cut, sig2, eps, bond_k,
                 bond_r0}};

@@ -1,16 +1,18 @@
 // Order-CV value and bias-force sweeps over the cell-major slot layout
 // (sentinel or validity layout, orthorhombic or tilted box): the
 // hand-written Hopper counterparts of metadyn_tpu/ops/packed_order_pallas.py
-// order_values_pallas (kernel 2) and order_force_pallas (kernel 3).
+// order_values_pallas (kernel 2, with its cell_mask) and order_force_pallas
+// (kernel 3).
 //
 // Both run order_cv.cuh's block-per-cell kernel over the rows of the 27
 // neighbour cells staged in shared memory (cell_stage.cuh), prefiltered to
 // the CVs' reach: one block per cell, its warps over the cell's real i rows.
 // The force kernel flushes its hit queue per i row and writes g per row; the
 // values kernel keeps one queue across a warp's rows, sums per lane and
-// writes one partials row per cell, summed in double by a second
-// pass.  Pair math, descriptor format, prefilter and the parity argument for
-// summing each ordered pair once on the i side: order_cv.cuh.
+// writes one partials row per cell, times the cell's weight where a cell
+// mask is given (the spatial decomposition's), summed in double by a
+// second pass.  Pair math, descriptor format, prefilter and the parity
+// argument for summing each ordered pair once on the i side: order_cv.cuh.
 //
 // Vacant i slots get zero force.  No atomics: two calls give the same bits.
 
@@ -30,7 +32,9 @@ extern "C" {
 // if every Q_l CV has l = 6, else 0; lanes: 1 for the CV list [Q6], 2 for
 // [Q6, coordination], else 0; rc2_max: the largest CV cut-off squared (inf
 // if a CV has none); pre_r: the prefilter radius (inf: no prefilter); wx,
-// wy, wz: the box's perpendicular widths.  Launches on `stream` and returns
+// wy, wz: the box's perpendicular widths; cell_mask: (cx cy cz,) f32
+// weights of each cell's value sums, or null.  Launches on `stream` and
+// returns
 // 0, a refused argument (cudaErrorInvalidValue), -2 when cap does not fit a
 // block's shared memory, or a CUDA error.
 int packed_order_values(const float* r, const int* pid, int n_real,
@@ -40,14 +44,14 @@ int packed_order_values(const float* r, const int* pid, int n_real,
                         float Lz, float xyLy, float xzLz, float yzLz,
                         int cv_set, int l_fixed, int lanes, float rc2_max,
                         float pre_r, float wx, float wy, float wz,
-                        void* stream) {
+                        const float* cell_mask, void* stream) {
   const int bad = check_args(n_cvs, desc_len, n_terms, 0, n_pad);
   if (bad) return bad;
   const StagedArgs a{
       r, pid, desc, desc_len, n_cvs, n_terms, nullptr, 0,
       StagedParams{{n_pad, cap, cx, cy, cz, {Lx, Ly, Lz, xyLy, xzLz, yzLz}},
                    n_real, rc2_max, 0.0f, 0.0f, 0.0f, pre_r, wx, wy, wz},
-      nullptr, nullptr, partials, out};
+      nullptr, nullptr, partials, out, cell_mask};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc =
       pid != nullptr
@@ -77,7 +81,7 @@ int packed_order_force(const float* r, const int* pid, int n_real,
       r, pid, desc, desc_len, n_cvs, 0, aux, n_aux,
       StagedParams{{n_pad, cap, cx, cy, cz, {Lx, Ly, Lz, xyLy, xzLz, yzLz}},
                    n_real, rc2_max, 0.0f, 0.0f, 0.0f, pre_r, wx, wy, wz},
-      nullptr, g, nullptr, nullptr};
+      nullptr, g, nullptr, nullptr, nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc =
       pid != nullptr

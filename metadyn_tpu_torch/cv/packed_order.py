@@ -22,19 +22,31 @@ against on the card:
   kernels do (from the coordinate sentinel or from ``pid``); partner shifts
   are tilt-aware in both (``ops.packed.shift_rows_cart``).
 
+- ``cell_mask`` (the spatial decomposition's per-i-cell weight, 1 in a
+  shard's interior and 0 on its ghost planes) weights the value sums of
+  each ordered pair by its i cell: with the halved sweep a cross pair gets
+  mask(c_i) + mask(c_j) in place of 2, a self-cell pair mask(c).  That is
+  the values kernel's rule (one partials row per cell, times the cell's
+  mask), so each shard's partial sums match the kernel's.
+- ``mono=True`` runs Q_l in the homogeneous-monomial basis of
+  ``cv/ylm_mono.py``, the fused kernel's monomial mode: value sums Σ
+  w·mono_l(u) decoded by :meth:`PackedSteinhardtQl.mono_value_decode`, and
+  per pair the force b_α·mono_{l−1}(u) projected off u.
+
 The CVs keep the reference's flat-scalar protocol (``n_value_terms``,
 ``pair_value_terms_flat``, ``terms_from_flat``, ``aux_size``,
-``aux_flat``/``aux_from_flat``), with one-dimensional tensors where the
-reference has tuples of scalars, and its ``terms`` structure: (re (l+1,),
-im (l+1,), n_b) for Q_l, a 1-tuple for coordination.
+``aux_flat``/``aux_from_flat``) and its monomial protocol
+(``sphere_poly``, ``mono_value_decode``, ``mono_force_vecs``), with
+one-dimensional tensors where the reference has tuples of scalars, and its
+``terms`` structure: (re (l+1,), im (l+1,), n_b) for Q_l, a 1-tuple for
+coordination.
 
-Not ported (they raise NotImplementedError): the monomial protocol
-(``mono_value_decode``, ``mono_force_vecs``, ``cv/ylm_mono.py``), which only
-the spatially decomposed engines use, and :func:`make_table_order_force`,
+Not ported (it raises NotImplementedError): :func:`make_table_order_force`,
 which needs the slot neighbour table.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -46,8 +58,11 @@ from ..core.state import System
 from ..ops.packed import (
     OFFSETS, PackedSpec, PackedState, _tables, shift_rows_cart,
 )
-from ..ops.packed_order_cuda import order_force_cuda, order_values_cuda
+from ..ops.packed_order_cuda import (
+    is_mono, order_force_cuda, order_values_cuda,
+)
 from .steinhardt import _dcoeffs, _norms, _plm_over_sinm_coeffs, ql_from_sums
+from .ylm_mono import build_monomials, diff_matrices, ylm_mono_matrix
 
 KIND_QL = 0
 KIND_COORD = 1
@@ -107,13 +122,23 @@ class _Gathered(NamedTuple):
 
 
 def _gather(state: PackedState, spec: PackedSpec, stacks,
-            rc2: float) -> _Gathered:
+            rc2: float, cell_mask=None) -> _Gathered:
+    """``cell_mask`` (C,): the pair weight becomes mask(c_i) + mask(c_j)
+    across cells and mask(c) in the self cell (see the module docstring)."""
     cap, C = spec.cap, spec.n_cells
     vi = (state.pid < spec.n_real).reshape(1, cap, C)
     xi = state.r.reshape(3, 1, cap, C)
     jb = _j_block(spec)
+    if cell_mask is not None:
+        cell_mask = torch.as_tensor(cell_mask, dtype=torch.float32,
+                                    device=state.r.device)
+        dest = _tables(spec, state.r.device).dest
     blocks, ds, r2s, ws = [], [], [], []
     for o, xj, vj in stacks:
+        if cell_mask is not None:
+            wc = cell_mask
+            if o != (0, 0, 0):
+                wc = wc + cell_mask[dest[OFFSETS.index(o)]]
         for j0 in range(0, cap, jb):
             rows = slice(j0, j0 + jb)
             d = xi - xj[:, rows, None, :]                   # (3, B, cap, C)
@@ -124,22 +149,25 @@ def _gather(state: PackedState, spec: PackedSpec, stacks,
             blocks.append((o, rows, flat))
             ds.append(d.reshape(3, -1)[:, flat])
             r2s.append(r2.reshape(-1)[flat])
-            ws.append(torch.full_like(r2s[-1],
-                                      1.0 if o == (0, 0, 0) else 2.0))
+            if cell_mask is None:
+                ws.append(torch.full_like(r2s[-1],
+                                          1.0 if o == (0, 0, 0) else 2.0))
+            else:
+                ws.append(wc[flat % C])
     return _Gathered(blocks, torch.cat(ds, dim=1), torch.cat(r2s),
                      torch.cat(ws))
 
 
 def _offset_pair_sweep(state: PackedState, spec: PackedSpec, per_pair,
-                       rc2: float, stacks=None):
+                       rc2: float, stacks=None, cell_mask=None):
     """Σ over pairs of ``per_pair(dx, dy, dz, r2, w)`` (a tree of sums) over
     the Newton-halved offset set with cross-cell weight 2 — valid only for
     per-pair functions even under d → −d — for the pairs within
     ``rc2``, all offsets in one call.  ``stacks``: prebuilt
-    :func:`_half_partner_stacks`."""
+    :func:`_half_partner_stacks`; ``cell_mask``: see :func:`_gather`."""
     if stacks is None:
         stacks = _half_partner_stacks(state, spec)
-    pairs = _gather(state, spec, stacks, rc2)
+    pairs = _gather(state, spec, stacks, rc2, cell_mask)
     return per_pair(*pairs.d, pairs.r2, pairs.w)
 
 
@@ -180,29 +208,55 @@ def _offset_force_sweep(state: PackedState, spec: PackedSpec, pair_grad,
 
 
 def order_values_plain(state: PackedState, spec: PackedSpec, cvs,
-                       stacks=None) -> tuple:
+                       stacks=None, cell_mask=None,
+                       mono: bool = False) -> tuple:
     """Per-CV value ``terms`` by the plain half sweep: the plain version of
-    the values kernel."""
+    the values kernel (and of the fused kernel's value lanes).
+    ``cell_mask`` weights each ordered pair by its i cell; ``mono`` sums
+    Q_l in the monomial basis and decodes the sums."""
     def per_pair(dx, dy, dz, r2, w):
-        return tuple(cv.pair_value_terms(dx, dy, dz, r2, w) for cv in cvs)
+        out = []
+        for cv in cvs:
+            if is_mono(cv, mono):
+                sums = cv.pair_mono_sums(dx, dy, dz, r2, w)
+                out.append(cv.mono_value_decode(sums[:-1], sums[-1]))
+            else:
+                out.append(cv.pair_value_terms(dx, dy, dz, r2, w))
+        return tuple(out)
 
     return _offset_pair_sweep(state, spec, per_pair, _cut2(cvs),
-                              stacks=stacks)
+                              stacks=stacks, cell_mask=cell_mask)
 
 
 def order_force_plain(state: PackedState, spec: PackedSpec, cvs, auxs,
-                      stacks=None) -> torch.Tensor:
+                      stacks=None, mono: bool = False) -> torch.Tensor:
     """Σ_cv bias force (3, Npad) by the plain half sweep: the plain version
-    of the force kernel."""
+    of the force kernel (and of the fused kernel's bias force); ``mono``
+    runs Q_l's force in the monomial basis."""
+    coefs = [cv.mono_force_vecs(aux) if is_mono(cv, mono) else aux
+             for cv, aux in zip(cvs, auxs)]
+
     def pair_grad(dx, dy, dz, r2):
         gx = gy = gz = 0.0
-        for cv, aux in zip(cvs, auxs):
-            ax, ay, az = cv.pair_grad_terms(dx, dy, dz, r2, aux)
+        for cv, c in zip(cvs, coefs):
+            if is_mono(cv, mono):
+                ax, ay, az = cv.pair_mono_grad_terms(dx, dy, dz, r2, c)
+            else:
+                ax, ay, az = cv.pair_grad_terms(dx, dy, dz, r2, c)
             gx, gy, gz = gx + ax, gy + ay, gz + az
         return gx, gy, gz
 
     return _offset_force_sweep(state, spec, pair_grad, _cut2(cvs),
                                stacks=stacks)
+
+
+@functools.lru_cache(maxsize=16)
+def _mono_mats(l: int, device: torch.device) -> tuple:
+    """(C, Dx, Dy, Dz) of ``cv/ylm_mono.py`` as f32 tensors on ``device``,
+    uploaded once per (l, device)."""
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return (f32(ylm_mono_matrix(l)), *(f32(D) for D in diff_matrices(l)))
 
 
 def _horner(coeffs, x: torch.Tensor) -> torch.Tensor:
@@ -241,12 +295,52 @@ class PackedSteinhardtQl(nn.Module):
     def log_name(self) -> str:
         return f"cv_{self.name}"
 
-    # --- the monomial protocol: not ported ---------------------------------
-    def mono_value_decode(self, mono_sums, nb):
-        raise NotImplementedError("the monomial Y_lm protocol is not ported")
+    # --- the homogeneous-monomial protocol (cv/ylm_mono.py) ----------------
+    # The fused kernel's monomial mode accumulates Σ w·mono_l(u) per pair and
+    # contracts three coefficient vectors for the force; these methods give
+    # the basis changes, in f32 as the reference's.
+    sphere_poly = True
 
-    def mono_force_vecs(self, aux):
-        raise NotImplementedError("the monomial Y_lm protocol is not ported")
+    def mono_value_decode(self, mono_sums, nb) -> tuple:
+        """(Σ w·mono_l, Σ w) → the (re, im, nb) terms structure."""
+        C = _mono_mats(self.l, mono_sums.device)[0]
+        s = C @ mono_sums
+        return s[:self.l + 1], s[self.l + 1:], nb
+
+    def mono_force_vecs(self, aux) -> tuple:
+        """grad_aux output → (bx, by, bz), the degree-(l−1) coefficient
+        vectors: per pair ∂φ/∂u_α = b_α·mono_{l−1}(u), with φ the biased
+        per-pair scalar of :meth:`pair_grad_terms`."""
+        gre, gim = aux
+        C, Dx, Dy, Dz = _mono_mats(self.l, gre.device)
+        a = torch.cat([gre.reshape(-1), gim.reshape(-1)]).to(
+            torch.float32) @ C
+        return Dx @ a, Dy @ a, Dz @ a
+
+    def _unit(self, dx, dy, dz, r2) -> tuple:
+        inv_r = torch.rsqrt(torch.where(r2 > 1e-12, r2, 1.0))
+        return dx * inv_r, dy * inv_r, dz * inv_r, inv_r
+
+    def pair_mono_sums(self, dx, dy, dz, r2, w) -> torch.Tensor:
+        """(n_mono(l) + 1,) sums over pairs inside r_cut: Σ w·mono_l(u) and
+        Σ w, the monomial mode's value lanes."""
+        w = w * (r2 < self.r_cut ** 2)
+        ux, uy, uz, _ = self._unit(dx, dy, dz, r2)
+        ml = build_monomials(self.l, ux, uy, uz)
+        return torch.stack([torch.sum(w * m) for m in ml] + [torch.sum(w)])
+
+    def pair_mono_grad_terms(self, dx, dy, dz, r2, bvecs) -> tuple:
+        """The monomial mode's per-pair bias-force contribution: with g_α =
+        b_α·mono_{l−1}(u), (g − u (u·g))/r, zero outside 1e-12 < r² <
+        r_cut²."""
+        ux, uy, uz, inv_r = self._unit(dx, dy, dz, r2)
+        ml1 = torch.stack(build_monomials(self.l - 1, ux, uy, uz))
+        flat = ml1.reshape(ml1.shape[0], -1)
+        gux, guy, guz = ((b @ flat).reshape(ux.shape) for b in bvecs)
+        dot = ux * gux + uy * guy + uz * guz
+        mi = ((r2 < self.r_cut ** 2) & (r2 > 1e-12)) * inv_r
+        return ((gux - ux * dot) * mi, (guy - uy * dot) * mi,
+                (guz - uz * dot) * mi)
 
     # --- flat-scalar protocol ----------------------------------------------
     @property

@@ -598,10 +598,8 @@ def packed_lj_force(state: PackedState, spec: PackedSpec,
     diagonal virial; without, they keep their old values (as the kernels'
     forces-only mode does).  ``j_block`` bounds the (j_block, cap, C) pair
     temporaries; by default the whole cap is one block up to 2^26 elements.
-    ``cell_mask`` (spatial decomposition) is not ported and raises."""
-    if cell_mask is not None:
-        raise NotImplementedError("cell_mask (spatial decomposition) is not "
-                                  "ported yet")
+    ``cell_mask`` ((C,) 0/1, the spatial decomposition's) weights the energy
+    and virial sums by each pair's i cell; the forces stay unmasked."""
     if spec.pair_kind not in ("lj", "soft"):
         raise ValueError(f"unknown pair_kind {spec.pair_kind!r}")
     cap, C = spec.cap, spec.n_cells
@@ -631,6 +629,9 @@ def packed_lj_force(state: PackedState, spec: PackedSpec,
             for k in range(spec.bond_slots)] if spec.has_bonds else []
     rc2 = float(spec.r_cut) ** 2
     shifts = shift_rows_cart(_tables(spec, dev).ushift, state.box)[:, :, None]
+    if cell_mask is not None:
+        cell_mask = torch.as_tensor(cell_mask, dtype=torch.float32,
+                                    device=dev)
 
     force = torch.zeros((3, cap, C), dtype=torch.float32, device=dev)
     e_tot = torch.zeros((), dtype=torch.float32, device=dev)
@@ -689,8 +690,12 @@ def packed_lj_force(state: PackedState, spec: PackedSpec,
             cdx = coef * dx
             force = force + cdx.sum(dim=1)
             if with_energy:
+                wdx = cdx * dx
+                if cell_mask is not None:
+                    e = e * cell_mask
+                    wdx = wdx * cell_mask
                 e_tot = e_tot + torch.sum(e)
-                w_tot = w_tot + (cdx * dx).sum(dim=(1, 2, 3))
+                w_tot = w_tot + wdx.sum(dim=(1, 2, 3))
     force = force.reshape(3, -1)
     if not with_energy:
         return state.replace(f=force)

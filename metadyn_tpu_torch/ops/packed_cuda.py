@@ -12,10 +12,17 @@ block per cell stages the real rows of its 27 neighbour cells in shared
 memory (``csrc/cell_stage.cuh``); a cap whose 27 × cap staged rows do not
 fit a block's shared memory raises.
 
+With ``cell_mask`` (the spatial decomposition's per-cell 0/1 weights) the
+energy and virial sums weight each pair by its i cell, the forces stay
+unmasked: the reference's ``packed_lj_force(cell_mask=)``, which its
+spatial engine runs as XLA (its Pallas kernel halves the pairs); the
+port's kernel sums every ordered pair on its i side, so one weight per
+block's sums is exact.
+
 On a CUDA tensor :func:`packed_lj_force_cuda` launches the kernel or raises;
 on a CPU tensor it runs the plain version, ``ops.packed.packed_lj_force``.
 There is no other fallback.  ``packed_lj_force_cuda.launches`` counts the
-kernel launches.
+kernel launches, ``masked_launches`` those with a ``cell_mask``.
 """
 from __future__ import annotations
 
@@ -87,6 +94,19 @@ def slot_ptr(t: torch.Tensor, dtype, spec: PackedSpec, who: str,
     return t.data_ptr()
 
 
+def mask_ptr(cell_mask, spec: PackedSpec, device, who: str):
+    """Device pointer of a (C,) f32 cell mask on ``device``, checked; None
+    for no mask."""
+    if cell_mask is None:
+        return None
+    if (cell_mask.dtype != torch.float32 or not cell_mask.is_contiguous()
+            or tuple(cell_mask.shape) != (spec.n_cells,)
+            or cell_mask.device != device):
+        raise ValueError(f"{who}: cell_mask must be contiguous f32 of shape "
+                         f"({spec.n_cells},) on {device}")
+    return cell_mask.data_ptr()
+
+
 def bond_ptrs(state: PackedState, spec: PackedSpec, who: str) -> list:
     """The bp0.. attrs' pointers, padded with None to MAX_BOND_SLOTS."""
     n = spec.bond_slots if spec.has_bonds else 0
@@ -116,7 +136,7 @@ def _library():
     lib = _build.load(KERNEL)
     fn = lib.packed_lj_force
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 14
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 14
                        + [ctypes.c_float] * 12 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.packed_lj_force_blocks.argtypes = [ctypes.c_int] * 3
@@ -136,15 +156,22 @@ def raise_on(err: int, what: str, spec: PackedSpec) -> None:
 
 
 def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
-                         with_energy: bool = True) -> PackedState:
+                         with_energy: bool = True,
+                         cell_mask=None) -> PackedState:
     """Pair forces of every layout :func:`check_spec` takes.
 
     With ``with_energy`` the state also gets the potential energy and the
     diagonal virial; without, only ``f`` is replaced and the two keep their
-    old values (the inner-step mode)."""
+    old values (the inner-step mode).  ``cell_mask`` ((C,) f32) weights the
+    energy and virial sums by each pair's i cell (with ``with_energy``
+    only)."""
     r = state.r
+    if cell_mask is not None and not with_energy:
+        raise ValueError("packed_lj_force_cuda: cell_mask weights the energy "
+                         "and virial sums; it needs with_energy")
     if r.device.type == "cpu":
-        return packed_lj_force(state, spec, with_energy=with_energy)
+        return packed_lj_force(state, spec, with_energy=with_energy,
+                               cell_mask=cell_mask)
     if r.device.type != "cuda":
         raise ValueError(f"packed_lj_force_cuda: unsupported device {r.device}")
     who = "packed_lj_force_cuda"
@@ -175,13 +202,14 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
         p_ptr, o_ptr = partials.data_ptr(), out.data_ptr()
     else:
         p_ptr = o_ptr = None
+    m_ptr = mask_ptr(cell_mask, spec, r.device, who)
     bond_kind = BOND_KINDS[spec.bond_kind if spec.has_bonds else None]
     cx, cy, cz = spec.cells_per_dim
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = lib.packed_lj_force(
             r.data_ptr(), se, hs, typ, pid, *bond_ptrs(state, spec, who),
-            table, f.data_ptr(), p_ptr, o_ptr,
+            table, f.data_ptr(), p_ptr, o_ptr, m_ptr,
             spec.n_pad, spec.cap, cx, cy, cz, spec.n_real, int(se_eps),
             int(hs_sig), n_types, bond_kind,
             spec.bond_slots if spec.has_bonds else 0,
@@ -194,9 +222,11 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
             stream)
     raise_on(err, "packed_lj_force", spec)
     packed_lj_force_cuda.launches += 1
+    packed_lj_force_cuda.masked_launches += cell_mask is not None
     if not with_energy:
         return state.replace(f=f)
     return state.replace(f=f, potential_energy=out[0], virial=out[1:4])
 
 
 packed_lj_force_cuda.launches = 0
+packed_lj_force_cuda.masked_launches = 0

@@ -1,7 +1,10 @@
 """Wrapper of the hand-written Hopper fused LJ + order-CV kernel
 (``csrc/packed_fused_lj_order.cu``), the counterpart of
 ``metadyn_tpu/ops/packed_fused_pallas.fused_lj_order_force`` in its
-recurrence mode, in the sentinel layout (the reference's rule), in an
+recurrence mode and its monomial mode (``mono=True``: Q_6 in the monomial
+basis of ``cv/ylm_mono.py``), with or without the spatial decomposition's
+``cell_mask`` on the value sums (the reference's rule: only with
+``mono``), in the sentinel layout (the reference's rule), in an
 orthorhombic or a tilted box.  One block per cell stages the real rows of
 its 27 neighbour cells once, prefiltered to the larger of the LJ cut-off
 and the largest CV cut-off (:func:`fused_reach`), for both the LJ and the
@@ -15,11 +18,13 @@ multiple-time-stepping path (``sampler.make_lagged_parts``).
 On a CUDA tensor :func:`fused_lj_order_force_cuda` launches the kernel or
 raises; on a CPU tensor it runs :func:`fused_lj_order_force_plain`, the
 reference's own oracle chain: the plain pair force, the plain force sweep
-and the plain value sweep at the same positions.  There is no other
-fallback.  ``fused_lj_order_force_cuda.launches`` counts the launches.
+and the plain value sweep at the same positions, in the same mode.  There
+is no other fallback.  ``fused_lj_order_force_cuda.launches`` counts the
+launches; of them, ``mono_launches`` those in the monomial mode without a
+mask and ``masked_launches`` those with one.
 
-Not ported (they raise): the monomial math mode, ``cell_mask`` and the
-``parts`` subsets.
+Not ported (it raises): the ``parts`` subsets, the reference's timing
+modes (ROADMAP.md §2 item 5).
 """
 from __future__ import annotations
 
@@ -29,10 +34,10 @@ import torch
 
 from . import _build
 from .packed import PackedSpec, PackedState, packed_lj_force
-from .packed_cuda import check_spec, check_state, raise_on
+from .packed_cuda import check_spec, check_state, mask_ptr, raise_on
 from .packed_order_cuda import (
-    _plan, _stream, decode_value_lanes, geometry_args,
-    pack_force_aux, prefilter_radius,
+    _plan, _stream, decode_value_lanes, geometry_args, pack_force_aux,
+    prefilter_radius,
 )
 
 KERNEL = "packed_fused_lj_order"
@@ -47,7 +52,8 @@ def _library():
                        + [ctypes.c_void_p, ctypes.c_int]
                        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_float] * 9 + [ctypes.c_int] * 3
-                       + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 5
+                       + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -61,15 +67,19 @@ def fused_reach(r_cut: float, rc2_max: float, widths) -> tuple:
 
 
 def fused_lj_order_force_plain(state: PackedState, spec: PackedSpec, cvs,
-                               auxs) -> tuple:
-    """(f_lj, g, terms) from the plain pair force and the plain sweeps."""
+                               auxs, mono: bool = False,
+                               cell_mask=None) -> tuple:
+    """(f_lj, g, terms) from the plain pair force and the plain sweeps, in
+    the recurrence or the monomial mode; ``cell_mask`` weights the value
+    sums by each pair's i cell."""
     from ..cv.packed_order import (
         _half_partner_stacks, order_force_plain, order_values_plain,
     )
     f_lj = packed_lj_force(state, spec, with_energy=False).f
     stacks = _half_partner_stacks(state, spec)
-    g = order_force_plain(state, spec, cvs, auxs, stacks=stacks)
-    return f_lj, g, order_values_plain(state, spec, cvs, stacks=stacks)
+    g = order_force_plain(state, spec, cvs, auxs, stacks=stacks, mono=mono)
+    return f_lj, g, order_values_plain(state, spec, cvs, stacks=stacks,
+                                       cell_mask=cell_mask, mono=mono)
 
 
 def fused_lj_order_force_cuda(state: PackedState, spec: PackedSpec, cvs,
@@ -78,29 +88,32 @@ def fused_lj_order_force_cuda(state: PackedState, spec: PackedSpec, cvs,
     """One traversal → (f_lj (3, Npad), g_bias (3, Npad), terms).
 
     ``auxs``: per-CV ``grad_aux`` outputs, usually from the previous
-    evaluation's terms (the lag); ``terms`` are the fresh value sums."""
-    if mono:
-        raise NotImplementedError("the monomial math mode is not ported")
-    if cell_mask is not None:
-        raise NotImplementedError("cell_mask (spatial decomposition) is not "
-                                  "ported yet")
+    evaluation's terms (the lag); ``terms`` are the fresh value sums.
+    ``mono``: Q_l's math in the monomial basis (Q_6 on the card).
+    ``cell_mask`` ((C,) f32, with ``mono`` only, as in the reference): each
+    pair's value terms times its i cell's weight; the forces unmasked."""
     if frozenset(parts) != ALL_PARTS:
         raise NotImplementedError("the parts subsets (timing modes) are not "
-                                  "ported")
+                                  "ported yet (ROADMAP.md §2 item 5)")
+    if cell_mask is not None and not mono:
+        raise NotImplementedError("cell_mask requires the monomial math mode "
+                                  "(mono=True), as in the reference")
     if not spec.sentinel or spec.has_bonds:
         raise ValueError("the fused LJ + CV kernel needs the lean sentinel "
                          "layout (uniform_sigma and uniform_eps, no bonds)")
     r = state.r
     if r.device.type == "cpu":
-        return fused_lj_order_force_plain(state, spec, cvs, auxs)
+        return fused_lj_order_force_plain(state, spec, cvs, auxs, mono=mono,
+                                          cell_mask=cell_mask)
     if r.device.type != "cuda":
         raise ValueError(f"fused_lj_order_force_cuda: unsupported device "
                          f"{r.device}")
     check_spec(spec)
     check_state(state, spec, "fused_lj_order_force_cuda")
-    plan = _plan(tuple(cvs), r.device)
+    plan = _plan(tuple(cvs), r.device, mono)
     desc, n_vals, n_aux = plan.desc, plan.n_vals, plan.n_aux
-    aux = pack_force_aux(cvs, auxs)
+    m_ptr = mask_ptr(cell_mask, spec, r.device, "fused_lj_order_force_cuda")
+    aux = pack_force_aux(cvs, auxs, mono)
     if aux.numel() != n_aux or aux.device != r.device:
         raise ValueError(f"fused_lj_order_force_cuda: {aux.numel()} aux "
                          f"lanes on {aux.device}, expected {n_aux} on "
@@ -121,10 +134,16 @@ def fused_lj_order_force_cuda(state: PackedState, spec: PackedSpec, cvs,
             partials.data_ptr(), out.data_ptr(), *geometry_args(state, spec),
             float(spec.r_cut) ** 2, sig2, 4.0 * float(spec.uniform_eps),
             plan.cv_set, plan.l_fixed, plan.lanes, rc2_hit, pre_r, *widths,
-            _stream(r.device))
+            int(plan.mono), m_ptr, _stream(r.device))
     raise_on(err, "packed_fused_lj_order", spec)
     fused_lj_order_force_cuda.launches += 1
-    return f, g, decode_value_lanes(cvs, out)
+    if cell_mask is not None:
+        fused_lj_order_force_cuda.masked_launches += 1
+    elif plan.mono:
+        fused_lj_order_force_cuda.mono_launches += 1
+    return f, g, decode_value_lanes(cvs, out, mono)
 
 
 fused_lj_order_force_cuda.launches = 0
+fused_lj_order_force_cuda.mono_launches = 0
+fused_lj_order_force_cuda.masked_launches = 0

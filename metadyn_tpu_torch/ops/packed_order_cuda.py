@@ -3,7 +3,9 @@
 ``metadyn_tpu/ops/packed_order_pallas.py`` ``order_values_pallas`` and
 ``order_force_pallas``: the sentinel layout (uniform σ and ε, vacancy by
 the coordinate sentinel) and the validity layout (per-slot ``se``/``hs``,
-vacancy by ``pid < n_real``), in an orthorhombic or a tilted box.
+vacancy by ``pid < n_real``), in an orthorhombic or a tilted box; the
+values kernel with the spatial decomposition's ``cell_mask`` (each cell's
+value sums times its weight, ``parallel/spatial.py``).
 
 Both kernels run one block per cell over the real rows of its 27
 neighbour cells staged in shared memory (``csrc/cell_stage.cuh``,
@@ -16,14 +18,16 @@ value partials per cell, summed in double by a second pass.
 On a CUDA tensor :func:`order_values_cuda` and :func:`order_force_cuda`
 launch their kernel or raise; on a CPU tensor they run the plain roll
 sweeps of ``cv/packed_order.py``.  There is no other fallback.  Each
-wrapper's ``launches`` counts its kernel launches.
+wrapper's ``launches`` counts its kernel launches;
+``order_values_cuda.masked_launches`` those with a ``cell_mask``.
 
 The CVs reach the kernels as a float descriptor (format in
 ``csrc/order_cv.cuh``) built from each CV's ``kernel_descriptor()`` and
-uploaded once per (CV list, device).  Value terms and bias coefficients
-use the lane layout of :func:`lane_layout`: per CV its
-``n_value_terms`` value lanes and ``aux_size`` aux lanes, in list order
-(the reference's recurrence-mode ``_lane_layout``).
+uploaded once per (CV list, device, mode).  Value terms and bias
+coefficients use the lane layout of :func:`lane_layout`: per CV its
+``n_value_terms`` value lanes and ``aux_size`` aux lanes, in list order, or
+in the fused kernel's monomial mode n_mono(l) + 1 value lanes and
+3·n_mono(l − 1) aux lanes for a Q_l (the reference's ``_lane_layout``).
 """
 from __future__ import annotations
 
@@ -36,8 +40,9 @@ import numpy as np
 import torch
 
 from . import _build
+from ..cv.ylm_mono import n_mono
 from .packed import PackedSpec, PackedState, _frac3
-from .packed_cuda import check_state, raise_on, slot_ptr
+from .packed_cuda import check_state, mask_ptr, raise_on, slot_ptr
 
 KERNEL = "packed_order"
 
@@ -60,47 +65,75 @@ LANES_ANY, LANES_Q6, LANES_Q6_COORD = 0, 1, 2
 PREFILTER_MARGIN = 1e-4
 
 
-def lane_layout(cvs) -> tuple[list, list, int, int]:
+def is_mono(cv, mono: bool) -> bool:
+    """Whether ``cv`` runs in the monomial basis: a sphere-polynomial CV
+    (Q_l) in the monomial mode."""
+    return mono and getattr(cv, "sphere_poly", False)
+
+
+def lane_layout(cvs, mono: bool = False) -> tuple[list, list, int, int]:
     """(aux lane offsets, value lane offsets, aux lanes, value lanes)."""
     aux_off, val_off = [], []
     na = nv = 0
     for cv in cvs:
         aux_off.append(na)
         val_off.append(nv)
-        na += cv.aux_size
-        nv += cv.n_value_terms
+        if is_mono(cv, mono):
+            na += 3 * n_mono(cv.l - 1)
+            nv += n_mono(cv.l) + 1
+        else:
+            na += cv.aux_size
+            nv += cv.n_value_terms
     return aux_off, val_off, na, nv
 
 
 def pack_force_aux(cvs, auxs, mono: bool = False) -> torch.Tensor:
     """The CVs' ``grad_aux`` outputs as one (aux lanes,) f32 device tensor
     (the reference pads to a (1, 128) lane row; the kernels take the
-    length)."""
-    if mono:
-        raise NotImplementedError("the monomial math mode is not ported")
-    return torch.cat([cv.aux_flat(aux).reshape(-1).to(torch.float32)
-                      for cv, aux in zip(cvs, auxs)]).contiguous()
+    length); in the monomial mode a Q_l's lanes are its three
+    ``mono_force_vecs``."""
+    lanes = []
+    for cv, aux in zip(cvs, auxs):
+        if is_mono(cv, mono):
+            lanes += [b.reshape(-1) for b in cv.mono_force_vecs(aux)]
+        else:
+            lanes.append(cv.aux_flat(aux).reshape(-1))
+    return torch.cat([a.to(torch.float32) for a in lanes]).contiguous()
 
 
 def decode_value_lanes(cvs, vals: torch.Tensor, mono: bool = False) -> tuple:
-    """Kernel value lanes → per-CV ``terms`` (the plain sweep's structure)."""
-    if mono:
-        raise NotImplementedError("the monomial math mode is not ported")
-    _, val_off, _, _ = lane_layout(cvs)
-    return tuple(cv.terms_from_flat(vals[off:off + cv.n_value_terms])
-                 for cv, off in zip(cvs, val_off))
+    """Kernel value lanes → per-CV ``terms`` (the plain sweep's structure);
+    in the monomial mode a Q_l's monomial sums go through
+    ``mono_value_decode``."""
+    _, val_off, _, _ = lane_layout(cvs, mono)
+    out = []
+    for cv, off in zip(cvs, val_off):
+        if is_mono(cv, mono):
+            nm = n_mono(cv.l)
+            out.append(cv.mono_value_decode(vals[off:off + nm],
+                                            vals[off + nm]))
+        else:
+            out.append(cv.terms_from_flat(vals[off:off + cv.n_value_terms]))
+    return tuple(out)
 
 
-def cv_descriptor(cvs) -> np.ndarray:
+def cv_descriptor(cvs, mono: bool = False) -> np.ndarray:
     """The kernels' CV descriptor: one header of ``HDR`` floats per CV
     ``[kind, l, val_off, aux_off, tab_off, rc2, r02, sc, scale]``, then the
-    CVs' tables.  Raises on a CV without kernel math, on l > ``MAX_L`` and
-    beyond the kernels' lane and descriptor limits."""
+    CVs' tables; ``mono``: the lane offsets of the monomial mode, whose
+    kernel takes Q_l with l = 6 only.  Raises on a CV without kernel math,
+    on l > ``MAX_L`` and beyond the kernels' lane and descriptor limits."""
     cvs = list(cvs)
     if not 1 <= len(cvs) <= MAX_CVS:
         raise ValueError(f"CUDA order kernels: 1..{MAX_CVS} CVs, got "
                          f"{len(cvs)}")
-    aux_off, val_off, n_aux, n_vals = lane_layout(cvs)
+    for cv in cvs:
+        if is_mono(cv, mono) and cv.l != 6:
+            raise NotImplementedError(
+                f"CUDA fused kernel: the monomial mode takes Q_6 only "
+                f"(CV {cv.name!r} has l={cv.l}; l = 8 needs 108 aux lanes "
+                f"past the kernel's {MAX_AUX})")
+    aux_off, val_off, n_aux, n_vals = lane_layout(cvs, mono)
     if n_vals > MAX_TERMS or n_aux > MAX_AUX:
         raise ValueError(f"CUDA order kernels: {n_vals} value and {n_aux} aux "
                          f"lanes exceed {MAX_TERMS} and {MAX_AUX}")
@@ -135,14 +168,15 @@ class Plan(NamedTuple):
     l_fixed: int        # 6 if every Q_l has l = 6 (unrolled math), else 0
     rc2_max: float      # the largest cut-off squared (inf if a CV has none)
     lanes: int          # LANES_*: the value-lane layout
+    mono: bool          # the monomial mode (with at least one Q_l)
 
 
 @functools.lru_cache(maxsize=32)
-def _plan(cvs: tuple, device: torch.device) -> Plan:
-    """The :class:`Plan` of a CV list, uploaded once per (CV list,
-    device)."""
-    desc = cv_descriptor(cvs)
-    _, _, n_aux, n_vals = lane_layout(cvs)
+def _plan(cvs: tuple, device: torch.device, mono: bool = False) -> Plan:
+    """The :class:`Plan` of a CV list, uploaded once per (CV list, device,
+    mode)."""
+    desc = cv_descriptor(cvs, mono)
+    _, _, n_aux, n_vals = lane_layout(cvs, mono)
     heads = desc[:HDR * len(cvs)].reshape(len(cvs), HDR)
     ql = heads[:, 0] == KIND_QL
     cv_set = (CV_SET_QL if ql.all() else
@@ -153,7 +187,8 @@ def _plan(cvs: tuple, device: torch.device) -> Plan:
              LANES_Q6_COORD if q6 and len(cvs) == 2 and not ql[1] else
              LANES_ANY)
     return Plan(torch.as_tensor(desc, device=device), n_vals, n_aux, cv_set,
-                l_fixed, float(heads[:, 5].max()), lanes)
+                l_fixed, float(heads[:, 5].max()), lanes,
+                any(is_mono(cv, mono) for cv in cvs))
 
 
 def prefilter_radius(rc2_max: float, widths) -> float:
@@ -209,7 +244,7 @@ def _library():
         lib.packed_order_values.argtypes = (
             layout + [ctypes.c_void_p] + [ctypes.c_int] * 3
             + [ctypes.c_void_p] * 2 + geom + [ctypes.c_int] * 3
-            + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+            + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 2)
         lib.packed_order_values.restype = ctypes.c_int
         lib.packed_order_force.argtypes = (
             layout + [ctypes.c_void_p] + [ctypes.c_int] * 2
@@ -233,14 +268,14 @@ def _device_of(state: PackedState, who: str) -> torch.device:
 def order_values_cuda(state: PackedState, spec: PackedSpec, cvs,
                       stacks=None, cell_mask=None) -> tuple:
     """Value sums of every CV in one traversal → per-CV ``terms``.
-    ``stacks``: prebuilt partner stacks for the plain sweep (CPU only)."""
-    if cell_mask is not None:
-        raise NotImplementedError("cell_mask (spatial decomposition) is not "
-                                  "ported yet")
+    ``stacks``: prebuilt partner stacks for the plain sweep (CPU only);
+    ``cell_mask`` ((C,) f32): each cell's value sums times its weight."""
     if _device_of(state, "order_values_cuda").type == "cpu":
         from ..cv.packed_order import order_values_plain
-        return order_values_plain(state, spec, cvs, stacks=stacks)
+        return order_values_plain(state, spec, cvs, stacks=stacks,
+                                  cell_mask=cell_mask)
     pid, n_real = check_layout(state, spec, "order_values_cuda")
+    m_ptr = mask_ptr(cell_mask, spec, state.r.device, "order_values_cuda")
     r = state.r
     plan = _plan(tuple(cvs), r.device)
     desc, n_vals = plan.desc, plan.n_vals
@@ -255,10 +290,11 @@ def order_values_cuda(state: PackedState, spec: PackedSpec, cvs,
             len(cvs), n_vals, partials.data_ptr(), out.data_ptr(),
             *geometry_args(state, spec), plan.cv_set, plan.l_fixed,
             plan.lanes, plan.rc2_max,
-            prefilter_radius(plan.rc2_max, widths), *widths,
+            prefilter_radius(plan.rc2_max, widths), *widths, m_ptr,
             _stream(r.device))
     raise_on(err, "packed_order_values", spec)
     order_values_cuda.launches += 1
+    order_values_cuda.masked_launches += cell_mask is not None
     return decode_value_lanes(cvs, out)
 
 
@@ -293,4 +329,5 @@ def order_force_cuda(state: PackedState, spec: PackedSpec, cvs, auxs,
 
 
 order_values_cuda.launches = 0
+order_values_cuda.masked_launches = 0
 order_force_cuda.launches = 0

@@ -15,7 +15,10 @@ from one fused value sweep and their bias forces from one force sweep
 (``cv/packed_order.make_fused_order_force``).  With ``mts_lag`` the last
 step of each sub-chunk instead runs one fused traversal for the LJ force,
 the bias force from the previous sub-chunk's CV terms and fresh terms
-(:func:`make_lagged_parts`).
+(:func:`make_lagged_parts`).  An engine that cuts the grid into slabs
+(``parallel/spatial.SpatialPackedEngine``) gives both as its own islands
+(``make_order_parts``, ``make_lagged_parts``), which the sampler asks for
+first, as the reference does.
 
 The reference's ``lax.scan`` loops are Python loops here; the device state
 stays on the device, and the per-stride metrics of ``chunks_per_block``
@@ -150,7 +153,13 @@ def make_bias_force_parts(engine, cvs, system: System,
     fused = (len(cvs) > 0 and hasattr(engine, "spec")
              and all(hasattr(cv, "pair_value_terms") for cv in cvs))
     if fused:
-        fused_values, fused_force = make_fused_order_force(cvs, engine.spec)
+        # a slab engine gives the sweeps as islands on its extended grids
+        # (parallel.spatial.make_sharded_order_parts): the same contract
+        sharded = (engine.make_order_parts(list(cvs))
+                   if hasattr(engine, "make_order_parts") else None)
+        fused_values, fused_force = (
+            sharded if sharded is not None
+            else make_fused_order_force(cvs, engine.spec))
     analytic = all(hasattr(cv, "accum_bias_force") for cv in cvs)
     vir_cvs = [(i, cv) for i, cv in enumerate(cvs)
                if hasattr(cv, "bias_virial")]
@@ -190,11 +199,14 @@ _HELD_G_ATTRS = ("held_gx", "held_gy", "held_gz")
 
 
 def lag_supported(engine, cvs) -> bool:
-    """True iff :func:`make_lagged_parts` accepts this combination: the
-    sentinel-layout packed engine and order CVs only.  (The reference also
-    asks for its Pallas kernels; here the device picks kernels or plain
-    sweeps, and both run the lagged path.)"""
+    """True iff the lagged path accepts this combination: the slab engine's
+    own islands where it has them (``make_lagged_parts``), else
+    :func:`make_lagged_parts`: the sentinel-layout packed engine and order
+    CVs only.  (The reference also asks for its Pallas kernels; here the
+    device picks kernels or plain sweeps, and both run the lagged path.)"""
     spec = getattr(engine, "spec", None)
+    if spec is not None and hasattr(engine, "make_lagged_parts"):
+        return engine.make_lagged_parts(list(cvs)) is not None
     return (spec is not None and spec.sentinel and not spec.has_bonds
             and len(cvs) > 0
             and all(hasattr(cv, "pair_value_terms_flat")
@@ -458,7 +470,11 @@ class MetadSampler:
         if mts_lag:
             if bias_every <= 1:
                 raise ValueError("mts_lag requires bias_every > 1")
-            lag_parts = make_lagged_parts(engine, cvs, system, walls)
+            # a slab engine builds the fused kernel as islands
+            if hasattr(engine, "make_lagged_parts"):
+                lag_parts = engine.make_lagged_parts(list(cvs), walls)
+            if lag_parts is None:
+                lag_parts = make_lagged_parts(engine, cvs, system, walls)
         self._bias_parts = make_bias_force_parts(engine, cvs, system, walls)
         _eval, _apply = self._bias_parts
         self.biased_force = lambda st, aux, bias: _apply(

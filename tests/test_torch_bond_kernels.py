@@ -203,8 +203,9 @@ def test_kernels_refuse_a_tilted_box(cuda_device):
     """Tilted boxes reach every kernel now, each held against its plain
     version (tests/test_torch_triclinic_kernels.py).  What stays refused: a
     tilt without its host floats (the box is not built), and on a tilted
-    box the fused kernel's per-slot layouts and its unported modes
-    (monomial math, cell_mask, the parts subsets)."""
+    box the fused kernel's per-slot layouts, a cell_mask without the
+    monomial mode (the reference's rule) and the unported parts subsets,
+    with or without the monomial mode."""
     st, spec = packed_layout(cuda_device, "se_hs_fene_wca")
     with pytest.raises(ValueError, match="tilt_host"):
         dataclasses.replace(
@@ -216,7 +217,8 @@ def test_kernels_refuse_a_tilted_box(cuda_device):
         fused_lj_order_force_cuda(tilted, spec, cvs, auxs)
     lean = dataclasses.replace(spec, uniform_sigma=1.0, uniform_eps=1.0,
                                fene_k=None, fene_r0=None)
-    for kw in (dict(mono=True), dict(cell_mask=torch.ones(spec.n_cells)),
+    for kw in (dict(mono=True, parts={"vals"}),
+               dict(cell_mask=torch.ones(spec.n_cells, device=cuda_device)),
                dict(parts={"lj"})):
         with pytest.raises(NotImplementedError):
             fused_lj_order_force_cuda(tilted, lean, cvs, auxs, **kw)

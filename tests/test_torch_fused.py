@@ -123,7 +123,11 @@ def test_fused_wrapper_refuses_unported_modes():
         interop.packed_spec_from(jspec)
     cvs = [interop.steinhardt_from(jcvs[0])]
     auxs = [(torch.zeros(7), torch.zeros(7))]
-    for kw in (dict(mono=True), dict(cell_mask=torch.ones(spec.n_cells)),
+    # the monomial mode and its cell_mask are ported (tests/
+    # test_torch_spatial.py); a mask without it stays refused, as in the
+    # reference, and so do the parts subsets, with or without it
+    for kw in (dict(mono=True, parts=frozenset({"vals"})),
+               dict(cell_mask=torch.ones(spec.n_cells)),
                dict(parts=frozenset({"lj"}))):
         with pytest.raises(NotImplementedError):
             tfc.fused_lj_order_force_cuda(st, spec, cvs, auxs, **kw)

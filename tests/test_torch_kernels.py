@@ -151,14 +151,21 @@ def test_kernel_refuses_specs_it_does_not_take(change):
     dict(eps_scale=[[1.0, 0.5], [0.5, 1.0]]),
 ])
 def test_plain_force_refuses_unported_physics(change):
-    """Soft pairs, bonds and tables are ported; the per-cell mask of the
-    spatial decomposition is not, in any of those layouts."""
+    """Soft pairs, bonds, tables and the per-cell mask of the slab
+    decomposition are ported (the mask in each of those layouts); walkers
+    x space product meshes (nested islands) are not, in any of them."""
+    from metadyn_tpu_torch.parallel.spatial import SpatialPackedEngine
     sampler, spec = _sampler("cpu")
     kw = dict(r_cut=2.5, skin=0.55, cap=40)
     other = PackedSpec.create(10.26, 864, **{**kw, **change})
-    with pytest.raises(NotImplementedError, match="cell_mask"):
-        packed_lj_force(sampler.state, other,
-                        cell_mask=torch.ones(other.n_cells))
+    st = sampler.state
+    if other.has_bonds:
+        st = st.replace(attrs={**st.attrs, "bp0": torch.zeros_like(st.r[0]),
+                               "bp1": torch.zeros_like(st.r[0])})
+    out = packed_lj_force(st, other, cell_mask=torch.ones(other.n_cells))
+    assert torch.isfinite(out.potential_energy)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        SpatialPackedEngine(other, ["cpu"], nested=True)
 
 
 @pytest.mark.parametrize("kwargs", [

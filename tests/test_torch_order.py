@@ -239,8 +239,19 @@ def test_order_cvs_refuse_what_the_reference_refuses():
         tpo.PackedCoordination(spec, r0=2.5)
     with pytest.raises(NotImplementedError):
         tpo.make_table_order_force([], spec)
-    cv = tpo.PackedSteinhardtQl(spec, r_cut=1.4, l=6)
+    # the monomial protocol is ported (tests/test_torch_ylm_mono.py); the
+    # card's monomial kernel takes Q_6 alone (its 63 + 1 aux lanes fill
+    # the kernel's 64), and the fused kernel's mask needs the mode
+    from metadyn_tpu_torch.ops.packed_fused_cuda import (
+        fused_lj_order_force_cuda,
+    )
+    from metadyn_tpu_torch.ops.packed_order_cuda import cv_descriptor
+    cv = tpo.PackedSteinhardtQl(spec, r_cut=1.4, l=4)
     with pytest.raises(NotImplementedError):
-        cv.mono_force_vecs(None)
+        cv_descriptor([cv], mono=True)
+    lean = interop.packed_spec_from(
+        JSpec.create(12.0, 100, r_cut=2.5, skin=0.5, cap=8,
+                     uniform_sigma=1.0, uniform_eps=1.0))
     with pytest.raises(NotImplementedError):
-        cv.mono_value_decode(None, None)
+        fused_lj_order_force_cuda(None, lean, [cv], [None],
+                                  cell_mask=torch.ones(lean.n_cells))

@@ -191,7 +191,14 @@ def test_order_wrappers_refuse_what_they_do_not_take(cuda_device):
     # the fused kernel keeps the reference's sentinel-only rule
     with pytest.raises(ValueError, match="sentinel"):
         pfc.fused_lj_order_force_cuda(vst, validity, vcvs, auxs)
+    # kernel 2 takes cell_mask since the slab decomposition (tests/
+    # test_torch_spatial.py); a kernel-4 mask still needs the monomial
+    # mode, as in the reference, and a mask must lie on the state's device
     with pytest.raises(NotImplementedError):
+        pfc.fused_lj_order_force_cuda(
+            st, spec, cvs, auxs,
+            cell_mask=torch.ones(spec.n_cells, device=cuda_device))
+    with pytest.raises(ValueError, match="cell_mask"):
         poc.order_values_cuda(st, spec, cvs,
                               cell_mask=torch.ones(spec.n_cells))
     with pytest.raises(ValueError):
@@ -210,7 +217,10 @@ def test_failed_launch_raises(cuda_device, monkeypatch):
     plan = poc._plan(tuple(cvs), st.r.device)
     oversized = torch.zeros(poc.MAX_DESC + 1, device=cuda_device)
     oversized[:plan.desc.numel()] = plan.desc
-    bad_plan = lambda cvs_, dev: plan._replace(desc=oversized)  # noqa: E731
+    # the fused wrapper also passes its mode (the monomial one since the
+    # slab decomposition)
+    bad_plan = lambda cvs_, dev, mono=False: plan._replace(  # noqa: E731
+        desc=oversized)
     monkeypatch.setattr(poc, "_plan", bad_plan)
     monkeypatch.setattr(pfc, "_plan", bad_plan)
     before = (poc.order_values_cuda.launches, poc.order_force_cuda.launches,
