@@ -2,8 +2,9 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
 Five workloads, all at full size, then the example YAMLs through the
-port's CLI (phase 22), the particle-order path (phases 23-25) and Config 3
-on the x-slab decomposition (phases 26-27):
+port's CLI (phase 22), the particle-order path (phases 23-25), Config 3
+on the x-slab decomposition (phases 26-27), the well-tempered ensemble
+(phase 28) and multiple walkers on the one card (phase 29):
 
 - the headline one (bench.py): the 62,500-particle LJ liquid
   (bench_data/liq64k.npz) on the packed cell engine (r_cut 2.5, skin 0.55,
@@ -169,6 +170,30 @@ Phases, one line or more each:
      stride); the CLI with engine.spatial_devices = 2, which must raise
      the reference's too-few-devices error on one card and runs where two
      are visible.
+ 28. the well-tempered ensemble (examples/config6_wte.yaml: the potential
+     energy is the CV, kernel 1 computes energy and virial on every force
+     call) at init.n_cells 25 (62,500 particles, the grid scaled per
+     particle): 20 steps
+     at gamma 0 of the kernel engine against the plain-force engine
+     (positions 1e-3, U and the CV trace rtol 1e-5); 20 timed strides of
+     25 (exactly 26 launches per stride, every one with energy; four
+     profiled strides); the kernel with energy against its plain version
+     on that run's state; the YAML as written through the CLI (2,048
+     particles, 2000 steps: T of the last stride in 1.1-2.0, 80 hills, the
+     files read back);
+ 29. multiple walkers on the one card (parallel/walkers.py): kernel 1's
+     walker batch (8 walkers of liq64k, each + noise 0.02) against 8
+     single launches, to the bit, and against the plain batched version,
+     with times and the bound; WalkerSampler with 2 walkers, add_hills
+     False and gamma 0 against two MetadSamplers under the same frozen
+     grid (20 steps, positions 1e-4); 8 x liq64k (bench.py's settings,
+     500,000 particles) timed: 1 warm and 2 timed strides, exactly 501
+     launches per stride for all 8 walkers, one device-to-host read per
+     rebuild block, 8 hills per stride, one profiled stride;
+     examples/config4_walkers.yaml through the CLI (8 x 864) and its
+     resume leg, bit for bit; the flux walkers (4 on the double well of
+     tests/test_flux_walkers.py, the callable engine on the card): one
+     update period, the pooled histograms, a finite bias.
 
 After each timed run one more stride runs under torch.profiler, and a line
 reports the GPU's busy share of it and the top kernels.  The launch counts
@@ -1892,10 +1917,12 @@ def cli_yaml(name: str, out_dir: pathlib.Path, **output) -> dict:
     return cfg
 
 
-def cli_checks(name: str, cfg: dict, runner) -> list:
+def cli_checks(name: str, cfg: dict, runner, band=None) -> list:
     """What one CLI run wrote, read back with the port's readers: the hill
-    file's rows and columns, the grid dump, the CSV log's columns with no
-    overflow, T of the last stride in the band.  Returns the failures."""
+    file's rows (one per stride and walker) and columns, the grid dump, the
+    CSV log's columns with no overflow, T of the last stride in the band
+    (every walker's; ``band`` defaults to the YAML's in CLI_YAMLS).
+    Returns the failures."""
     import numpy as np
     from metadyn_tpu_torch.io.grid_file import load_grid
     from metadyn_tpu_torch.io.hill_log import read_hills
@@ -1905,7 +1932,8 @@ def cli_checks(name: str, cfg: dict, runner) -> list:
     out, mcfg = cfg["output"], cfg["metadynamics"]
     n_steps = int(cfg["run"]["n_steps"])
     flux = mcfg.get("mode") == "flux_tempered"
-    n_hills = 0 if flux else n_steps // int(mcfg["stride"])
+    n_walkers = int(mcfg.get("n_walkers", 1))
+    n_hills = 0 if flux else n_walkers * n_steps // int(mcfg["stride"])
     if "hill_file" in out:
         h = read_hills(out["hill_file"])
         d = len(cfg["cvs"])
@@ -1930,17 +1958,22 @@ def cli_checks(name: str, cfg: dict, runner) -> list:
         if len(next(iter(log.values()))) != len(hist):
             bad.append(f"log: {len(next(iter(log.values())))} rows for "
                        f"{len(hist)} metric rows")
-        if not flux:
+        if not flux and n_walkers == 1:
             want = sorted(
                 k if np.ndim(hist[0][k]) == 0 else f"{k}_{i}"
                 for k in METAD_KEYS
                 for i in range(max(1, np.size(hist[0][k]))))
             if sorted(log) != want:
                 bad.append(f"log columns {sorted(log)}")
-    temps = np.concatenate([np.atleast_1d(m["temperature"]) for m in hist])
-    band = CLI_YAMLS[name]["band"]
-    if not (np.isfinite(temps).all() and band[0] < temps[-1] < band[1]):
-        bad.append(f"T of the last stride {temps[-1]:.4f} outside {band}")
+    temps = np.concatenate([np.atleast_1d(m["temperature"]).reshape(-1)
+                            for m in hist])
+    last = np.atleast_1d(hist[-1]["temperature"]).reshape(-1)
+    if n_walkers == 1:
+        last = last[-1:]
+    band = band or CLI_YAMLS[name]["band"]
+    if not (np.isfinite(temps).all()
+            and ((band[0] < last) & (last < band[1])).all()):
+        bad.append(f"T of the last stride {last} outside {band}")
     return bad
 
 
@@ -2744,6 +2777,494 @@ def spatial_entries(sp_kern: dict, sp: dict, entry, keys) -> list:
     ]
 
 
+# Phase 28: the well-tempered ensemble (examples/config6_wte.yaml: the total
+# potential energy is the CV; kernel 1 with energy and virial on every force
+# call).  Path 2 is the YAML at init.n_cells 25 (62,500 particles) with its
+# grid scaled per particle as the YAML's comment derives it: the range times
+# N/2048, sigma times sqrt(N/2048) (energy fluctuations grow as sqrt(N)).
+WTE_KT = 1.5
+WTE_STRIDE = 25
+# kT 1.5.  The kinetic T of a WTE run swings far more than the 2,048
+# particles' sqrt(2/3N) = 1.8%: its bias force is dVds times the last force
+# call's (biased) force, which feeds back on itself, as in the reference.
+# The JAX package's CLI on the CPU ran the YAML at T 1.30-1.83 over strides
+# 21-80 (mean 1.43, sd 0.10); the port's plain path on the CPU ended at
+# 1.70, 1.53 and 1.43, the card's first run at 1.663
+WTE_T_BAND = (1.1, 2.0)
+
+
+def wte_sampler(dev, engine_cls, n_cells: int = 25, gamma: float = 1.0,
+                stride: int = WTE_STRIDE, seed: int = 3):
+    """examples/config6_wte.yaml built by hand at ``n_cells`` (the YAML's
+    8 gives 2,048 particles): fcc a 1.72, packed LJ r_cut 2.5 unshifted,
+    skin 0.4, a repack check every 5 steps, energy on every force call,
+    PotentialEnergyCV on the 141-point well-tempered grid scaled per
+    particle, W 3, deltaT 3000, Langevin dt 0.004 at kT 1.5; the CLI's
+    velocities (seed 3)."""
+    import numpy as np
+    from metadyn_tpu_torch import (
+        Box, GridSpec, HillSpec, MetadSampler, PackedSpec, PotentialEnergyCV,
+        WELL_TEMPERED, fcc_lattice, make_packed_langevin_step, make_system,
+    )
+    pos = fcc_lattice(n_cells, 1.72)
+    n, L = pos.shape[0], n_cells * 1.72
+    spec = PackedSpec.create(L, n, r_cut=2.5, skin=0.4, shift_energy=False)
+    engine = engine_cls(spec, dev, rebuild_every=5, with_energy=True)
+    vel = np.random.default_rng(seed).normal(
+        0, np.sqrt(WTE_KT), (n, 3)).astype(np.float32)
+    vel -= vel.mean(axis=0)
+    state, ovf = engine.pack_state(
+        pos, Box.cubic(L, dev), np.zeros(n, np.int32),
+        np.ones(n, np.float32), np.ones(n, np.float32), vel=vel)
+    assert not ovf, "cell capacity overflow at pack"
+    k = n / 2048
+    grid = GridSpec.create([-16000.0 * k], [-2000.0 * k], [141],
+                           [120.0 * np.sqrt(k)], dev)
+    return MetadSampler(
+        make_system(n, dev), state, engine, [PotentialEnergyCV(name="U")],
+        grid, HillSpec.create(W=3.0, stride=stride, mode=WELL_TEMPERED,
+                              deltaT=3000.0),
+        lambda f: make_packed_langevin_step(f, dt=0.004, kT=WTE_KT,
+                                            gamma=gamma),
+        seed=seed, chunks_per_block=16)
+
+
+def min_image_max(a, b, L: float) -> float:
+    import numpy as np
+    d = a - b
+    d -= L * np.round(d / L)
+    return float(np.abs(d).max())
+
+
+def wte_phase(dev, smi: str) -> dict:
+    """Phase 28 (paths 2 and 3): 20 steps at gamma 0 of the kernel engine
+    against the plain-force engine from one start (positions 1e-3, U and
+    the CV trace rtol 1e-5, stride 5 so 4 hills feed the bias); path 2
+    timed (4 warm and 20 timed strides: exactly stride + 1 launches per
+    stride, every one with energy; four profiled strides); then kernel 1
+    with energy against its plain version on that run's state (the
+    per-slot se/hs layout, 62,500); examples/config6_wte.yaml through the
+    CLI as written.  Returns the kernel's variants and launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import PackedEngine
+    from metadyn_tpu_torch.cli import CliRun
+    from metadyn_tpu_torch.ops.packed import unpack_positions
+    from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
+    from metadyn_tpu_torch.utils.profiling import device_profile
+
+    t28 = time.perf_counter()
+    L = 25 * 1.72
+    runs = []
+    for cls in (PackedEngine, plain_force_engine()):
+        s = wte_sampler(dev, cls, gamma=0.0, stride=5)
+        hist = s.run(20)
+        spec, n = s.engine.spec, s.engine.spec.n_real
+        runs.append((unpack_positions(s.state, spec).cpu().numpy(),
+                     np.array([float(m["cv"][0]) for m in hist]),
+                     float(hist[-1]["potential_energy"]), s.bias.n_hills))
+    dpos = min_image_max(runs[0][0], runs[1][0], L)
+    dcv = float(np.max(np.abs(runs[0][1] - runs[1][1])
+                       / np.abs(runs[1][1])))
+    du = abs(runs[0][2] - runs[1][2]) / abs(runs[1][2])
+    assert runs[0][3] == runs[1][3] == 4, (runs[0][3], runs[1][3])
+    assert dpos <= 1e-3 and dcv <= 1e-5 and du <= 1e-5, (dpos, dcv, du)
+    print(f"wte slice_kernel_vs_plain gamma=0 20 steps (stride 5): "
+          f"max|dpos|={dpos:.3e} CV trace max rel={dcv:.3e} rel_dU="
+          f"{du:.3e} cv={runs[0][1].tolist()}")
+
+    s = wte_sampler(dev, PackedEngine)
+    s.run(4 * WTE_STRIDE)
+    n_timed = 20
+    torch.cuda.synchronize()
+    reset_counts()
+    packed_lj_force_cuda.energy_launches = 0
+    t0 = time.perf_counter()
+    hist = s.run(n_timed * WTE_STRIDE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = packed_lj_force_cuda.launches
+    energy = packed_lj_force_cuda.energy_launches
+    counts = read_counts()
+    want = n_timed * (WTE_STRIDE + 1)
+    assert launches == energy == want, (launches, energy, want)
+    assert counts == {**{k: 0 for k in counts}, "pair": want}, counts
+    for m in hist:
+        for k in ("cv", "bias_V", "hill_height", "temperature"):
+            assert np.all(np.isfinite(m[k])), (k, m)
+        assert not m["nlist_overflow"] and not m["cell_width_violation"], m
+    last = hist[-1]
+    rate = n * WTE_STRIDE * n_timed / dt
+    prof = device_profile(lambda: s.run(4 * WTE_STRIDE))
+    busy = prof["busy_ms"] / 4
+    untraced_ms = 1e3 * dt / n_timed
+    print(f"wte N={n}: {n_timed} strides of {WTE_STRIDE} {dt:.3f} s "
+          f"{rate:.1f} particle-steps/s launches={launches} (with energy "
+          f"{energy}, {want // n_timed} per stride) U/N="
+          f"{float(last['cv'][0]) / n:.4f} T={float(last['temperature']):.4f}"
+          f" hills={s.bias.n_hills} on {smi}")
+    print(f"profile wte N={n} four strides: busy_ms per stride={busy:.3f} "
+          f"untraced stride ms={untraced_ms:.3f} busy share untraced="
+          f"{busy / untraced_ms:.3f} {json.dumps(prof)} on {smi}")
+    # the kernel against its plain version on the run's state (the fcc
+    # start's forces nearly cancel: no test of the force there)
+    variants = pair_kernel_vs_plain(f"wte N={n} after 28 strides", "se_hs",
+                                    s.state, spec, 0)
+    del s
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_wte_"))
+    cfg = cli_yaml("config6_wte", tmp)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    runner = CliRun(cfg, device=dev)
+    runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cli_counts = read_counts()
+    bad = cli_checks("config6_wte", cfg, runner, band=WTE_T_BAND)
+    n_cli = runner.sampler.engine.spec.n_real
+    strides = runner.n_steps // WTE_STRIDE
+    if cli_counts["pair"] != 2 + strides * (WTE_STRIDE + 1):
+        bad.append(f"launches {cli_counts}")
+    t_last = float(runner.sampler.history[-1]["temperature"])
+    print(f"cli config6_wte: N={n_cli} {runner.n_steps} steps wall "
+          f"{wall:.3f} s (build and run) T_last={t_last:.4f} hills="
+          f"{runner.sampler.bias.n_hills} launches={cli_counts['pair']} "
+          f"checks failed={bad} on {smi}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    assert not bad, bad
+    print(f"wte phase 28: {time.perf_counter() - t28:.1f} s")
+    return {"variants": variants, "launches": launches,
+            "cli_launches": cli_counts["pair"]}
+
+
+# Phase 29: multiple walkers on the one card (parallel/walkers.py), kernel 1
+# launched once per force call over the walker batch.  Path 1 is bench.py's
+# liquid (liq64k) times WALKERS, each walker from the same positions with
+# fresh velocities from seed 1000 + w (the CLI's); C4_T_BAND holds
+# examples/config4_walkers.yaml's T of the last stride (kT 1, 200 steps
+# from the fcc start, T still climbing back from its first-stride dip: the
+# port's plain path on the CPU gave 0.79-0.87 over the 8 walkers)
+WALKERS = 8
+C4_T_BAND = (0.7, 1.0)
+
+
+def liq_walker_states(dev, spec, engine, cvs, W: int, noise: float = 0.0):
+    """W packed walkers of liq64k: the same positions (plus ``noise`` times
+    a normal draw per walker, so kernel checks see walkers that differ)
+    and fresh Maxwell-Boltzmann velocities at KT from seed 1000 + w."""
+    import numpy as np
+    from metadyn_tpu_torch import Box
+    d = np.load(ROOT / "bench_data" / "liq64k.npz")
+    pos, L = d["pos"], float(d["L"])
+    n = pos.shape[0]
+    amps = {cv.attr_name: np.ones(n, np.float32) for cv in cvs}
+    out = []
+    for w in range(W):
+        rng = np.random.default_rng(1000 + w)
+        vel = rng.normal(0, np.sqrt(KT), (n, 3)).astype(np.float32)
+        vel -= vel.mean(axis=0)
+        p = pos + noise * rng.normal(size=pos.shape).astype(np.float32)
+        st, ovf = engine.pack_state(
+            p, Box.cubic(L, dev), np.zeros(n, np.int32),
+            np.ones(n, np.float32), np.ones(n, np.float32), vel=vel,
+            extra_attrs=amps)
+        assert not ovf, "cell capacity overflow at pack"
+        out.append(st)
+    return out
+
+
+def liq_parts(dev):
+    """bench.py's spec, CVs, grid and walls on the card."""
+    import numpy as np
+    from metadyn_tpu_torch import (
+        GridSpec, PackedLamellar, PackedSpec, WallSpec,
+    )
+    d = np.load(ROOT / "bench_data" / "liq64k.npz")
+    n, L = d["pos"].shape[0], float(d["L"])
+    spec = PackedSpec.create(L, n, r_cut=2.5, skin=0.55, cap=40,
+                             shift_energy=False, uniform_sigma=1.0,
+                             uniform_eps=1.0)
+    cvs = [PackedLamellar.create([[0, 0, 3]], n, dev, name="a"),
+           PackedLamellar.create([[0, 3, 0]], n, dev, name="b")]
+    gspec = GridSpec.create([-0.06, -0.06], [0.06, 0.06], [64, 64],
+                            [0.004, 0.004], dev)
+    return spec, cvs, gspec, WallSpec.at_grid_edges(gspec, k=2000.0)
+
+
+def walkers_phase(dev, smi: str, single_rate: float) -> dict:
+    """Phase 29 (paths 1, 3 and 4): kernel 1's walker batch (W = 8 on
+    liq64k + noise 0.02 per walker) against 8 single launches, to the bit,
+    and against the plain batched version (phase 3's gates), with times
+    and bounds; WalkerSampler with W = 2, add_hills=False, gamma 0 against
+    two MetadSamplers under the same frozen grid (20 steps, positions to
+    1e-4); path 1 timed (1 warm and 2 timed strides: 501 launches per
+    stride, 8 walkers each; one device-to-host read per rebuild block;
+    n_hills 8 per stride; one profiled stride); examples/config4_walkers.
+    yaml through the CLI with its resume leg, bit for bit; the flux
+    walkers on the double well (one period, pooled histograms)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import (
+        AxisPosition, Box, FluxTemperedSampler, ForceField, GridSpec,
+        HillSpec, MetadSampler, PackedEngine, WalkerSampler, WELL_TEMPERED,
+        make_langevin_step, make_packed_langevin_step, make_state,
+        make_system,
+    )
+    from metadyn_tpu_torch.bias.metad import BiasState, deposit
+    from metadyn_tpu_torch.cli import CliRun
+    from metadyn_tpu_torch.core import packed_engine
+    from metadyn_tpu_torch.core.batch import stack_walkers, walker
+    from metadyn_tpu_torch.io.grid_file import load_grid
+    from metadyn_tpu_torch.ops.packed import packed_lj_force, unpack_positions
+    from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
+    from metadyn_tpu_torch.utils.profiling import device_profile
+
+    t29 = time.perf_counter()
+    spec, cvs, gspec, walls = liq_parts(dev)
+    n = spec.n_real
+    engine = PackedEngine(spec, dev, rebuild_every=10)
+    states = liq_walker_states(dev, spec, engine, cvs, WALKERS, noise=0.02)
+    batch = stack_walkers(states)
+    pairs = [pairs_within(st, spec, spec.r_cut) for st in states]
+    out = {"variants": {}}
+    for we in (False, True):
+        a = packed_lj_force_cuda(batch, spec, with_energy=we)
+        one = [packed_lj_force_cuda(st, spec, with_energy=we)
+               for st in states]
+        same = all(torch.equal(a.f[w], one[w].f) for w in range(WALKERS))
+        if we:
+            same &= all(torch.equal(a.potential_energy[w],
+                                    one[w].potential_energy)
+                        and torch.equal(a.virial[w], one[w].virial)
+                        for w in range(WALKERS))
+        assert same, f"walker batch with_energy={we} differs from single " \
+                     "launches"
+        b = packed_lj_force(batch, spec, with_energy=we)
+        torch.cuda.synchronize()
+        errs = [pair_close(f"walkers w={w}", walker(a, w), walker(b, w), we)
+                for w in range(WALKERS)]
+        err = max(e[0] for e in errs)
+        del a, b, one
+        ms = cuda_ms(lambda: packed_lj_force_cuda(batch, spec,
+                                                  with_energy=we))
+        ms_one = cuda_ms(lambda: [packed_lj_force_cuda(st, spec,
+                                                       with_energy=we)
+                                  for st in states])
+        plain = cuda_ms(lambda: packed_lj_force(batch, spec, with_energy=we),
+                        calls=3, warm=1)
+        kind = spec.pair_kind + ("_energy" if we else "")
+        bms, by = bound(WALKERS * pair_kernel_bytes(spec, we),
+                        sum(pairs) * FLOP_PER_PAIR[kind])
+        key = f"sentinel W={WALKERS} liq64k{' +energy' if we else ''}"
+        out["variants"][key] = (err, ms, plain, bms, by)
+        out["variants"][f"{key} as {WALKERS} single launches"] = (
+            0.0, ms_one, plain, bms, by)
+        print(f"walker batch W={WALKERS} N={n} with_energy={we}: equal to "
+              f"{WALKERS} single launches to the bit={same}; vs plain "
+              f"batched: {errs[int(np.argmax([e[0] for e in errs]))][1]} "
+              f"batch_ms={ms:.4f} single_launches_ms={ms_one:.4f} "
+              f"plain_ms={plain:.4f} bound_ms={bms:.5f} ({by}; "
+              f"{sum(pairs)} pairs within r_cut over the walkers) on {smi}")
+    del batch, states
+    torch.cuda.empty_cache()
+
+    def build(W, bias_every, gamma=1.0, stride=STRIDE, bias=None,
+              add_hills=True, seed=0):
+        eng = PackedEngine(spec, dev, rebuild_every=10)
+        return WalkerSampler(
+            make_system(n, dev),
+            stack_walkers(liq_walker_states(dev, spec, eng, cvs, W)), eng,
+            cvs, gspec, HillSpec.create(W=0.1, stride=stride,
+                                        mode=WELL_TEMPERED, deltaT=5.0),
+            lambda f: make_packed_langevin_step(f, dt=0.005, kT=KT,
+                                                gamma=gamma),
+            seed=seed, walls=walls, initial_bias=bias, add_hills=add_hills,
+            bias_every=bias_every, chunks_per_block=8)
+
+    # W = 2 under a frozen grid against two single samplers
+    frozen = BiasState.zeros(gspec)
+    for c in ((0.0, 0.0), (0.004, -0.002), (-0.003, 0.001)):
+        frozen, _ = deposit(HillSpec.create(W=0.1, stride=1), frozen,
+                            torch.tensor(c, device=dev), 0)
+    ws = build(2, 5, gamma=0.0, stride=20, bias=frozen, add_hills=False)
+    ws.run(20)
+    eng1 = PackedEngine(spec, dev, rebuild_every=10)
+    starts = liq_walker_states(dev, spec, eng1, cvs, 2)
+    dmax = 0.0
+    for w in range(2):
+        single = MetadSampler(
+            make_system(n, dev), starts[w], eng1, cvs, gspec,
+            HillSpec.create(W=0.1, stride=20, mode=WELL_TEMPERED,
+                            deltaT=5.0),
+            lambda f: make_packed_langevin_step(f, dt=0.005, kT=KT,
+                                                gamma=0.0),
+            walls=walls, initial_bias=frozen, add_hills=False, bias_every=5)
+        single.run(20)
+        dmax = max(dmax, min_image_max(
+            unpack_positions(walker(ws.states, w), spec).cpu().numpy(),
+            unpack_positions(single.state, spec).cpu().numpy(),
+            float(single.state.box.L_host[0])))
+    assert dmax <= 1e-4 and ws.bias.n_hills == frozen.n_hills, dmax
+    print(f"walkers W=2 add_hills=False gamma=0 20 steps against two "
+          f"MetadSamplers under the same frozen grid: max|dpos|={dmax:.3e}")
+    del ws
+
+    # path 1: 8 x liq64k timed
+    s = build(WALKERS, 5)
+    s.run(STRIDE)
+    hills0 = s.bias.n_hills
+    n_timed = 2
+    torch.cuda.synchronize()
+    reset_counts()
+    packed_lj_force_cuda.walkers = 0
+    t0 = time.perf_counter()
+    hist = s.run(n_timed * STRIDE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    launches = counts["pair"]
+    walker_launches = packed_lj_force_cuda.walkers
+    assert launches == n_timed * (STRIDE + 1), counts
+    assert counts == {**{k: 0 for k in counts}, "pair": launches}, counts
+    assert walker_launches == WALKERS * launches, walker_launches
+    assert s.bias.n_hills - hills0 == WALKERS * n_timed, s.bias.n_hills
+    for m in hist:
+        for k in ("cv", "bias_V", "hill_height", "temperature",
+                  "potential_energy"):
+            assert np.all(np.isfinite(m[k])), (k, m)
+        assert m["cv"].shape == (WALKERS, 2), m["cv"].shape
+        assert not m["nlist_overflow"].any(), m
+        assert not m["cell_width_violation"].any(), m
+        assert ((0.9 < m["temperature"]) & (m["temperature"] < 1.1)).all(), m
+        assert (m["hill_height"] > 0).all(), m
+    rate = WALKERS * n * STRIDE * n_timed / dt
+    last = hist[-1]
+    out.update(launches=launches, rate=rate)
+    print(f"walkers {WALKERS} x liq64k bias_every=5: {n_timed} strides "
+          f"{dt:.3f} s {rate:.1f} particle-steps/s summed over walkers "
+          f"({rate / single_rate:.3f} x phase 5's single liquid "
+          f"{single_rate:.1f}) launches={launches} ({launches // n_timed} "
+          f"per stride, {walker_launches} walker-launches) hills/stride="
+          f"{(s.bias.n_hills - hills0) // n_timed} T="
+          f"{np.round(last['temperature'], 4).tolist()} on {smi}")
+    # the host's reads of the stride: one repack check per rebuild block
+    # (each reads the (W,) flags once: PackedEngine._rebuild_walkers),
+    # counted where the engine calls it; the profiler's device-to-host
+    # copies (those reads and the metrics' one transfer) are the
+    # cross-check (in one run it caught 50 of the 51)
+    n_blocks = STRIDE // 10
+    checks = [0]
+    real = packed_engine.needs_repack
+
+    def counted(*a, **kw):
+        checks[0] += 1
+        return real(*a, **kw)
+
+    packed_engine.needs_repack = counted
+    try:
+        prof = device_profile(lambda: s.run(STRIDE))
+    finally:
+        packed_engine.needs_repack = real
+    untraced_ms = 1e3 * dt / n_timed
+    prof["busy_share_untraced"] = prof["busy_ms"] / untraced_ms
+    print(f"profile walkers {WALKERS} x liq64k one stride: "
+          f"{json.dumps(prof)}; repack checks {checks[0]} for {n_blocks} "
+          f"rebuild blocks (one read of the {WALKERS} walkers' flags "
+          f"each), device-to-host copies {prof['d2h_count']} (the checks "
+          f"and 1 metrics transfer) on {smi}")
+    assert checks[0] == n_blocks, checks
+    assert prof["d2h_count"] <= n_blocks + 1, prof["d2h_count"]
+    del s
+    torch.cuda.empty_cache()
+
+    # config4_walkers.yaml through the CLI, as written, then its resume leg
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_walkers_"))
+    (tmp / "run").mkdir()
+    cfg = cli_yaml("config4_walkers", tmp / "run")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = CliRun(cfg, device=dev)
+    runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cli_counts = read_counts()
+    bad = cli_checks("config4_walkers", cfg, runner, band=C4_T_BAND)
+    stride4 = int(cfg["metadynamics"]["stride"])
+    if cli_counts["pair"] != 2 + (runner.n_steps // stride4) * (stride4 + 1):
+        bad.append(f"launches {cli_counts}")
+    w4 = runner.sampler.n_walkers
+    print(f"cli config4_walkers: {w4} walkers x "
+          f"{runner.sampler.engine.spec.n_real} {runner.n_steps} steps wall "
+          f"{wall:.3f} s T_last="
+          f"{np.round(runner.sampler.history[-1]['temperature'], 4).tolist()}"
+          f" hills={runner.sampler.bias.n_hills} launches="
+          f"{cli_counts['pair']} checks failed={bad} on {smi}")
+    legs = {}
+    for leg in ("resumed", "straight"):
+        d = tmp / f"resume_{leg}"
+        d.mkdir()
+        cfg = cli_yaml("config4_walkers", d, checkpoint="ck.npz",
+                       grid_file="grid.npz")
+        k = int(cfg["run"]["n_steps"])
+        if leg == "straight":
+            cfg["run"]["n_steps"] = 2 * k
+            CliRun(cfg, device=dev).run()
+        else:
+            CliRun(cfg, device=dev).run()
+            CliRun(cfg, resume=True, device=dev).run()
+        legs[leg] = cfg["output"]
+    same_hills = (open(legs["resumed"]["hill_file"], "rb").read()
+                  == open(legs["straight"]["hill_file"], "rb").read())
+    va = load_grid(legs["resumed"]["grid_file"])[0].grid.V
+    vb = load_grid(legs["straight"]["grid_file"])[0].grid.V
+    if not (same_hills and torch.equal(va, vb)):
+        bad.append(f"resume leg: hill files equal {same_hills}, max|dV| "
+                   f"{float((va - vb).abs().max()):.3e}")
+    print(f"cli config4_walkers resume leg: {k} + {k} steps (--resume) "
+          f"against {2 * k} straight: hill files equal={same_hills} grid V "
+          f"bitwise equal={torch.equal(va, vb)}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    assert not bad, bad
+
+    # the flux walkers on the double well (tests/test_flux_walkers.py's):
+    # the callable engine on the card
+    system = make_system(1, dev)
+
+    def dw(pos, state, system):
+        x = pos[0, 0]
+        return (3.0 * (x * x - 1.0) ** 2
+                + 5.0 * (pos[0, 1] ** 2 + pos[0, 2] ** 2))
+
+    st0 = make_state(np.asarray([[1.0, 0.0, 0.0]], np.float32),
+                     Box.cubic(50.0, dev), device=dev)
+    fs = FluxTemperedSampler(
+        system, stack_walkers([st0] * 4),
+        ForceField(external=dw, device=dev).bind(system),
+        [AxisPosition(0, 0, name="x")],
+        GridSpec.create([-1.5], [1.5], [61], [0.1], dev),
+        lambda f: make_langevin_step(f, system, dt=0.005, kT=0.6, gamma=2.0),
+        kT=0.6, stride=50, update_period=4, seed=0, min_round_trips=0)
+    fs.begin_measurement()
+    t0 = time.perf_counter()
+    h = fs.run(200)
+    dtf = time.perf_counter() - t0
+    V = fs.bias.grid.V.cpu().numpy()
+    pooled = float(fs._meas_h.sum())
+    assert fs.n_updates == 1 and pooled == 4 * 200, (fs.n_updates, pooled)
+    assert np.isfinite(V).all() and np.abs(V).max() > 0, V
+    print(f"flux walkers: 4 walkers on the double well, one period (stride "
+          f"50 x 4) {dtf:.3f} s, pooled visits {pooled:g}, round trips "
+          f"{h[-1]['round_trips']:g}, |V|max={np.abs(V).max():.4f}, x_last="
+          f"{np.round(h[-1]['cv'][:, -1, 0], 4).tolist()} on {smi}")
+    print(f"walkers phase 29: {time.perf_counter() - t29:.1f} s")
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -2981,6 +3502,15 @@ def main() -> int:
     sp_kern = spatial_kernels_vs_plain(dev)
     sp = spatial_slice(dev, smi[0], lag_out["rates"])
     print(f"spatial phases 26-27: {time.perf_counter() - t26:.1f} s")
+
+    # 28. the well-tempered ensemble: the energy CV on kernel 1 with energy
+    # at every force call, at 62,500 and config6_wte.yaml through the CLI
+    wte = wte_phase(dev, smi[0])
+
+    # 29. the walkers: kernel 1's walker batch against single launches and
+    # the plain version, WalkerSampler against MetadSampler, 8 x liq64k
+    # timed, config4_walkers.yaml through the CLI, the flux walkers
+    walk = walkers_phase(dev, smi[0], rates[5][0])
     print(f"chip_smoke wall: {time.perf_counter() - t_main:.1f} s")
 
     def cli_launches(kernel: str) -> dict:
@@ -3011,7 +3541,8 @@ def main() -> int:
         **{f"se_hs tilted{k[4:]} triclinic N={4 * c ** 3}": v
            for c, t in tric.items() for k, v in t.items()
            if k.startswith("pair")},
-        **cfg5["variants"]}
+        **cfg5["variants"],
+        **{f"{k} wte N=62500": v for k, v in wte["variants"].items()}}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 
     def tric_variants(kernel, layout):
@@ -3036,8 +3567,24 @@ def main() -> int:
                                 "strides)": cfg5["launches"],
                                 **cli_launches("pair"),
                                 "engines cross-check N=62500 (phase 24: "
-                                "init and energy refresh)": cross_launches},
+                                "init and energy refresh)": cross_launches,
+                                "wte N=62500 (20 strides, every launch "
+                                "with energy)": wte["launches"],
+                                "cli config6_wte (build and run)":
+                                wte["cli_launches"]},
               variants={k: dict(zip(keys, v)) for k, v in variants.items()}),
+        entry(f"{KERNEL} walker batch", KERNEL,
+              "metadyn_tpu/ops/packed_pallas2.py:301 (the reference runs "
+              "one walker per chip, one launch each)", walk["launches"],
+              walk["variants"][f"sentinel W={WALKERS} liq64k"],
+              design=staged + "; the grid of blocks once per walker on a "
+              "second grid dimension, the energy reduction one block per "
+              "walker",
+              launches_by_path={f"walkers {WALKERS} x liq64k (2 strides, "
+                                f"{WALKERS} walkers per launch)":
+                                walk["launches"]},
+              variants={k: dict(zip(keys, v))
+                        for k, v in walk["variants"].items()}),
         entry(f"{KERNEL} soft layout", KERNEL,
               "XLA roll sweep, metadyn_tpu/ops/packed.py:830 (no "
               "pallas_call)", cfg5["push_launches"],

@@ -33,7 +33,7 @@ from .ops.pairs import (
 )
 from .cv.lamellar import LamellarOP
 from .cv.mesh import MeshOrderParameter
-from .cv.simple import AxisPosition
+from .cv.simple import AxisPosition, EnergyCV, PotentialEnergyCV
 from .cv.steinhardt import SteinhardtQl
 from .cv.packed import PackedLamellar, PackedMesh
 from .cv.packed_order import (
@@ -41,13 +41,15 @@ from .cv.packed_order import (
 )
 from .bias.grid import BiasGrid, GridSpec
 from .bias.metad import (
-    STANDARD, WELL_TEMPERED, BiasState, HillSpec, WallSpec, free_energy,
+    FLUX_TEMPERED, STANDARD, WELL_TEMPERED, BiasState, HillSpec, WallSpec,
+    free_energy,
 )
 from .bias.flux import (
     FLUX, VISITS, FluxState, accumulate, bin_of, round_trips, update_bias,
 )
-from .sampler import MetadSampler, lag_supported
+from .sampler import MetadSampler, lag_supported, make_biased_force
 from .flux_sampler import FluxTemperedSampler
+from .parallel.walkers import WalkerSampler
 from .utils.lattice import fcc_lattice, polymer_melt, sc_lattice
 
 __all__ = [
@@ -58,14 +60,15 @@ __all__ = [
     "make_nvt_bdp_step", "make_nvt_nh_step", "CellSpec",
     "build_neighbor_list", "PairParams", "lj_kernel", "lj_tables",
     "soft_kernel", "soft_tables", "wca_tables", "xplor_tables",
-    "LamellarOP", "MeshOrderParameter", "AxisPosition", "SteinhardtQl",
+    "LamellarOP", "MeshOrderParameter", "AxisPosition", "EnergyCV",
+    "PotentialEnergyCV", "SteinhardtQl",
     "PackedAux", "PackedEngine",
     "PackedSpec", "PackedState", "bond_partner_attrs", "pair_scale_tables",
     "make_packed_langevin_step", "make_packed_nve_step", "PackedLamellar",
     "PackedMesh", "PackedCoordination",
     "PackedSteinhardtQl", "make_fused_order_force", "BiasGrid", "GridSpec",
-    "STANDARD", "WELL_TEMPERED", "BiasState", "HillSpec", "WallSpec",
+    "FLUX_TEMPERED", "STANDARD", "WELL_TEMPERED", "BiasState", "HillSpec", "WallSpec",
     "free_energy", "FLUX", "VISITS", "FluxState", "accumulate", "bin_of",
     "round_trips", "update_bias", "MetadSampler", "lag_supported",
-    "FluxTemperedSampler", "fcc_lattice", "polymer_melt", "sc_lattice",
+    "make_biased_force", "FluxTemperedSampler", "WalkerSampler", "fcc_lattice", "polymer_melt", "sc_lattice",
 ]

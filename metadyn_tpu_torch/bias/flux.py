@@ -29,7 +29,8 @@ FLUX = "flux"
 
 @dataclass(frozen=True)
 class FluxState:
-    """Per-update-period accumulators of a 1-D CV, on the grid's device."""
+    """Per-update-period accumulators of a 1-D CV, on the grid's device;
+    those of a walker batch carry a leading walker dimension."""
 
     hist: torch.Tensor       # (n,) f32 visit counts
     flux_up: torch.Tensor    # (n,) f32 rightward bin-boundary crossings
@@ -37,22 +38,36 @@ class FluxState:
     prev_bin: torch.Tensor   # () int32, -1 before the first visit
 
     @classmethod
-    def zeros(cls, spec: GridSpec) -> "FluxState":
+    def zeros(cls, spec: GridSpec, lead: tuple = ()) -> "FluxState":
+        """Empty accumulators; ``lead`` = (W,) for W walkers."""
         if spec.ndim != 1:
             raise AssertionError("flux-tempered metadynamics supports 1 CV")
-        z = torch.zeros(spec.shape[0], dtype=torch.float32,
+        z = torch.zeros((*lead, spec.shape[0]), dtype=torch.float32,
                         device=spec.device)
         return cls(hist=z, flux_up=z, flux_down=z,
-                   prev_bin=torch.full((), -1, dtype=torch.int32,
+                   prev_bin=torch.full(lead, -1, dtype=torch.int32,
                                        device=spec.device))
+
+    def pooled(self) -> "FluxState":
+        """The histograms summed over any walker dimension and no last bin
+        (``prev_bin`` -1): what one update of W walkers consumes."""
+        n = self.hist.shape[-1]
+        return FluxState(
+            hist=self.hist.reshape(-1, n).sum(0),
+            flux_up=self.flux_up.reshape(-1, n).sum(0),
+            flux_down=self.flux_down.reshape(-1, n).sum(0),
+            prev_bin=torch.full((), -1, dtype=torch.int32,
+                                device=self.hist.device))
 
 
 def bin_of(spec: GridSpec, s: torch.Tensor) -> torch.Tensor:
-    """The nearest grid node of s (a 0-d int32 tensor): bins are centred on
-    the nodes the update writes V to.  ``torch.round`` rounds half to even,
-    as ``jnp.round`` does; periodic grids wrap, others clip to the ends."""
+    """The nearest grid node of s (a 0-d int32 tensor; (W,) for W walkers'
+    points (W, 1)): bins are centred on the nodes the update writes V to.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does; periodic
+    grids wrap, others clip to the ends."""
     n = spec.shape[0]
-    b = torch.round((s[0] - spec.lo[0]) / spec.spacing(0)).to(torch.int32)
+    b = torch.round((s[..., 0] - spec.lo[0]) / spec.spacing(0)).to(
+        torch.int32)
     if spec.periodic[0]:
         return torch.remainder(b, n)
     return torch.clamp(b, 0, n - 1)
@@ -61,16 +76,19 @@ def bin_of(spec: GridSpec, s: torch.Tensor) -> torch.Tensor:
 def accumulate(flux: FluxState, spec: GridSpec,
                s: torch.Tensor) -> FluxState:
     """One visit at s and the direction of its crossing from the last bin,
-    on the device (fresh tensors: no host read)."""
+    on the device (fresh tensors: no host read); each walker's into its
+    own row for W walkers.  The counts are added as one-hot rows: exact in
+    f32, so the sums do not depend on the order."""
     b = bin_of(spec, s)
-    idx = b.reshape(1).to(torch.int64)
+    n = flux.hist.shape[-1]
+    hit = (torch.arange(n, device=b.device) == b[..., None]).to(
+        torch.float32)
     seen = flux.prev_bin >= 0
-    up = ((b > flux.prev_bin) & seen).to(torch.float32).reshape(1)
-    down = ((b < flux.prev_bin) & seen).to(torch.float32).reshape(1)
-    one = torch.ones(1, dtype=torch.float32, device=b.device)
-    return FluxState(hist=flux.hist.index_add(0, idx, one),
-                     flux_up=flux.flux_up.index_add(0, idx, up),
-                     flux_down=flux.flux_down.index_add(0, idx, down),
+    up = ((b > flux.prev_bin) & seen).to(torch.float32)[..., None]
+    down = ((b < flux.prev_bin) & seen).to(torch.float32)[..., None]
+    return FluxState(hist=flux.hist + hit,
+                     flux_up=flux.flux_up + hit * up,
+                     flux_down=flux.flux_down + hit * down,
                      prev_bin=b)
 
 

@@ -4,6 +4,10 @@ interpolation of V and ∂V/∂s (counterpart of ``metadyn_tpu/bias/grid.py``).
 V(s) lives on a regular N-d grid; every deposit adds a Gaussian to every
 grid point.  Beside V the grid keeps the analytic derivative grids ∂V/∂s_d,
 so bias forces are multilinear interpolations of those.
+
+A CV point is (d,), or (W, d) for W walkers: the interpolation then gives
+(W,) values and (W, d) gradients, and :func:`hill_field` one field per
+walker.
 """
 from __future__ import annotations
 
@@ -94,7 +98,7 @@ def _hill_factors(spec: GridSpec, s: torch.Tensor):
     dims use the nearest image only."""
     gs, hs = [], []
     for d in range(spec.ndim):
-        delta = spec.axis_coords(d) - s[d]
+        delta = spec.axis_coords(d) - s[..., d, None]
         if spec.periodic[d]:
             period = spec.hi[d] - spec.lo[d]
             delta = delta - period * torch.round(delta / period)
@@ -105,21 +109,26 @@ def _hill_factors(spec: GridSpec, s: torch.Tensor):
 
 
 def _along(v: torch.Tensor, d: int, ndim: int) -> torch.Tensor:
-    """(n_d,) → broadcastable along grid axis d."""
+    """(..., n_d) → broadcastable along grid axis d (after the leading
+    walker dimension, if any)."""
+    lead = v.shape[:-1]
     shape = [1] * ndim
     shape[d] = -1
-    return v.reshape(shape)
+    return v.reshape(*lead, *shape)
 
 
 def hill_field(spec: GridSpec, s: torch.Tensor, height: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-grid (ΔV, ΔdV) of one Gaussian hill of ``height`` at s."""
+    """Full-grid (ΔV, ΔdV) of one Gaussian hill of ``height`` at s: (*shape,)
+    and (d, *shape); for W walkers' s (W, d) and heights (W,), one field
+    each, (W, *shape) and (W, d, *shape)."""
     gs, hs = _hill_factors(spec, s)
-    hill = height
+    lead = s.shape[:-1]
+    hill = height.reshape(*lead, *([1] * spec.ndim))
     for d, g in enumerate(gs):
         hill = hill * _along(g, d, spec.ndim)
     dV = [hill * _along(hs[d], d, spec.ndim) for d in range(spec.ndim)]
-    return hill, torch.stack(dV)
+    return hill, torch.stack(dV, dim=len(lead))
 
 
 def deposit_hill(grid: BiasGrid, s: torch.Tensor,
@@ -135,7 +144,7 @@ def _interp_weights(spec: GridSpec, s: torch.Tensor):
     idx, frac = [], []
     for d in range(spec.ndim):
         n = spec.shape[d]
-        t = (s[d] - spec.lo[d]) / spec.spacing(d)
+        t = (s[..., d] - spec.lo[d]) / spec.spacing(d)
         if spec.periodic[d]:
             t = torch.remainder(t, n)
             i0 = torch.floor(t).to(torch.int64)
@@ -168,7 +177,8 @@ def _gather_corner(arr: torch.Tensor, spec: GridSpec, idx, corner):
 
 
 def interp(arr: torch.Tensor, spec: GridSpec, s: torch.Tensor) -> torch.Tensor:
-    """Multilinear interpolation of a (*shape,) grid array at point s."""
+    """Multilinear interpolation of a (*shape,) grid array at point s (d,),
+    or at W points (W, d)."""
     idx, frac = _interp_weights(spec, s)
     out = 0.0
     for corner in itertools.product((0, 1), repeat=spec.ndim):
@@ -181,8 +191,24 @@ def interp(arr: torch.Tensor, spec: GridSpec, s: torch.Tensor) -> torch.Tensor:
 
 def value_and_grad(grid: BiasGrid, s: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(V(s), ∂V/∂s), both multilinearly interpolated."""
+    """(V(s), ∂V/∂s), both multilinearly interpolated: () and (d,), or
+    (W,) and (W, d) at W points."""
     V = interp(grid.V, grid.spec, s)
     dV = torch.stack([interp(grid.dV[d], grid.spec, s)
-                      for d in range(grid.spec.ndim)])
+                      for d in range(grid.spec.ndim)], dim=-1)
     return V, dV
+
+
+def grad_fd(grid: BiasGrid, s: torch.Tensor) -> torch.Tensor:
+    """The cross-check gradient: the derivative of the multilinear
+    interpolant of V by a central difference over one grid spacing (the
+    reference's finite-difference-on-grid option), (d,)."""
+    out = []
+    for d in range(grid.spec.ndim):
+        dx = grid.spec.spacing(d)
+        e = torch.zeros(grid.spec.ndim, dtype=torch.float32,
+                        device=s.device)
+        e[d] = 0.5 * dx
+        out.append((interp(grid.V, grid.spec, s + e)
+                    - interp(grid.V, grid.spec, s - e)) / dx)
+    return torch.stack(out)

@@ -6,7 +6,9 @@ Every ``stride`` steps a hill of height
     W' = W                      (standard)
     W' = W · exp(−V(s)/ΔT)      (well-tempered)
 
-is deposited on the grid.  Hill-list and flux-tempered modes wait.
+is deposited on the grid.  Flux-tempered mode (``FLUX_TEMPERED``) deposits
+no hills: ``bias/flux.py`` rebuilds its bias from histograms.  Hill-list
+mode waits.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from .grid import BiasGrid, GridSpec, deposit_hill, value_and_grad
 
 STANDARD = "standard"
 WELL_TEMPERED = "well_tempered"
+FLUX_TEMPERED = "flux_tempered"
 
 
 @dataclass(frozen=True)
@@ -33,9 +36,8 @@ class HillSpec:
     @classmethod
     def create(cls, W: float, stride: int, mode: str = STANDARD,
                deltaT: float = 1.0) -> "HillSpec":
-        if mode not in (STANDARD, WELL_TEMPERED):
-            raise NotImplementedError(f"hill mode {mode!r}: only standard "
-                                      "and well-tempered are ported")
+        if mode not in (STANDARD, WELL_TEMPERED, FLUX_TEMPERED):
+            raise AssertionError(f"unknown hill mode {mode!r}")
         return cls(W=float(W), stride=int(stride), mode=mode,
                    deltaT=float(deltaT))
 
@@ -59,7 +61,7 @@ class WallSpec:
                         ) -> tuple[torch.Tensor, torch.Tensor]:
         over = torch.clamp(s - self.hi, min=0.0)
         under = torch.clamp(self.lo - s, min=0.0)
-        e = torch.sum(self.k * (over * over + under * under))
+        e = torch.sum(self.k * (over * over + under * under), dim=-1)
         g = 2.0 * self.k * (over - under)
         return e, g
 
@@ -92,11 +94,13 @@ def bias_value_and_grad(bias: BiasState, s: torch.Tensor
 
 def hill_height(hills: HillSpec, bias: BiasState,
                 s: torch.Tensor) -> torch.Tensor:
-    """The deposit height W' given the existing bias at s."""
+    """The deposit height W' given the existing bias at s; (W,) at W
+    walkers' points (W, d)."""
     if hills.mode == WELL_TEMPERED:
         V, _ = bias_value_and_grad(bias, s)
         return hills.W * torch.exp(-V / hills.deltaT)
-    return torch.full((), hills.W, dtype=torch.float32, device=s.device)
+    return torch.full(s.shape[:-1], hills.W, dtype=torch.float32,
+                      device=s.device)
 
 
 def deposit(hills: HillSpec, bias: BiasState, s: torch.Tensor,

@@ -6,7 +6,9 @@
     python -m metadyn_tpu_torch.cli rdf traj.dcd ...
 
 ``run`` reads the reference's YAML schema (``io/config.py``, no PyYAML) and
-drives one replica on the packed engine (with an integer
+drives one replica (or, with ``metadynamics.n_walkers`` W > 1, W walkers
+sharing one bias, all on the one device: ``parallel/walkers.py``, or the
+flux sampler's walker mode) on the packed engine (with an integer
 ``engine.spatial_devices`` > 1 on ``parallel/spatial.SpatialPackedEngine``,
 the x-slab decomposition: its shards on the first N cards under CUDA, N
 virtual shards of the CPU under ``--device cpu``) or, with ``engine.kind:
@@ -15,7 +17,9 @@ and ``melt`` (with the push-off of ``init.prerelax_steps``, ``core/
 pushoff.prerelax_melt``), tilted boxes, diblock types and per-type-pair
 tables, FENE or harmonic bonds, the LJ, WCA and soft pairs; the lamellar,
 mesh, Q6 and coordination CVs (all-pairs: lamellar, mesh and Steinhardt
-Q_l, by autograd); Langevin and NVE (all-pairs: Langevin, Nosé–Hoover
+Q_l, by autograd) and the well-tempered ensemble's energy CV (``kind:
+wte``, which turns on the packed engine's energy at every force call);
+Langevin and NVE (all-pairs: Langevin, Nosé–Hoover
 ``nvt_nh`` and ``nvt_bdp``); standard, well-tempered and flux-tempered
 metadynamics, with ``restart_from_grid``, edge walls, ``add_hills``,
 ``bias_every`` and ``mts_lag``.  Its outputs are the reference's files:
@@ -29,11 +33,11 @@ exits with an error when no CUDA device is found: it never falls back to
 the CPU.
 
 What the port lacks raises NotImplementedError at build time, naming its
-item of ROADMAP.md's queue 1: walkers (item 5), the 2-D decomposition (a
-list ``spatial_devices``) and the distributed mesh CV under
-``spatial_devices`` (item 9), ``nbr_table`` (item 6), the ``wte`` CV (item
-2), the ``msd`` and ``aspect_ratio`` CVs and NPT (item 3), hill-list mode
-(item 4) and GSD trajectories (item 8).
+item of ROADMAP.md's queue 1: the 2-D decomposition (a list
+``spatial_devices``), the distributed mesh CV under ``spatial_devices``
+and walkers on ``spatial_devices`` (walkers x space; item 9),
+``nbr_table`` (item 6), the ``msd`` and ``aspect_ratio`` CVs and NPT (item
+3), hill-list mode (item 4) and GSD trajectories (item 8).
 """
 from __future__ import annotations
 
@@ -44,13 +48,13 @@ import sys
 import numpy as np
 
 UNPORTED = {
-    "walkers": ("multiple walkers (metadynamics.n_walkers > 1)", 5),
+    "walkers_spatial": ("multiple walkers on engine.spatial_devices (the "
+                        "walkers x space product, parallel/mesh.py)", 9),
     "spatial_2d": ("the 2-D spatial decomposition (engine.spatial_devices "
                    "as a list: parallel/spatial2d.py)", 9),
     "spatial_mesh": ("the distributed mesh CV under engine.spatial_devices "
                      "(parallel/mesh.py)", 9),
     "nbr_table": ("the neighbour-table path (engine.nbr_table)", 6),
-    "wte": ("the energy CV (cvs kind: wte)", 2),
     "msd": ("the MSD CV (cvs kind: msd)", 3),
     "aspect_ratio": ("the box-shape CV (cvs kind: aspect_ratio)", 3),
     "npt_scr": ("NPT (integrator kind: npt_scr)", 3),
@@ -70,9 +74,10 @@ def refuse(what: str):
 def check_ported(cfg: dict) -> None:
     """Raise ``refuse(...)`` for the first key or kind the port lacks."""
     eng = cfg["engine"]
-    if int(cfg["metadynamics"].get("n_walkers", 1)) > 1:
-        raise refuse("walkers")
     sp = eng.get("spatial_devices", 1) or 1
+    if int(cfg["metadynamics"].get("n_walkers", 1)) > 1 and (
+            isinstance(sp, (list, tuple)) or int(sp) > 1):
+        raise refuse("walkers_spatial")
     if isinstance(sp, (list, tuple)):
         raise refuse("spatial_2d")
     if int(sp) > 1 and any(c["kind"] == "mesh" for c in cfg.get("cvs", [])):
@@ -80,7 +85,7 @@ def check_ported(cfg: dict) -> None:
     if eng.get("nbr_table") is not None:
         raise refuse("nbr_table")
     for c in cfg.get("cvs", []):
-        if c["kind"] in ("wte", "msd", "aspect_ratio"):
+        if c["kind"] in ("msd", "aspect_ratio"):
             raise refuse(c["kind"])
         if "grid" not in c:
             raise refuse("hill_list")
@@ -108,6 +113,7 @@ def _build_packed_cvs(cvs_cfg, spec, n: int, types, n_types: int, device):
     coefficients from ``mode``, one per type)."""
     from .cv.packed import PackedLamellar, PackedMesh
     from .cv.packed_order import PackedCoordination, PackedSteinhardtQl
+    from .cv.simple import PotentialEnergyCV
 
     cvs, extra_attrs = [], {}
     for c in cvs_cfg:
@@ -127,6 +133,8 @@ def _build_packed_cvs(cvs_cfg, spec, n: int, types, n_types: int, device):
             cv = PackedCoordination(
                 spec, r0=float(c["r0"]), name=c["name"],
                 r_cut=float(c["r_cut"]) if "r_cut" in c else None)
+        elif kind == "wte":
+            cv = PotentialEnergyCV(name=c["name"])
         else:
             raise ValueError(f"unknown packed cv kind {kind}")
         if kind in ("lamellar", "mesh"):
@@ -138,9 +146,10 @@ def _build_packed_cvs(cvs_cfg, spec, n: int, types, n_types: int, device):
 
 def _build_particle_cvs(cvs_cfg, system, L, device):
     """The particle-order CVs: lamellar, mesh and Steinhardt Q_l (their
-    bias forces by autograd)."""
+    bias forces by autograd) and the energy CV."""
     from .cv.lamellar import LamellarOP
     from .cv.mesh import MeshOrderParameter
+    from .cv.simple import PotentialEnergyCV
     from .cv.steinhardt import SteinhardtQl
 
     cvs = []
@@ -159,9 +168,23 @@ def _build_particle_cvs(cvs_cfg, system, L, device):
         elif kind == "steinhardt":
             cvs.append(SteinhardtQl(r_cut=c["r_cut"], l=c.get("l", 6),
                                     name=c["name"]))
+        elif kind == "wte":
+            cvs.append(PotentialEnergyCV(name=c["name"]))
         else:
             raise ValueError(f"unknown cv kind {kind}")
     return cvs
+
+
+def _check_wte(cvs, cvs_cfg) -> None:
+    """The reference's rule: the energy CV's bias force is analytic, so
+    every CV beside it needs an analytic bias force too."""
+    if any(c["kind"] == "wte" for c in cvs_cfg) and not all(
+            hasattr(cv, "accum_bias_force") or c["kind"] == "wte"
+            for cv, c in zip(cvs, cvs_cfg)):
+        raise AssertionError(
+            "wte (energy CV) needs every co-registered CV to provide an "
+            "analytic bias force — combine it with packed CVs or use it "
+            "alone")
 
 
 def _grid_from_cfg(cvs_cfg, device):
@@ -240,6 +263,9 @@ def _check_start_in_grid(cvs, cvs_cfg, grid, state, system) -> None:
     lo = grid.lo.cpu().numpy().astype(np.float64)
     hi = grid.hi.cpu().numpy().astype(np.float64)
     for d, (cv, c) in enumerate(zip(cvs, cvs_cfg)):
+        if c["kind"] == "wte":
+            # its value needs a force pass that has not run yet
+            continue
         v = float(cv.value(state, system))
         margin = 0.05 * (hi[d] - lo[d])
         if v < lo[d] - margin or v > hi[d] + margin:
@@ -270,6 +296,7 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
     """The sampler a config describes, on ``device``.  Returns
     (sampler, cfg)."""
     from .bias.metad import HillSpec, WallSpec
+    from .core.batch import stack_walkers
     from .core.box import Box
     from .core.engine import AllPairsEngine
     from .core.packed_engine import PackedEngine
@@ -280,6 +307,7 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
     from .ops.pairs import (
         lj_kernel, lj_tables, soft_kernel, soft_tables, wca_tables,
     )
+    from .parallel.walkers import WalkerSampler
     from .sampler import MetadSampler
 
     check_ported(cfg)
@@ -320,6 +348,10 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
     mcfg = cfg["metadynamics"]
     mode = mcfg.get("mode", "standard")
     packed = eng_cfg["kind"] == "packed"
+    # the energy CV reads state.potential_energy at every bias evaluation:
+    # every force call must compute it (with_energy)
+    want_energy = (any(c["kind"] == "wte" for c in cvs_cfg)
+                   or bool(eng_cfg.get("with_energy", False)))
     if packed:
         r_cut = float(pair.get("r_cut", 2.0 ** (1 / 6)
                                if pair["kind"] == "wca" else 2.5))
@@ -362,14 +394,14 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
             engine = SpatialPackedEngine(
                 spec, _spatial_devices(sp_dev, device),
                 rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
-                with_energy=(bool(eng_cfg.get("with_energy", False))
+                with_energy=(want_energy
                              or (pair_k is not None and not pair_k)),
                 order_pallas=order_k is None or bool(order_k))
         else:
             engine = PackedEngine(
                 spec, device,
                 rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
-                with_energy=bool(eng_cfg.get("with_energy", False)))
+                with_energy=want_energy)
         cvs, extra_attrs = _build_packed_cvs(cvs_cfg, spec, n, types,
                                              system.n_types, device)
         if fene is not None:
@@ -395,7 +427,33 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
                                 device=device)
         state = make_state(pos, box, vel=vel, device=device)
         cvs = _build_particle_cvs(cvs_cfg, system, L, device)
+    _check_wte(cvs, cvs_cfg)
     integ = _integrator_factory(icfg, system, packed)
+    n_walkers = int(mcfg.get("n_walkers", 1))
+
+    def stacked_walker_states():
+        """The walker batch: every walker from the same positions, with
+        fresh velocities from seed 1000 + w (the reference CLI's), all on
+        ``device``."""
+        def re_vel(w):
+            v = np.random.default_rng(1000 + w).normal(
+                0, np.sqrt(kT), (n, 3)).astype(np.float32)
+            return v - v.mean(axis=0)
+
+        if not packed:
+            return stack_walkers([make_state(pos, box, vel=re_vel(w),
+                                             device=device)
+                                  for w in range(n_walkers)])
+        states = []
+        for w in range(n_walkers):
+            st, ovf = engine.pack_state(pos, box, types, eps_i=eps_i,
+                                        sigma_i=sigma_i, vel=re_vel(w),
+                                        extra_attrs=extra_attrs)
+            if ovf:
+                raise RuntimeError("cell capacity overflow at pack: raise "
+                                   "engine.cap")
+            states.append(st)
+        return stack_walkers(states)
 
     # --- metadynamics ----------------------------------------------------
     grid = _grid_from_cfg(cvs_cfg, device)
@@ -426,8 +484,11 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
             raise ValueError(
                 "add_hills: false is a hill-deposition concept; flux-"
                 "tempered mode rebuilds its bias from histograms instead")
+        # with walkers: W replicas under the shared bias, the histograms
+        # pooled at every update
         sampler = FluxTemperedSampler(
-            system, state, engine, cvs=cvs, grid_spec=grid,
+            system, stacked_walker_states() if n_walkers > 1 else state,
+            engine, cvs=cvs, grid_spec=grid,
             initial_bias=initial_bias, integrator_factory=integ, kT=kT,
             stride=int(mcfg["stride"]),
             update_period=int(mcfg.get("update_period", 20)),
@@ -442,6 +503,20 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
 
     hills = HillSpec.create(W=float(mcfg["W"]), stride=int(mcfg["stride"]),
                             mode=mode, deltaT=float(mcfg.get("deltaT", 1.0)))
+    if n_walkers > 1:
+        if bool(mcfg.get("mts_lag", False)):
+            print("note: metadynamics.mts_lag applies to single-replica "
+                  "runs; multi-walker mode uses plain bias_every MTS",
+                  file=sys.stderr)
+        sampler = WalkerSampler(
+            system, stacked_walker_states(), engine, cvs=cvs,
+            grid_spec=grid, hills=hills, integrator_factory=integ,
+            seed=int(cfg.get("seed", 0)), initial_bias=initial_bias,
+            walls=walls, hill_file=out_cfg.get("hill_file"),
+            overwrite=hill_overwrite,
+            chunks_per_block=int(cfg.get("chunks_per_block", 16)),
+            add_hills=add_hills, bias_every=bias_every)
+        return sampler, cfg
     sampler = MetadSampler(
         system, state, engine, cvs=cvs, grid_spec=grid, hills=hills,
         initial_bias=initial_bias, integrator_factory=integ,
@@ -496,15 +571,16 @@ class CliRun:
         self.grid_every = int(out.get("grid_every", 0))
         self.traj = None
         if "trajectory" in out:
-            # the reference appends frames only for states with particle-
-            # order positions, which packed states lack
-            if hasattr(self.sampler.state, "pos"):
+            # the reference appends frames only for one replica's particle-
+            # order positions, which packed states and walkers lack
+            if hasattr(getattr(self.sampler, "state", None), "pos") and \
+                    getattr(self.sampler, "n_walkers", None) is None:
                 from .io.trajectory import make_trajectory_writer
                 self.traj = make_trajectory_writer(out["trajectory"],
                                                    overwrite=not resume)
             else:
-                print("note: output.trajectory: packed runs write no "
-                      "frames", file=sys.stderr)
+                print("note: output.trajectory: packed and multi-walker "
+                      "runs write no frames", file=sys.stderr)
         self.n_steps = int(cfg["run"]["n_steps"])
         self.report = int(cfg["run"].get("report_every", self.n_steps))
         if resume:

@@ -210,3 +210,41 @@ def unwrap(pos: torch.Tensor, image: torch.Tensor, box: Box) -> torch.Tensor:
     if box.tilt is None:
         return pos + image.to(pos.dtype) * box.L
     return pos + from_fractional(image.to(pos.dtype), box)
+
+
+def stack_boxes(boxes) -> Box:
+    """One box per walker, stacked: ``L`` (W, 3), ``tilt`` (W, 3) or None,
+    and the host floats as one tuple per walker."""
+    tilted = {b.tilt is not None for b in boxes}
+    if len(tilted) != 1:
+        raise ValueError("stack_boxes: every walker's box must be tilted, "
+                         "or none")
+    return Box(L=torch.stack([b.L for b in boxes]),
+               L_host=tuple(b.L_host for b in boxes),
+               tilt=(torch.stack([b.tilt for b in boxes])
+                     if tilted == {True} else None),
+               tilt_host=(tuple(b.tilt_host for b in boxes)
+                          if tilted == {True} else None))
+
+
+def walker_box(box: Box, w: int) -> Box:
+    """Walker ``w``'s box of a stacked box (views of its tensors)."""
+    return Box(L=box.L[w], L_host=box.L_host[w],
+               tilt=None if box.tilt is None else box.tilt[w],
+               tilt_host=None if box.tilt_host is None else box.tilt_host[w])
+
+
+def shared_box(box: Box) -> Box:
+    """The one box of a walker batch: ``box`` itself when it is not
+    stacked, else walker 0's after checking, on the host floats, that every
+    walker has the same box.  The batched pair kernel and the batched CVs
+    take one cell matrix for all walkers; walkers with boxes of their own
+    (NPT) would need one per walker."""
+    if box.L.dim() == 1:
+        return box
+    if (len(set(box.L_host)) != 1
+            or (box.tilt_host is not None and len(set(box.tilt_host)) != 1)):
+        raise ValueError("the walkers' boxes differ: the walker batch takes "
+                         "one box for all walkers (NPT walkers need a "
+                         "per-walker cell matrix, ROADMAP queue 1 item 3)")
+    return walker_box(box, 0)

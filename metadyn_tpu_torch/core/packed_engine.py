@@ -8,6 +8,12 @@ fallback between the two.  That holds for the soft push-off pair
 routes it to its XLA roll sweep on every backend, while this engine sends
 it to the pair kernel's soft layout on CUDA (a layout of the port alone)
 and to the plain sweep on the CPU.
+
+The engine also steps a walker batch (``core/batch.py``: W states of one
+box stacked on a leading dimension), as ``parallel/walkers.WalkerSampler``
+drives it: one kernel launch per force call for all W walkers, the repack
+check one device-to-host read per rebuild block for all of them, and the
+run-health flags and metrics per walker.
 """
 from __future__ import annotations
 
@@ -16,7 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .box import Box, perpendicular_widths
+from .batch import batch_size, stack_walkers, walker, walkers
+from .box import Box, perpendicular_widths, shared_box
 from ..ops.packed import (
     PackedSpec, PackedState, needs_repack, pack_host, packed_temperature,
     repack_incremental,
@@ -31,10 +38,11 @@ class PackedAux:
 
     overflow: torch.Tensor  # () bool: capacity overflow or a lost particle
     stale: torch.Tensor     # () bool: half-skin violation
+    # (W,) each for a walker batch
 
     @classmethod
-    def create(cls, device) -> "PackedAux":
-        f = torch.zeros((), dtype=torch.bool, device=device)
+    def create(cls, device, lead: tuple = ()) -> "PackedAux":
+        f = torch.zeros(lead, dtype=torch.bool, device=device)
         return cls(overflow=f, stale=f)
 
 
@@ -44,7 +52,10 @@ class PackedEngine:
 
     The check is a host ``if`` on :func:`needs_repack`: one device-to-host
     read per rebuild block (the reference branches on the device with
-    ``lax.cond``)."""
+    ``lax.cond``); for a walker batch one read of the (W,) flags, and only
+    the walkers that need it repack."""
+
+    walker_batch = True
 
     def __init__(self, spec: PackedSpec, device, rebuild_every: int = 1,
                  mass: float = 1.0, with_energy: bool = False,
@@ -91,15 +102,35 @@ class PackedEngine:
         return packed_lj_force_cuda(state, self.spec, with_energy=with_energy)
 
     def init(self, state: PackedState):
-        aux = PackedAux.create(self.device)
+        w = batch_size(state)
+        aux = PackedAux.create(self.device, () if w is None else (w,))
         return self.force_into(state, aux), aux
 
     def rebuild(self, state: PackedState, aux: PackedAux):
         # forces travel with the slots, so a migration needs no new force
+        if batch_size(state) is not None:
+            return self._rebuild_walkers(state, aux)
         if self.always_repack or bool(needs_repack(state, self.spec)):
             state, bad = repack_incremental(state, self.spec)
             aux = PackedAux(overflow=aux.overflow | bad, stale=aux.stale)
         return state, aux
+
+    def _rebuild_walkers(self, state: PackedState, aux: PackedAux):
+        """The batch's rebuild: one read of the (W,) repack flags, then
+        ``repack_incremental`` on each walker that needs it, alone."""
+        w_all = batch_size(state)
+        todo = (range(w_all) if self.always_repack else
+                [w for w, need in
+                 enumerate(needs_repack(state, self.spec).tolist()) if need])
+        if not todo:
+            return state, aux
+        parts = walkers(state)
+        bad = torch.zeros(w_all, dtype=torch.bool, device=self.device)
+        for w in todo:
+            parts[w], bad_w = repack_incremental(walker(state, w), self.spec)
+            bad[w] = bad_w
+        return stack_walkers(parts), PackedAux(overflow=aux.overflow | bad,
+                                               stale=aux.stale)
 
     def force_into(self, state: PackedState, aux: PackedAux,
                    extra_force=None) -> PackedState:
@@ -122,13 +153,15 @@ class PackedEngine:
         # the cell count per axis is fixed while the width follows the box:
         # a cell narrower than r_cut + skin silently misses pairs.  A tilted
         # cell's width is its perpendicular width over the count.
+        box = shared_box(state.box)
         cpd = torch.as_tensor(np.asarray(self.spec.cells_per_dim, np.float32),
-                              device=state.box.L.device)
-        width = perpendicular_widths(state.box) / cpd
+                              device=box.L.device)
+        width = perpendicular_widths(box) / cpd
         return {
             "temperature": packed_temperature(state, self.spec, self.mass),
             "potential_energy": state.potential_energy,
             "nlist_overflow": aux.overflow,
             "nlist_stale": aux.stale,
-            "cell_width_violation": torch.min(width) < self.spec.r_list,
+            "cell_width_violation": (torch.min(width) < self.spec.r_list
+                                     ).expand(aux.overflow.shape),
         }

@@ -66,6 +66,11 @@
 // the pairs (metadyn_tpu/parallel/spatial.py:270-278).  Here every ordered
 // pair is summed on its i side, so the mask is exact.
 //
+// A walker batch (W states of one box, stacked) is one launch: the same
+// grid of blocks once per walker on a second grid dimension, each block
+// reading its walker's slot arrays, and the energy reduction one block per
+// walker.  Walker w's result is the bits of a launch on walker w alone.
+//
 // Every output element is written: slots the compaction dropped (vacant)
 // get f = 0.
 
@@ -148,6 +153,19 @@ lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
   }
   const int cell = blockIdx.x;
   const int C = p.g.cx * p.g.cy * p.g.cz;
+  // a walker batch: blockIdx.y is the walker, whose slot arrays follow
+  // walker 0's in memory (0 for one walker)
+  const size_t w = blockIdx.y;
+  r += w * 3 * n_pad;
+  f += w * 3 * n_pad;
+  if (SeEps) se += w * n_pad;
+  if (HsSig) hs += w * n_pad;
+  if (Table) typ += w * n_pad;
+  if (Bond != kBondNone) {
+    pid += w * n_pad;
+    for (int b = 0; b < bp.n; ++b) bp.bp[b] += w * n_pad;
+  }
+  if (WithEnergy) partials += w * C * 4;
   auto keep = [&](int, int j, float3) -> bool {
     if (Bond != kBondNone) return pid[j] < p.n_real;
     if (SeEps) return se[j] > 0.0f;
@@ -285,11 +303,12 @@ struct Args {
   float* out;
   const float* cell_mask;
   Params p;
+  int n_walkers;
 };
 
-// Launches one variant: 0, a CUDA error of the shared-memory request or
-// the launch, or cell_stage::kSmemTooLarge when cap does not fit a block's
-// shared memory.
+// Launches one variant over every walker of the batch: 0, a CUDA error of
+// the shared-memory request or the launch, or cell_stage::kSmemTooLarge
+// when cap does not fit a block's shared memory.
 template <bool SeEps, bool HsSig, bool Table, int Bond, bool Soft,
           bool WithEnergy>
 int launch_one(const Args& a, cudaStream_t st) {
@@ -299,11 +318,14 @@ int launch_one(const Args& a, cudaStream_t st) {
   // beside the static array of pair_terms::block_partials
   const int rc = cell_stage::request_smem(kernel, smem, sizeof(float) * 128);
   if (rc != 0) return rc;
-  kernel<<<n_blocks, kThreads, smem, st>>>(a.r, a.se, a.hs, a.typ, a.pid,
-                                           a.bp, a.table, a.f, a.partials,
-                                           a.cell_mask, a.p);
+  const dim3 grid(n_blocks, a.n_walkers);
+  kernel<<<grid, kThreads, smem, st>>>(a.r, a.se, a.hs, a.typ, a.pid, a.bp,
+                                       a.table, a.f, a.partials, a.cell_mask,
+                                       a.p);
   if (WithEnergy) {
-    pair_terms::reduce_partials_kernel<<<1, pair_terms::kReduceThreads, 0,
+    // one block per walker, each over its walker's partials rows
+    pair_terms::reduce_partials_kernel<<<a.n_walkers,
+                                         pair_terms::kReduceThreads, 0,
                                          st>>>(a.partials, n_blocks, a.out);
   }
   return 0;
@@ -362,6 +384,10 @@ int packed_lj_force_blocks(int cx, int cy, int cz) { return cx * cy * cz; }
 // a table needs se and hs, the soft pair needs se and hs, no table and no
 // bond or a FENE one), or -2 when cap does not fit a block's shared
 // memory.  soft != 0 selects the soft pair (cut at r_cut) in place of LJ.
+// n_walkers >= 1 walkers of one box in one launch: every per-slot array
+// (r, f, se, hs, typ, pid, bp*) holds n_walkers copies one after another,
+// partials n_walkers (cx cy cz, 4) blocks and out n_walkers rows of 4;
+// table and cell_mask are shared.
 // Lx..Lz and xyLy, xzLz, yzLz: the cell matrix (cell_geom.cuh HBox; zero
 // tilt for an orthorhombic box).
 int packed_lj_force(const float* r, const float* se, const float* hs,
@@ -371,18 +397,21 @@ int packed_lj_force(const float* r, const float* se, const float* hs,
                     const float* cell_mask, int n_pad, int cap, int cx, int cy, int cz, int n_real,
                     int se_eps, int hs_sig, int n_types, int bond_kind,
                     int bond_slots, int shift_energy, int with_energy,
-                    int soft, float Lx, float Ly, float Lz, float xyLy,
+                    int soft, int n_walkers, float Lx, float Ly, float Lz,
+                    float xyLy,
                     float xzLz, float yzLz, float rc2, float r_cut,
                     float sig2, float eps, float bond_k, float bond_r0,
                     void* stream) {
-  if (bond_slots < 0 || bond_slots > pair_terms::kMaxBondSlots) {
+  if (bond_slots < 0 || bond_slots > pair_terms::kMaxBondSlots ||
+      n_walkers < 1 || n_walkers > 65535) {
     return kNoLayout;
   }
   Args a{r, se, hs, typ, pid, {{bp0, bp1, bp2, bp3}, bond_slots}, table, f,
          partials, out, cell_mask,
          Params{{n_pad, cap, cx, cy, cz, {Lx, Ly, Lz, xyLy, xzLz, yzLz}},
                 n_real, n_types, shift_energy, rc2, r_cut, sig2, eps, bond_k,
-                bond_r0}};
+                bond_r0},
+         n_walkers};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool we = with_energy != 0;
   const bool has_table = table != nullptr;

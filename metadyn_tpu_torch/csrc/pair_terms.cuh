@@ -103,12 +103,15 @@ __device__ __forceinline__ void block_partials(float v[4], float* partials) {
 
 constexpr int kReduceThreads = 128;
 
-// One block: out[q] = 1/2 * sum_b partials[b, q], q = (PE, Wxx, Wyy, Wzz).
+// One block per walker (gridDim.x walkers, each with n_blocks rows):
+// out[w, q] = 1/2 * sum_b partials[w, b, q], q = (PE, Wxx, Wyy, Wzz).
 // Thread t sums rows t, t + 128, ... in order, then a tree in shared
 // memory: the same order on every call.
 __global__ void __launch_bounds__(kReduceThreads)
 reduce_partials_kernel(const float* __restrict__ partials, int n_blocks,
                        float* __restrict__ out) {
+  partials += static_cast<size_t>(blockIdx.x) * n_blocks * 4;
+  out += blockIdx.x * 4;
   __shared__ double sh[4][kReduceThreads];
   double acc[4] = {0.0, 0.0, 0.0, 0.0};
   for (int b = threadIdx.x; b < n_blocks; b += kReduceThreads) {

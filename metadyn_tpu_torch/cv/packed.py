@@ -12,6 +12,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.box import shared_box
 from ..core.state import System
 from ..ops.packed import PackedState, _frac3
 from .lamellar import wave_vectors
@@ -25,7 +26,10 @@ class PackedLamellar(nn.Module):
 
     ``amp`` must be registered as the per-slot attribute ``lam_<name>`` at
     pack time (0 on vacant slots).  The Miller indices and phases are
-    buffers, so they follow ``.to(device)``."""
+    buffers, so they follow ``.to(device)``.  On a walker batch the values
+    are (W,) and the bias forces (W, 3, Npad)."""
+
+    walker_batch = True
 
     lattice_vectors: torch.Tensor  # (M, 3) f32 integer Miller indices
     phases: torch.Tensor           # (M,) f32
@@ -56,17 +60,22 @@ class PackedLamellar(nn.Module):
         return f"cv_{self.name}"
 
     def wave_vectors(self, state: PackedState) -> torch.Tensor:
-        """(M, 3) k = 2π n @ h⁻¹ (``cv/lamellar.wave_vectors``)."""
-        return wave_vectors(self.lattice_vectors, state.box)
+        """(M, 3) k = 2π n @ h⁻¹ (``cv/lamellar.wave_vectors``; one box for
+        all walkers of a batch)."""
+        return wave_vectors(self.lattice_vectors, shared_box(state.box))
+
+    def _phase(self, state: PackedState, k: torch.Tensor, m: int):
+        x, y, z = state.r.unbind(-2)
+        return k[m, 0] * x + k[m, 1] * y + k[m, 2] * z + self.phases[m]
 
     def value(self, state: PackedState, system: System) -> torch.Tensor:
         amp = state.attrs[self.attr_name]
         k = self.wave_vectors(state)
-        s = torch.zeros((), dtype=torch.float32, device=amp.device)
+        s = torch.zeros(amp.shape[:-1], dtype=torch.float32,
+                        device=amp.device)
         for m in range(k.shape[0]):
-            phase = (k[m, 0] * state.r[0] + k[m, 1] * state.r[1]
-                     + k[m, 2] * state.r[2] + self.phases[m])
-            s = s + torch.sum(amp * torch.cos(phase))
+            s = s + torch.sum(amp * torch.cos(self._phase(state, k, m)),
+                              dim=-1)
         return s / self.n_real
 
     def accum_bias_force(self, state: PackedState, system: System,
@@ -78,12 +87,10 @@ class PackedLamellar(nn.Module):
         +dVds·amp·sin(phase)·k_d / N."""
         amp = state.attrs[self.attr_name]
         k = self.wave_vectors(state)
-        coef = dVds / self.n_real
+        coef = (dVds / self.n_real)[..., None]
         for m in range(k.shape[0]):
-            phase = (k[m, 0] * state.r[0] + k[m, 1] * state.r[1]
-                     + k[m, 2] * state.r[2] + self.phases[m])
-            w = coef * amp * torch.sin(phase)
-            f_acc = f_acc + w[None, :] * k[m, :, None]
+            w = coef * amp * torch.sin(self._phase(state, k, m))
+            f_acc = f_acc + w[..., None, :] * k[m, :, None]
         return f_acc
 
 

@@ -17,8 +17,17 @@ count go to the host in one transfer.  Random numbers come from one
 
 A checkpoint holds the carry, the bias, the update count, the deferral
 count and, after ``begin_measurement``, the measurement's accumulators.
-Not ported: multiple walkers (``mesh``, ROADMAP queue 1 item 5) raise
-NotImplementedError.
+
+Multiple walkers: a walker batch as ``state`` (``core/batch.py``, W
+states stacked on a leading dimension; the reference shards them over a
+``mesh`` axis) runs W replicas under the shared bias.  Each keeps its own
+histograms through a period; every update pools them over the walkers
+(the reference's sum over its walker axis), and the round-trip gate reads
+the pooled statistics.  As in ``parallel/walkers.py``, the packed engine
+with batch-taking CVs steps all W at once, any other engine or CV one
+walker after another.  An engine without ``force_into`` (a plain force
+callable on the particle-order state) is adapted as ``MetadSampler``
+adapts it.
 """
 from __future__ import annotations
 
@@ -31,24 +40,32 @@ import torch
 from .bias.flux import FLUX, FluxState, accumulate, round_trips, update_bias
 from .bias.grid import GridSpec
 from .bias.metad import BiasState, WallSpec
+from .core.batch import batch_size, stack_walkers
 from .core.state import System
 from .io.checkpoint import load_checkpoint, save_checkpoint
-from .sampler import _metrics_to_host, cv_stack, make_bias_force_parts
+from .parallel.walkers import join_groups, takes_batch, walker_groups
+from .sampler import (
+    _CallableEngine, _metrics_to_host, cv_stack, make_bias_force_parts,
+)
 from .utils.profiling import phase
 
 
 @dataclass
 class FluxCarry:
+    """The run's carry; with walkers, ``state``, ``aux`` and ``flux`` are
+    lists with one entry per walker group."""
+
     state: object
     aux: object
-    flux: FluxState
+    flux: object
     generator: torch.Generator
 
 
 class FluxTemperedSampler:
     """User-facing entry point of flux-tempered mode, with the reference's
-    signature and defaults.  ``engine`` is a :class:`~metadyn_tpu_torch.
-    core.packed_engine.PackedEngine`; the sampler works on its device."""
+    signature and defaults.  ``engine`` is an engine-protocol object or a
+    plain force callable; the sampler works on its device.  ``state`` is
+    one walker's state or a walker batch (multiple walkers)."""
 
     def __init__(
         self,
@@ -69,7 +86,6 @@ class FluxTemperedSampler:
         update_rule: str = FLUX,   # FLUX (reference method) or VISITS
         bias_every: int = 1,
         mesh=None,
-        walker_axis: str = "walkers",
         min_round_trips: int = 1,
         max_defer_periods: int = 4,
     ):
@@ -77,18 +93,18 @@ class FluxTemperedSampler:
         between CV evaluations; the histograms then count one visit per
         evaluation.  ``min_round_trips`` > 0 defers each update until the
         round-trip diagnostic reaches it, at most ``max_defer_periods``
-        periods in a row (0: update every period)."""
+        periods in a row (0: update every period).  With a walker batch,
+        :meth:`run` counts steps per walker."""
         if not (grid_spec.ndim == 1 and len(cvs) == 1):
             raise AssertionError(
                 "flux-tempered metadynamics supports exactly one CV")
         if mesh is not None:
-            raise NotImplementedError(
-                "multiple-walker flux tempering (mesh) is not ported yet "
-                "(ROADMAP queue 1, item 5)")
+            raise ValueError(
+                "FluxTemperedSampler: the port runs multiple walkers on one "
+                "device as a walker batch: pass the stacked states "
+                "(core.batch.stack_walkers) and no mesh")
         if not hasattr(engine, "force_into"):
-            raise NotImplementedError(
-                "FluxTemperedSampler: engines without force_into (the "
-                "particle-order engines) are not ported yet")
+            engine = _CallableEngine(engine, system)
         self.engine = engine
         self.system = system
         self.cvs = list(cvs)
@@ -113,21 +129,38 @@ class FluxTemperedSampler:
                              f"min(rebuild_every, stride)={r}")
         n_blocks = stride // r
 
-        # prime the aux and the forces at the initial positions
-        state, aux = engine.init(state)
-        g, dVds, _ = eval_bias(state, aux, self.bias)
-        state = apply_force(state, aux, g, dVds)
-        generator = torch.Generator(device=engine.device)
+        def prime(state):
+            """The aux and the forces at the initial positions."""
+            state, aux = engine.init(state)
+            g, dVds, _ = eval_bias(state, aux, self.bias)
+            return apply_force(state, aux, g, dVds), aux
+
+        def zeros(state) -> FluxState:
+            w = batch_size(state)
+            return FluxState.zeros(grid_spec, () if w is None else (w,))
+
+        self.n_walkers = batch_size(state)
+        self.batched = takes_batch(engine, self.cvs)
+        if self.n_walkers is None:
+            state, aux = prime(state)
+            flux = zeros(state)
+        else:
+            primed = [prime(st) for st in
+                      walker_groups(engine, self.cvs, state)]
+            state, aux = [p[0] for p in primed], [p[1] for p in primed]
+            flux = [zeros(st) for st in state]
+        self._zeros = zeros
+        first = state if self.n_walkers is None else state[0]
+        device = getattr(engine, "device", engine.positions(first).device)
+        generator = torch.Generator(device=device)
         generator.manual_seed(seed)
-        self.carry = FluxCarry(state=state, aux=aux,
-                               flux=FluxState.zeros(grid_spec),
+        self.carry = FluxCarry(state=state, aux=aux, flux=flux,
                                generator=generator)
 
-        def chunk(carry: FluxCarry, bias: BiasState):
-            """One stride: rebuild blocks of sub-chunks, then the energy
-            refresh and the metrics (device tensors)."""
-            state, aux, fx = carry.state, carry.aux, carry.flux
-            gen = carry.generator
+        def group_stride(state, aux, fx, gen, bias: BiasState):
+            """One stride of one walker or walker batch: rebuild blocks of
+            sub-chunks, then the energy refresh and the metrics (device
+            tensors)."""
             for _ in range(n_blocks):
                 with phase("nlist_rebuild"):
                     state, aux = engine.rebuild(state, aux)
@@ -147,8 +180,23 @@ class FluxTemperedSampler:
                 state = engine.refresh_energy(state, aux)
             with phase("cv_eval"):
                 s = cv_stack(self.cvs, state, system)
-            metrics = {"cv": s, **engine.metrics(state, aux)}
-            return FluxCarry(state, aux, fx, gen), metrics
+            return state, aux, fx, {"cv": s, **engine.metrics(state, aux)}
+
+        def chunk(carry: FluxCarry, bias: BiasState):
+            """One stride of every walker: (carry, metrics), the metrics
+            with a leading walker dimension in walker mode."""
+            gen = carry.generator
+            if self.n_walkers is None:
+                st, ax, fx, m = group_stride(carry.state, carry.aux,
+                                             carry.flux, gen, bias)
+                return FluxCarry(st, ax, fx, gen), m
+            outs = [group_stride(st, ax, fx, gen, bias) for st, ax, fx in
+                    zip(carry.state, carry.aux, carry.flux)]
+            ms = [o[3] for o in outs]
+            metrics = {k: join_groups([m[k] for m in ms], self.batched)
+                       for k in ms[0]}
+            return FluxCarry([o[0] for o in outs], [o[1] for o in outs],
+                             [o[2] for o in outs], gen), metrics
 
         self._chunk = chunk
         self.history: list[dict] = []
@@ -162,22 +210,42 @@ class FluxTemperedSampler:
 
     @property
     def state(self):
-        return self.carry.state
+        """The state; in walker mode the walkers as one walker batch."""
+        st = self.carry.state
+        if self.n_walkers is None:
+            return st
+        return st[0] if self.batched else stack_walkers(st)
 
-    def _run_period(self) -> dict:
+    def _pooled_flux(self) -> FluxState:
+        """The update's statistics: the walker-summed histograms in walker
+        mode (the reference's sum over its walker axis), the carry's
+        otherwise."""
+        fx = self.carry.flux
+        if self.n_walkers is None:
+            return fx
+        pools = [f.pooled() for f in fx]
+        return FluxState(hist=sum(p.hist for p in pools),
+                         flux_up=sum(p.flux_up for p in pools),
+                         flux_down=sum(p.flux_down for p in pools),
+                         prev_bin=pools[0].prev_bin)
+
+    def _run_period(self) -> tuple:
         """``update_period`` strides under the period's bias.  Returns the
-        period's metrics (numpy, a leading axis of strides) with its
-        ``round_trips``, from one device-to-host transfer."""
+        period's metrics (numpy, a leading axis of strides; walkers first
+        in walker mode, as the reference's) with its ``round_trips``, from
+        one device-to-host transfer, and the pooled statistics."""
         metrics = []
         for _ in range(self.update_period):
             self.carry, m = self._chunk(self.carry, self.bias)
             metrics.append(m)
-        stacked = {k: torch.stack([m[k] for m in metrics])
+        stacked = {k: torch.stack([m[k] for m in metrics],
+                                  dim=0 if self.n_walkers is None else 1)
                    for k in metrics[0]}
-        stacked["round_trips"] = round_trips(self.carry.flux)
+        pooled = self._pooled_flux()
+        stacked["round_trips"] = round_trips(pooled)
         (out,) = _metrics_to_host([stacked])
         out["round_trips"] = float(out["round_trips"])
-        return out
+        return out, pooled
 
     def run(self, n_steps: int) -> list[dict]:
         """Run ``n_steps`` (a multiple of stride·update_period): one bias
@@ -190,7 +258,7 @@ class FluxTemperedSampler:
                              f"stride*update_period={period_steps}")
         out = []
         for _ in range(n_steps // period_steps):
-            m = self._run_period()
+            m, pooled = self._run_period()
             rt = m["round_trips"]
             if self._meas_h is not None:
                 # measurement phase: V̄ accumulates once per period (the
@@ -207,15 +275,16 @@ class FluxTemperedSampler:
                 self._deferred += 1
                 continue
             self._deferred = 0
-            flux = self.carry.flux
             if self._meas_h is not None:
                 # the visit histogram since the last reset, counted once,
                 # right before update_bias resets it
-                self._meas_h += flux.hist.cpu().numpy()
+                self._meas_h += pooled.hist.cpu().numpy()
             gain = self.gain0 / (1.0 + self.n_updates / self.gain_halflife)
-            self.bias, new_flux = update_bias(self.bias, flux, self.kT,
+            self.bias, new_flux = update_bias(self.bias, pooled, self.kT,
                                               gain=gain,
                                               rule=self.update_rule)
+            if self.n_walkers is not None:
+                new_flux = [self._zeros(st) for st in self.carry.state]
             self.carry = replace(self.carry, flux=new_flux)
             self.n_updates += 1
         self.history.extend(out)

@@ -15,7 +15,10 @@ histograms ``FluxState`` (hist, flux_up, flux_down, prev_bin), the lamellar
 CV's lattice vectors and phases, the packed order CVs' parameters (Q_l and
 coordination) and the packed mesh CV's; and the particle-order path:
 ``State``, ``PairParams``, ``CellSpec``, and the CVs ``LamellarOP``,
-``MeshOrderParameter`` and ``SteinhardtQl``.
+``MeshOrderParameter`` and ``SteinhardtQl``.  Walkers: a reference state
+stacked on a leading walker axis (what its ``WalkerSampler`` takes), packed
+or particle-order, ↔ the port's walker batch (``walker_state_from``,
+``walker_state_arrays``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,9 @@ import torch
 from .bias.flux import FluxState
 from .bias.grid import BiasGrid, GridSpec
 from .bias.metad import BiasState
+from types import SimpleNamespace
+
+from .core.batch import stack_walkers, walkers
 from .core.box import Box
 from .core.state import State
 from .cv.lamellar import LamellarOP
@@ -228,3 +234,41 @@ def mesh_op_from(obj, device) -> MeshOrderParameter:
 def steinhardt_ql_from(obj) -> SteinhardtQl:
     return SteinhardtQl(r_cut=float(obj.r_cut), l=int(obj.l),
                         row_block=int(obj.row_block), name=obj.name)
+
+
+def _walker_row(obj, w: int):
+    """Walker ``w`` of a stacked reference state, as a namespace of its
+    fields' rows (the attrs and the box too)."""
+    names = _STATE_TENSORS if hasattr(obj, "r") else _PARTICLE_TENSORS
+    row = {k: np.asarray(getattr(obj, k))[w] for k in names}
+    if hasattr(obj, "attrs"):
+        row["attrs"] = {k: np.asarray(v)[w] for k, v in obj.attrs.items()}
+    tilt = obj.box.tilt
+    row["box"] = SimpleNamespace(
+        L=np.asarray(obj.box.L)[w],
+        tilt=None if tilt is None else np.asarray(tilt)[w])
+    return SimpleNamespace(**row)
+
+
+def walker_state_from(obj, device):
+    """A reference state stacked on a leading walker axis (``PackedState``
+    or ``State``) → the port's walker batch on ``device``."""
+    packed = hasattr(obj, "r")
+    n_walkers = np.asarray(obj.r if packed else obj.pos).shape[0]
+    one = packed_state_from if packed else state_from
+    return stack_walkers([one(_walker_row(obj, w), device)
+                          for w in range(n_walkers)])
+
+
+def _stack_arrays(dicts: list):
+    first = dicts[0]
+    if isinstance(first, dict):
+        return {k: _stack_arrays([d[k] for d in dicts]) for k in first}
+    return None if first is None else np.stack(dicts)
+
+
+def walker_state_arrays(batch) -> dict:
+    """The port's walker batch → the reference's field names, every array
+    with the leading walker axis (``box`` a dict of (W, 3) arrays)."""
+    one = packed_state_arrays if hasattr(batch, "r") else state_arrays
+    return _stack_arrays([one(st) for st in walkers(batch)])

@@ -36,7 +36,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.box import Box, h_inverse, h_matrix
+from ..core.batch import batch_size, walkers
+from ..core.box import Box, h_inverse, h_matrix, shared_box
 
 # Vacant-slot coordinate sentinel of the sentinel layout: far outside any box
 # (f32-exact), so vacant pairs fail the r² cut-off.  Real coordinates never
@@ -51,27 +52,30 @@ OFFSETS = tuple((ox, oy, oz) for ox in (-1, 0, 1) for oy in (-1, 0, 1)
 
 
 def _frac3(r: torch.Tensor, box: Box) -> torch.Tensor:
-    """(3, M) Cartesian → (3, M) fractional rows (f = h⁻¹ r), elementwise."""
+    """(..., 3, M) Cartesian → fractional rows (f = h⁻¹ r), elementwise;
+    one box for any leading walker dimension."""
     if box.tilt is None:
         return r / box.L[:, None]
     Lx, Ly, Lz = box.L.unbind()
     xy, xz, yz = box.tilt.unbind()
-    fz = r[2] / Lz
-    fy = (r[1] - yz * r[2]) / Ly
-    fx = (r[0] - xy * (r[1] - yz * r[2]) - xz * r[2]) / Lx
-    return torch.stack([fx, fy, fz])
+    x, y, z = r.unbind(-2)
+    fz = z / Lz
+    fy = (y - yz * z) / Ly
+    fx = (x - xy * (y - yz * z) - xz * z) / Lx
+    return torch.stack([fx, fy, fz], dim=-2)
 
 
 def _cart3(f: torch.Tensor, box: Box) -> torch.Tensor:
-    """(3, M) fractional → Cartesian rows (r = h f), elementwise."""
+    """(..., 3, M) fractional → Cartesian rows (r = h f), elementwise."""
     if box.tilt is None:
         return f * box.L[:, None]
     Lx, Ly, Lz = box.L.unbind()
     xy, xz, yz = box.tilt.unbind()
-    r2 = Lz * f[2]
-    r1 = Ly * f[1] + yz * Lz * f[2]
-    r0 = Lx * f[0] + xy * Ly * f[1] + xz * Lz * f[2]
-    return torch.stack([r0, r1, r2])
+    f0, f1, f2 = f.unbind(-2)
+    r2 = Lz * f2
+    r1 = Ly * f1 + yz * Lz * f2
+    r0 = Lx * f0 + xy * Ly * f1 + xz * Lz * f2
+    return torch.stack([r0, r1, r2], dim=-2)
 
 
 def shift_rows_cart(ushift: torch.Tensor, box: Box) -> torch.Tensor:
@@ -212,7 +216,9 @@ class PackedSpec:
 
 @dataclass(frozen=True)
 class PackedState:
-    """MD state in slot layout.  (3, Npad) f32 rows and (Npad,) vectors."""
+    """MD state in slot layout.  (3, Npad) f32 rows and (Npad,) vectors;
+    a walker batch (``core/batch.py``) stacks W of them: (W, 3, Npad) rows,
+    (W, Npad) vectors, (W,) energies and a stacked box."""
 
     r: torch.Tensor        # (3, Npad) positions (vacant: VACANT_X or 0)
     v: torch.Tensor        # (3, Npad)
@@ -229,7 +235,7 @@ class PackedState:
 
     @property
     def n_pad(self) -> int:
-        return self.pid.shape[0]
+        return self.pid.shape[-1]
 
     def replace(self, **changes) -> "PackedState":
         return dataclasses.replace(self, **changes)
@@ -474,12 +480,13 @@ def repack_incremental(state: PackedState, spec: PackedSpec
 
 def needs_repack(state: PackedState, spec: PackedSpec) -> torch.Tensor:
     """Half-skin displacement criterion over valid slots (minimum image by
-    fractional rounding).  A device bool."""
+    fractional rounding).  A device bool; (W,) for a walker batch."""
+    box = shared_box(state.box)
     dr = state.r - state.ref_r
-    dr = dr - _cart3(torch.round(_frac3(dr, state.box)), state.box)
-    d2 = torch.sum(dr * dr, dim=0)
+    dr = dr - _cart3(torch.round(_frac3(dr, box)), box)
+    d2 = torch.sum(dr * dr, dim=-2)
     d2 = torch.where(state.pid < spec.n_real, d2, 0.0)
-    return torch.max(d2) > (0.5 * spec.skin) ** 2
+    return torch.amax(d2, dim=-1) > (0.5 * spec.skin) ** 2
 
 
 def pair_scale_tables(eps_table, sigma_table=None):
@@ -599,7 +606,20 @@ def packed_lj_force(state: PackedState, spec: PackedSpec,
     forces-only mode does).  ``j_block`` bounds the (j_block, cap, C) pair
     temporaries; by default the whole cap is one block up to 2^26 elements.
     ``cell_mask`` ((C,) 0/1, the spatial decomposition's) weights the energy
-    and virial sums by each pair's i cell; the forces stay unmasked."""
+    and virial sums by each pair's i cell; the forces stay unmasked.
+
+    A walker batch runs each walker in turn and stacks the results."""
+    if batch_size(state) is not None:
+        shared_box(state.box)
+        outs = [packed_lj_force(st, spec, with_energy, cell_mask, j_block)
+                for st in walkers(state)]
+        f = torch.stack([o.f for o in outs])
+        if not with_energy:
+            return state.replace(f=f)
+        return state.replace(
+            f=f, potential_energy=torch.stack([o.potential_energy
+                                               for o in outs]),
+            virial=torch.stack([o.virial for o in outs]))
     if spec.pair_kind not in ("lj", "soft"):
         raise ValueError(f"unknown pair_kind {spec.pair_kind!r}")
     cap, C = spec.cap, spec.n_cells
@@ -710,7 +730,9 @@ def unpack_positions(state: PackedState, spec: PackedSpec) -> torch.Tensor:
 
 def packed_temperature(state: PackedState, spec: PackedSpec,
                        mass: float = 1.0) -> torch.Tensor:
+    """Kinetic temperature; (W,) for a walker batch."""
     valid = (state.pid < spec.n_real).to(torch.float32)
-    ke = 0.5 * mass * torch.sum((state.v * state.v) * valid[None, :])
+    ke = 0.5 * mass * torch.sum((state.v * state.v) * valid[..., None, :],
+                                dim=(-2, -1))
     dof = max(3 * spec.n_real - 3, 3)
     return 2.0 * ke / dof

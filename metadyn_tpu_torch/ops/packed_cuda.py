@@ -19,10 +19,18 @@ spatial engine runs as XLA (its Pallas kernel halves the pairs); the
 port's kernel sums every ordered pair on its i side, so one weight per
 block's sums is exact.
 
+A walker batch (``core/batch.py``: W states of one box stacked on a
+leading dimension) is one launch over all W walkers, the grid of blocks
+repeated per walker on a second grid dimension; walker w gets the bits a
+launch on walker w alone gives.  The walkers' boxes must be equal (the
+kernel takes one cell matrix).
+
 On a CUDA tensor :func:`packed_lj_force_cuda` launches the kernel or raises;
 on a CPU tensor it runs the plain version, ``ops.packed.packed_lj_force``.
 There is no other fallback.  ``packed_lj_force_cuda.launches`` counts the
-kernel launches, ``masked_launches`` those with a ``cell_mask``.
+kernel launches (a batch's launch once), ``walkers`` the walkers they
+covered, ``energy_launches`` those with the energy and virial and
+``masked_launches`` those with a ``cell_mask``.
 """
 from __future__ import annotations
 
@@ -32,6 +40,8 @@ import functools
 import torch
 
 from . import _build
+from ..core.batch import batch_size
+from ..core.box import shared_box
 from .packed import (
     PackedSpec, PackedState, packed_lj_force, pair_scales_for,
 )
@@ -72,25 +82,28 @@ def check_spec(spec: PackedSpec) -> None:
                                   f"{MAX_BOND_SLOTS} bond slots")
 
 
-def check_state(state: PackedState, spec: PackedSpec, who: str) -> None:
+def check_state(state: PackedState, spec: PackedSpec, who: str,
+                lead: tuple = ()) -> None:
     """Raise on a state the kernels do not take: positions that are not
-    contiguous f32 of shape (3, Npad).  Any box is taken, orthorhombic or
-    tilted: the kernels read it from its host floats."""
+    contiguous f32 of shape ``lead`` + (3, Npad) (``lead`` = (W,) for a
+    walker batch).  Any box is taken, orthorhombic or tilted: the kernels
+    read it from its host floats."""
     r = state.r
     if (r.dtype != torch.float32 or not r.is_contiguous()
-            or tuple(r.shape) != (3, spec.n_pad)):
+            or tuple(r.shape) != (*lead, 3, spec.n_pad)):
         raise ValueError(f"{who}: r must be contiguous f32 of shape "
-                         f"(3, {spec.n_pad}); got {r.dtype} {tuple(r.shape)} "
-                         f"contiguous={r.is_contiguous()}")
+                         f"{(*lead, 3, spec.n_pad)}; got {r.dtype} "
+                         f"{tuple(r.shape)} contiguous={r.is_contiguous()}")
 
 
 def slot_ptr(t: torch.Tensor, dtype, spec: PackedSpec, who: str,
-             name: str) -> int:
-    """Device pointer of a per-slot (Npad,) column, checked."""
+             name: str, lead: tuple = ()) -> int:
+    """Device pointer of a per-slot ``lead`` + (Npad,) column, checked."""
     if (t.dtype != dtype or not t.is_contiguous()
-            or tuple(t.shape) != (spec.n_pad,)):
+            or tuple(t.shape) != (*lead, spec.n_pad)):
         raise ValueError(f"{who}: {name} must be contiguous {dtype} of shape "
-                         f"({spec.n_pad},); got {t.dtype} {tuple(t.shape)}")
+                         f"{(*lead, spec.n_pad)}; got {t.dtype} "
+                         f"{tuple(t.shape)}")
     return t.data_ptr()
 
 
@@ -107,11 +120,12 @@ def mask_ptr(cell_mask, spec: PackedSpec, device, who: str):
     return cell_mask.data_ptr()
 
 
-def bond_ptrs(state: PackedState, spec: PackedSpec, who: str) -> list:
+def bond_ptrs(state: PackedState, spec: PackedSpec, who: str,
+              lead: tuple = ()) -> list:
     """The bp0.. attrs' pointers, padded with None to MAX_BOND_SLOTS."""
     n = spec.bond_slots if spec.has_bonds else 0
     ptrs = [slot_ptr(state.attrs[f"bp{k}"], torch.float32, spec, who,
-                     f"bp{k}") for k in range(n)]
+                     f"bp{k}", lead) for k in range(n)]
     return ptrs + [None] * (MAX_BOND_SLOTS - n)
 
 
@@ -136,7 +150,7 @@ def _library():
     lib = _build.load(KERNEL)
     fn = lib.packed_lj_force
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 14
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 15
                        + [ctypes.c_float] * 12 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.packed_lj_force_blocks.argtypes = [ctypes.c_int] * 3
@@ -158,13 +172,14 @@ def raise_on(err: int, what: str, spec: PackedSpec) -> None:
 def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
                          with_energy: bool = True,
                          cell_mask=None) -> PackedState:
-    """Pair forces of every layout :func:`check_spec` takes.
+    """Pair forces of every layout :func:`check_spec` takes, on one state
+    or a walker batch.
 
     With ``with_energy`` the state also gets the potential energy and the
-    diagonal virial; without, only ``f`` is replaced and the two keep their
-    old values (the inner-step mode).  ``cell_mask`` ((C,) f32) weights the
-    energy and virial sums by each pair's i cell (with ``with_energy``
-    only)."""
+    diagonal virial ((W,) and (W, 3) for a batch); without, only ``f`` is
+    replaced and the two keep their old values (the inner-step mode).
+    ``cell_mask`` ((C,) f32) weights the energy and virial sums by each
+    pair's i cell (with ``with_energy`` only)."""
     r = state.r
     if cell_mask is not None and not with_energy:
         raise ValueError("packed_lj_force_cuda: cell_mask weights the energy "
@@ -176,29 +191,32 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
         raise ValueError(f"packed_lj_force_cuda: unsupported device {r.device}")
     who = "packed_lj_force_cuda"
     check_spec(spec)
-    check_state(state, spec, who)
+    n_walkers = batch_size(state)
+    lead = () if n_walkers is None else (n_walkers,)
+    check_state(state, spec, who, lead)
+    box = shared_box(state.box)
     lib = _library()
     se_eps = spec.uniform_eps is None
     hs_sig = spec.uniform_sigma is None
-    se = (slot_ptr(state.attrs["se"], torch.float32, spec, who, "se")
+    se = (slot_ptr(state.attrs["se"], torch.float32, spec, who, "se", lead)
           if se_eps else None)
-    hs = (slot_ptr(state.attrs["hs"], torch.float32, spec, who, "hs")
+    hs = (slot_ptr(state.attrs["hs"], torch.float32, spec, who, "hs", lead)
           if hs_sig else None)
     typ = table = None
     n_types = 1
     if spec.has_pair_table:
-        typ = slot_ptr(state.typ, torch.int32, spec, who, "typ")
+        typ = slot_ptr(state.typ, torch.int32, spec, who, "typ", lead)
         tab = scale_table(spec, r.device)
         n_types, table = tab.shape[1], tab.data_ptr()
-    pid = (slot_ptr(state.pid, torch.int32, spec, who, "pid")
+    pid = (slot_ptr(state.pid, torch.int32, spec, who, "pid", lead)
            if spec.has_bonds else None)
     f = torch.empty_like(r)
     if with_energy:
-        # one partials row per block, one block per cell
+        # one partials row per block, one block per cell and walker
         n_blocks = lib.packed_lj_force_blocks(*spec.cells_per_dim)
-        partials = torch.empty((n_blocks, 4), dtype=torch.float32,
+        partials = torch.empty((*lead, n_blocks, 4), dtype=torch.float32,
                                device=r.device)
-        out = torch.empty(4, dtype=torch.float32, device=r.device)
+        out = torch.empty((*lead, 4), dtype=torch.float32, device=r.device)
         p_ptr, o_ptr = partials.data_ptr(), out.data_ptr()
     else:
         p_ptr = o_ptr = None
@@ -208,25 +226,31 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = lib.packed_lj_force(
-            r.data_ptr(), se, hs, typ, pid, *bond_ptrs(state, spec, who),
+            r.data_ptr(), se, hs, typ, pid,
+            *bond_ptrs(state, spec, who, lead),
             table, f.data_ptr(), p_ptr, o_ptr, m_ptr,
             spec.n_pad, spec.cap, cx, cy, cz, spec.n_real, int(se_eps),
             int(hs_sig), n_types, bond_kind,
             spec.bond_slots if spec.has_bonds else 0,
             int(spec.shift_energy), int(with_energy),
-            int(spec.pair_kind == "soft"),
-            *state.box.h_host(), float(spec.r_cut) ** 2, float(spec.r_cut),
+            int(spec.pair_kind == "soft"), n_walkers or 1,
+            *box.h_host(), float(spec.r_cut) ** 2, float(spec.r_cut),
             float(spec.uniform_sigma or 0.0) ** 2,
             float(spec.uniform_eps or 0.0),
             float(spec.fene_k or 0.0), float(spec.fene_r0 or 0.0),
             stream)
     raise_on(err, "packed_lj_force", spec)
     packed_lj_force_cuda.launches += 1
+    packed_lj_force_cuda.walkers += n_walkers or 1
+    packed_lj_force_cuda.energy_launches += with_energy
     packed_lj_force_cuda.masked_launches += cell_mask is not None
     if not with_energy:
         return state.replace(f=f)
-    return state.replace(f=f, potential_energy=out[0], virial=out[1:4])
+    return state.replace(f=f, potential_energy=out[..., 0],
+                         virial=out[..., 1:4])
 
 
 packed_lj_force_cuda.launches = 0
+packed_lj_force_cuda.walkers = 0
+packed_lj_force_cuda.energy_launches = 0
 packed_lj_force_cuda.masked_launches = 0

@@ -59,7 +59,8 @@ plain versions (``--device cpu`` runs virtual shards of the CPU, as the
 reference's tests run virtual CPU devices).
 
 Not ported: ``nested=True`` (walkers × space product meshes, ROADMAP.md
-queue 1 item 5), and the 2-D decomposition (``spatial2d.py``).
+queue 1 item 9), and the 2-D decomposition (``spatial2d.py``).  The
+engine takes no walker batch: its islands cut one state.
 """
 from __future__ import annotations
 
@@ -495,7 +496,10 @@ class SpatialPackedEngine(PackedEngine):
     on) runs the order-CV sweeps and the lagged fused kernel as islands;
     off, the sampler runs them on the global state (the reference's GSPMD
     sweep).  On the CPU every island runs the plain versions.
-    ``nested=True`` (walkers × space) is not ported."""
+    ``nested=True`` (walkers × space) is not ported, and a walker batch
+    is not taken: ``parallel/walkers.py`` steps its walkers one by one."""
+
+    walker_batch = False
 
     def __init__(self, spec: PackedSpec, devices: Sequence,
                  rebuild_every: int = 1, mass: float = 1.0,
@@ -504,7 +508,7 @@ class SpatialPackedEngine(PackedEngine):
         if nested:
             raise NotImplementedError(
                 "not ported yet: walkers x space product meshes (nested="
-                "True) need the walkers (ROADMAP queue 1, item 5)")
+                "True; parallel/mesh.py, ROADMAP queue 1, item 9)")
         devices = [torch.device(d) for d in devices]
         if not devices:
             raise ValueError("SpatialPackedEngine: no devices")

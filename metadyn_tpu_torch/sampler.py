@@ -38,11 +38,15 @@ stride's hill record (step, centre, height) is its ``step``, ``cv`` and
 generator's state included (``io/checkpoint.py``): a resumed run repeats
 the straight one bit for bit.
 
-Ported: grid mode with analytic-force CVs, the autograd path (the packed
-mesh CV and every particle-order CV) and the fused order-CV path, with
-and without ``mts_lag``.  Hill-list mode, the table
-order-CV path and energy CVs (well-tempered ensemble) raise
+Ported: grid mode with analytic-force CVs (the energy CVs of the
+well-tempered ensemble among them), the autograd path (the packed mesh CV
+and every particle-order CV) and the fused order-CV path, with and without
+``mts_lag``.  Hill-list mode and the table order-CV path raise
 NotImplementedError.
+
+The CV functions here take one walker's state or a walker batch
+(``core/batch.py``) where the engine and the CVs do: the stacked CV values
+are then (W, d), ∂V/∂s too, and each CV's bias force takes its column.
 """
 from __future__ import annotations
 
@@ -119,7 +123,8 @@ class _CallableEngine:
 
 
 def cv_stack(cvs, state, system: System) -> torch.Tensor:
-    return torch.stack([cv.value(state, system) for cv in cvs])
+    """The CV values, (d,); (W, d) for a walker batch."""
+    return torch.stack([cv.value(state, system) for cv in cvs], dim=-1)
 
 
 def _grad_with_walls(bias: BiasState, s: torch.Tensor,
@@ -145,11 +150,15 @@ def make_bias_force_parts(engine, cvs, system: System,
     those; otherwise g = −∂V/∂s · ∂s/∂r of the whole CV stack comes from
     autograd.  CVs with ``bias_virial`` add their per-axis k-space virial
     to the state's after the engine's force call, as the reference does."""
-    for cv in cvs:
-        if getattr(cv, "needs_live_energy", False):
-            raise NotImplementedError(
-                f"CV {getattr(cv, 'name', cv)}: energy CVs (the well-"
-                "tempered ensemble) are not ported yet")
+    # an energy CV on an engine whose inner force calls skip the energy
+    # (the packed engine's forces-only mode) would bias against a stale
+    # potential energy: refuse it, as the reference does
+    if any(getattr(cv, "needs_live_energy", False) for cv in cvs) \
+            and not getattr(engine, "energy_live", True):
+        raise AssertionError(
+            "PotentialEnergyCV (WTE) reads state.potential_energy every "
+            "bias evaluation, but this engine's inner force path skips "
+            "the energy accumulation. Construct it with with_energy=True.")
     fused = (len(cvs) > 0 and hasattr(engine, "spec")
              and all(hasattr(cv, "pair_value_terms") for cv in cvs))
     if fused:
@@ -174,7 +183,7 @@ def make_bias_force_parts(engine, cvs, system: System,
             dVds = _grad_with_walls(bias, s, walls)
             g = torch.zeros_like(engine.positions(state))
             for i, cv in enumerate(cvs):
-                g = cv.accum_bias_force(state, system, dVds[i], g)
+                g = cv.accum_bias_force(state, system, dVds[..., i], g)
             return g, dVds, s
         r = engine.positions(state).detach().requires_grad_(True)
         with torch.enable_grad():
@@ -193,6 +202,21 @@ def make_bias_force_parts(engine, cvs, system: System,
         return state.replace(virial=w)
 
     return eval_bias, apply_force
+
+
+def make_biased_force(engine, cvs, system: System,
+                      walls: Optional[WallSpec] = None):
+    """Engine force plus the metadynamics bias force (and the CV walls):
+    ``force(state, aux, bias) -> state``, the bias evaluated at every
+    call (:func:`make_bias_force_parts` composed)."""
+    eval_bias, apply_force = make_bias_force_parts(engine, cvs, system,
+                                                   walls)
+
+    def force(state, aux, bias):
+        g, dVds, _ = eval_bias(state, aux, bias)
+        return apply_force(state, aux, g, dVds)
+
+    return force
 
 
 _HELD_G_ATTRS = ("held_gx", "held_gy", "held_gz")

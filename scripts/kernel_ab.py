@@ -40,6 +40,15 @@ bracket only the kernel's own work (for kernels 2 and 4 the sweep and the
 second pass).  Compare those only with each other.
 
 Prints one line, ``AB {json}``, with the times in ms.
+
+    python3 scripts/kernel_ab.py ROOT --bits OUT.npz
+    python3 scripts/kernel_ab.py --compare A.npz B.npz
+
+``--bits`` also saves kernel 1's outputs (forces; with energy the energy
+and the virial too) on the liquid, the fcc, Config 2's layout and the
+triclinic start, and ``--compare`` prints, per array of two such files,
+whether the two trees gave the same bits and the largest difference: the
+check that a change to kernel 1 left a launch's results as they were.
 """
 import dataclasses
 import importlib.util
@@ -90,7 +99,7 @@ def device_ms(fn, calls: int = 51, warm: int = 5) -> float:
     return statistics.median(times)
 
 
-def main(root: pathlib.Path) -> dict:
+def main(root: pathlib.Path, bits=None) -> dict:
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
@@ -130,6 +139,17 @@ def main(root: pathlib.Path) -> dict:
     def ms(fn, calls=101):
         return timing.cuda_ms(fn, calls=calls, warm=5)
 
+    saved = {}
+
+    def keep(name, st, spec):
+        """Kernel 1's outputs on ``st``, both modes, for ``--bits``."""
+        for we in (False, True):
+            o = packed_lj_force_cuda(st, spec, we)
+            saved[f"{name}_e{int(we)}_f"] = o.f.cpu().numpy()
+            if we:
+                saved[f"{name}_pe"] = o.potential_energy.cpu().numpy()
+                saved[f"{name}_virial"] = o.virial.cpu().numpy()
+
     out = {"tree": str(root), "card": torch.cuda.get_device_name(0)}
     d = np.load(root / "bench_data" / "liq64k.npz")
     L = float(d["L"])
@@ -137,6 +157,7 @@ def main(root: pathlib.Path) -> dict:
                              cap=40, shift_energy=False, uniform_sigma=1.0,
                              uniform_eps=1.0)
     st = pack(spec, d["pos"], L)
+    keep("liq64k", st, spec)
     out["k1_liq64k"] = ms(lambda: packed_lj_force_cuda(st, spec, False))
     out["k1_liq64k_energy"] = ms(lambda: packed_lj_force_cuda(st, spec, True))
     # the same particles at twice the cap: a sweep that reads every slot
@@ -152,6 +173,7 @@ def main(root: pathlib.Path) -> dict:
     spec = PackedSpec.create(L, pos.shape[0], r_cut=2.5, skin=0.4, cap=40,
                              shift_energy=False)
     st = pack(spec, pos, L)
+    keep("se_hs_fcc62k", st, spec)
     out["k1_se_hs_fcc62k"] = ms(lambda: packed_lj_force_cuda(st, spec, False))
     out["v1_se_hs_fcc62k"] = ms(lambda: packed_lj_force_v1_cuda(st, spec))
 
@@ -166,11 +188,13 @@ def main(root: pathlib.Path) -> dict:
         pos, Box.cubic(L, dev), types, eps_diag[types],
         np.ones(n, np.float32), extra_attrs=bond_partner_attrs(bonds, n))
     assert not ovf
+    keep("config2", st, spec)
     out["k1_config2"] = ms(lambda: packed_lj_force_cuda(st, spec, False))
     out["k1_config2_energy"] = ms(lambda: packed_lj_force_cuda(st, spec,
                                                                True))
 
     _, st, spec = cs.triclinic_pack(25, dev, noise=0.05)
+    keep("se_hs_tilted62k", st, spec)
     out["k1_se_hs_tilted62k"] = ms(lambda: packed_lj_force_cuda(st, spec,
                                                                 False))
     cvs = [cs.triclinic_cv(spec)]
@@ -210,8 +234,25 @@ def main(root: pathlib.Path) -> dict:
         lambda: order_force_cuda(st, spec, cvs, auxs))
     out["fused_cfg3_dev"] = device_ms(
         lambda: fused_lj_order_force_cuda(st, spec, cvs, auxs))
+    if bits:
+        np.savez(bits, **saved)
     return out
 
 
+def compare(a: str, b: str) -> dict:
+    """Per array of two ``--bits`` files: [same bits, max |a - b|]."""
+    import numpy as np
+    with np.load(a) as x, np.load(b) as y:
+        assert sorted(x.files) == sorted(y.files), (x.files, y.files)
+        return {k: [bool(np.array_equal(x[k], y[k])),
+                    float(np.abs(x[k].astype(np.float64) - y[k]).max())]
+                for k in sorted(x.files)}
+
+
 if __name__ == "__main__":
-    print("AB " + json.dumps(main(pathlib.Path(sys.argv[1]).resolve())))
+    if sys.argv[1] == "--compare":
+        print("BITS " + json.dumps(compare(sys.argv[2], sys.argv[3])))
+    else:
+        bits = sys.argv[3] if sys.argv[2:3] == ["--bits"] else None
+        print("AB " + json.dumps(main(pathlib.Path(sys.argv[1]).resolve(),
+                                      bits)))

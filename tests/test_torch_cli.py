@@ -212,16 +212,21 @@ def test_prerelax_force_at_step0_matches_reference(seed):
 
 
 # name -> (overrides, the item the refusal names).  Config 1 runs on the
-# port since the particle-order engines (ROADMAP queue 1, item 7); its
-# case now holds a Config 1 variant that stays refused, with an MSD CV.
+# port since the particle-order engines (ROADMAP queue 1, item 7), and
+# config4_walkers and config6_wte since the walkers (item 5) and the energy
+# CVs (item 2); each of their cases now holds a variant that stays refused:
+# Config 1 with an MSD CV, the walkers on two x-slabs (walkers x space,
+# what config4_walkers_sk_dd asks for too), the WTE run under NPT (the
+# reference's NPT + WTE combination, tests/test_spatial2d.py:221).
 REFUSED_YAMLS = {
     "config1_lj_lamellar": (dict(cvs=[{
         "name": "m", "kind": "msd",
         "grid": {"min": 0, "max": 1, "num_points": 5, "sigma": 0.1}}]),
         "item 3"),
-    "config4_walkers": ({}, "item 5"),
-    "config4_walkers_sk_dd": ({}, "item 5"),
-    "config6_wte": ({}, "item 2"),
+    "config4_walkers": (dict(engine={"spatial_devices": 2}), "item 9"),
+    "config4_walkers_sk_dd": ({}, "item 9"),
+    "config6_wte": (dict(integrator={"kind": "npt_scr", "pressure": 1.0}),
+                    "item 3"),
 }
 
 

@@ -34,6 +34,12 @@ run's hill file, CSV log and grid dump byte for byte.
 ``sum-hills`` (grid given and auto range, ``--blocks``, well-tempered to
 npz) on the straight run's hill file and ``fes`` on its grid dump, against
 the reference's commands on the same files, rtol 1e-6.
+
+``config4_walkers`` (3 walkers of 864, 2 strides of 20) and
+``config6_wte`` (864 particles, 2 strides of 25) with every output file:
+one hill row per (stride, walker), a CSV column per walker, T of the last
+stride in a band, W hills per stride in the grid dump; the walkers'
+``--resume`` against their straight run, byte for byte.
 """
 import contextlib
 import json
@@ -335,3 +341,114 @@ def test_restart_from_grid(runs, tmp_path, case):
         assert meta["mode"] == "well_tempered"
     assert not os.path.exists(cfg["output"]["hill_file"])
     assert os.path.exists(cfg["output"]["checkpoint"])
+
+
+# examples/config4_walkers.yaml (8 walkers of 864) and config6_wte.yaml
+# (2,048 particles) shrunk: 3 walkers of 864 over 2 strides of 20, and the
+# energy CV on 864 particles (n_cells 6) over 2 strides of 25, each with
+# every output file.  (example, overrides, walkers, T band: the fcc starts
+# dip in their first strides, config4's to ~0.6 at kT 1, config6's to ~1.0
+# at kT 1.5)
+ENSEMBLE_RUNS = {
+    "config4_walkers": (dict(
+        metadynamics={"n_walkers": 3}, run={"n_steps": 40,
+                                            "report_every": 20}), 3,
+        (0.3, 1.2)),
+    "config6_wte": (dict(
+        system={"init": {"n_cells": 6}},
+        run={"n_steps": 50, "report_every": 50}), 1, (0.5, 2.0)),
+}
+ENSEMBLE_OUT = {"log_file": "log.csv", "grid_file": "grid.npz",
+                "checkpoint": "ck.npz"}
+
+
+@pytest.fixture(scope="module")
+def ensemble_runs(tmp_path_factory):
+    """``ensemble_runs(case)``: the case's config and exit code, run once;
+    ``ensemble_runs("resumed")``: config4_walkers' 20 + 20 steps
+    (``--resume``) beside its straight 40."""
+    done = {}
+
+    def get(case):
+        if case not in done:
+            d = tmp_path_factory.mktemp(case)
+            name = "config4_walkers" if case == "resumed" else case
+            over = dict(ENSEMBLE_RUNS[name][0])
+            over["output"] = ENSEMBLE_OUT
+            cfg = shrunk(name, d, **over)
+            if case == "resumed":
+                cfg["run"]["n_steps"] = 20
+            p = write_cfg(cfg, d / "cfg.json")
+            with torch_threads():
+                rc = cli.main(["run", p, "--device", "cpu"])
+                if case == "resumed":
+                    rc |= cli.main(["run", p, "--device", "cpu", "--resume"])
+            done[case] = (cfg, rc)
+        return done[case]
+
+    return get
+
+
+@pytest.mark.parametrize("check", ["files", "hills", "log", "grid"])
+@pytest.mark.parametrize("case", sorted(ENSEMBLE_RUNS))
+def test_cli_walkers_and_wte_run(ensemble_runs, case, check):
+    """The two YAMLs the walkers and the energy CV unlock: the files, one
+    hill row per (stride, walker) in stride order, the CSV log with a
+    column per walker, T of the last stride (every walker's) in its band,
+    the grid dump with W hills per stride."""
+    cfg, rc = ensemble_runs(case)
+    _, n_walkers, band = ENSEMBLE_RUNS[case]
+    out = cfg["output"]
+    stride = cfg["metadynamics"]["stride"]
+    strides = cfg["run"]["n_steps"] // stride
+    assert rc == 0
+    if check == "files":
+        for k in ("hill_file", "log_file", "grid_file", "checkpoint"):
+            assert os.path.exists(out[k]), k
+    elif check == "hills":
+        h = read_hills(out["hill_file"])
+        np.testing.assert_array_equal(
+            h["step"], np.repeat(stride * np.arange(1, strides + 1),
+                                 n_walkers))
+        assert np.isfinite(h["center"]).all() and (h["height"] > 0).all()
+        log = read_csv(out["log_file"])
+        cvs = np.stack([log[f"cv_{w}"] for w in range(n_walkers)], 1)
+        np.testing.assert_allclose(h["center"][:, 0], cvs.ravel(),
+                                   rtol=1e-7)
+    elif check == "log":
+        log = read_csv(out["log_file"])
+        assert len(log["cv_0"]) == strides
+        if n_walkers == 1:
+            assert sorted(log) == METAD_COLUMNS
+            temps = log["temperature"][-1:]
+        else:
+            assert f"temperature_{n_walkers - 1}" in log
+            assert "step" not in log      # the reference's walker metrics
+            temps = np.asarray([log[f"temperature_{w}"][-1]
+                                for w in range(n_walkers)])
+        over = [v for k, v in log.items() if k.startswith("nlist_overflow")]
+        assert len(over) == n_walkers and all((v == 0).all() for v in over)
+        assert ((band[0] < temps) & (temps < band[1])).all(), temps
+    else:
+        bias, meta = load_grid(out["grid_file"])
+        assert meta["mode"] == cfg["metadynamics"]["mode"]
+        assert bias.n_hills == n_walkers * strides
+        assert np.isfinite(bias.grid.V.numpy()).all()
+        assert float(bias.grid.V.max()) > 0.0
+
+
+@pytest.mark.parametrize("what", ["hill_file", "log_file", "grid"])
+def test_cli_walkers_resume_matches_straight_run(ensemble_runs, what):
+    """config4_walkers: 20 steps, then ``--resume`` for 20 more, against the
+    straight 40, byte for byte (the stacked walker states, the generator
+    and the bias in the checkpoint)."""
+    a = ensemble_runs("config4_walkers")[0]["output"]
+    b = ensemble_runs("resumed")[0]["output"]
+    if what == "grid":
+        ga, _ = load_grid(a["grid_file"])
+        gb, _ = load_grid(b["grid_file"])
+        assert ga.n_hills == gb.n_hills == 6
+        assert torch.equal(ga.grid.V, gb.grid.V)
+        assert torch.equal(ga.grid.dV, gb.grid.dV)
+        return
+    assert open(a[what], "rb").read() == open(b[what], "rb").read()

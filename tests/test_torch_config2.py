@@ -185,7 +185,9 @@ def test_soft_pushoff_engine_matches_reference():
 
 
 def test_sampler_refuses_energy_cvs():
-    """The well-tempered-ensemble energy CV stays unported and refused."""
+    """An energy CV (the well-tempered ensemble) on a packed engine whose
+    inner force calls skip the energy (no ``with_energy``) is refused, as
+    the reference refuses it."""
     from metadyn_tpu_torch import Box, GridSpec, PackedSpec
 
     class EnergyCV:
@@ -202,7 +204,8 @@ def test_sampler_refuses_energy_cvs():
     state, _ = engine.pack_state(pos, Box.cubic(L, "cpu"), types,
                                  np.ones(n, np.float32),
                                  np.ones(n, np.float32), vel=vel)
-    with pytest.raises(NotImplementedError, match="energy"):
+    assert not engine.energy_live
+    with pytest.raises(AssertionError, match="with_energy=True"):
         MetadSampler(
             make_system(n, "cpu"), state, engine, [EnergyCV()],
             GridSpec.create(*GRID, "cpu"),

@@ -297,9 +297,9 @@ def _small_setup():
 
 @pytest.mark.parametrize("case", ["two_cvs", "mesh", "checkpoints"])
 def test_flux_sampler_refusals(case):
-    """Two CVs raise the reference's AssertionError; multiple walkers
-    (``mesh``) are not ported and raise NotImplementedError naming their
-    ROADMAP item.  Checkpoints are ported; loading one saved by a
+    """Two CVs raise the reference's AssertionError; a ``mesh`` raises
+    ValueError: the port's walkers are a walker batch on one device (the
+    stacked states), not a device mesh.  Checkpoints are ported; loading one saved by a
     ``MetadSampler`` (another carry) raises ValueError, and a failed load
     leaves the sampler as it was."""
     system, state, engine, cv = _small_setup()
@@ -317,7 +317,7 @@ def test_flux_sampler_refusals(case):
         return
     g = GridSpec.create([0.0], [10.0], [11], [0.5], "cpu")
     if case == "mesh":
-        with pytest.raises(NotImplementedError, match="item 5"):
+        with pytest.raises(ValueError, match="walker batch"):
             FluxTemperedSampler(system, state, engine, [cv], g, integ,
                                 kT=1.0, mesh=object())
         return

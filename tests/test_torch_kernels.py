@@ -164,7 +164,7 @@ def test_plain_force_refuses_unported_physics(change):
                                "bp1": torch.zeros_like(st.r[0])})
     out = packed_lj_force(st, other, cell_mask=torch.ones(other.n_cells))
     assert torch.isfinite(out.potential_energy)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         SpatialPackedEngine(other, ["cpu"], nested=True)
 
 

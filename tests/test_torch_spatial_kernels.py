@@ -136,7 +136,7 @@ def test_slabs_refuse_what_the_reference_refuses():
             make(spec, ["cpu"] * 3)
     with pytest.raises(ValueError, match="divide"):
         sp.make_sharded_order_parts(cvs, spec, ["cpu"] * 3)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         sp.SpatialPackedEngine(spec, ["cpu"] * 2, nested=True)
 
 
