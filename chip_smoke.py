@@ -4,7 +4,8 @@
 Five workloads, all at full size, then the example YAMLs through the
 port's CLI (phase 22), the particle-order path (phases 23-25), Config 3
 on the x-slab decomposition (phases 26-27), the well-tempered ensemble
-(phase 28) and multiple walkers on the one card (phase 29):
+(phase 28), multiple walkers on the one card (phase 29), and the moving
+box and the walkers x space product (phases 30-34):
 
 - the headline one (bench.py): the 62,500-particle LJ liquid
   (bench_data/liq64k.npz) on the packed cell engine (r_cut 2.5, skin 0.55,
@@ -167,9 +168,8 @@ Phases, one line or more each:
      variants launched); the sharded repack against repack_incremental
      bit for bit (1 and 2 shards); Config 3 lagged timed with 1 and 2
      shards as phase 10 times it (exact launches per stride, one profiled
-     stride); the CLI with engine.spatial_devices = 2, which must raise
-     the reference's too-few-devices error on one card and runs where two
-     are visible.
+     stride); the CLI with engine.spatial_devices = 2 (500 steps; on one
+     card both shards share it).
  28. the well-tempered ensemble (examples/config6_wte.yaml: the potential
      energy is the CV, kernel 1 computes energy and virial on every force
      call) at init.n_cells 25 (62,500 particles, the grid scaled per
@@ -194,6 +194,38 @@ Phases, one line or more each:
      resume leg, bit for bit; the flux walkers (4 on the double well of
      tests/test_flux_walkers.py, the callable engine on the card): one
      update period, the pooled histograms, a finite bias.
+ 30. NPT at 62,500: the liquid on 13^3 cells (cap 48; 14^3 cells leave no
+     width headroom against r_list) with kernel 1's energy and virial on
+     every force call; its mean NVT pressure over 4 strides of 100; 20
+     steps of isotropic SCR-NPT at gamma 0, kernel engine against the
+     plain-force engine (positions 1e-3, box L rtol 1e-5); NPT timed (1
+     warm and 2 timed strides of 500, bias_every 5: exactly 501 launches
+     per stride, all with energy; the box trace; no cell-width violation)
+     and one profiled stride, its device-to-host copies no more than phase
+     5's; kernel 1 (a) with energy against its plain version on the moved
+     box (the cell matrix read from device memory);
+ 31. box metadynamics (AspectRatio, anisotropic SCR with box_bias, the
+     two-argument integrator factory) at 62,500: 3 strides of 100, the CV
+     equal to the box's L_x / L_y, exact launches; the PackedMSD CV biased
+     under isotropic SCR: its value against the plain float64 one;
+ 32. NPT walkers: 4 x the liquid on 13^3 cells, SCR-NPT + the WTE energy
+     CV in one batch, every walker in a box of its own: kernel 1 on the
+     batch against 4 single launches, to the bit, and against the plain
+     batched version; 4 timed strides of 100 (101 launches per stride, all
+     with energy), the rate summed over walkers;
+ 33. Config 5 at 1,048,576 beads on 2 x-slabs of the card
+     (SpatialPackedEngine, 33 x-planes per shard; ShardedPackedMesh 48^3,
+     24 columns per shard) from phase 21's relaxed melt: S(k0), its bias
+     force and the bias virial against the single-grid PackedMesh; one
+     warm and one timed flux period (exact launches: one per shard per
+     force call), peak memory, one profiled period;
+ 34. walkers x space: 4 x liq64k on 2 x-slabs of the nested
+     SpatialPackedEngine: kernel 1's walker batch under the interior mask
+     against 4 single masked launches (to the bit) and its plain version;
+     20 steps at gamma 0 against phase 29's unsharded walker batch; 1 warm
+     and 2 timed strides (exact launches), the rate summed over walkers.
+     Phase 22 runs examples/config4_walkers_sk_dd.yaml (4 walkers x 2
+     slabs, the sharded S(k) CV) as written, with its resume leg.
 
 After each timed run one more stride runs under torch.profiler, and a line
 reports the GPU's busy share of it and the top kernels.  The launch counts
@@ -343,6 +375,41 @@ def pairs_within(state, spec, rc: float, cell_mask=None) -> int:
     return count // 2
 
 
+def near_cutoff_slots(state, spec, rel: float = 1e-5):
+    """(Npad,) bool: the real slots with a real partner whose r² lies
+    within rel·rc² of rc².  Such a pair sits inside the cut-off for one f32
+    rounding of r² and outside it for another (the kernel's fused
+    multiply-adds against the plain version's separate ones), and the
+    unshifted LJ force jumps there by |F(r_cut)|: their slots are held to
+    that jump (pair_close's ``exempt``), every other slot to the gate."""
+    import torch
+    from metadyn_tpu_torch.ops.packed import OFFSETS, _tables, shift_rows_cart
+    cap, C = spec.cap, spec.n_cells
+    dims = (2, 3, 4)
+    rc2 = float(spec.r_cut) ** 2
+    x = state.r.reshape(3, cap, *spec.cells_per_dim)
+    real = (state.pid < spec.n_real).reshape(cap, *spec.cells_per_dim)
+    shifts = shift_rows_cart(_tables(spec, state.r.device).ushift, state.box)
+    xi = state.r.reshape(3, 1, cap, C)
+    near = torch.zeros((cap, C), dtype=torch.bool, device=state.r.device)
+    for oi, o in enumerate(OFFSETS):
+        back = (-o[0], -o[1], -o[2])
+        xj = torch.roll(x, back, dims).reshape(3, cap, C) + shifts[oi][:, None]
+        rj = torch.roll(real, back, (1, 2, 3)).reshape(cap, 1, C)
+        d = xi - xj[:, :, None, :]
+        r2 = (d * d).sum(0)
+        near |= ((r2 - rc2).abs() <= rel * rc2).logical_and(rj).any(0)
+    return (near & real.reshape(cap, C)).reshape(-1)
+
+
+def lj_jump(spec) -> float:
+    """|F(r_cut)| of the unshifted LJ pair at the uniform sigma and
+    epsilon (1 where per-slot)."""
+    s6 = (float(spec.uniform_sigma or 1.0) / float(spec.r_cut)) ** 6
+    return abs(24.0 * float(spec.uniform_eps or 1.0) * (2.0 * s6 * s6 - s6)
+               / float(spec.r_cut))
+
+
 def pair_kernel_bytes(spec, with_energy: bool, v1: bool = False) -> int:
     """Bytes the pair kernels must move for ``spec``'s layout: the inputs
     the layout reads (positions; se, hs, types, pids and bond partners
@@ -387,15 +454,28 @@ def force_close(name: str, a, b, rtol: float, atol_frac: float) -> tuple:
     return float(d.max()), bmax
 
 
-def pair_close(tag: str, a, b, with_energy: bool) -> tuple:
+def pair_close(tag: str, a, b, with_energy: bool, exempt=None,
+               jump: float = 0.0) -> tuple:
     """Hold a pair kernel's state ``a`` against the plain force's ``b``:
-    max|df| <= 1e-4 max|f| + 1e-3, PE and virial rtol 1e-5.  Returns
-    (max|df|, a report)."""
+    max|df| <= 1e-4 max|f| + 1e-3, PE and virial rtol 1e-5.  With
+    ``exempt`` ((Npad,) bool, near_cutoff_slots) those slots are held to
+    that bound plus 2 ``jump`` instead.  Returns (max|df|, a report)."""
     import numpy as np
-    df = float((a.f - b.f).abs().max())
+    d = (a.f - b.f).abs().amax(-2)
+    df = float(d.max())
     fmax = float(b.f.abs().max())
-    assert np.isfinite(df) and df <= 1e-4 * fmax + 1e-3, (tag, df, fmax)
-    line = f"max|df|/max|f|={df / fmax:.3e} (max|f|={fmax:.3e})"
+    tol = 1e-4 * fmax + 1e-3
+    line = ""
+    if exempt is not None and bool(exempt.any()):
+        worst = float(d[exempt].max())
+        assert np.isfinite(worst) and worst <= tol + 2.0 * jump, (
+            tag, worst, jump)
+        line = (f" ({int(exempt.sum())} slots with a pair within 1e-5 of "
+                f"r_cut^2: max|df| {worst:.3e} against the jump "
+                f"{jump:.3e})")
+        df = float(d[~exempt].max())
+    assert np.isfinite(df) and df <= tol, (tag, df, fmax)
+    line = f"max|df|/max|f|={df / fmax:.3e} (max|f|={fmax:.3e})" + line
     if with_energy:
         dpe = abs(float(a.potential_energy - b.potential_energy)) / abs(
             float(b.potential_energy))
@@ -415,9 +495,10 @@ def pair_kernel_bound(spec, n_pairs: int, n_bonds: int, with_energy: bool,
 
 def pair_kernel_vs_plain(label: str, key: str, st, spec, n_bonds: int,
                          calls: int = 25, plain_calls: int = 10,
-                         plain_warm: int = 3) -> dict:
+                         plain_warm: int = 3, cutoff: bool = False) -> dict:
     """The pair kernel against the plain pair force on ``st``, forces only
-    and with energy (pair_close), with times per call and the bound; one
+    and with energy (pair_close; with ``cutoff``, the slots of pairs at
+    the cut-off held to its jump), with times per call and the bound; one
     line each.  Returns {key, key + "+energy": (max abs error, kernel ms,
     plain ms, bound ms, bound by)}."""
     import torch
@@ -425,12 +506,14 @@ def pair_kernel_vs_plain(label: str, key: str, st, spec, n_bonds: int,
     from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
 
     pairs = pairs_within(st, spec, spec.r_cut)
+    exempt = near_cutoff_slots(st, spec) if cutoff else None
     out = {}
     for we in (False, True):
         a = packed_lj_force_cuda(st, spec, with_energy=we)
         b = packed_lj_force(st, spec, with_energy=we)
         torch.cuda.synchronize()
-        err, line = pair_close(f"{label} {key}", a, b, we)
+        err, line = pair_close(f"{label} {key}", a, b, we, exempt,
+                               lj_jump(spec))
         del a, b
         ms = cuda_ms(lambda: packed_lj_force_cuda(st, spec, with_energy=we),
                      calls=calls)
@@ -1865,7 +1948,7 @@ def config5_1m(soft: tuple, melt: dict, dev, smi: str,
     assert s.n_updates == sum(bool(m["update_applied"]) for m in hist)
     assert len(hist) == 3 + CFG5_TIMED_PERIODS
     return {"push_launches": push_launches, "launches": counts["pair"],
-            "variants": prod}
+            "variants": prod, "relaxed": (pos, vel)}
 
 
 # Phase 22: the packed example YAMLs through the port's CLI, as written
@@ -1877,6 +1960,10 @@ def config5_1m(soft: tuple, melt: dict, dev, smi: str,
 # 10, 15 and 18 derive theirs.  A melt's build also runs its push-off on
 # the pair kernel's soft layout, counted by the same counter: its init and
 # one launch per step.
+# config4_walkers_sk_dd's T of the last stride: the sc start at spacing 2
+# (rho 0.125) at kT 1; on the CPU the port's walkers were at 0.95-1.02 by
+# step 40
+C4SK_T_BAND = (0.6, 1.4)
 CLI_YAMLS = {
     "config2_diblock_sk": dict(
         band=CFG2_T_BAND, build={"pair": 2}, per_stride={"pair": 101}),
@@ -1888,7 +1975,16 @@ CLI_YAMLS = {
     "triclinic_packed": dict(
         band=TRIC_T_BAND, build={"pair": 2, "values": 2, "force": 1},
         per_stride={"pair": 51, "values": 51, "force": 50}),
+    # 4 walkers of 343 on 2 x-slabs, the S(k) CV sharded: its walkers step
+    # one by one (the mesh CV takes one state), each force call one launch
+    # per shard; the refresh masked with energy
+    "config4_walkers_sk_dd": dict(
+        band=C4SK_T_BAND, build={"pair": 4 * 2 * 2},
+        per_stride={"pair": 4 * 21 * 2, "pair masked": 4 * 2}),
 }
+# the resume legs: K steps with a checkpoint, --resume for K more, against
+# one straight 2K-step run
+CLI_RESUME = ("triclinic_packed", "config4_walkers_sk_dd")
 # A YAML whose pack overflows its cap as written (the reference's CLI
 # refuses it too) runs once more at this cap, as phase 10 retries Config 3
 # at cap 36: config5_flux.yaml's cap 40 leaves 22% over the mean of 32.8
@@ -2021,10 +2117,10 @@ def cli_yamls(dev, smi: str) -> dict:
             break
         torch.cuda.synchronize()
         t_build = time.perf_counter() - t0
-        st = runner.sampler.state
+        st = getattr(runner.sampler, "states", None) or runner.sampler.state
         spec = runner.sampler.engine.spec
-        occ = int((st.pid < spec.n_real).reshape(spec.cap, spec.n_cells)
-                  .sum(0).max())
+        occ = int((st.pid < spec.n_real).reshape(-1, spec.cap, spec.n_cells)
+                  .sum(1).max())
         build_counts = read_counts()
         reset_counts()
         t1 = time.perf_counter()
@@ -2061,34 +2157,35 @@ def cli_yamls(dev, smi: str) -> dict:
               f"build_launches={build_counts} run_launches={run_counts} "
               f"on {smi}")
 
-    # the resume leg: K steps with a checkpoint, --resume for K more,
+    # the resume legs: K steps with a checkpoint, --resume for K more,
     # against one straight run of 2K steps
-    name = "triclinic_packed"
-    legs = {}
-    for leg in ("resumed", "straight"):
-        d = tmp / f"resume_{leg}"
-        d.mkdir()
-        cfg = cli_yaml(name, d, checkpoint="ck.npz", grid_file="grid.npz")
-        k = int(cfg["run"]["n_steps"])
-        if leg == "straight":
-            cfg["run"]["n_steps"] = 2 * k
-            CliRun(cfg, device=dev).run()
-        else:
-            CliRun(cfg, device=dev).run()
-            CliRun(cfg, resume=True, device=dev).run()
-        legs[leg] = cfg["output"]
     from metadyn_tpu_torch.io.grid_file import load_grid
-    same_hills = (open(legs["resumed"]["hill_file"], "rb").read()
-                  == open(legs["straight"]["hill_file"], "rb").read())
-    va = load_grid(legs["resumed"]["grid_file"])[0].grid.V
-    vb = load_grid(legs["straight"]["grid_file"])[0].grid.V
-    dv = float((va - vb).abs().max())
-    if not (same_hills and torch.equal(va, vb)):
-        bad.append(f"resume leg: hill files equal {same_hills}, "
-                   f"max|dV| {dv:.3e}")
-    print(f"cli {name} resume leg: {k} + {k} steps (--resume) against "
-          f"{2 * k} straight: hill files equal={same_hills} grid V "
-          f"bitwise equal={torch.equal(va, vb)} max|dV|={dv:.3e}")
+    for name in CLI_RESUME:
+        legs = {}
+        for leg in ("resumed", "straight"):
+            d = tmp / f"resume_{name}_{leg}"
+            d.mkdir()
+            cfg = cli_yaml(name, d, checkpoint="ck.npz",
+                           grid_file="grid.npz")
+            k = int(cfg["run"]["n_steps"])
+            if leg == "straight":
+                cfg["run"]["n_steps"] = 2 * k
+                CliRun(cfg, device=dev).run()
+            else:
+                CliRun(cfg, device=dev).run()
+                CliRun(cfg, resume=True, device=dev).run()
+            legs[leg] = cfg["output"]
+        same_hills = (open(legs["resumed"]["hill_file"], "rb").read()
+                      == open(legs["straight"]["hill_file"], "rb").read())
+        va = load_grid(legs["resumed"]["grid_file"])[0].grid.V
+        vb = load_grid(legs["straight"]["grid_file"])[0].grid.V
+        dv = float((va - vb).abs().max())
+        if not (same_hills and torch.equal(va, vb)):
+            bad.append(f"{name} resume leg: hill files equal {same_hills}, "
+                       f"max|dV| {dv:.3e}")
+        print(f"cli {name} resume leg: {k} + {k} steps (--resume) against "
+              f"{2 * k} straight: hill files equal={same_hills} grid V "
+              f"bitwise equal={torch.equal(va, vb)} max|dV|={dv:.3e}")
 
     # device-to-host transfers per report block: config3's CLI run against
     # phase 10's directly built sampler, over the same strides
@@ -2587,9 +2684,8 @@ def spatial_slice(dev, smi: str, unsharded_rates: list) -> dict:
     rtol 1e-5; (2) the sharded repack against repack_incremental on a
     displaced state, bit for bit; (3) Config 3 lagged timed with 1 and
     SPATIAL_SHARDS shards as phase 10 times it, with exact launches per
-    stride; (4) the CLI with engine.spatial_devices = 2: the reference's
-    too-few-devices error where one card is visible, a short run where
-    two are.  Returns {shards: (launches per timed run, rates, profile,
+    stride; (4) the CLI with engine.spatial_devices = 2: a short run, on
+    one card with both shards on it.  Returns {shards: (launches per timed run, rates, profile,
     launches of the timed sampler's construction)} and under "slice" the
     launches of (1)'s sharded run, construction included."""
     import numpy as np
@@ -2671,37 +2767,29 @@ def spatial_slice(dev, smi: str, unsharded_rates: list) -> dict:
           + f" on {smi}; launches of the timed samplers' construction: "
           + "; ".join(f"shards={k} {res[k][3]}" for k in (1, SPATIAL_SHARDS)))
 
-    # the CLI with engine.spatial_devices = 2
+    # the CLI with engine.spatial_devices = 2: on the visible cards in
+    # turn, so on one card both shards share it
     import tempfile
     import metadyn_tpu_torch.cli as cli
     out_dir = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_sp_"))
     cfg = cli_yaml("config3_nucleation_2dcv", out_dir)
     cfg["engine"]["spatial_devices"] = 2
     n_cards = torch.cuda.device_count()
-    if n_cards < 2:
-        try:
-            cli.CliRun(cfg, device="cuda")
-        except ValueError as e:
-            msg = str(e)
-        else:
-            raise AssertionError("spatial_devices=2 on one card did not "
-                                 "raise")
-        want = f"engine.spatial_devices=2 but only {n_cards} devices are " \
-               f"visible"
-        assert msg == want, msg
-        print(f"phase 27 cli spatial_devices=2 on {n_cards} card: {msg!r}")
-    else:
-        # 13 x-planes at the YAML's skin 0.4 and cap 48 do not split in two:
-        # bench_config3's spec (skin 0.3, cap 32: 14^3 cells)
-        cfg["engine"].update(skin=0.3, cap=32)
-        cfg["run"]["n_steps"] = 200
-        t0 = time.perf_counter()
-        run = cli.CliRun(cfg, device="cuda")
-        run.run()
-        bad = cli_checks("config3_nucleation_2dcv", cfg, run)
-        assert not bad, bad
-        print(f"phase 27 cli spatial_devices=2 on {n_cards} cards: 200 steps "
-              f"in {time.perf_counter() - t0:.1f} s")
+    # 13 x-planes at the YAML's skin 0.4 and cap 48 do not split in two:
+    # bench_config3's spec (skin 0.3, cap 32: 14^3 cells); 500 steps, as
+    # the fcc start's T dips to ~0.48 and returns to the band by ~400
+    # (phase 10 warms 4 strides of 100)
+    cfg["engine"].update(skin=0.3, cap=32)
+    cfg["run"]["n_steps"] = 500
+    t0 = time.perf_counter()
+    run = cli.CliRun(cfg, device="cuda")
+    run.run()
+    bad = cli_checks("config3_nucleation_2dcv", cfg, run)
+    assert not bad, bad
+    shards = run.sampler.engine.devices
+    print(f"phase 27 cli spatial_devices=2 on {n_cards} card(s), shards on "
+          f"{[str(d) for d in shards]}: 500 steps in "
+          f"{time.perf_counter() - t0:.1f} s")
     shutil.rmtree(out_dir, ignore_errors=True)
     print(f"spatial phase 27: {time.perf_counter() - t27:.1f} s")
     return res
@@ -3265,6 +3353,667 @@ def walkers_phase(dev, smi: str, single_rate: float) -> dict:
     return out
 
 
+# Phases 30-34: the moving box and the walkers x space product.  The NPT
+# phases run bench.py's liquid on 13^3 cells (cap 48, Npad 105,456): its
+# 14^3 cells are 3.054 wide against r_list 3.05, so the barostat's first
+# compression would trip the cell-width check (the reference's caveat,
+# metadyn_tpu/integrate/packed.py:108-113); 13^3 cells are 3.288 wide, 7.8%
+# of headroom.  Pressure: the liquid's own mean NVT pressure over the warm
+# strides of phase 30.  The SCR barostat's time scale: tau_p 2, kappa 0.1
+# (the reference's defaults).
+NPT_CELLS = 13
+NPT_CAP = 48
+NPT_STRIDE = 100
+NPT_WARM = 4
+NPT_TAU_P = 2.0
+# the box over the timed strides: the barostat moves it, within 2% of the
+# start at 62,500 particles
+NPT_L_BAND = 0.02
+WALKERS_NPT = 4
+# the WTE walkers' kinetic T swings around kT under their bias force (phase
+# 28's band, centred on kT 1)
+NPT_WTE_T_BAND = (0.7, 1.3)
+WALKERS_DD = 4
+SLABS = 2
+
+
+def npt_spec(dev):
+    """bench.py's liquid spec on 13^3 cells, with its CVs, grid and
+    walls."""
+    import dataclasses
+    spec, cvs, gspec, walls = liq_parts(dev)
+    return (dataclasses.replace(spec, cells_per_dim=(NPT_CELLS,) * 3,
+                                cap=NPT_CAP), cvs, gspec, walls)
+
+
+def pressure_of(state, spec, mass: float = 1.0):
+    """The instantaneous pressure (Σ m v² + Σ W_d) / 3V; (W,) for a walker
+    batch (a device tensor)."""
+    import torch
+    valid = (state.pid < spec.n_real).to(torch.float32)[..., None, :]
+    ke2 = mass * torch.sum(state.v * state.v * valid, dim=(-2, -1))
+    return (ke2 + state.virial.sum(-1)) / (3.0 * state.box.volume)
+
+
+def npt_sampler(dev, spec, cvs, gspec, walls, state, pressure, engine_cls,
+                gamma: float = 1.0, stride: int = NPT_STRIDE,
+                bias_every: int = 5, seed: int = 0):
+    """bench.py's sampler on ``state`` under isotropic SCR-NPT at
+    ``pressure`` (kernel 1 with energy and virial on every force call)."""
+    from metadyn_tpu_torch import (
+        HillSpec, MetadSampler, WELL_TEMPERED, make_system,
+    )
+    from metadyn_tpu_torch.integrate.packed import make_packed_npt_scr_step
+    engine = engine_cls(spec, dev, rebuild_every=10, with_energy=True)
+    return MetadSampler(
+        make_system(spec.n_real, dev), state, engine, cvs, gspec,
+        HillSpec.create(W=0.1, stride=stride, mode=WELL_TEMPERED,
+                        deltaT=5.0),
+        lambda f: make_packed_npt_scr_step(
+            f, spec, dt=0.005, kT=KT, pressure=pressure, gamma=gamma,
+            tau_p=NPT_TAU_P, engine=engine),
+        seed=seed, bias_every=bias_every, walls=walls, chunks_per_block=8)
+
+
+def npt_phase(dev, smi: str, nvt_d2h: int) -> dict:
+    """Phase 30: NPT at 62,500.  The liquid under NVT on 13^3 cells (kernel
+    1 with energy) for NPT_WARM strides, its mean pressure measured at each
+    stride's end; 20 steps of SCR-NPT at gamma 0 (barostat noise from the
+    same generator) of the kernel engine against the plain-force engine
+    (positions 1e-3, box L rtol 1e-5); the NPT run timed (1 warm and 2
+    timed strides of 500, bias_every 5: exactly 501 launches per stride,
+    every one with energy; the box trace; no cell-width violation; T in
+    0.9-1.1) and one profiled stride, whose device-to-host copies must not
+    exceed phase 5's NVT liquid's (``nvt_d2h``); then kernel 1 (a) with
+    energy against its plain version on the moved box, read from device
+    memory.  Returns the pressure, the state and the kernel's numbers."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import (
+        HillSpec, MetadSampler, PackedEngine, WELL_TEMPERED,
+        make_packed_langevin_step, make_system,
+    )
+    from metadyn_tpu_torch.ops.packed import unpack_positions
+    from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
+    from metadyn_tpu_torch.utils.profiling import device_profile
+
+    t30 = time.perf_counter()
+    spec, cvs, gspec, walls = npt_spec(dev)
+    n = spec.n_real
+    starts = liq_walker_states(dev, spec, PackedEngine(spec, dev), cvs, 1)
+    # NVT warm strides, the pressure at each stride's end
+    eng = PackedEngine(spec, dev, rebuild_every=10, with_energy=True)
+    nvt = MetadSampler(
+        make_system(n, dev), starts[0], eng, cvs, gspec,
+        HillSpec.create(W=0.1, stride=NPT_STRIDE, mode=WELL_TEMPERED,
+                        deltaT=5.0),
+        lambda f: make_packed_langevin_step(f, dt=0.005, kT=KT),
+        seed=0, bias_every=5, walls=walls, chunks_per_block=8)
+    ps = []
+    for _ in range(NPT_WARM):
+        nvt.run(NPT_STRIDE)
+        ps.append(float(pressure_of(nvt.state, spec)))
+    p0 = float(np.mean(ps))
+    start = nvt.state
+    print(f"npt N={n}: {NPT_CELLS}^3 cells (width "
+          f"{float(start.box.L[0]) / NPT_CELLS:.4f} against r_list "
+          f"{spec.r_list:.2f}), cap {spec.cap}, Npad {spec.n_pad}; NVT "
+          f"pressure over {NPT_WARM} strides of {NPT_STRIDE}: "
+          f"{np.round(ps, 5).tolist()} mean {p0:.5f}")
+    del nvt
+
+    # 20 steps at gamma 0: kernel engine against the plain-force engine
+    runs = []
+    for cls in (PackedEngine, plain_force_engine()):
+        s = npt_sampler(dev, spec, cvs, gspec, walls, start, p0, cls,
+                        gamma=0.0, stride=20)
+        s.run(20)
+        runs.append((unpack_positions(s.state, spec).cpu().numpy(),
+                     s.state.box.L.cpu().numpy()))
+        assert not s.state.box.fixed
+    dL = float(np.max(np.abs(runs[0][1] - runs[1][1]) / runs[1][1]))
+    dpos = min_image_max(runs[0][0], runs[1][0], float(runs[1][1][0]))
+    moved = float(np.max(np.abs(runs[1][1] / float(start.box.L[0]) - 1)))
+    assert dpos <= 1e-3 and dL <= 1e-5 and moved > 0.0, (dpos, dL, moved)
+    print(f"npt slice_kernel_vs_plain gamma=0 20 steps: max|dpos|="
+          f"{dpos:.3e} box L rel={dL:.3e} (the box moved by {moved:.3e})")
+
+    # timed
+    s = npt_sampler(dev, spec, cvs, gspec, walls, start, p0, PackedEngine,
+                    stride=STRIDE)
+    s.run(STRIDE)
+    n_timed = 2
+    L0 = s.state.box.L.cpu().numpy()
+    torch.cuda.synchronize()
+    reset_counts()
+    packed_lj_force_cuda.energy_launches = 0
+    t0 = time.perf_counter()
+    hist = s.run(n_timed * STRIDE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    energy = packed_lj_force_cuda.energy_launches
+    want = n_timed * (STRIDE + 1)
+    assert counts == {**{k: 0 for k in counts}, "pair": want}, counts
+    assert energy == want, energy
+    for m in hist:
+        for k in ("cv", "bias_V", "temperature", "potential_energy"):
+            assert np.all(np.isfinite(m[k])), (k, m)
+        assert not m["nlist_overflow"] and not m["cell_width_violation"], m
+        assert 0.9 < float(m["temperature"]) < 1.1, m
+    L1 = s.state.box.L.cpu().numpy()
+    assert np.all(np.abs(L1 / L0 - 1) < NPT_L_BAND) and not np.array_equal(
+        L0, L1), (L0, L1)
+    rate = n * STRIDE * n_timed / dt
+    print(f"npt N={n} P={p0:.5f} bias_every=5: {n_timed} strides {dt:.3f} s "
+          f"{rate:.1f} particle-steps/s launches={counts['pair']} (with "
+          f"energy {energy}, {want // n_timed} per stride) box L "
+          f"{L0[0]:.5f} -> {L1[0]:.5f} T={float(hist[-1]['temperature']):.4f}"
+          f" P_end={float(pressure_of(s.state, spec)):.5f} on {smi}")
+    prof = device_profile(lambda: s.run(STRIDE))
+    untraced_ms = 1e3 * dt / n_timed
+    prof["busy_share_untraced"] = prof["busy_ms"] / untraced_ms
+    print(f"profile npt N={n} one stride: {json.dumps(prof)}; device-to-"
+          f"host copies {prof['d2h_count']} against phase 5's NVT liquid "
+          f"{nvt_d2h} on {smi}")
+    assert prof["d2h_count"] <= nvt_d2h, (prof["d2h_count"], nvt_d2h)
+    variants = pair_kernel_vs_plain(
+        f"npt N={n} after {4 + n_timed} strides, the box moved on the device",
+        "sentinel device box", s.state, spec, 0, cutoff=True)
+    out = {"pressure": p0, "state": s.state, "launches": counts["pair"],
+           "rate": rate, "variants": variants}
+    del s
+    torch.cuda.empty_cache()
+    print(f"npt phase 30: {time.perf_counter() - t30:.1f} s")
+    return out
+
+
+def box_meta_phase(dev, smi: str, npt: dict) -> dict:
+    """Phase 31: box metadynamics and the MSD CV at 62,500, from phase
+    30's NPT state.  (1) AspectRatio biased under anisotropic SCR-NPT with
+    box_bias (a two-argument integrator factory, bias_every 1): 3 strides
+    of 100, the CV equal to L_x / L_y of the box, 3 hills, the box's shape
+    moved, exactly 101 launches per stride with energy.  (2) PackedMSD
+    biased under isotropic SCR-NPT: 2 strides of 100, its value against
+    the plain version (float64 on the host from the unwrapped positions of
+    the run's state and the packed reference positions, rtol 1e-5)."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import (
+        GridSpec, HillSpec, MetadSampler, PackedEngine, WELL_TEMPERED,
+        make_system,
+    )
+    from metadyn_tpu_torch.cv.aspect_ratio import AspectRatio, box_bias_fn_for
+    from metadyn_tpu_torch.cv.packed import PackedMSD, msd_reference_attrs
+    from metadyn_tpu_torch.integrate.packed import make_packed_npt_scr_step
+    from metadyn_tpu_torch.ops.packed import pack_host
+
+    t31 = time.perf_counter()
+    spec, _, _, _ = npt_spec(dev)
+    n, p0, st0 = spec.n_real, npt["pressure"], npt["state"]
+    cv = AspectRatio()
+    eng = PackedEngine(spec, dev, rebuild_every=10, with_energy=True)
+    grid = GridSpec.create([0.9], [1.1], [81], [0.005], dev)
+
+    def factory(f, bias):
+        return make_packed_npt_scr_step(
+            f, spec, dt=0.005, kT=KT, pressure=p0, tau_p=NPT_TAU_P,
+            anisotropic=True, box_bias_fn=box_bias_fn_for(cv, bias),
+            engine=eng)
+
+    s = MetadSampler(make_system(n, dev), st0, eng, [cv], grid,
+                     HillSpec.create(W=1.0, stride=NPT_STRIDE,
+                                     mode=WELL_TEMPERED, deltaT=10.0),
+                     factory, seed=1, chunks_per_block=8)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = s.run(3 * NPT_STRIDE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    assert counts == {**{k: 0 for k in counts},
+                      "pair": 3 * (NPT_STRIDE + 1)}, counts
+    L = s.state.box.L.cpu().numpy()
+    cvv = [float(m["cv"][0]) for m in hist]
+    assert s.bias.n_hills == 3 and all(np.isfinite(cvv)), (s.bias.n_hills,
+                                                          cvv)
+    assert abs(cvv[-1] - L[0] / L[1]) <= 1e-6 and L[0] != L[1], (cvv, L)
+    for m in hist:
+        assert not m["nlist_overflow"] and not m["cell_width_violation"], m
+    print(f"box metadynamics N={n} (AspectRatio, anisotropic SCR, "
+          f"box_bias): 3 strides of {NPT_STRIDE} {dt:.3f} s "
+          f"{n * 3 * NPT_STRIDE / dt:.1f} particle-steps/s cv={cvv} box L="
+          f"{np.round(L, 5).tolist()} hills={s.bias.n_hills} "
+          f"launches={counts['pair']} on {smi}")
+    box_launches = counts["pair"]
+    del s
+
+    # the MSD CV, its reference positions the phase-30 state's unwrapped
+    # positions, packed with the slots
+    from metadyn_tpu_torch.ops.packed import unpack_positions
+    ref = (unpack_positions(st0, spec) + st0.image[:, st0.slot_of.long()]
+           .T.to(torch.float32) * st0.box.L).cpu().numpy()
+    vel = st0.v[:, st0.slot_of.long()].T.cpu().numpy()
+    box = st0.box
+    st, ovf = pack_host(unpack_positions(st0, spec).cpu().numpy(),
+                        type(box).from_lengths(*box.L.tolist(), dev), spec,
+                        np.zeros(n, np.int32), np.ones(n, np.float32),
+                        np.ones(n, np.float32), dev, vel=vel,
+                        image=st0.image[:, st0.slot_of.long()].T.cpu()
+                        .numpy(),
+                        extra_attrs=msd_reference_attrs(ref))
+    assert not ovf
+    msd = PackedMSD(n_real=n)
+    eng = PackedEngine(spec, dev, rebuild_every=10, with_energy=True)
+    s = MetadSampler(
+        make_system(n, dev), st, eng, [msd],
+        GridSpec.create([0.0], [2.0], [81], [0.02], dev),
+        HillSpec.create(W=0.5, stride=NPT_STRIDE, mode=WELL_TEMPERED,
+                        deltaT=10.0),
+        lambda f: make_packed_npt_scr_step(f, spec, dt=0.005, kT=KT,
+                                           pressure=p0, tau_p=NPT_TAU_P,
+                                           engine=eng),
+        seed=2, bias_every=5, chunks_per_block=8)
+    t0 = time.perf_counter()
+    hist = s.run(2 * NPT_STRIDE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fin = s.state
+    uw = (unpack_positions(fin, spec).double()
+          + fin.image[:, fin.slot_of.long()].T.double()
+          * fin.box.L.double()).cpu().numpy()
+    plain = float(np.mean(np.sum((uw - ref) ** 2, axis=1)))
+    got = float(msd.value(fin, None))
+    rel = abs(got - plain) / plain
+    assert rel <= 1e-5 and float(hist[-1]["cv"][0]) > 0.0, (got, plain)
+    print(f"msd N={n} (PackedMSD biased, isotropic SCR): 2 strides of "
+          f"{NPT_STRIDE} {dt:.3f} s cv={[float(m['cv'][0]) for m in hist]} "
+          f"value {got:.7f} against the plain float64 {plain:.7f} "
+          f"(rel {rel:.3e}) hills={s.bias.n_hills} on {smi}")
+    del s
+    torch.cuda.empty_cache()
+    print(f"box phase 31: {time.perf_counter() - t31:.1f} s")
+    return {"launches": box_launches}
+
+
+def npt_walkers_phase(dev, smi: str, npt: dict) -> dict:
+    """Phase 32: NPT walkers.  WALKERS_NPT x the liquid on 13^3 cells under
+    isotropic SCR-NPT at phase 30's pressure with the WTE energy CV (phase
+    28's grid scaled per particle), one batch, every walker its own box.
+    After one warm stride of 100 (the boxes then differ): kernel 1 on the
+    batch against WALKERS_NPT single launches to the bit, and against the
+    plain batched version (phase 3's gates), with times and the bound;
+    then 4 timed strides of 100 (exactly 101 launches per stride, every one
+    with energy, for all walkers), the rate summed over walkers."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import (
+        GridSpec, HillSpec, PackedEngine, PotentialEnergyCV, WalkerSampler,
+        WELL_TEMPERED, make_system,
+    )
+    from metadyn_tpu_torch.core.batch import stack_walkers, walker
+    from metadyn_tpu_torch.integrate.packed import make_packed_npt_scr_step
+    from metadyn_tpu_torch.ops.packed import packed_lj_force
+    from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
+
+    t32 = time.perf_counter()
+    spec, _, _, _ = npt_spec(dev)
+    n, W = spec.n_real, WALKERS_NPT
+    eng = PackedEngine(spec, dev, rebuild_every=10, with_energy=True)
+    states = stack_walkers(liq_walker_states(dev, spec, eng, [], W))
+    k = n / 2048
+    grid = GridSpec.create([-16000.0 * k], [-2000.0 * k], [141],
+                           [120.0 * np.sqrt(k)], dev)
+    s = WalkerSampler(
+        make_system(n, dev), states, eng, [PotentialEnergyCV(name="U")],
+        grid, HillSpec.create(W=3.0, stride=NPT_STRIDE, mode=WELL_TEMPERED,
+                              deltaT=3000.0),
+        lambda f: make_packed_npt_scr_step(f, spec, dt=0.005, kT=KT,
+                                           pressure=npt["pressure"],
+                                           tau_p=NPT_TAU_P, engine=eng),
+        seed=3, chunks_per_block=8)
+    assert s.batched
+    s.run(NPT_STRIDE)
+    batch = s.states
+    L = batch.box.L.cpu().numpy()
+    assert len({tuple(r) for r in L.tolist()}) == W, L
+    out = {"variants": {}}
+    pairs = [pairs_within(walker(batch, w), spec, spec.r_cut)
+             for w in range(W)]
+    exempt = [near_cutoff_slots(walker(batch, w), spec) for w in range(W)]
+    for we in (False, True):
+        a = packed_lj_force_cuda(batch, spec, with_energy=we)
+        one = [packed_lj_force_cuda(walker(batch, w), spec, with_energy=we)
+               for w in range(W)]
+        same = all(torch.equal(a.f[w], one[w].f) for w in range(W))
+        if we:
+            same &= all(torch.equal(a.virial[w], one[w].virial)
+                        and torch.equal(a.potential_energy[w],
+                                        one[w].potential_energy)
+                        for w in range(W))
+        assert same, f"own-box batch with_energy={we} differs from single " \
+                     "launches"
+        b = packed_lj_force(batch, spec, with_energy=we)
+        torch.cuda.synchronize()
+        errs = [pair_close(f"npt walkers w={w}", walker(a, w), walker(b, w),
+                           we, exempt[w], lj_jump(spec)) for w in range(W)]
+        err = max(e[0] for e in errs)
+        del a, b, one
+        ms = cuda_ms(lambda: packed_lj_force_cuda(batch, spec,
+                                                  with_energy=we))
+        ms_one = cuda_ms(lambda: [packed_lj_force_cuda(walker(batch, w),
+                                                       spec, with_energy=we)
+                                  for w in range(W)])
+        plain = cuda_ms(lambda: packed_lj_force(batch, spec, with_energy=we),
+                        calls=3, warm=1)
+        kind = spec.pair_kind + ("_energy" if we else "")
+        bms, by = bound(W * pair_kernel_bytes(spec, we),
+                        sum(pairs) * FLOP_PER_PAIR[kind])
+        key = f"sentinel W={W} own boxes liq64k{' +energy' if we else ''}"
+        out["variants"][key] = (err, ms, plain, bms, by)
+        out["variants"][f"{key} as {W} single launches"] = (
+            0.0, ms_one, plain, bms, by)
+        print(f"npt walkers batch W={W} N={n} with_energy={we}, boxes L_x "
+              f"{np.round(L[:, 0], 5).tolist()}: equal to {W} single "
+              f"launches to the bit={same}; vs plain batched: "
+              f"{errs[int(np.argmax([e[0] for e in errs]))][1]} batch_ms="
+              f"{ms:.4f} single_launches_ms={ms_one:.4f} plain_ms="
+              f"{plain:.4f} bound_ms={bms:.5f} ({by}) on {smi}")
+    n_timed = 4
+    torch.cuda.synchronize()
+    reset_counts()
+    packed_lj_force_cuda.energy_launches = 0
+    packed_lj_force_cuda.walkers = 0
+    t0 = time.perf_counter()
+    hist = s.run(n_timed * NPT_STRIDE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    want = n_timed * (NPT_STRIDE + 1)
+    assert counts == {**{k: 0 for k in counts}, "pair": want}, counts
+    assert packed_lj_force_cuda.energy_launches == want
+    assert packed_lj_force_cuda.walkers == W * want
+    for m in hist:
+        assert np.all(np.isfinite(m["cv"])), m
+        assert not m["nlist_overflow"].any(), m
+        assert not m["cell_width_violation"].any(), m
+        assert ((NPT_WTE_T_BAND[0] < m["temperature"])
+                & (m["temperature"] < NPT_WTE_T_BAND[1])).all(), m
+    rate = W * n * NPT_STRIDE * n_timed / dt
+    L = s.states.box.L.cpu().numpy()
+    print(f"npt walkers {W} x liq64k + WTE: {n_timed} strides of "
+          f"{NPT_STRIDE} {dt:.3f} s {rate:.1f} particle-steps/s summed over "
+          f"walkers launches={counts['pair']} ({want // n_timed} per stride, "
+          f"{W} walkers each, all with energy) boxes L_x "
+          f"{np.round(L[:, 0], 5).tolist()} T="
+          f"{np.round(hist[-1]['temperature'], 4).tolist()} hills="
+          f"{s.bias.n_hills} on {smi}")
+    out.update(launches=counts["pair"], rate=rate)
+    del s, batch
+    torch.cuda.empty_cache()
+    print(f"npt walkers phase 32: {time.perf_counter() - t32:.1f} s")
+    return out
+
+
+def config5_slabs(melt: dict, relaxed: tuple, dev, smi: str) -> dict:
+    """Phase 33: Config 5 at 1,048,576 beads on SLABS x-slabs of the card:
+    SpatialPackedEngine (kernel 1 per shard, 33 x-planes each of 66) and
+    ShardedPackedMesh (48^3, 24 columns per shard) under
+    FluxTemperedSampler, from phase 21's relaxed melt, as
+    tests/test_config5.py:64-130 composes them.  On the production pack:
+    S(k0), its bias force (autograd) and the bias virial against the
+    single-grid PackedMesh (value rtol 2e-4; force rtol 2e-2, atol 1e-5;
+    virial rtol 2e-4, atol 1e-6, the reference's own); then one warm and
+    one timed period (exactly 2 x 51 launches per stride, 2 of them
+    masked with energy), peak memory, one profiled period."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import (
+        Box, FluxTemperedSampler, GridSpec, PackedMesh, PackedSpec,
+        make_packed_langevin_step, make_system,
+    )
+    from metadyn_tpu_torch.parallel.mesh import ShardedPackedMesh
+    from metadyn_tpu_torch.parallel.spatial import SpatialPackedEngine
+    from metadyn_tpu_torch.utils.profiling import device_profile
+
+    t33 = time.perf_counter()
+    gib = 2.0 ** 30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pos, vel = relaxed
+    n, L, types = melt["n"], melt["L"], melt["types"]
+    spec = PackedSpec.create(L, n, r_cut=WCA_RC, skin=0.5, cap=48,
+                             fene_k=30.0, fene_r0=1.5, uniform_sigma=1.0)
+    devs = [dev] * SLABS
+    engine = SpatialPackedEngine(spec, devs, rebuild_every=1)
+    k0 = 2 * np.pi * 4 / L
+    cv = ShardedPackedMesh.create((48, 48, 48), spec, devs, n_real=n, k0=k0,
+                                  width=0.3, box_L=L, name="dsa")
+    one = PackedMesh.create((48, 48, 48), L, n_real=n, k0=k0, width=0.3,
+                            name="dsa")
+    st, ovf = engine.pack_state(
+        pos, Box.cubic(L, dev), types, np.ones(n, np.float32),
+        np.ones(n, np.float32), vel=vel,
+        extra_attrs={**melt["bp"], cv.attr_name: np.asarray(
+            [1.0, -1.0], np.float32)[types]})
+    assert not ovf, "cell capacity overflow at the production pack"
+    t_pack = time.perf_counter() - t33
+    system = make_system(n, dev, types=types, bonds=melt["bonds"])
+    grads = []
+    for c in (cv, one):
+        r = st.r.detach().requires_grad_(True)
+        v = c.value(st.replace(r=r), system)
+        (g,) = torch.autograd.grad(v, r)
+        grads.append((float(v.detach()), g,
+                      c.bias_virial(st, system, torch.tensor(1.0,
+                                                             device=dev))))
+        del r, v, g
+    (v2, g2, w2), (v1, g1, w1) = grads
+    dv = abs(v2 - v1) / abs(v1)
+    gbad = float(((g2 - g1).abs() - 2e-2 * g1.abs()).max())
+    wbad = float(((w2 - w1).abs() - 2e-4 * w1.abs()).max())
+    gmax = float(g1.abs().max())
+    print(f"config5 slabs N={n}: S(k0) sharded {v2:.7f} single grid "
+          f"{v1:.7f} (rel {dv:.3e}); bias force max|dg|="
+          f"{float((g2 - g1).abs().max()):.3e} of max|g| {gmax:.3e}; bias "
+          f"virial sharded {w2.tolist()} single {w1.tolist()}; halo "
+          f"{cv.halo} columns; {spec.cells_per_dim[0] // SLABS} x-planes "
+          f"and {48 // SLABS} mesh columns per shard; the pack "
+          f"{t_pack:.1f} s, the checks "
+          f"{time.perf_counter() - t33 - t_pack:.1f} s")
+    assert dv <= 2e-4 and gbad <= 1e-5 and wbad <= 1e-6, (dv, gbad, wbad)
+    del grads, g1, g2
+    torch.cuda.empty_cache()
+    s0 = v1
+    hi = max(8.0 * s0, 10.0)
+    s = FluxTemperedSampler(
+        system, st, engine, [cv],
+        GridSpec.create([0.0], [hi], [101], [hi / 40], dev),
+        lambda f: make_packed_langevin_step(f, dt=0.002, kT=1.0, gamma=2.0),
+        kT=1.0, stride=CFG5_STRIDE, update_period=CFG5_PERIOD, seed=0,
+        bias_every=1)
+    per_period = CFG5_STRIDE * CFG5_PERIOD
+    s.run(per_period)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    timed = s.run(per_period)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    want = CFG5_PERIOD * (CFG5_STRIDE + 1) * SLABS
+    assert counts == {**{k: 0 for k in counts}, "pair": want,
+                      "pair masked": CFG5_PERIOD * SLABS}, counts
+    for m in s.history:
+        for k in ("cv", "temperature", "potential_energy"):
+            assert np.all(np.isfinite(m[k])), (k, m)
+        assert not np.any(m["nlist_overflow"]), m
+    t = np.asarray(timed[-1]["temperature"])
+    assert np.all((CFG5_T_BAND[0] < t) & (t < CFG5_T_BAND[1])), t
+    rate = n * per_period / dt
+    peak = torch.cuda.max_memory_allocated() / gib
+    print(f"config5 slabs N={n} {SLABS} shards: 1 period ({per_period} "
+          f"steps) {dt:.3f} s {rate:.1f} particle-steps/s T by stride "
+          f"{np.round(t, 4).tolist()} S(k0)={float(timed[-1]['cv'][-1][0]):.4f}"
+          f" launches={counts} peak_mem={peak:.3f} GiB on {smi}")
+    prof = device_profile(lambda: s.run(per_period))
+    prof["busy_share_untraced"] = prof["busy_ms"] / (1e3 * dt)
+    prof["busy_ms_per_stride"] = prof["busy_ms"] / CFG5_PERIOD
+    print(f"profile config5 slabs N={n} one period ({CFG5_PERIOD} strides; "
+          f"the extended grids' gathers are the index_select kernels): "
+          f"{json.dumps(prof)} on {smi}")
+    del s, st, engine
+    torch.cuda.empty_cache()
+    print(f"config5 slabs phase 33: {time.perf_counter() - t33:.1f} s")
+    return {"launches": counts["pair"], "masked": counts["pair masked"],
+            "rate": rate}
+
+
+def walkers_space_phase(dev, smi: str, unsharded_rate: float) -> dict:
+    """Phase 34: walkers x space.  WALKERS_DD x liq64k (bench.py's spec,
+    14^3 cells) on SLABS x-slabs (7 planes each) of the nested
+    SpatialPackedEngine.  Kernel 1's walker batch on each shard's extended
+    grid under the interior mask, with energy, against WALKERS_DD single
+    masked launches to the bit and against the plain batched version
+    (phase 3's gates), with times and the bound; 20 steps at gamma 0 of
+    the walkers on the slabs against phase 29's unsharded walkers
+    (PackedEngine's batch: positions 1e-3, CVs rtol 1e-4); then 1 warm and
+    2 timed strides of 500 (exactly 2 x 501 launches per stride, one per
+    shard for all walkers; 2 masked with energy), the rate summed over
+    walkers."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import (
+        HillSpec, PackedEngine, WalkerSampler, WELL_TEMPERED,
+        make_packed_langevin_step, make_system,
+    )
+    from metadyn_tpu_torch.core.batch import stack_walkers, walker
+    from metadyn_tpu_torch.ops.packed import packed_lj_force, unpack_positions
+    from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
+    from metadyn_tpu_torch.parallel.spatial import Slabs, SpatialPackedEngine
+
+    t34 = time.perf_counter()
+    spec, cvs, gspec, walls = liq_parts(dev)
+    n, W = spec.n_real, WALKERS_DD
+    devs = [dev] * SLABS
+    batch = stack_walkers(liq_walker_states(
+        dev, spec, PackedEngine(spec, dev), cvs, W, noise=0.02))
+    slabs = Slabs(spec, devs)
+    out = {"variants": {}}
+    for k, se in enumerate(slabs.halo_states(batch)):
+        m = slabs.interior[k]
+        sx = slabs.spec_ext
+        a = packed_lj_force_cuda(se, sx, with_energy=True, cell_mask=m)
+        one = [packed_lj_force_cuda(walker(se, w), sx, with_energy=True,
+                                    cell_mask=m) for w in range(W)]
+        same = all(torch.equal(a.f[w], one[w].f)
+                   and torch.equal(a.potential_energy[w],
+                                   one[w].potential_energy)
+                   and torch.equal(a.virial[w], one[w].virial)
+                   for w in range(W))
+        assert same, f"shard {k}: masked walker batch differs from single " \
+                     "launches"
+        # the plain version reads se and hs, pairs_within the pids
+        sp = slabs.halo_states(batch, pid=True, attrs=("se", "hs"))[k]
+        b = packed_lj_force(sp, sx, with_energy=True, cell_mask=m)
+        torch.cuda.synchronize()
+        errs = [pair_close(f"walkers x space shard {k} w={w}", walker(a, w),
+                           walker(b, w), True,
+                           near_cutoff_slots(walker(sp, w), sx), lj_jump(sx))
+                for w in range(W)]
+        err = max(e[0] for e in errs)
+        del a, b, one
+        ms = cuda_ms(lambda: packed_lj_force_cuda(se, sx, with_energy=True,
+                                                  cell_mask=m))
+        ms_one = cuda_ms(lambda: [packed_lj_force_cuda(
+            walker(se, w), sx, with_energy=True, cell_mask=m)
+            for w in range(W)])
+        plain = cuda_ms(lambda: packed_lj_force(sp, sx, with_energy=True,
+                                                cell_mask=m), calls=3, warm=1)
+        pairs = sum(pairs_within(walker(sp, w), sx, sx.r_cut, cell_mask=m)
+                    for w in range(W))
+        bms, by = bound(W * pair_kernel_bytes(sx, True),
+                        pairs * FLOP_PER_PAIR["lj_energy"])
+        if k == 0:
+            key = f"sentinel W={W} x cell_mask, shard 0 of {SLABS} liq64k"
+            out["variants"][key] = (err, ms, plain, bms, by)
+            out["variants"][f"{key} as {W} single launches"] = (
+                0.0, ms_one, plain, bms, by)
+        print(f"walkers x space shard {k} ({sx.cells_per_dim} cells, W={W}, "
+              f"masked energy): equal to {W} single launches to the bit="
+              f"{same}; vs plain: "
+              f"{errs[int(np.argmax([e[0] for e in errs]))][1]} batch_ms="
+              f"{ms:.4f} single_launches_ms={ms_one:.4f} plain_ms="
+              f"{plain:.4f} bound_ms={bms:.5f} ({by}; {pairs} masked pairs) "
+              f"on {smi}")
+        del sp
+    del batch
+    torch.cuda.empty_cache()
+
+    def build(engine, gamma=1.0, stride=STRIDE):
+        return WalkerSampler(
+            make_system(n, dev),
+            stack_walkers(liq_walker_states(dev, spec, engine, cvs, W)),
+            engine, cvs, gspec,
+            HillSpec.create(W=0.1, stride=stride, mode=WELL_TEMPERED,
+                            deltaT=5.0),
+            lambda f: make_packed_langevin_step(f, dt=0.005, kT=KT,
+                                                gamma=gamma),
+            seed=0, walls=walls, bias_every=5, chunks_per_block=8)
+
+    runs = []
+    for eng in (PackedEngine(spec, dev, rebuild_every=10),
+                SpatialPackedEngine(spec, devs, rebuild_every=10,
+                                    nested=True)):
+        s = build(eng, gamma=0.0, stride=20)
+        assert s.batched
+        m = s.run(20)[-1]
+        runs.append(([unpack_positions(walker(s.states, w), spec).cpu()
+                      .numpy() for w in range(W)], np.asarray(m["cv"])))
+    L = float(np.load(ROOT / "bench_data" / "liq64k.npz")["L"])
+    dpos = max(min_image_max(a, b, L) for a, b in zip(runs[0][0],
+                                                       runs[1][0]))
+    dcv = float(np.max(np.abs(runs[1][1] - runs[0][1])
+                       / np.abs(runs[0][1]).max()))
+    assert dpos <= 1e-3 and dcv <= 1e-4, (dpos, dcv)
+    print(f"walkers x space gamma=0 20 steps: {W} walkers on {SLABS} slabs "
+          f"against phase 29's unsharded batch: max|dpos|={dpos:.3e} CV "
+          f"max rel={dcv:.3e}")
+
+    s = build(SpatialPackedEngine(spec, devs, rebuild_every=10,
+                                  nested=True))
+    s.run(STRIDE)
+    n_timed = 2
+    torch.cuda.synchronize()
+    reset_counts()
+    packed_lj_force_cuda.walkers = 0
+    t0 = time.perf_counter()
+    hist = s.run(n_timed * STRIDE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    want = n_timed * (STRIDE + 1) * SLABS
+    assert counts == {**{k: 0 for k in counts}, "pair": want,
+                      "pair masked": n_timed * SLABS}, counts
+    assert packed_lj_force_cuda.walkers == W * want
+    for m in hist:
+        assert np.all(np.isfinite(m["cv"])), m
+        assert not m["nlist_overflow"].any(), m
+        assert ((0.9 < m["temperature"]) & (m["temperature"] < 1.1)).all(), m
+    rate = W * n * STRIDE * n_timed / dt
+    print(f"walkers x space {W} x liq64k on {SLABS} slabs bias_every=5: "
+          f"{n_timed} strides {dt:.3f} s {rate:.1f} particle-steps/s summed "
+          f"over walkers ({rate / unsharded_rate:.3f} x phase 29's unsharded "
+          f"8 walkers' {unsharded_rate:.1f}) launches={counts} on {smi}")
+    del s
+    torch.cuda.empty_cache()
+    print(f"walkers x space phase 34: {time.perf_counter() - t34:.1f} s")
+    out.update(launches=counts["pair"], masked=counts["pair masked"],
+               rate=rate)
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -3378,7 +4127,7 @@ def main() -> int:
           f"rel_dPE={dpe:.3e}")
 
     # 5./6. the slice, timed
-    rates = {}
+    rates, d2h = {}, {}
     for bias_every, n_timed in ((5, 4), (1, 2)):
         s = build(PackedEngine, bias_every)
         s.run(STRIDE)                                   # warm stride
@@ -3413,6 +4162,7 @@ def main() -> int:
         untraced_ms = 1e3 * dt / n_timed
         prof["busy_share_untraced"] = prof["busy_ms"] / untraced_ms
         prof["tracing_overhead_ms"] = prof["wall_ms"] - untraced_ms
+        d2h[bias_every] = prof["d2h_count"]
         print(f"profile bias_every={bias_every} one stride: "
               f"{json.dumps(prof)} on {smi[0]}")
 
@@ -3511,6 +4261,18 @@ def main() -> int:
     # the plain version, WalkerSampler against MetadSampler, 8 x liq64k
     # timed, config4_walkers.yaml through the CLI, the flux walkers
     walk = walkers_phase(dev, smi[0], rates[5][0])
+
+    # 30.-34. the moving box and the walkers x space product: NPT at
+    # 62,500 (kernel 1 reading the moved cell matrix from device memory),
+    # box metadynamics and the MSD CV, NPT walkers with a box each,
+    # Config 5 at 1M on two x-slabs with the sharded S(k) CV, walkers on
+    # the slabs
+    npt = npt_phase(dev, smi[0], d2h[5])
+    box = box_meta_phase(dev, smi[0], npt)
+    del npt["state"]
+    npt_walk = npt_walkers_phase(dev, smi[0], npt)
+    slabs5 = config5_slabs(melt5, cfg5.pop("relaxed"), dev, smi[0])
+    wsp = walkers_space_phase(dev, smi[0], walk["rate"])
     print(f"chip_smoke wall: {time.perf_counter() - t_main:.1f} s")
 
     def cli_launches(kernel: str) -> dict:
@@ -3542,7 +4304,9 @@ def main() -> int:
            for c, t in tric.items() for k, v in t.items()
            if k.startswith("pair")},
         **cfg5["variants"],
-        **{f"{k} wte N=62500": v for k, v in wte["variants"].items()}}
+        **{f"{k} wte N=62500": v for k, v in wte["variants"].items()},
+        **{f"{k} npt N=62500 (phase 30)": v
+           for k, v in npt["variants"].items()}}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 
     def tric_variants(kernel, layout):
@@ -3571,8 +4335,52 @@ def main() -> int:
                                 "wte N=62500 (20 strides, every launch "
                                 "with energy)": wte["launches"],
                                 "cli config6_wte (build and run)":
-                                wte["cli_launches"]},
+                                wte["cli_launches"],
+                                "npt N=62500 (2 strides, every launch with "
+                                "energy, the box read from device memory)":
+                                npt["launches"],
+                                "box metadynamics N=62500 (3 strides of "
+                                "100)": box["launches"],
+                                "config5 N=1048576 on 2 slabs (1 period; "
+                                "one launch per shard per force call)":
+                                slabs5["launches"]},
               variants={k: dict(zip(keys, v)) for k, v in variants.items()}),
+        entry(f"{KERNEL} per-walker box", KERNEL,
+              "metadyn_tpu/ops/packed_pallas2.py:301 (the reference runs "
+              "one NPT walker per chip, one launch each)",
+              npt_walk["launches"],
+              npt_walk["variants"][f"sentinel W={WALKERS_NPT} own boxes "
+                                   "liq64k +energy"],
+              design=staged + "; the walker batch, each block reading its "
+              "walker's cell matrix (Box.geo, (W, 10)) from device memory",
+              launches_by_path={f"npt walkers {WALKERS_NPT} x liq64k + WTE "
+                                "(4 strides of 100, all with energy)":
+                                npt_walk["launches"]},
+              variants={k: dict(zip(keys, v))
+                        for k, v in npt_walk["variants"].items()}),
+        entry(f"{KERNEL} walker batch x cell_mask", KERNEL,
+              "metadyn_tpu/ops/packed_pallas2.py:301 and "
+              "metadyn_tpu/parallel/spatial.py:276 (the reference's nested "
+              "islands: one walker per chip row, the masked energy as XLA)",
+              wsp["masked"],
+              wsp["variants"][f"sentinel W={WALKERS_DD} x cell_mask, shard "
+                              f"0 of {SLABS} liq64k"],
+              design=staged + "; the walker batch on a shard's extended "
+              "grid, each block's energy and virial times its cell's "
+              "interior weight",
+              launches_by_path={f"walkers x space {WALKERS_DD} x liq64k on "
+                                f"{SLABS} slabs (2 strides; masked, with "
+                                "energy)": wsp["masked"],
+                                f"walkers x space (2 strides; every launch, "
+                                f"{WALKERS_DD} walkers each)":
+                                wsp["launches"],
+                                "config5 N=1048576 on 2 slabs (1 period; "
+                                "masked, with energy)": slabs5["masked"],
+                                "cli config4_walkers_sk_dd run (masked)":
+                                cli["config4_walkers_sk_dd"][1][
+                                    "pair masked"]},
+              variants={k: dict(zip(keys, v))
+                        for k, v in wsp["variants"].items()}),
         entry(f"{KERNEL} walker batch", KERNEL,
               "metadyn_tpu/ops/packed_pallas2.py:301 (the reference runs "
               "one walker per chip, one launch each)", walk["launches"],

@@ -22,7 +22,10 @@ from .core.packed_engine import PackedAux, PackedEngine
 from .ops.packed import (
     PackedSpec, PackedState, bond_partner_attrs, pair_scale_tables,
 )
-from .integrate.packed import make_packed_langevin_step, make_packed_nve_step
+from .integrate.packed import (
+    make_packed_langevin_step, make_packed_npt_scr_step, make_packed_nve_step,
+)
+from .integrate.npt import make_npt_scr_step
 from .integrate.base import run_steps
 from .integrate.langevin import make_langevin_step, make_nve_step
 from .integrate.nvt import make_nvt_bdp_step, make_nvt_nh_step
@@ -35,7 +38,9 @@ from .cv.lamellar import LamellarOP
 from .cv.mesh import MeshOrderParameter
 from .cv.simple import AxisPosition, EnergyCV, PotentialEnergyCV
 from .cv.steinhardt import SteinhardtQl
-from .cv.packed import PackedLamellar, PackedMesh
+from .cv.packed import PackedLamellar, PackedMesh, PackedMSD
+from .cv.aspect_ratio import AspectRatio, box_bias_fn_for
+from .cv.msd import MSD
 from .cv.packed_order import (
     PackedCoordination, PackedSteinhardtQl, make_fused_order_force,
 )
@@ -50,6 +55,8 @@ from .bias.flux import (
 from .sampler import MetadSampler, lag_supported, make_biased_force
 from .flux_sampler import FluxTemperedSampler
 from .parallel.walkers import WalkerSampler
+from .parallel.mesh import ShardedPackedMesh
+from .parallel.spatial import SpatialPackedEngine
 from .utils.lattice import fcc_lattice, polymer_melt, sc_lattice
 
 __all__ = [
@@ -64,11 +71,15 @@ __all__ = [
     "PotentialEnergyCV", "SteinhardtQl",
     "PackedAux", "PackedEngine",
     "PackedSpec", "PackedState", "bond_partner_attrs", "pair_scale_tables",
-    "make_packed_langevin_step", "make_packed_nve_step", "PackedLamellar",
-    "PackedMesh", "PackedCoordination",
+    "make_packed_langevin_step", "make_packed_nve_step",
+    "make_packed_npt_scr_step", "make_npt_scr_step", "PackedLamellar",
+    "PackedMesh", "PackedMSD", "AspectRatio", "box_bias_fn_for", "MSD",
+    "PackedCoordination",
     "PackedSteinhardtQl", "make_fused_order_force", "BiasGrid", "GridSpec",
     "FLUX_TEMPERED", "STANDARD", "WELL_TEMPERED", "BiasState", "HillSpec", "WallSpec",
     "free_energy", "FLUX", "VISITS", "FluxState", "accumulate", "bin_of",
     "round_trips", "update_bias", "MetadSampler", "lag_supported",
-    "make_biased_force", "FluxTemperedSampler", "WalkerSampler", "fcc_lattice", "polymer_melt", "sc_lattice",
+    "make_biased_force", "FluxTemperedSampler", "WalkerSampler",
+    "ShardedPackedMesh", "SpatialPackedEngine", "fcc_lattice",
+    "polymer_melt", "sc_lattice",
 ]

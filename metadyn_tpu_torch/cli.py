@@ -10,18 +10,23 @@ drives one replica (or, with ``metadynamics.n_walkers`` W > 1, W walkers
 sharing one bias, all on the one device: ``parallel/walkers.py``, or the
 flux sampler's walker mode) on the packed engine (with an integer
 ``engine.spatial_devices`` > 1 on ``parallel/spatial.SpatialPackedEngine``,
-the x-slab decomposition: its shards on the first N cards under CUDA, N
-virtual shards of the CPU under ``--device cpu``) or, with ``engine.kind:
+the x-slab decomposition: its shards on the visible cards in turn under
+CUDA, shared when fewer than N, N virtual shards of the CPU under
+``--device cpu``; with walkers too, the
+walkers × space product, ``nested=True``) or, with ``engine.kind:
 all_pairs``, on the particle-order all-pairs engine: inits ``fcc``, ``sc``
 and ``melt`` (with the push-off of ``init.prerelax_steps``, ``core/
 pushoff.prerelax_melt``), tilted boxes, diblock types and per-type-pair
 tables, FENE or harmonic bonds, the LJ, WCA and soft pairs; the lamellar,
-mesh, Q6 and coordination CVs (all-pairs: lamellar, mesh and Steinhardt
-Q_l, by autograd) and the well-tempered ensemble's energy CV (``kind:
-wte``, which turns on the packed engine's energy at every force call);
-Langevin and NVE (all-pairs: Langevin, Nosé–Hoover
-``nvt_nh`` and ``nvt_bdp``); standard, well-tempered and flux-tempered
-metadynamics, with ``restart_from_grid``, edge walls, ``add_hills``,
+mesh (under ``spatial_devices`` the distributed slab-FFT ``parallel/
+mesh.ShardedPackedMesh``), Q6, coordination, MSD and aspect-ratio CVs
+(all-pairs: lamellar, mesh, Steinhardt Q_l and MSD by autograd, and the
+aspect ratio) and the well-tempered ensemble's energy CV (``kind: wte``,
+which turns on the packed engine's energy at every force call, as
+``npt_scr`` does); Langevin, NVE and SCR-NPT (``npt_scr``, isotropic or
+anisotropic, with ``box_bias`` the box-shape metadynamics of the aspect
+ratio; all-pairs: Langevin, Nosé–Hoover ``nvt_nh``, ``nvt_bdp`` and
+``npt_scr``); standard, well-tempered and flux-tempered metadynamics, with ``restart_from_grid``, edge walls, ``add_hills``,
 ``bias_every`` and ``mts_lag``.  Its outputs are the reference's files:
 the hill log, the CSV metrics, grid dumps (also every ``grid_every``
 steps, ``{step}`` in the name numbering them), checkpoints (every
@@ -34,10 +39,8 @@ the CPU.
 
 What the port lacks raises NotImplementedError at build time, naming its
 item of ROADMAP.md's queue 1: the 2-D decomposition (a list
-``spatial_devices``), the distributed mesh CV under ``spatial_devices``
-and walkers on ``spatial_devices`` (walkers x space; item 9),
-``nbr_table`` (item 6), the ``msd`` and ``aspect_ratio`` CVs and NPT (item
-3), hill-list mode (item 4) and GSD trajectories (item 8).
+``spatial_devices``; item 9), ``nbr_table`` (item 6), hill-list mode
+(item 4) and GSD trajectories (item 8).
 """
 from __future__ import annotations
 
@@ -48,17 +51,9 @@ import sys
 import numpy as np
 
 UNPORTED = {
-    "walkers_spatial": ("multiple walkers on engine.spatial_devices (the "
-                        "walkers x space product, parallel/mesh.py)", 9),
     "spatial_2d": ("the 2-D spatial decomposition (engine.spatial_devices "
                    "as a list: parallel/spatial2d.py)", 9),
-    "spatial_mesh": ("the distributed mesh CV under engine.spatial_devices "
-                     "(parallel/mesh.py)", 9),
     "nbr_table": ("the neighbour-table path (engine.nbr_table)", 6),
-    "msd": ("the MSD CV (cvs kind: msd)", 3),
-    "aspect_ratio": ("the box-shape CV (cvs kind: aspect_ratio)", 3),
-    "npt_scr": ("NPT (integrator kind: npt_scr)", 3),
-    "box_bias": ("box-shape metadynamics (integrator.box_bias)", 3),
     "hill_list": ("hill-list mode (a CV without a grid)", 4),
     "gsd": ("GSD trajectories (io/gsd_file.py and its native _gsd.cpp)", 8),
 }
@@ -74,26 +69,13 @@ def refuse(what: str):
 def check_ported(cfg: dict) -> None:
     """Raise ``refuse(...)`` for the first key or kind the port lacks."""
     eng = cfg["engine"]
-    sp = eng.get("spatial_devices", 1) or 1
-    if int(cfg["metadynamics"].get("n_walkers", 1)) > 1 and (
-            isinstance(sp, (list, tuple)) or int(sp) > 1):
-        raise refuse("walkers_spatial")
-    if isinstance(sp, (list, tuple)):
+    if isinstance(eng.get("spatial_devices", 1), (list, tuple)):
         raise refuse("spatial_2d")
-    if int(sp) > 1 and any(c["kind"] == "mesh" for c in cfg.get("cvs", [])):
-        raise refuse("spatial_mesh")
     if eng.get("nbr_table") is not None:
         raise refuse("nbr_table")
     for c in cfg.get("cvs", []):
-        if c["kind"] in ("msd", "aspect_ratio"):
-            raise refuse(c["kind"])
         if "grid" not in c:
             raise refuse("hill_list")
-    icfg = cfg["integrator"]
-    if icfg.get("kind", "langevin") == "npt_scr":
-        raise refuse("npt_scr")
-    if bool(icfg.get("box_bias", False)):
-        raise refuse("box_bias")
     if str(cfg.get("output", {}).get("trajectory", "")).endswith(".gsd"):
         raise refuse("gsd")
 
@@ -108,12 +90,19 @@ def _assign_order(c: dict) -> int:
         raise ValueError(f"cvs.assign must be cic or tsc, got {name!r}")
 
 
-def _build_packed_cvs(cvs_cfg, spec, n: int, types, n_types: int, device):
+def _build_packed_cvs(cvs_cfg, spec, n: int, types, n_types: int, device,
+                      pos, shards=None, box_L=None):
     """The packed CVs and their per-particle attrs (lamellar and mesh
-    coefficients from ``mode``, one per type)."""
-    from .cv.packed import PackedLamellar, PackedMesh
+    coefficients from ``mode``, one per type; the MSD's reference
+    positions).  With ``shards`` (the slab engine's devices) the mesh CV is
+    the distributed slab-FFT ``ShardedPackedMesh``."""
+    from .cv.aspect_ratio import AspectRatio
+    from .cv.packed import (
+        PackedLamellar, PackedMesh, PackedMSD, msd_reference_attrs,
+    )
     from .cv.packed_order import PackedCoordination, PackedSteinhardtQl
     from .cv.simple import PotentialEnergyCV
+    from .parallel.mesh import ShardedPackedMesh
 
     cvs, extra_attrs = [], {}
     for c in cvs_cfg:
@@ -121,6 +110,11 @@ def _build_packed_cvs(cvs_cfg, spec, n: int, types, n_types: int, device):
         if kind == "lamellar":
             cv = PackedLamellar.create([c["lattice_vector"]], n, device,
                                        name=c["name"])
+        elif kind == "mesh" and shards is not None:
+            cv = ShardedPackedMesh.create(
+                tuple(c["mesh"]), spec, shards, n_real=n, k0=c["k0"],
+                width=c.get("width", 0.5), box_L=box_L, name=c["name"],
+                assign_order=_assign_order(c))
         elif kind == "mesh":
             cv = PackedMesh.create(tuple(c["mesh"]), None, n_real=n,
                                    k0=c["k0"], width=c.get("width", 0.5),
@@ -133,6 +127,12 @@ def _build_packed_cvs(cvs_cfg, spec, n: int, types, n_types: int, device):
             cv = PackedCoordination(
                 spec, r0=float(c["r0"]), name=c["name"],
                 r_cut=float(c["r_cut"]) if "r_cut" in c else None)
+        elif kind == "msd":
+            cv = PackedMSD(n_real=n, name=c["name"])
+            extra_attrs.update(msd_reference_attrs(pos))
+        elif kind == "aspect_ratio":
+            cv = AspectRatio(axis_a=int(c.get("axis_a", 0)),
+                             axis_b=int(c.get("axis_b", 1)), name=c["name"])
         elif kind == "wte":
             cv = PotentialEnergyCV(name=c["name"])
         else:
@@ -144,11 +144,14 @@ def _build_packed_cvs(cvs_cfg, spec, n: int, types, n_types: int, device):
     return cvs, extra_attrs
 
 
-def _build_particle_cvs(cvs_cfg, system, L, device):
-    """The particle-order CVs: lamellar, mesh and Steinhardt Q_l (their
-    bias forces by autograd) and the energy CV."""
+def _build_particle_cvs(cvs_cfg, system, L, device, pos):
+    """The particle-order CVs: lamellar, mesh, Steinhardt Q_l and the MSD
+    from the start positions (their bias forces by autograd), the aspect
+    ratio and the energy CV."""
+    from .cv.aspect_ratio import AspectRatio
     from .cv.lamellar import LamellarOP
     from .cv.mesh import MeshOrderParameter
+    from .cv.msd import MSD
     from .cv.simple import PotentialEnergyCV
     from .cv.steinhardt import SteinhardtQl
 
@@ -168,6 +171,12 @@ def _build_particle_cvs(cvs_cfg, system, L, device):
         elif kind == "steinhardt":
             cvs.append(SteinhardtQl(r_cut=c["r_cut"], l=c.get("l", 6),
                                     name=c["name"]))
+        elif kind == "msd":
+            cvs.append(MSD.create(pos, name=c["name"], device=device))
+        elif kind == "aspect_ratio":
+            cvs.append(AspectRatio(axis_a=int(c.get("axis_a", 0)),
+                                   axis_b=int(c.get("axis_b", 1)),
+                                   name=c["name"]))
         elif kind == "wte":
             cvs.append(PotentialEnergyCV(name=c["name"]))
         else:
@@ -197,15 +206,40 @@ def _grid_from_cfg(cvs_cfg, device):
         periodic=[bool(c["grid"].get("periodic", False)) for c in cvs_cfg])
 
 
-def _integrator_factory(icfg: dict, system, packed: bool):
+def _integrator_factory(icfg: dict, system, packed: bool, spec=None,
+                        engine=None):
+    """The integrator factory: one argument, ``factory(force_fn)``, or for
+    ``npt_scr`` with ``box_bias`` two, ``factory(force_fn, bias)``: the
+    box-shape metadynamics of an ``AspectRatio`` (axes 0 and 1, as the
+    reference's CLI builds it) through ``box_bias_fn``."""
+    from .cv.aspect_ratio import AspectRatio, box_bias_fn_for
     from .integrate.langevin import make_langevin_step
+    from .integrate.npt import make_npt_scr_step
     from .integrate.nvt import make_nvt_bdp_step, make_nvt_nh_step
     from .integrate.packed import (
-        make_packed_langevin_step, make_packed_nve_step,
+        make_packed_langevin_step, make_packed_npt_scr_step,
+        make_packed_nve_step,
     )
     kind = icfg.get("kind", "langevin")
     dt = float(icfg["dt"])
     kT = float(icfg.get("kT", 1.0))
+    if kind == "npt_scr":
+        kw = dict(dt=dt, kT=kT, pressure=float(icfg["pressure"]),
+                  gamma=float(icfg.get("gamma", 1.0)),
+                  tau_p=float(icfg.get("tau_p", 2.0)),
+                  anisotropic=bool(icfg.get("anisotropic", False)),
+                  kappa=float(icfg.get("kappa", 0.1)))
+        if packed:
+            def make(f, **extra):
+                return make_packed_npt_scr_step(f, spec, engine=engine,
+                                                **kw, **extra)
+        else:
+            def make(f, **extra):
+                return make_npt_scr_step(f, system, **kw, **extra)
+        if bool(icfg.get("box_bias", False)):
+            return lambda f, bias: make(
+                f, box_bias_fn=box_bias_fn_for(AspectRatio(), bias))
+        return make
     if packed:
         if kind == "langevin":
             return lambda f: make_packed_langevin_step(
@@ -278,18 +312,19 @@ def _check_start_in_grid(cvs, cvs_cfg, grid, state, system) -> None:
 
 
 def _spatial_devices(n: int, device) -> list:
-    """The shards' devices: the first ``n`` cards under CUDA (raising the
-    reference's error when fewer are visible), ``n`` virtual shards of the
-    CPU otherwise."""
+    """The shards' devices: under CUDA the visible cards in turn, shard k on
+    card k mod (cards), so fewer cards than shards share them, as the
+    reference runs more shards than chips on its virtual devices (a note
+    on stderr says so); ``n`` virtual shards of the CPU otherwise."""
     import torch
     dev = torch.device(device)
     if dev.type != "cuda":
         return [dev] * n
     have = torch.cuda.device_count()
     if have < n:
-        raise ValueError(f"engine.spatial_devices={n} but only {have} "
-                         "devices are visible")
-    return [torch.device("cuda", i) for i in range(n)]
+        print(f"note: engine.spatial_devices={n} on {have} visible "
+              "card(s): the shards share them", file=sys.stderr)
+    return [torch.device("cuda", i % have) for i in range(n)]
 
 
 def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
@@ -348,10 +383,23 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
     mcfg = cfg["metadynamics"]
     mode = mcfg.get("mode", "standard")
     packed = eng_cfg["kind"] == "packed"
-    # the energy CV reads state.potential_energy at every bias evaluation:
-    # every force call must compute it (with_energy)
+    # the energy CV reads state.potential_energy at every bias evaluation
+    # and the barostat state.virial at every step: every force call must
+    # compute them (with_energy)
     want_energy = (any(c["kind"] == "wte" for c in cvs_cfg)
+                   or icfg.get("kind") == "npt_scr"
                    or bool(eng_cfg.get("with_energy", False)))
+    n_walkers = int(mcfg.get("n_walkers", 1))
+    if bool(icfg.get("box_bias", False)) and (
+            n_walkers > 1 or mode == "flux_tempered"):
+        raise ValueError(
+            "integrator.box_bias (box-shape metadynamics) needs the "
+            "two-arg box-coupled integrator factory, which only the "
+            "single-replica standard/well_tempered sampler supports")
+    if icfg.get("kind") == "npt_scr" and tilt is not None:
+        raise ValueError(
+            "integrator npt_scr: SCR cell rescaling takes an orthorhombic "
+            "box (a per-axis rescale does not commute with the tilt)")
     if packed:
         r_cut = float(pair.get("r_cut", 2.0 ** (1 / 6)
                                if pair["kind"] == "wca" else 2.5))
@@ -384,6 +432,7 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
             pair_kind="soft" if pair["kind"] == "soft" else "lj",
             eps_scale=eps_scale, sigma_scale=sigma_scale, tilt=tilt)
         sp_dev = int(eng_cfg.get("spatial_devices", 1) or 1)
+        shards = None
         if sp_dev > 1:
             from .parallel.spatial import SpatialPackedEngine
             # the schema's pair_pallas: false is the reference's XLA pair
@@ -391,8 +440,25 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
             # call: with_energy here
             pair_k, order_k = (eng_cfg.get("pair_pallas"),
                                eng_cfg.get("order_pallas"))
+            shards = _spatial_devices(sp_dev, device)
+            # with walkers: the walkers x space product (the reference's
+            # ``mpirun -n W*S --nrank W``), all W walkers on every shard
+            nested = n_walkers > 1
+            kinds = {c["kind"] for c in cvs_cfg}
+            if nested and "aspect_ratio" in kinds:
+                raise ValueError(
+                    "the aspect-ratio (box-shape) CV needs the two-arg "
+                    "box-coupled integrator factory, which multi-walker "
+                    "runs do not take: not on a walkers x space product "
+                    "(run it under plain spatial_devices)")
+            if nested and "mesh" in kinds and kinds & {
+                    "steinhardt", "q6", "coordination"}:
+                raise ValueError(
+                    "the mesh CV cannot be combined with steinhardt/"
+                    "coordination CVs on a walkers x space product, as in "
+                    "the reference: use mesh-only or order-CV-only runs")
             engine = SpatialPackedEngine(
-                spec, _spatial_devices(sp_dev, device),
+                spec, shards, nested=nested,
                 rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
                 with_energy=(want_energy
                              or (pair_k is not None and not pair_k)),
@@ -403,7 +469,8 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
                 rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
                 with_energy=want_energy)
         cvs, extra_attrs = _build_packed_cvs(cvs_cfg, spec, n, types,
-                                             system.n_types, device)
+                                             system.n_types, device, pos,
+                                             shards=shards, box_L=L)
         if fene is not None:
             if bonds is None:
                 raise ValueError("engine bonds (fene/bonds) need init "
@@ -426,10 +493,11 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
                                 row_block=int(eng_cfg.get("row_block", 1024)),
                                 device=device)
         state = make_state(pos, box, vel=vel, device=device)
-        cvs = _build_particle_cvs(cvs_cfg, system, L, device)
+        cvs = _build_particle_cvs(cvs_cfg, system, L, device, pos)
     _check_wte(cvs, cvs_cfg)
-    integ = _integrator_factory(icfg, system, packed)
-    n_walkers = int(mcfg.get("n_walkers", 1))
+    integ = _integrator_factory(icfg, system, packed,
+                                spec=spec if packed else None,
+                                engine=engine if packed else None)
 
     def stacked_walker_states():
         """The walker batch: every walker from the same positions, with

@@ -9,11 +9,20 @@ with tilt factors ``(xy, xz, yz)`` defining the upper-triangular cell matrix
 
 so a lattice point is ``r = h @ f`` with fractional ``f``.
 
-The box keeps ``L`` and the tilt twice: as (3,) f32 tensors on the device
-for tensor math, and as host floats (``L_host``, ``tilt_host``: the same f32
-values) so that a kernel launch gets the box without a device-to-host read.
-The NVT box is constant, so the two never drift apart; a box whose tilt
-tensor and host floats disagree in presence is refused at construction.
+The box lives on the device: ``L`` and the tilt as (3,) f32 tensors, and
+one row of geometry ``geo`` (BOX_ROW,) f32 that every kernel reads from
+device memory: the cell matrix's six entries ``h`` = (Lx, Ly, Lz, xy·Ly,
+xz·Lz, yz·Lz), then the perpendicular ``widths`` and their sum (the order
+kernels' prefilter scale).  A walker batch stacks them per walker: (W, 3)
+and (W, BOX_ROW), one box each.
+
+A box built from host numbers (``from_lengths``, ``cubic``,
+``triclinic``) also keeps them as host floats (``L_host``, ``tilt_host``:
+the same f32 values) for build-time checks (the cell grid against the
+cut-off, the pack).  A box that a step made on the device (``moved``,
+``rescaled``: the NPT barostat's) has none: reading its host floats
+raises :class:`MovedBoxError`, so nothing can read a stale box and nothing
+pays a device-to-host read to refresh one.
 
 The triangular transforms are elementwise, never a matmul: a reduced
 precision matrix product there once cost the reference ~1e-3 of relative
@@ -21,7 +30,6 @@ accuracy in wrapping and binning.
 """
 from __future__ import annotations
 
-import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Optional
@@ -30,20 +38,104 @@ import numpy as np
 import torch
 
 
-@dataclass(frozen=True)
+class MovedBoxError(RuntimeError):
+    """Raised on reading the host floats of a box that a step moved."""
+
+
+# the stored value of a host-float field on a box that a step moved
+_MOVED = type("MovedHostFloats", (), {"__repr__": lambda self: "<moved>"})()
+
+
+class _HostFloats:
+    """A host-float field of :class:`Box`: the stored tuple, or
+    :class:`MovedBoxError` on a box that a step moved (its floats would be
+    the old box's, and refreshing them would cost a device-to-host read)."""
+
+    def __set_name__(self, owner, name):
+        self.name = name
+        self.slot = "_" + name
+
+    def __get__(self, obj, objtype=None):
+        if obj is None:
+            return None           # the dataclass default
+        v = obj.__dict__.get(self.slot)
+        if v is _MOVED:
+            raise MovedBoxError(
+                f"Box.{self.name}: this box was moved on the device (an NPT "
+                "step rescaled it); it has no host floats")
+        return v
+
+    def __set__(self, obj, value):
+        obj.__dict__[self.slot] = value
+
+
+# a box's row of device geometry, the kernels' input: the cell matrix's six
+# entries, then the three perpendicular widths and their sum (the order
+# kernels' prefilter scale); csrc/cell_geom.cuh kBoxRow
+BOX_ROW = 10
+
+
+def _geo_host(L_host, tilt_host) -> np.ndarray:
+    """The geometry row(s) from host floats: the products of the cell
+    matrix in f32, as the plain sweeps form them; the widths and their sum
+    in float64, each rounded to f32 once."""
+    if L_host and isinstance(L_host[0], tuple):
+        return np.stack([_geo_host(L, None if tilt_host is None else t)
+                         for L, t in zip(L_host, tilt_host or
+                                         [None] * len(L_host))])
+    L = np.asarray(L_host, np.float32)
+    t = np.asarray(tilt_host or (0.0, 0.0, 0.0), np.float32)
+    h = (*(float(x) for x in L), float(t[0] * L[1]), float(t[1] * L[2]),
+         float(t[2] * L[2]))
+    w = _widths_of(h)
+    return np.asarray((*h, *w, sum(w)), np.float32)
+
+
+def _geo_device(L: torch.Tensor, tilt: Optional[torch.Tensor]):
+    """The geometry row(s) of a box that lives on the device, in f32
+    there: (..., BOX_ROW)."""
+    if tilt is None:
+        return torch.cat([L, torch.zeros_like(L), L,
+                          L.sum(-1, keepdim=True)], dim=-1).contiguous()
+    Lx, Ly, Lz = L[..., 0], L[..., 1], L[..., 2]
+    xyLy, xzLz, yzLz = tilt[..., 0] * Ly, tilt[..., 1] * Lz, tilt[..., 2] * Lz
+    v = Lx * Ly * Lz
+    bx, by, bz = Ly * Lz, -xyLy * Lz, xyLy * yzLz - Ly * xzLz
+    w = torch.stack([v / torch.sqrt(bx * bx + by * by + bz * bz),
+                     v / (Lx * torch.sqrt(Lz * Lz + yzLz * yzLz)), Lz], -1)
+    return torch.cat([L, torch.stack([xyLy, xzLz, yzLz], -1), w,
+                      w.sum(-1, keepdim=True)], dim=-1).contiguous()
+
+
+@dataclass(frozen=True, eq=False)
 class Box:
     """Periodic box: edge lengths ``L`` plus optional tilt (None ⇒
-    orthorhombic)."""
+    orthorhombic), and the device geometry ``geo`` that every kernel
+    reads: the cell matrix ``h`` and the perpendicular ``widths``.
 
-    L: torch.Tensor                       # (3,) f32
-    L_host: tuple                         # (Lx, Ly, Lz) host floats
+    Build boxes with the constructors (``from_lengths``, ``cubic``,
+    ``triclinic``, ``moved``, ``rescaled``, ``to``), not with
+    ``dataclasses.replace``: ``geo`` is derived from the others."""
+
+    L: torch.Tensor                       # (3,) f32; (W, 3) stacked
+    L_host: tuple = _HostFloats()         # (Lx, Ly, Lz) host floats
     tilt: Optional[torch.Tensor] = None   # (3,) f32 = (xy, xz, yz), or None
-    tilt_host: Optional[tuple] = None     # (xy, xz, yz) host floats, or None
+    tilt_host: Optional[tuple] = _HostFloats()  # (xy, xz, yz), or None
+    geo: Optional[torch.Tensor] = None    # (BOX_ROW,) f32; (W, BOX_ROW)
 
     def __post_init__(self):
-        if (self.tilt is None) != (self.tilt_host is None):
+        tilt_host = self.__dict__.get("_tilt_host")
+        if self.tilt is None and tilt_host is not None:
+            raise ValueError("Box: tilt_host without a tilt tensor")
+        if (self.tilt is not None and tilt_host is None
+                and self.__dict__.get("_L_host") is not _MOVED):
             raise ValueError("Box: the tilt tensor and its host floats "
                              "(tilt_host) must be given together")
+        if self.geo is None:
+            geo = (torch.as_tensor(_geo_host(self.L_host, self.tilt_host),
+                                   device=self.L.device) if self.fixed
+                   else _geo_device(self.L, self.tilt))
+            object.__setattr__(self, "geo", geo)
 
     @classmethod
     def from_lengths(cls, Lx: float, Ly: float, Lz: float,
@@ -60,16 +152,39 @@ class Box:
     def triclinic(cls, Lx: float, Ly: float, Lz: float, device,
                   xy: float = 0.0, xz: float = 0.0, yz: float = 0.0) -> "Box":
         """HOOMD-convention triclinic box (dimensionless tilt factors)."""
-        box = cls.from_lengths(Lx, Ly, Lz, device)
+        L = np.asarray([Lx, Ly, Lz], np.float32)
         tilt = np.asarray([xy, xz, yz], np.float32)
-        return dataclasses.replace(
-            box, tilt=torch.as_tensor(tilt, device=device),
-            tilt_host=tuple(float(x) for x in tilt))
+        return cls(L=torch.as_tensor(L, device=device),
+                   L_host=tuple(float(x) for x in L),
+                   tilt=torch.as_tensor(tilt, device=device),
+                   tilt_host=tuple(float(x) for x in tilt))
+
+    @classmethod
+    def moved(cls, L: torch.Tensor,
+              tilt: Optional[torch.Tensor] = None) -> "Box":
+        """A box that lives on the device alone (a step made it): its
+        host floats raise :class:`MovedBoxError`."""
+        return cls(L=L, L_host=_MOVED, tilt=tilt,
+                   tilt_host=None if tilt is None else _MOVED)
+
+    def rescaled(self, scale: torch.Tensor) -> "Box":
+        """The orthorhombic box with ``L · scale`` (scale (3,), (W, 3) or
+        broadcastable), on the device: no host floats."""
+        if self.tilt is not None:
+            raise ValueError("Box.rescaled: a per-axis rescale of a tilted "
+                             "box does not keep its tilt factors")
+        return Box.moved(self.L * scale)
+
+    @property
+    def fixed(self) -> bool:
+        """True when the box has its host floats (it was not moved)."""
+        return self.__dict__.get("_L_host") is not _MOVED
 
     @property
     def volume(self) -> torch.Tensor:
-        # det h = Lx*Ly*Lz regardless of tilt (upper triangular)
-        return torch.prod(self.L)
+        # det h = Lx*Ly*Lz regardless of tilt (upper triangular); (W,)
+        # for a stacked box
+        return torch.prod(self.L, dim=-1)
 
     @property
     def is_triclinic(self) -> bool:
@@ -78,7 +193,8 @@ class Box:
     def h_host(self) -> tuple:
         """The cell matrix's six entries as host floats, (Lx, Ly, Lz, xy·Ly,
         xz·Lz, yz·Lz), each product rounded to f32 as the plain sweeps form
-        it (``ops.packed.shift_rows_cart``); zero tilt when orthorhombic."""
+        it (``ops.packed.shift_rows_cart``); zero tilt when orthorhombic.
+        Build-time checks only: the kernels read ``h``."""
         L = np.asarray(self.L_host, np.float32)
         t = np.asarray(self.tilt_host or (0.0, 0.0, 0.0), np.float32)
         return (*(float(x) for x in L), float(t[0] * L[1]),
@@ -86,14 +202,30 @@ class Box:
 
     def perpendicular_widths_host(self) -> tuple:
         """:func:`perpendicular_widths` as host floats (float64 from
-        ``h_host``): the distances between opposite faces, for kernel
-        launches that must not read the device."""
+        ``h_host``), for build-time checks."""
         return _widths_of(self.h_host())
 
+    @property
+    def h(self) -> torch.Tensor:
+        """(6,) f32 the cell matrix's entries on the device, (Lx, Ly, Lz,
+        xy·Ly, xz·Lz, yz·Lz); (W, 6) stacked."""
+        return self.geo[..., :6]
+
+    @property
+    def widths(self) -> torch.Tensor:
+        """(3,) f32 the perpendicular widths on the device: from the host
+        floats of a fixed box (rounded to f32 once), computed in f32 there
+        for a moved one; (W, 3) stacked."""
+        return self.geo[..., 6:9]
+
     def to(self, device) -> "Box":
-        return dataclasses.replace(
-            self, L=self.L.to(device),
-            tilt=None if self.tilt is None else self.tilt.to(device))
+        L = self.L.to(device)
+        if L is self.L:
+            return self
+        d = self.__dict__
+        return Box(L=L, L_host=d.get("_L_host"),
+                   tilt=None if self.tilt is None else self.tilt.to(device),
+                   tilt_host=d.get("_tilt_host"), geo=self.geo.to(device))
 
 
 @functools.lru_cache(maxsize=64)
@@ -139,9 +271,12 @@ def perpendicular_widths(box: Box) -> torch.Tensor:
     """(3,) f32 distances between opposite faces of the cell: V/|b×c|,
     V/|c×a|, V/|a×b| for the columns a, b, c of h (``L`` when
     orthorhombic).  Cross and dot products written out elementwise, in f32,
-    with no matrix product."""
+    with no matrix product; (W, 3) for a stacked box."""
     if box.tilt is None:
         return box.L
+    if box.L.dim() == 2:
+        return torch.stack([perpendicular_widths(walker_box(box, w))
+                            for w in range(box.L.shape[0])])
     h = h_matrix(box)
     a, b, c = h[:, 0], h[:, 1], h[:, 2]
     bc, ca, ab = (torch.linalg.cross(b, c), torch.linalg.cross(c, a),
@@ -213,38 +348,44 @@ def unwrap(pos: torch.Tensor, image: torch.Tensor, box: Box) -> torch.Tensor:
 
 
 def stack_boxes(boxes) -> Box:
-    """One box per walker, stacked: ``L`` (W, 3), ``tilt`` (W, 3) or None,
-    and the host floats as one tuple per walker."""
+    """One box per walker, stacked: ``L`` and ``geo`` (W, 3) and (W,
+    BOX_ROW), ``tilt`` (W, 3) or None; the host floats one tuple per
+    walker, or none where a walker's box was moved."""
     tilted = {b.tilt is not None for b in boxes}
     if len(tilted) != 1:
         raise ValueError("stack_boxes: every walker's box must be tilted, "
                          "or none")
-    return Box(L=torch.stack([b.L for b in boxes]),
-               L_host=tuple(b.L_host for b in boxes),
-               tilt=(torch.stack([b.tilt for b in boxes])
-                     if tilted == {True} else None),
+    tilt = (torch.stack([b.tilt for b in boxes]) if tilted == {True}
+            else None)
+    stacked = dict(L=torch.stack([b.L for b in boxes]), tilt=tilt,
+                   geo=torch.stack([b.geo for b in boxes]))
+    if not all(b.fixed for b in boxes):
+        return Box(L_host=_MOVED, tilt_host=None if tilt is None else _MOVED,
+                   **stacked)
+    return Box(L_host=tuple(b.L_host for b in boxes),
                tilt_host=(tuple(b.tilt_host for b in boxes)
-                          if tilted == {True} else None))
+                          if tilt is not None else None), **stacked)
+
+
+def box_from_tensors(L: torch.Tensor,
+                     tilt: Optional[torch.Tensor] = None) -> Box:
+    """A box of the given tensors (a stacked box for (W, 3) ones) with its
+    host floats read from them: one device-to-host read, for loading a
+    checkpoint, never inside a run."""
+    def host(t):
+        a = t.detach().cpu().numpy().astype(np.float32)
+        return (tuple(float(x) for x in a) if a.ndim == 1
+                else tuple(tuple(float(x) for x in row) for row in a))
+
+    return Box(L=L, L_host=host(L), tilt=tilt,
+               tilt_host=None if tilt is None else host(tilt))
 
 
 def walker_box(box: Box, w: int) -> Box:
     """Walker ``w``'s box of a stacked box (views of its tensors)."""
-    return Box(L=box.L[w], L_host=box.L_host[w],
+    d = box.__dict__
+    L_host, tilt_host = d.get("_L_host"), d.get("_tilt_host")
+    return Box(L=box.L[w], L_host=L_host if L_host is _MOVED else L_host[w],
                tilt=None if box.tilt is None else box.tilt[w],
-               tilt_host=None if box.tilt_host is None else box.tilt_host[w])
-
-
-def shared_box(box: Box) -> Box:
-    """The one box of a walker batch: ``box`` itself when it is not
-    stacked, else walker 0's after checking, on the host floats, that every
-    walker has the same box.  The batched pair kernel and the batched CVs
-    take one cell matrix for all walkers; walkers with boxes of their own
-    (NPT) would need one per walker."""
-    if box.L.dim() == 1:
-        return box
-    if (len(set(box.L_host)) != 1
-            or (box.tilt_host is not None and len(set(box.tilt_host)) != 1)):
-        raise ValueError("the walkers' boxes differ: the walker batch takes "
-                         "one box for all walkers (NPT walkers need a "
-                         "per-walker cell matrix, ROADMAP queue 1 item 3)")
-    return walker_box(box, 0)
+               tilt_host=(tilt_host if tilt_host in (None, _MOVED)
+                          else tilt_host[w]), geo=box.geo[w])

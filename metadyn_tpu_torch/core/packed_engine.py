@@ -9,11 +9,16 @@ routes it to its XLA roll sweep on every backend, while this engine sends
 it to the pair kernel's soft layout on CUDA (a layout of the port alone)
 and to the plain sweep on the CPU.
 
-The engine also steps a walker batch (``core/batch.py``: W states of one
-box stacked on a leading dimension), as ``parallel/walkers.WalkerSampler``
-drives it: one kernel launch per force call for all W walkers, the repack
-check one device-to-host read per rebuild block for all of them, and the
-run-health flags and metrics per walker.
+The engine also steps a walker batch (``core/batch.py``: W states stacked
+on a leading dimension, each with a box of its own), as ``parallel/
+walkers.WalkerSampler`` drives it: one kernel launch per force call for
+all W walkers, the repack check one device-to-host read per rebuild block
+for all of them, and the run-health flags and metrics per walker.
+
+The box may move (the NPT barostat rescales it on the device): the kernels
+read the cell matrix from device memory, and the check that the fixed
+cell grid still covers ``r_list`` (``cell_width_violation``) rides in the
+repack check's read.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import numpy as np
 import torch
 
 from .batch import batch_size, stack_walkers, walker, walkers
-from .box import Box, perpendicular_widths, shared_box
+from .box import Box, perpendicular_widths
 from ..ops.packed import (
     PackedSpec, PackedState, needs_repack, pack_host, packed_temperature,
     repack_incremental,
@@ -110,27 +115,60 @@ class PackedEngine:
         # forces travel with the slots, so a migration needs no new force
         if batch_size(state) is not None:
             return self._rebuild_walkers(state, aux)
-        if self.always_repack or bool(needs_repack(state, self.spec)):
-            state, bad = repack_incremental(state, self.spec)
+        if self.always_repack or self._repack_flags(state):
+            state, bad = self._repack_one(state)
             aux = PackedAux(overflow=aux.overflow | bad, stale=aux.stale)
         return state, aux
 
+    def cell_width_violation(self, state: PackedState) -> torch.Tensor:
+        """Device bool ((W,) for a batch): a cell narrower than ``r_list``.
+        The cell count per axis is fixed while the width follows the box,
+        and a cell narrower than r_cut + skin silently misses pairs.  A
+        tilted cell's width is its perpendicular width over the count."""
+        w = perpendicular_widths(state.box)
+        # the counts as Python numbers: no host-to-device copy, which would
+        # wait for the device, in the repack check's path
+        width = torch.stack([w[..., d] / float(c) for d, c in
+                             enumerate(self.spec.cells_per_dim)], dim=-1)
+        return torch.amin(width, dim=-1) < self.spec.r_list
+
+    def _repack_flags(self, state: PackedState):
+        """The repack check's one device-to-host read per rebuild block:
+        the half-skin flags ((W,) for a batch) as host bools.  On a box
+        that a step moved, the cell-width flag rides in the same read, and
+        a violation raises: the fixed grid no longer covers r_list."""
+        need = needs_repack(state, self.spec)
+        if state.box.fixed:
+            return need.tolist()
+        need, narrow = torch.stack(
+            [need, self.cell_width_violation(state)]).tolist()
+        if np.any(narrow):
+            raise RuntimeError(
+                "PackedEngine: the box shrank below the cell grid's "
+                f"r_list = {self.spec.r_list} per cell (cell_width_violation"
+                "); build the grid with fewer cells or a smaller skin")
+        return need
+
     def _rebuild_walkers(self, state: PackedState, aux: PackedAux):
-        """The batch's rebuild: one read of the (W,) repack flags, then
-        ``repack_incremental`` on each walker that needs it, alone."""
+        """The batch's rebuild: one read of the (W,) repack flags, then the
+        repack (``repack_incremental``) of each walker that needs it,
+        alone."""
         w_all = batch_size(state)
         todo = (range(w_all) if self.always_repack else
-                [w for w, need in
-                 enumerate(needs_repack(state, self.spec).tolist()) if need])
+                [w for w, need in enumerate(self._repack_flags(state))
+                 if need])
         if not todo:
             return state, aux
         parts = walkers(state)
         bad = torch.zeros(w_all, dtype=torch.bool, device=self.device)
         for w in todo:
-            parts[w], bad_w = repack_incremental(walker(state, w), self.spec)
+            parts[w], bad_w = self._repack_one(walker(state, w))
             bad[w] = bad_w
         return stack_walkers(parts), PackedAux(overflow=aux.overflow | bad,
                                                stale=aux.stale)
+
+    def _repack_one(self, state: PackedState):
+        return repack_incremental(state, self.spec)
 
     def force_into(self, state: PackedState, aux: PackedAux,
                    extra_force=None) -> PackedState:
@@ -150,18 +188,11 @@ class PackedEngine:
         return self._pair_force(state, True)
 
     def metrics(self, state: PackedState, aux: PackedAux) -> dict:
-        # the cell count per axis is fixed while the width follows the box:
-        # a cell narrower than r_cut + skin silently misses pairs.  A tilted
-        # cell's width is its perpendicular width over the count.
-        box = shared_box(state.box)
-        cpd = torch.as_tensor(np.asarray(self.spec.cells_per_dim, np.float32),
-                              device=box.L.device)
-        width = perpendicular_widths(box) / cpd
+        narrow = self.cell_width_violation(state)
         return {
             "temperature": packed_temperature(state, self.spec, self.mass),
             "potential_energy": state.potential_energy,
             "nlist_overflow": aux.overflow,
             "nlist_stale": aux.stale,
-            "cell_width_violation": (torch.min(width) < self.spec.r_list
-                                     ).expand(aux.overflow.shape),
+            "cell_width_violation": narrow.expand(aux.overflow.shape),
         }

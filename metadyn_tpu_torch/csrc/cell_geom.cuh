@@ -3,7 +3,10 @@
 // packed_order.cu and packed_fused_lj_order.cu).
 //
 // The box is the upper-triangular cell matrix h (HOOMD's tilt convention,
-// core/box.py), passed as its six entries.  Cells are bins of fractional
+// core/box.py), read from device memory as its six entries (the first of a
+// box's geometry row, core/box.py Box.geo: one row per box, one box per
+// walker of a batch), so a box that the NPT barostat rescales on the device
+// reaches every kernel without a host read.  Cells are bins of fractional
 // coordinates, so a neighbour cell that lies past a box face holds partners
 // seen at x_j + h u, with u the integer wrap counts of the three axes.  The
 // shift is formed in the order of the plain sweeps (ops/packed.py
@@ -19,13 +22,30 @@
 
 namespace cell_geom {
 
-// The six entries of h as host floats (core/box.py Box.h_host): the
-// diagonal, and the off-diagonal products xy*Ly, xz*Lz, yz*Lz rounded to
-// f32 once on the host.
+// The six entries of h: the diagonal, and the off-diagonal products xy*Ly,
+// xz*Lz, yz*Lz rounded to f32 (core/box.py Box.h).
 struct HBox {
   float Lx, Ly, Lz;
   float xyLy, xzLz, yzLz;
 };
+
+// A box's row of device geometry (core/box.py Box.geo, BOX_ROW floats): the
+// cell matrix, then the perpendicular widths and their sum.
+struct BoxRow {
+  HBox h;
+  float widths[3];
+  float width_sum;
+};
+constexpr int kBoxRow = sizeof(BoxRow) / sizeof(float);
+static_assert(kBoxRow == 10, "core/box.py BOX_ROW");
+
+// The cell matrix of row w of the (n, kBoxRow) f32 geometry rows at `box`
+// (device memory).
+__device__ __forceinline__ HBox load_box(const float* __restrict__ box,
+                                         int w) {
+  const float* b = box + kBoxRow * w;
+  return HBox{b[0], b[1], b[2], b[3], b[4], b[5]};
+}
 
 // Neighbour index along one axis, j = (i + o) mod c, with its wrap count
 // u = floor((i + o) / c) in {-1, 0, 1}.

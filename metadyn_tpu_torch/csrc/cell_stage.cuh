@@ -79,7 +79,7 @@ struct Grid {
   int n_pad;
   int cap;
   int cx, cy, cz;
-  cell_geom::HBox h;
+  const float* box;  // (n, kBoxRow) f32 geometry rows in device memory
 };
 
 // Fractional coordinates of a Cartesian point, f = h^-1 p (h upper
@@ -95,13 +95,14 @@ __device__ inline float3 fractional(float3 p, const cell_geom::HBox& h) {
 // decides the row at slot j of neighbour cell o (offset (o / 9 - 1,
 // o / 3 % 3 - 1, o % 3 - 1)), p being its position with the cell's shift
 // applied; it must give the same answer when called twice.  store(q, j, p)
-// writes that row to staged index q.  Ends with __syncthreads(); returns
-// the number of staged rows.  sc.off[13] and sc.off[14] bound the own
-// cell's rows.
+// writes that row to staged index q.  h is the block's cell matrix (in
+// shared or constant memory: a register copy would cost the order kernels
+// their occupancy).  Ends with __syncthreads(); returns the number of
+// staged rows.  sc.off[13] and sc.off[14] bound the own cell's rows.
 template <class Keep, class Store>
 __device__ int stage_neighbours(const float* __restrict__ r, const Grid& g,
-                                int cell, const Scratch& sc, Keep keep,
-                                Store store) {
+                                const cell_geom::HBox& h, int cell,
+                                const Scratch& sc, Keep keep, Store store) {
   const int C = g.cx * g.cy * g.cz;
   const int its = n_its(g.cap);
   const int lane = threadIdx.x & 31;
@@ -121,7 +122,7 @@ __device__ int stage_neighbours(const float* __restrict__ r, const Grid& g,
     const int o = 3 * c + dz;
     float3 sh;
     const int jcell = cell_geom::neighbour_cell(
-        ix, iy, iz, c / 3 - 1, c % 3 - 1, dz - 1, g.cx, g.cy, g.cz, g.h, &sh);
+        ix, iy, iz, c / 3 - 1, c % 3 - 1, dz - 1, g.cx, g.cy, g.cz, h, &sh);
     int count = 0;
     for (int it = 0; it < its; ++it) {
       const int k = it * kRanksPerIt + kk;
@@ -147,7 +148,7 @@ __device__ int stage_neighbours(const float* __restrict__ r, const Grid& g,
     const int o = 3 * c + dz;
     float3 sh;
     const int jcell = cell_geom::neighbour_cell(
-        ix, iy, iz, c / 3 - 1, c % 3 - 1, dz - 1, g.cx, g.cy, g.cz, g.h, &sh);
+        ix, iy, iz, c / 3 - 1, c % 3 - 1, dz - 1, g.cx, g.cy, g.cz, h, &sh);
     const int start = live ? sc.off[o] : 0;
     int base = start;
     for (int it = 0; it < its; ++it) {

@@ -381,9 +381,17 @@ struct StagedParams {
   float rc2_lj;    // the LJ cut-off squared (WithLJ)
   float sig2;      // sigma^2 (WithLJ)
   float eps4;      // 4 epsilon (WithLJ)
-  float pre_r;     // the prefilter radius (inf: no prefilter)
-  float wx, wy, wz;  // the box's perpendicular widths
+  float pre_rc;    // the prefilter's base radius (inf: no prefilter)
+  float margin;    // its margin per unit of the summed perpendicular widths
 };
+
+// The launch's box geometry (the cell matrix, the perpendicular widths and
+// their sum): copied from device memory (StagedParams.g.box) by one
+// device-to-device copy queued before each launch on its stream, so the
+// kernel reads it as kernel parameters are read, from the constant bank (a
+// register or shared-memory copy cost these kernels 3-14% of their device
+// time).  One per library: each .cu file has its own.
+__constant__ cell_geom::BoxRow c_geo;
 
 // Static shared memory of order_staged_kernel, beside its dynamic rows.
 constexpr size_t kStaticSmem =
@@ -403,9 +411,19 @@ inline size_t staged_smem(int cap) {
 // from the coordinate sentinel; pid is then not read and may be null).
 // Mono: Q_l in the monomial mode.  With Vals alone, a warp keeps one hit
 // queue across its rows.
+// Blocks per SM each sweep keeps: the values and force sweeps 5 (48
+// registers a thread), the fused sweep 4 (64).  Reading the box from
+// constant memory (c_geo) took the values sweep to 54 registers, 4 blocks
+// per SM and 9% of its time on Config 3's input, and a bound of 1 lets
+// the compiler take more than 64.
+template <bool WithLJ>
+constexpr int min_blocks() {
+  return WithLJ ? 4 : 5;
+}
+
 template <bool WithLJ, bool Vals, bool Grad, bool Valid, int Kinds, int L,
           int Lanes, bool Mono>
-__global__ void __launch_bounds__(kStageThreads)
+__global__ void __launch_bounds__(kStageThreads, min_blocks<WithLJ>())
 order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
                     const float* __restrict__ desc, int desc_len, int n_cvs,
                     int n_terms, const float* __restrict__ aux, int n_aux,
@@ -434,7 +452,7 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
   auto real = [&](int j) -> bool {
     return Valid ? pid[j] < p.n_real : r[j] < kVacantThr;
   };
-  const bool pre = isfinite(p.pre_r);
+  const bool pre = isfinite(p.pre_rc);
   if (pre && warp == 0) {
     // warp 0: the box of the cell's real rows
     float b[6] = {INFINITY, INFINITY, INFINITY, -INFINITY, -INFINITY,
@@ -443,7 +461,7 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
       const int s = k * C + cell;
       if (real(s)) {
         const float3 fr = cell_stage::fractional(
-            make_float3(r[s], r[n_pad + s], r[2 * n_pad + s]), p.g.h);
+            make_float3(r[s], r[n_pad + s], r[2 * n_pad + s]), c_geo.h);
         b[0] = fminf(b[0], fr.x);
         b[1] = fminf(b[1], fr.y);
         b[2] = fminf(b[2], fr.z);
@@ -465,11 +483,16 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
   }
   __syncthreads();
   auto near = [&](float3 x) -> bool {
-    const float3 fr = cell_stage::fractional(x, p.g.h);
-    const float gx = fmaxf(fmaxf(s_box[0] - fr.x, fr.x - s_box[3]), 0.0f) * p.wx;
-    const float gy = fmaxf(fmaxf(s_box[1] - fr.y, fr.y - s_box[4]), 0.0f) * p.wy;
-    const float gz = fmaxf(fmaxf(s_box[2] - fr.z, fr.z - s_box[5]), 0.0f) * p.wz;
-    return fmaxf(fmaxf(gx, gy), gz) < p.pre_r;
+    const float3 fr = cell_stage::fractional(x, c_geo.h);
+    const float gx =
+        fmaxf(fmaxf(s_box[0] - fr.x, fr.x - s_box[3]), 0.0f) * c_geo.widths[0];
+    const float gy =
+        fmaxf(fmaxf(s_box[1] - fr.y, fr.y - s_box[4]), 0.0f) * c_geo.widths[1];
+    const float gz =
+        fmaxf(fmaxf(s_box[2] - fr.z, fr.z - s_box[5]), 0.0f) * c_geo.widths[2];
+    // the prefilter radius R = pre_rc + margin * (wx + wy + wz)
+    // (ops/packed_order_cuda.py prefilter_radius)
+    return fmaxf(fmaxf(gx, gy), gz) < p.pre_rc + p.margin * c_geo.width_sum;
   };
   auto keep = [&](int o, int j, float3 x) -> bool {
     return real(j) && (o == cell_stage::kSelf || !pre || near(x));
@@ -477,7 +500,8 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
   auto store = [&](int q, int, float3 x) {
     s_pos[q] = make_float4(x.x, x.y, x.z, 0.0f);
   };
-  const int n_rows = cell_stage::stage_neighbours(r, p.g, cell, sc, keep,
+  const int n_rows = cell_stage::stage_neighbours(r, p.g, c_geo.h, cell, sc,
+                                                  keep,
                                                   store);
   for (int k = threadIdx.x; k < cap; k += kStageThreads) {
     if (cell_stage::own_dropped(sc, cap, k)) {
@@ -641,6 +665,10 @@ int launch_staged(const StagedArgs& a, cudaStream_t st) {
       order_staged_kernel<WithLJ, Vals, Grad, Valid, Kinds, L, Lanes, Mono>;
   const int rc = cell_stage::request_smem(kernel, smem, kStaticSmem);
   if (rc != 0) return rc;
+  const cudaError_t copied = cudaMemcpyToSymbolAsync(
+      c_geo, a.p.g.box, sizeof(cell_geom::BoxRow), 0,
+      cudaMemcpyDeviceToDevice, st);
+  if (copied != cudaSuccess) return static_cast<int>(copied);
   const int n_cells = a.p.g.cx * a.p.g.cy * a.p.g.cz;
   kernel<<<n_cells, kStageThreads, smem, st>>>(
       a.r, a.pid, a.desc, a.desc_len, a.n_cvs, a.n_terms, a.aux, a.n_aux,

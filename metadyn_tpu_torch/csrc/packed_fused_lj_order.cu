@@ -33,12 +33,13 @@ extern "C" {
 // r: (3, n_pad) f32; desc: desc_len f32; aux: n_aux f32 on the device;
 // f, g: (3, n_pad) f32 out (LJ force, CV bias force; 0 on vacant slots);
 // partials: (cx cy cz, n_terms) f32 scratch; out: (n_terms,) f32 value
-// sums.  Lx..Lz and xyLy, xzLz, yzLz: the cell matrix (cell_geom.cuh HBox;
-// zero tilt for an orthorhombic box).  rc2 = r_cut^2, sig2 = sigma^2, eps4
+// sums.  box: (kBoxRow,) f32 in device memory, the box's geometry row
+// (cell_geom.cuh BoxRow).  rc2 = r_cut^2, sig2 = sigma^2, eps4
 // = 4 epsilon.  cv_set, l_fixed, lanes: the CV list's instantiation
 // (packed_order.cu packed_order_values); rc2_hit: max(r_cut^2, the largest
-// CV cut-off squared) (inf if a CV has none); pre_r: the prefilter radius
-// (inf: no prefilter); wx, wy, wz: the box's perpendicular widths; mono:
+// CV cut-off squared) (inf if a CV has none); pre_rc, margin: the
+// prefilter radius is pre_rc + margin * (the sum of the box's perpendicular
+// widths; pre_rc inf: no prefilter); mono:
 // nonzero for the monomial mode (aux and value lanes in its layout,
 // order_cv.cuh); cell_mask: (cx cy cz,) f32 weights of each cell's value
 // sums, or null.
@@ -48,18 +49,17 @@ extern "C" {
 int packed_fused_lj_order(const float* r, const float* desc, int desc_len,
                           int n_cvs, int n_terms, const float* aux, int n_aux,
                           float* f, float* g, float* partials, float* out,
-                          int n_pad, int cap, int cx, int cy, int cz, float Lx,
-                          float Ly, float Lz, float xyLy, float xzLz,
-                          float yzLz, float rc2, float sig2, float eps4,
+                          int n_pad, int cap, int cx, int cy, int cz,
+                          const float* box, float rc2, float sig2, float eps4,
                           int cv_set, int l_fixed, int lanes, float rc2_hit,
-                          float pre_r, float wx, float wy, float wz,
-                          int mono, const float* cell_mask, void* stream) {
+                          float pre_rc, float margin, int mono,
+                          const float* cell_mask, void* stream) {
   const int bad = check_args(n_cvs, desc_len, n_terms, n_aux, n_pad);
   if (bad) return bad;
   const StagedArgs a{
       r, nullptr, desc, desc_len, n_cvs, n_terms, aux, n_aux,
-      StagedParams{{n_pad, cap, cx, cy, cz, {Lx, Ly, Lz, xyLy, xzLz, yzLz}},
-                   0, rc2_hit, rc2, sig2, eps4, pre_r, wx, wy, wz},
+      StagedParams{{n_pad, cap, cx, cy, cz, box}, 0, rc2_hit, rc2, sig2,
+                   eps4, pre_rc, margin},
       f, g, partials, out, cell_mask};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc =

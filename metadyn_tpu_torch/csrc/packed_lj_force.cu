@@ -66,10 +66,15 @@
 // the pairs (metadyn_tpu/parallel/spatial.py:270-278).  Here every ordered
 // pair is summed on its i side, so the mask is exact.
 //
-// A walker batch (W states of one box, stacked) is one launch: the same
-// grid of blocks once per walker on a second grid dimension, each block
-// reading its walker's slot arrays, and the energy reduction one block per
-// walker.  Walker w's result is the bits of a launch on walker w alone.
+// A walker batch (W states, stacked, each in a box of its own) is one
+// launch: the same grid of blocks once per walker on a second grid
+// dimension, each block reading its walker's slot arrays and cell matrix,
+// and the energy reduction one block per walker.  Walker w's result is the
+// bits of a launch on walker w alone.
+//
+// The cell matrix is read from device memory (cell_geom.cuh load_box), so
+// a box that the NPT barostat rescales on the device is the box the next
+// launch sees, with no host read.
 //
 // Every output element is written: slots the compaction dropped (vacant)
 // get f = 0.
@@ -177,7 +182,11 @@ lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
     if (Table) s_typ[q] = min(typ[j], nt - 1);
     if (Bond != kBondNone) s_pid1[q] = static_cast<float>(pid[j] + 1);
   };
-  const int n_rows = cell_stage::stage_neighbours(r, p.g, cell, sc, keep,
+  // this walker's cell matrix, from device memory
+  __shared__ cell_geom::HBox s_h;
+  if (threadIdx.x == 0) s_h = cell_geom::load_box(p.g.box, blockIdx.y);
+  __syncthreads();
+  const int n_rows = cell_stage::stage_neighbours(r, p.g, s_h, cell, sc, keep,
                                                   store);
   for (int k = threadIdx.x; k < cap; k += kThreads) {
     if (cell_stage::own_dropped(sc, cap, k)) {
@@ -315,8 +324,10 @@ int launch_one(const Args& a, cudaStream_t st) {
   const int n_blocks = a.p.g.cx * a.p.g.cy * a.p.g.cz;
   const size_t smem = smem_bytes<HsSig, Table, Bond>(a.p.g.cap, a.p.n_types);
   auto kernel = lj_force_kernel<SeEps, HsSig, Table, Bond, Soft, WithEnergy>;
-  // beside the static array of pair_terms::block_partials
-  const int rc = cell_stage::request_smem(kernel, smem, sizeof(float) * 128);
+  // beside the static array of pair_terms::block_partials and the cell
+  // matrix
+  const int rc = cell_stage::request_smem(
+      kernel, smem, sizeof(float) * 128 + sizeof(cell_geom::HBox));
   if (rc != 0) return rc;
   const dim3 grid(n_blocks, a.n_walkers);
   kernel<<<grid, kThreads, smem, st>>>(a.r, a.se, a.hs, a.typ, a.pid, a.bp,
@@ -384,12 +395,13 @@ int packed_lj_force_blocks(int cx, int cy, int cz) { return cx * cy * cz; }
 // a table needs se and hs, the soft pair needs se and hs, no table and no
 // bond or a FENE one), or -2 when cap does not fit a block's shared
 // memory.  soft != 0 selects the soft pair (cut at r_cut) in place of LJ.
-// n_walkers >= 1 walkers of one box in one launch: every per-slot array
-// (r, f, se, hs, typ, pid, bp*) holds n_walkers copies one after another,
-// partials n_walkers (cx cy cz, 4) blocks and out n_walkers rows of 4;
-// table and cell_mask are shared.
-// Lx..Lz and xyLy, xzLz, yzLz: the cell matrix (cell_geom.cuh HBox; zero
-// tilt for an orthorhombic box).
+// n_walkers >= 1 walkers in one launch: every per-slot array (r, f, se,
+// hs, typ, pid, bp*) holds n_walkers copies one after another, box
+// n_walkers geometry rows, partials n_walkers (cx cy cz, 4) blocks and out
+// n_walkers rows of 4; table and cell_mask are shared.
+// box: (n_walkers, kBoxRow) f32 in device memory, each walker's geometry
+// row (cell_geom.cuh BoxRow), whose cell matrix each block reads for its
+// walker (zero tilt for an orthorhombic box).
 int packed_lj_force(const float* r, const float* se, const float* hs,
                     const int* typ, const int* pid, const float* bp0,
                     const float* bp1, const float* bp2, const float* bp3,
@@ -397,9 +409,8 @@ int packed_lj_force(const float* r, const float* se, const float* hs,
                     const float* cell_mask, int n_pad, int cap, int cx, int cy, int cz, int n_real,
                     int se_eps, int hs_sig, int n_types, int bond_kind,
                     int bond_slots, int shift_energy, int with_energy,
-                    int soft, int n_walkers, float Lx, float Ly, float Lz,
-                    float xyLy,
-                    float xzLz, float yzLz, float rc2, float r_cut,
+                    int soft, int n_walkers, const float* box, float rc2,
+                    float r_cut,
                     float sig2, float eps, float bond_k, float bond_r0,
                     void* stream) {
   if (bond_slots < 0 || bond_slots > pair_terms::kMaxBondSlots ||
@@ -408,7 +419,7 @@ int packed_lj_force(const float* r, const float* se, const float* hs,
   }
   Args a{r, se, hs, typ, pid, {{bp0, bp1, bp2, bp3}, bond_slots}, table, f,
          partials, out, cell_mask,
-         Params{{n_pad, cap, cx, cy, cz, {Lx, Ly, Lz, xyLy, xzLz, yzLz}},
+         Params{{n_pad, cap, cx, cy, cz, box},
                 n_real, n_types, shift_energy, rc2, r_cut, sig2, eps, bond_k,
                 bond_r0},
          n_walkers};

@@ -47,7 +47,7 @@ struct Params {
   int cap;
   int cx, cy, cz;
   int shift_energy;
-  cell_geom::HBox h;
+  const float* box;  // (kBoxRow,) f32 geometry row in device memory
   float rc2;
   float bond_k;
   float bond_r0;
@@ -68,12 +68,13 @@ __global__ void lj_force_v1_kernel(const float* __restrict__ r,
   const int iz = cell % p.cz;
   const int iy = (cell / p.cz) % p.cy;
   const int ix = cell / (p.cy * p.cz);
+  const cell_geom::HBox h = cell_geom::load_box(p.box, 0);
 
   for (int o = 0; o < 27; ++o) {
     float3 sh;
     const int jcell = cell_geom::neighbour_cell(
         ix, iy, iz, o / 9 - 1, (o / 3) % 3 - 1, o % 3 - 1, p.cx, p.cy, p.cz,
-        p.h, &sh);
+        h, &sh);
     for (int k = threadIdx.x; k < p.cap; k += blockDim.x) {
       const int q = o * p.cap + k;
       const int j = k * C + jcell;
@@ -165,20 +166,18 @@ extern "C" {
 // (3, n_pad) f32 out; partials: (C, 4) f32 scratch (one row per cell); out:
 // (4,) f32 = (PE, Wxx, Wyy, Wzz).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success), -1 for a cap above 1024 or an unknown
-// bond kind.  Lx..Lz and xyLy, xzLz, yzLz: the cell matrix (cell_geom.cuh
-// HBox; zero tilt for an orthorhombic box).
+// bond kind.  box: (kBoxRow,) f32 in device memory, the box's geometry row
+// (cell_geom.cuh BoxRow; zero tilt for an orthorhombic box).
 int packed_lj_force_v1(const float* r, const float* se, const float* hs,
                        const int* pid, const float* bp0, const float* bp1,
                        const float* bp2, const float* bp3, float* f,
                        float* partials, float* out, int n_pad, int cap,
                        int cx, int cy, int cz, int bond_kind, int bond_slots,
-                       int shift_energy, float Lx, float Ly, float Lz,
-                       float xyLy, float xzLz, float yzLz, float rc2,
+                       int shift_energy, const float* box, float rc2,
                        float bond_k, float bond_r0, void* stream) {
   if (bond_slots < 0 || bond_slots > pair_terms::kMaxBondSlots) return -1;
   BondSlots bp{{bp0, bp1, bp2, bp3}, bond_slots};
-  Params p{n_pad, cap, cx, cy, cz, shift_energy,
-           {Lx, Ly, Lz, xyLy, xzLz, yzLz}, rc2, bond_k, bond_r0};
+  Params p{n_pad, cap, cx, cy, cz, shift_energy, box, rc2, bond_k, bond_r0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc;
   switch (bond_kind) {

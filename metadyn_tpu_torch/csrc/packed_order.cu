@@ -26,13 +26,15 @@ extern "C" {
 // n_pad) f32; pid: (n_pad,) i32 for the validity layout (vacant where pid >=
 // n_real), or null for the sentinel layout (n_real is then not read); desc:
 // desc_len f32 (order_cv.cuh); partials: (cx cy cz, n_terms) f32 scratch;
-// out: (n_terms,) f32.  Lx..Lz and xyLy, xzLz, yzLz: the cell matrix
-// (cell_geom.cuh HBox; zero tilt for an orthorhombic box).  cv_set: 1 if
+// out: (n_terms,) f32.  box: (kBoxRow,) f32 in device memory, the box's
+// geometry row (cell_geom.cuh BoxRow: the cell matrix, zero tilt for an
+// orthorhombic box; the perpendicular widths and their sum).  cv_set: 1 if
 // every CV is a Q_l, 2 if every CV is a coordination, 3 if mixed; l_fixed: 6
 // if every Q_l CV has l = 6, else 0; lanes: 1 for the CV list [Q6], 2 for
 // [Q6, coordination], else 0; rc2_max: the largest CV cut-off squared (inf
-// if a CV has none); pre_r: the prefilter radius (inf: no prefilter); wx,
-// wy, wz: the box's perpendicular widths; cell_mask: (cx cy cz,) f32
+// if a CV has none); pre_rc, margin: the prefilter radius is pre_rc +
+// margin * (the sum of the box's widths; pre_rc inf: no prefilter);
+// cell_mask: (cx cy cz,) f32
 // weights of each cell's value sums, or null.  Launches on `stream` and
 // returns
 // 0, a refused argument (cudaErrorInvalidValue), -2 when cap does not fit a
@@ -40,17 +42,16 @@ extern "C" {
 int packed_order_values(const float* r, const int* pid, int n_real,
                         const float* desc, int desc_len, int n_cvs,
                         int n_terms, float* partials, float* out, int n_pad,
-                        int cap, int cx, int cy, int cz, float Lx, float Ly,
-                        float Lz, float xyLy, float xzLz, float yzLz,
+                        int cap, int cx, int cy, int cz, const float* box,
                         int cv_set, int l_fixed, int lanes, float rc2_max,
-                        float pre_r, float wx, float wy, float wz,
-                        const float* cell_mask, void* stream) {
+                        float pre_rc, float margin, const float* cell_mask,
+                        void* stream) {
   const int bad = check_args(n_cvs, desc_len, n_terms, 0, n_pad);
   if (bad) return bad;
   const StagedArgs a{
       r, pid, desc, desc_len, n_cvs, n_terms, nullptr, 0,
-      StagedParams{{n_pad, cap, cx, cy, cz, {Lx, Ly, Lz, xyLy, xzLz, yzLz}},
-                   n_real, rc2_max, 0.0f, 0.0f, 0.0f, pre_r, wx, wy, wz},
+      StagedParams{{n_pad, cap, cx, cy, cz, box}, n_real, rc2_max, 0.0f,
+                   0.0f, 0.0f, pre_rc, margin},
       nullptr, nullptr, partials, out, cell_mask};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc =
@@ -65,22 +66,21 @@ int packed_order_values(const float* r, const int* pid, int n_real,
 
 // Bias force g = sum_cv sum_j grad_cv(d_ij; aux) onto every slot i (0 on
 // vacant slots), one block per cell.  pid, the box, cv_set, l_fixed,
-// rc2_max, pre_r and the widths as packed_order_values; aux: n_aux f32 on
+// rc2_max, pre_rc and margin as packed_order_values; aux: n_aux f32 on
 // the device (the CVs' grad_aux lanes); g: (3, n_pad) f32 out.  Returns as
 // packed_order_values.
 int packed_order_force(const float* r, const int* pid, int n_real,
                        const float* desc, int desc_len, int n_cvs,
                        const float* aux, int n_aux, float* g, int n_pad,
-                       int cap, int cx, int cy, int cz, float Lx, float Ly,
-                       float Lz, float xyLy, float xzLz, float yzLz,
-                       int cv_set, int l_fixed, float rc2_max, float pre_r,
-                       float wx, float wy, float wz, void* stream) {
+                       int cap, int cx, int cy, int cz, const float* box,
+                       int cv_set, int l_fixed, float rc2_max, float pre_rc,
+                       float margin, void* stream) {
   const int bad = check_args(n_cvs, desc_len, 0, n_aux, n_pad);
   if (bad) return bad;
   const StagedArgs a{
       r, pid, desc, desc_len, n_cvs, 0, aux, n_aux,
-      StagedParams{{n_pad, cap, cx, cy, cz, {Lx, Ly, Lz, xyLy, xzLz, yzLz}},
-                   n_real, rc2_max, 0.0f, 0.0f, 0.0f, pre_r, wx, wy, wz},
+      StagedParams{{n_pad, cap, cx, cy, cz, box}, n_real, rc2_max, 0.0f,
+                   0.0f, 0.0f, pre_rc, margin},
       nullptr, g, nullptr, nullptr, nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc =

@@ -1,7 +1,6 @@
 """Collective variables over the packed (slot-layout) state (counterpart of
-``metadyn_tpu/cv/packed.py``).  The lamellar CV (analytic bias force) and
-the mesh S(k) CV (bias force by autograd in the sampler) are ported; the
-MSD CV waits.
+``metadyn_tpu/cv/packed.py``): the lamellar CV and the MSD CV (analytic
+bias forces) and the mesh S(k) CV (bias force by autograd in the sampler).
 
 Per-particle amplitudes are per-slot attributes, scattered with the slots
 at pack and repack time, so vacant slots contribute exactly zero.
@@ -12,9 +11,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.box import shared_box
+from ..core.box import walker_box
 from ..core.state import System
-from ..ops.packed import PackedState, _frac3
+from ..ops.packed import PackedState, _cart3, _frac3
 from .lamellar import wave_vectors
 from .mesh import assign, power, window
 
@@ -60,20 +59,27 @@ class PackedLamellar(nn.Module):
         return f"cv_{self.name}"
 
     def wave_vectors(self, state: PackedState) -> torch.Tensor:
-        """(M, 3) k = 2π n @ h⁻¹ (``cv/lamellar.wave_vectors``; one box for
-        all walkers of a batch)."""
-        return wave_vectors(self.lattice_vectors, shared_box(state.box))
+        """(M, 3) k = 2π n @ h⁻¹ (``cv/lamellar.wave_vectors``) at the
+        state's current box; (W, M, 3) for a walker batch, each walker's
+        at its own box."""
+        box = state.box
+        if box.L.dim() == 1:
+            return wave_vectors(self.lattice_vectors, box)
+        return torch.stack([wave_vectors(self.lattice_vectors,
+                                         walker_box(box, w))
+                            for w in range(box.L.shape[0])])
 
     def _phase(self, state: PackedState, k: torch.Tensor, m: int):
         x, y, z = state.r.unbind(-2)
-        return k[m, 0] * x + k[m, 1] * y + k[m, 2] * z + self.phases[m]
+        return (k[..., m, 0, None] * x + k[..., m, 1, None] * y
+                + k[..., m, 2, None] * z + self.phases[m])
 
     def value(self, state: PackedState, system: System) -> torch.Tensor:
         amp = state.attrs[self.attr_name]
         k = self.wave_vectors(state)
         s = torch.zeros(amp.shape[:-1], dtype=torch.float32,
                         device=amp.device)
-        for m in range(k.shape[0]):
+        for m in range(k.shape[-2]):
             s = s + torch.sum(amp * torch.cos(self._phase(state, k, m)),
                               dim=-1)
         return s / self.n_real
@@ -88,10 +94,69 @@ class PackedLamellar(nn.Module):
         amp = state.attrs[self.attr_name]
         k = self.wave_vectors(state)
         coef = (dVds / self.n_real)[..., None]
-        for m in range(k.shape[0]):
+        for m in range(k.shape[-2]):
             w = coef * amp * torch.sin(self._phase(state, k, m))
-            f_acc = f_acc + w[..., None, :] * k[m, :, None]
+            f_acc = f_acc + w[..., None, :] * k[..., m, :, None]
         return f_acc
+
+
+class PackedMSD:
+    """Mean-squared displacement on the packed state:
+
+        s = (1/N) Σ |r_unwrapped − r₀|²
+
+    with the unwrapped position r + h·image and the reference positions
+    the per-slot attributes ``msd_x``, ``msd_y``, ``msd_z``
+    (:func:`msd_reference_attrs`, repacked with the slots).  On a walker
+    batch the values are (W,), each walker in its own box."""
+
+    walker_batch = True
+
+    def __init__(self, n_real: int, name: str = "msd"):
+        self.n_real = n_real
+        self.name = name
+
+    @property
+    def log_name(self) -> str:
+        return f"cv_{self.name}"
+
+    def _diff(self, state: PackedState):
+        """(unwrapped (…, 3, Npad), its offset from the reference), both
+        zero on vacant slots."""
+        valid = (state.pid < self.n_real).to(torch.float32)[..., None, :]
+        uw = state.r + _cart3(state.image.to(torch.float32), state.box)
+        ref = torch.stack([state.attrs[k] for k in MSD_ATTRS], dim=-2)
+        return uw * valid, (uw - ref) * valid
+
+    def value(self, state: PackedState, system: System) -> torch.Tensor:
+        _, d = self._diff(state)
+        # per axis, then over the axes, as the reference sums
+        return torch.sum(torch.sum(d * d, dim=-1), dim=-1) / self.n_real
+
+    def accum_bias_force(self, state: PackedState, system: System,
+                         dVds: torch.Tensor, f_acc: torch.Tensor
+                         ) -> torch.Tensor:
+        """f_acc + (−dVds · ∂s/∂r), ∂s/∂r_d = 2(r_d − r⁰_d)/N."""
+        _, d = self._diff(state)
+        coef = (-2.0 * dVds / self.n_real)[..., None, None]
+        return f_acc + coef * d
+
+    def bias_virial(self, state: PackedState, system: System,
+                    dVds: torch.Tensor) -> torch.Tensor:
+        """Per-axis W_d = −dVds·(2/N)·Σ (u_d − r⁰_d)·u_d (``cv/msd.py``)."""
+        uw, d = self._diff(state)
+        return (-dVds[..., None] * 2.0 * torch.sum(d * uw, dim=-1)
+                / self.n_real)
+
+
+MSD_ATTRS = ("msd_x", "msd_y", "msd_z")
+
+
+def msd_reference_attrs(pos) -> dict:
+    """The per-particle reference positions of :class:`PackedMSD`, as
+    ``extra_attrs`` for the pack."""
+    p = np.asarray(pos, np.float32)
+    return {k: p[:, d] for d, k in enumerate(MSD_ATTRS)}
 
 
 class PackedMesh:

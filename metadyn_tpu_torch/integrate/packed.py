@@ -9,6 +9,9 @@ packages the same numbers.  Uniform particle mass.
 The packed integrators do not wrap per step: a wrap would move a
 coordinate by ±L while its slot's cell still implies the old side.
 Positions drift continuously and the repack wraps them.
+
+:func:`make_packed_npt_scr_step` adds the stochastic-cell-rescaling
+barostat: its box moves on the device, step by step.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..ops.packed import VACANT_THR, VACANT_X, PackedState
+from ..ops.packed import VACANT_THR, VACANT_X, PackedSpec, PackedState
 
 PackedStepFn = Callable[..., PackedState]
 
@@ -77,5 +80,107 @@ def make_packed_nve_step(
         r = _pin_vacant(state.r + dt * v_half, state.r)
         state = force_fn(state.replace(r=r))
         return state.replace(v=v_half + h * state.f)
+
+    return step
+
+
+def make_packed_npt_scr_step(
+    force_fn: Callable[[PackedState], PackedState],
+    spec: PackedSpec,
+    dt: float, kT: float, pressure: float,
+    gamma: float = 1.0, tau_p: float = 2.0,
+    anisotropic: bool = False,
+    box_bias_fn=None,
+    kappa: float = 0.1, mass: float = 1.0,
+    engine=None,
+) -> PackedStepFn:
+    """BAOAB Langevin plus the stochastic-cell-rescaling barostat
+    (Bernetti & Bussi, J. Chem. Phys. 153, 114107 (2020)) on the packed
+    state: the reference's ``make_packed_npt_scr_step``.
+
+    ``step(state, generator=None, noise=None, baro_noise=None)``: the
+    particles' (…, 3, Npad) normal draw and the barostat's (isotropic: one
+    per box, anisotropic: three) come from ``generator`` or are given, as
+    the tests give both packages the reference's draws.  A walker batch
+    steps every walker's box on its own.
+
+    The barostat reads the state's diagonal virial every step, so the
+    engine must compute it on every force call (``with_energy=True``;
+    pass ``engine`` for the check).  The box is rescaled on the device
+    (``Box.rescaled``): it carries no host floats, and every kernel reads
+    the new cell matrix from device memory.  The slots' cell assignment is
+    fractional, so positions and box scale together and no slot changes
+    cell; ``ref_r`` scales with them, keeping the half-skin trigger a pure
+    drift measure.  The cell count per axis stays fixed while the width
+    follows the box: the engine's repack check flags (and refuses) a cell
+    narrower than ``r_list`` (``cell_width_violation``), so build the grid
+    with headroom for the compression expected.
+
+    ``box_bias_fn(state) -> ∂V/∂L`` (anisotropic only) couples the
+    metadynamics bias of a box CV to the box (``cv/aspect_ratio.py``)."""
+    if engine is not None and not getattr(engine, "virial_live", True):
+        raise AssertionError(
+            "make_packed_npt_scr_step: this engine's inner force path skips "
+            "the energy/virial accumulation, so the barostat would read a "
+            "stale virial every step. Construct the engine with "
+            "with_energy=True.")
+    c1 = math.exp(-gamma * dt)
+    c2 = math.sqrt((1.0 - c1 * c1) * kT / mass)
+    h = 0.5 * dt / mass
+
+    def step(state: PackedState, generator: Optional[torch.Generator] = None,
+             noise: Optional[torch.Tensor] = None,
+             baro_noise: Optional[torch.Tensor] = None):
+        if state.box.tilt is not None:
+            raise ValueError(
+                "packed NPT/SCR takes orthorhombic boxes: the per-axis "
+                "rescale does not commute with tilt factors")
+        lead = state.box.L.shape[:-1]
+        valid = (state.pid < spec.n_real).to(torch.float32)[..., None, :]
+        # --- BAOAB on the particles ---
+        v = state.v + h * state.f
+        r = state.r + 0.5 * dt * v
+        if noise is None:
+            noise = torch.randn(v.shape, generator=generator, dtype=v.dtype,
+                                device=v.device)
+        v = c1 * v + c2 * noise
+        r = r + 0.5 * dt * v
+        if baro_noise is None:
+            baro_noise = torch.randn((*lead, 3) if anisotropic else lead,
+                                     generator=generator, dtype=v.dtype,
+                                     device=v.device)
+        # --- the barostat: stochastic cell rescaling ---
+        ke2_d = mass * torch.sum(v * v * valid, dim=-1)    # (…, 3) Σ m v_d²
+        vol = state.box.volume
+        L = state.box.L
+        if anisotropic:
+            dP = (ke2_d + state.virial) / vol[..., None] - pressure
+            if box_bias_fn is not None:
+                dVdL = box_bias_fn(state.replace(r=r))
+                dP = dP - dVdL * L / vol[..., None]
+            eps = (-(kappa * dt / (3.0 * tau_p)) * (-dP)
+                   + torch.sqrt(2.0 * kT * kappa * dt
+                                / (3.0 * vol * tau_p))[..., None]
+                   * baro_noise)
+            scale = torch.exp(eps)
+        else:
+            p_int = (torch.sum(ke2_d, dim=-1) / 3.0
+                     + torch.sum(state.virial, dim=-1) / 3.0) / vol
+            eps = (-(kappa * dt / tau_p) * (pressure - p_int)
+                   + torch.sqrt(2.0 * kT * kappa * dt / (vol * tau_p))
+                   * baro_noise) / 3.0
+            scale = torch.exp(eps)[..., None].expand(*lead, 3)
+        scale3 = scale[..., None]
+        r = r * scale3
+        v = v / scale3
+        ref_r = state.ref_r * scale3
+        if spec.uniform_eps is not None:
+            # vacant slots stay at the exact coordinate sentinel (the
+            # rescale would walk them across VACANT_THR)
+            r = torch.where(valid > 0, r, VACANT_X)
+            ref_r = torch.where(valid > 0, ref_r, VACANT_X)
+        out = force_fn(state.replace(r=r, ref_r=ref_r,
+                                     box=state.box.rescaled(scale)))
+        return out.replace(v=v + h * out.f)
 
     return step

@@ -18,7 +18,12 @@ coordination) and the packed mesh CV's; and the particle-order path:
 ``MeshOrderParameter`` and ``SteinhardtQl``.  Walkers: a reference state
 stacked on a leading walker axis (what its ``WalkerSampler`` takes), packed
 or particle-order, ↔ the port's walker batch (``walker_state_from``,
-``walker_state_arrays``).
+``walker_state_arrays``), each walker with its own box (NPT walkers'
+boxes differ).  The box CVs: ``MSD`` (its reference positions),
+``PackedMSD`` (its reference positions are the ``msd_*`` attrs of the
+state, ``cv.packed.msd_reference_attrs``) and ``AspectRatio``; the slab
+engine's mesh CV ``ShardedPackedMesh`` (its coefficients are the state's
+``mesh_<name>`` attr, as the single-grid ``PackedMesh``'s).
 """
 from __future__ import annotations
 
@@ -37,7 +42,9 @@ from .core.box import Box
 from .core.state import State
 from .cv.lamellar import LamellarOP
 from .cv.mesh import MeshOrderParameter
-from .cv.packed import PackedLamellar, PackedMesh
+from .cv.aspect_ratio import AspectRatio
+from .cv.msd import MSD
+from .cv.packed import PackedLamellar, PackedMesh, PackedMSD
 from .cv.packed_order import PackedCoordination, PackedSteinhardtQl
 from .cv.steinhardt import SteinhardtQl
 from .ops.cell_list import CellSpec
@@ -180,6 +187,38 @@ def mesh_arrays(cv: PackedMesh) -> dict:
             "k0": cv.k0, "width": cv.width, "mesh_shape": cv.mesh_shape,
             "n_real": cv.n_real, "name": cv.name,
             "assign_order": cv.assign_order}
+
+
+def sharded_mesh_from(obj, spec: PackedSpec, devices):
+    """The reference's ``ShardedPackedMesh`` on the port's slab shards
+    ``devices`` (its halo kept)."""
+    from .parallel.mesh import ShardedPackedMesh
+    return ShardedPackedMesh(tuple(obj.mesh_shape), spec, devices,
+                             obj.n_real, obj.k0, width=obj.width,
+                             halo=obj.halo, name=obj.name,
+                             assign_order=obj.assign_order)
+
+
+def sharded_mesh_arrays(cv) -> dict:
+    return {"k0": cv.k0, "width": cv.width, "mesh_shape": cv.mesh_shape,
+            "n_real": cv.n_real, "halo": cv.halo, "name": cv.name,
+            "assign_order": cv.assign_order}
+
+
+def packed_msd_from(obj) -> PackedMSD:
+    return PackedMSD(n_real=obj.n_real, name=obj.name)
+
+
+def msd_from(obj, device) -> MSD:
+    return MSD(ref_pos=_t(obj.ref_pos, device), name=obj.name)
+
+
+def msd_arrays(cv: MSD) -> dict:
+    return {"ref_pos": _np(cv.ref_pos), "name": cv.name}
+
+
+def aspect_ratio_from(obj) -> AspectRatio:
+    return AspectRatio(axis_a=obj.axis_a, axis_b=obj.axis_b, name=obj.name)
 
 
 _PARTICLE_TENSORS = ("pos", "vel", "force", "image", "potential_energy",

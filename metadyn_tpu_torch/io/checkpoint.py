@@ -9,6 +9,9 @@ path's ``ctx``), the ``torch.Generator`` state, the host counters, and an
 ``extra`` dict.  The carry is walked field by field (dataclasses, named
 tuples, tuples, lists, dicts by key); the walk's paths and leaf kinds are stored
 as the structure, and loading into a carry of another structure raises.
+A box is stored as its ``L`` and ``tilt`` tensors, and loaded with its
+host floats read from them once (a box that an NPT step moved has none to
+store, ``core/box.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core.box import Box, box_from_tensors
 from .grid_file import atomic_savez
 
 
@@ -30,6 +34,9 @@ def _leaves(obj: Any, path: str, out: list) -> None:
     elif obj is None or isinstance(obj, (bool, int, float, str,
                                          np.generic)):
         out.append((path, type(obj).__name__, obj))
+    elif isinstance(obj, Box):
+        _leaves(obj.L, f"{path}.L", out)
+        _leaves(obj.tilt, f"{path}.tilt", out)
     elif dataclasses.is_dataclass(obj):
         for f in dataclasses.fields(obj):
             if f.init:
@@ -76,6 +83,8 @@ def _rebuild(tmpl: Any, it) -> Any:
     if isinstance(tmpl, (torch.Tensor, torch.Generator)) or tmpl is None \
             or isinstance(tmpl, (bool, int, float, str, np.generic)):
         return next(it)
+    if isinstance(tmpl, Box):
+        return box_from_tensors(next(it), next(it))
     if dataclasses.is_dataclass(tmpl):
         return dataclasses.replace(tmpl, **{
             f.name: _rebuild(getattr(tmpl, f.name), it)

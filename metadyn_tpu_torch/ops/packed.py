@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..core.batch import batch_size, walkers
-from ..core.box import Box, h_inverse, h_matrix, shared_box
+from ..core.box import Box, h_inverse, h_matrix
 
 # Vacant-slot coordinate sentinel of the sentinel layout: far outside any box
 # (f32-exact), so vacant pairs fail the r² cut-off.  Real coordinates never
@@ -51,13 +51,21 @@ OFFSETS = tuple((ox, oy, oz) for ox in (-1, 0, 1) for oy in (-1, 0, 1)
                 for oz in (-1, 0, 1))
 
 
+def _box_cols(box: Box):
+    """(Lx, Ly, Lz, xy, xz, yz) as (..., 1) columns that broadcast over a
+    (..., M) row: one box, or one per walker of a stacked box."""
+    L = box.L[..., None]
+    t = box.tilt[..., None]
+    return L[..., 0, :], L[..., 1, :], L[..., 2, :], t[..., 0, :], \
+        t[..., 1, :], t[..., 2, :]
+
+
 def _frac3(r: torch.Tensor, box: Box) -> torch.Tensor:
     """(..., 3, M) Cartesian → fractional rows (f = h⁻¹ r), elementwise;
-    one box for any leading walker dimension."""
+    one box for every walker, or a stacked box with one per walker."""
     if box.tilt is None:
-        return r / box.L[:, None]
-    Lx, Ly, Lz = box.L.unbind()
-    xy, xz, yz = box.tilt.unbind()
+        return r / box.L[..., None]
+    Lx, Ly, Lz, xy, xz, yz = _box_cols(box)
     x, y, z = r.unbind(-2)
     fz = z / Lz
     fy = (y - yz * z) / Ly
@@ -68,9 +76,8 @@ def _frac3(r: torch.Tensor, box: Box) -> torch.Tensor:
 def _cart3(f: torch.Tensor, box: Box) -> torch.Tensor:
     """(..., 3, M) fractional → Cartesian rows (r = h f), elementwise."""
     if box.tilt is None:
-        return f * box.L[:, None]
-    Lx, Ly, Lz = box.L.unbind()
-    xy, xz, yz = box.tilt.unbind()
+        return f * box.L[..., None]
+    Lx, Ly, Lz, xy, xz, yz = _box_cols(box)
     f0, f1, f2 = f.unbind(-2)
     r2 = Lz * f2
     r1 = Ly * f1 + yz * Lz * f2
@@ -481,7 +488,7 @@ def repack_incremental(state: PackedState, spec: PackedSpec
 def needs_repack(state: PackedState, spec: PackedSpec) -> torch.Tensor:
     """Half-skin displacement criterion over valid slots (minimum image by
     fractional rounding).  A device bool; (W,) for a walker batch."""
-    box = shared_box(state.box)
+    box = state.box
     dr = state.r - state.ref_r
     dr = dr - _cart3(torch.round(_frac3(dr, box)), box)
     d2 = torch.sum(dr * dr, dim=-2)
@@ -610,7 +617,6 @@ def packed_lj_force(state: PackedState, spec: PackedSpec,
 
     A walker batch runs each walker in turn and stacks the results."""
     if batch_size(state) is not None:
-        shared_box(state.box)
         outs = [packed_lj_force(st, spec, with_energy, cell_mask, j_block)
                 for st in walkers(state)]
         f = torch.stack([o.f for o in outs])

@@ -3,8 +3,10 @@
 ``metadyn_tpu/ops/packed_pallas2.packed_lj_force_pallas2`` in its
 variants: the sentinel layout, per-slot ``se``/``hs`` (or ``se`` with a
 uniform σ), per-type-pair scale tables, and FENE or harmonic bonds, each in
-an orthorhombic or a tilted box (the kernel takes the cell matrix's six
-entries from ``Box.h_host``); and the soft push-off pair
+an orthorhombic or a tilted box (the kernel reads the cell matrix's six
+entries from device memory, the first of the box's geometry row
+``Box.geo``, so a box that the NPT barostat rescales on the device needs
+no host read); and the soft push-off pair
 (``pair_kind="soft"``) in the per-slot ``se``/``hs`` layout, with or
 without FENE bonds, which the reference runs as its XLA roll sweep
 (``metadyn_tpu/ops/packed.py:830``): a layout of the port alone.  One
@@ -19,11 +21,12 @@ spatial engine runs as XLA (its Pallas kernel halves the pairs); the
 port's kernel sums every ordered pair on its i side, so one weight per
 block's sums is exact.
 
-A walker batch (``core/batch.py``: W states of one box stacked on a
-leading dimension) is one launch over all W walkers, the grid of blocks
-repeated per walker on a second grid dimension; walker w gets the bits a
-launch on walker w alone gives.  The walkers' boxes must be equal (the
-kernel takes one cell matrix).
+A walker batch (``core/batch.py``: W states stacked on a leading
+dimension, each with a box of its own) is one launch over all W walkers,
+the grid of blocks repeated per walker on a second grid dimension, each
+block reading its walker's cell matrix (``Box.geo`` (W, BOX_ROW)); walker
+w gets
+the bits a launch on walker w alone gives.
 
 On a CUDA tensor :func:`packed_lj_force_cuda` launches the kernel or raises;
 on a CPU tensor it runs the plain version, ``ops.packed.packed_lj_force``.
@@ -41,7 +44,7 @@ import torch
 
 from . import _build
 from ..core.batch import batch_size
-from ..core.box import shared_box
+from ..core.box import BOX_ROW
 from .packed import (
     PackedSpec, PackedState, packed_lj_force, pair_scales_for,
 )
@@ -87,7 +90,7 @@ def check_state(state: PackedState, spec: PackedSpec, who: str,
     """Raise on a state the kernels do not take: positions that are not
     contiguous f32 of shape ``lead`` + (3, Npad) (``lead`` = (W,) for a
     walker batch).  Any box is taken, orthorhombic or tilted: the kernels
-    read it from its host floats."""
+    read it from device memory (:func:`box_ptr`)."""
     r = state.r
     if (r.dtype != torch.float32 or not r.is_contiguous()
             or tuple(r.shape) != (*lead, 3, spec.n_pad)):
@@ -105,6 +108,20 @@ def slot_ptr(t: torch.Tensor, dtype, spec: PackedSpec, who: str,
                          f"{(*lead, spec.n_pad)}; got {t.dtype} "
                          f"{tuple(t.shape)}")
     return t.data_ptr()
+
+
+def box_ptr(state: PackedState, who: str, lead: tuple = ()) -> int:
+    """Device pointer of the state's geometry rows ``Box.geo`` (the cell
+    matrix, the perpendicular widths and their sum), ``lead`` + (BOX_ROW,)
+    f32 on the positions' device, checked."""
+    g = state.box.geo
+    if (g.dtype != torch.float32 or not g.is_contiguous()
+            or tuple(g.shape) != (*lead, BOX_ROW)
+            or g.device != state.r.device):
+        raise ValueError(f"{who}: the box's geometry must be contiguous f32 "
+                         f"of shape {(*lead, BOX_ROW)} on {state.r.device}; "
+                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    return g.data_ptr()
 
 
 def mask_ptr(cell_mask, spec: PackedSpec, device, who: str):
@@ -151,7 +168,8 @@ def _library():
     fn = lib.packed_lj_force
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 15
-                       + [ctypes.c_float] * 12 + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] + [ctypes.c_float] * 6
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.packed_lj_force_blocks.argtypes = [ctypes.c_int] * 3
         lib.packed_lj_force_blocks.restype = ctypes.c_int
@@ -194,7 +212,7 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
     n_walkers = batch_size(state)
     lead = () if n_walkers is None else (n_walkers,)
     check_state(state, spec, who, lead)
-    box = shared_box(state.box)
+    h = box_ptr(state, who, lead)
     lib = _library()
     se_eps = spec.uniform_eps is None
     hs_sig = spec.uniform_sigma is None
@@ -234,7 +252,7 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
             spec.bond_slots if spec.has_bonds else 0,
             int(spec.shift_energy), int(with_energy),
             int(spec.pair_kind == "soft"), n_walkers or 1,
-            *box.h_host(), float(spec.r_cut) ** 2, float(spec.r_cut),
+            h, float(spec.r_cut) ** 2, float(spec.r_cut),
             float(spec.uniform_sigma or 0.0) ** 2,
             float(spec.uniform_eps or 0.0),
             float(spec.fene_k or 0.0), float(spec.fene_r0 or 0.0),

@@ -36,8 +36,8 @@ from . import _build
 from .packed import PackedSpec, PackedState, packed_lj_force
 from .packed_cuda import check_spec, check_state, mask_ptr, raise_on
 from .packed_order_cuda import (
-    _plan, _stream, decode_value_lanes, geometry_args, pack_force_aux,
-    prefilter_radius,
+    PREFILTER_MARGIN, _plan, _stream, decode_value_lanes, geometry_args,
+    pack_force_aux, prefilter_base, prefilter_radius,
 )
 
 KERNEL = "packed_fused_lj_order"
@@ -51,8 +51,8 @@ def _library():
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p, ctypes.c_int]
                        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_float] * 9 + [ctypes.c_int] * 3
-                       + [ctypes.c_float] * 5
+                       + [ctypes.c_void_p] + [ctypes.c_float] * 3
+                       + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
                        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -124,17 +124,20 @@ def fused_lj_order_force_cuda(state: PackedState, spec: PackedSpec, cvs,
                            device=r.device)
     out = torch.empty(n_vals, dtype=torch.float32, device=r.device)
     sig2 = float(spec.uniform_sigma) ** 2
-    widths = state.box.perpendicular_widths_host()
-    rc2_hit, pre_r = fused_reach(spec.r_cut, plan.rc2_max, widths)
+    # the hit radius; the kernel widens the prefilter radius around it by
+    # the margin from the box it reads (fused_reach is the same rule)
+    rc2_hit = max(float(spec.r_cut) ** 2, plan.rc2_max)
     lib = _library()
     with torch.cuda.device(r.device):
         err = lib.packed_fused_lj_order(
             r.data_ptr(), desc.data_ptr(), desc.numel(), len(cvs), n_vals,
             aux.data_ptr(), n_aux, f.data_ptr(), g.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), *geometry_args(state, spec),
+            partials.data_ptr(), out.data_ptr(),
+            *geometry_args(state, spec, "fused_lj_order_force_cuda"),
             float(spec.r_cut) ** 2, sig2, 4.0 * float(spec.uniform_eps),
-            plan.cv_set, plan.l_fixed, plan.lanes, rc2_hit, pre_r, *widths,
-            int(plan.mono), m_ptr, _stream(r.device))
+            plan.cv_set, plan.l_fixed, plan.lanes, rc2_hit,
+            prefilter_base(rc2_hit), PREFILTER_MARGIN, int(plan.mono), m_ptr,
+            _stream(r.device))
     raise_on(err, "packed_fused_lj_order", spec)
     fused_lj_order_force_cuda.launches += 1
     if cell_mask is not None:

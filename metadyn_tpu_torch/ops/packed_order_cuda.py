@@ -11,7 +11,10 @@ Both kernels run one block per cell over the real rows of its 27
 neighbour cells staged in shared memory (``csrc/cell_stage.cuh``,
 ``csrc/order_cv.cuh``), after a prefilter that stages only rows within
 reach of the cell's i rows (:func:`prefilter_keep` is the rule in plain
-PyTorch).  The force kernel writes one row of g per i row; the values
+PyTorch).  The kernels read the cell matrix and the perpendicular widths
+from device memory (the box's geometry row ``Box.geo``, copied to constant
+memory on the stream before each launch) and the prefilter radius from
+those, so a box that the NPT barostat moved needs no host read.  The force kernel writes one row of g per i row; the values
 kernel keeps one queue of hits across a warp's rows and writes one row of
 value partials per cell, summed in double by a second pass.
 
@@ -42,7 +45,7 @@ import torch
 from . import _build
 from ..cv.ylm_mono import n_mono
 from .packed import PackedSpec, PackedState, _frac3
-from .packed_cuda import check_state, mask_ptr, raise_on, slot_ptr
+from .packed_cuda import box_ptr, check_state, mask_ptr, raise_on, slot_ptr
 
 KERNEL = "packed_order"
 
@@ -191,13 +194,18 @@ def _plan(cvs: tuple, device: torch.device, mono: bool = False) -> Plan:
                 any(is_mono(cv, mono) for cv in cvs))
 
 
+def prefilter_base(rc2_max: float) -> float:
+    """The prefilter radius' base, the largest cut-off (inf: a CV has none,
+    no prefilter); the kernels add PREFILTER_MARGIN × Σ perpendicular
+    widths of the box they read (:func:`prefilter_radius`)."""
+    return math.sqrt(rc2_max) if math.isfinite(rc2_max) else math.inf
+
+
 def prefilter_radius(rc2_max: float, widths) -> float:
     """The staging prefilter's radius: the largest cut-off plus a margin of
     PREFILTER_MARGIN × Σ perpendicular widths; inf (no prefilter) when a
     CV has no cut-off."""
-    if not math.isfinite(rc2_max):
-        return math.inf
-    return math.sqrt(rc2_max) + PREFILTER_MARGIN * sum(widths)
+    return prefilter_base(rc2_max) + PREFILTER_MARGIN * sum(widths)
 
 
 def prefilter_keep(xi: torch.Tensor, xj: torch.Tensor, box,
@@ -212,7 +220,7 @@ def prefilter_keep(xi: torch.Tensor, xj: torch.Tensor, box,
     ``radius``, in any box."""
     if not math.isfinite(radius):
         return torch.ones(xj.shape[1], dtype=torch.bool)
-    w = torch.tensor(box.perpendicular_widths_host(), dtype=torch.float32)
+    w = box.widths.cpu()
     fi, fj = _frac3(xi, box), _frac3(xj, box)
     lo = fi.min(dim=1).values[:, None]
     hi = fi.max(dim=1).values[:, None]
@@ -230,26 +238,26 @@ def check_layout(state: PackedState, spec: PackedSpec, who: str) -> tuple:
     return slot_ptr(state.pid, torch.int32, spec, who, "pid"), spec.n_real
 
 
-def geometry_args(state: PackedState, spec: PackedSpec) -> tuple:
-    """(n_pad, cap, cx, cy, cz, Lx, Ly, Lz, xy·Ly, xz·Lz, yz·Lz) as the
-    kernels take them: the cell grid and the cell matrix (``Box.h_host``)."""
-    return (spec.n_pad, spec.cap, *spec.cells_per_dim, *state.box.h_host())
+def geometry_args(state: PackedState, spec: PackedSpec, who: str) -> tuple:
+    """(n_pad, cap, cx, cy, cz, box) as the kernels take them: the cell
+    grid and the device pointer of the box's geometry row (``Box.geo``)."""
+    return (spec.n_pad, spec.cap, *spec.cells_per_dim, box_ptr(state, who))
 
 
 def _library():
     lib = _build.load(KERNEL)
     if lib.packed_order_values.argtypes is None:
-        geom = [ctypes.c_int] * 5 + [ctypes.c_float] * 6
+        geom = [ctypes.c_int] * 5 + [ctypes.c_void_p]
         layout = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
         lib.packed_order_values.argtypes = (
             layout + [ctypes.c_void_p] + [ctypes.c_int] * 3
             + [ctypes.c_void_p] * 2 + geom + [ctypes.c_int] * 3
-            + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 2)
+            + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2)
         lib.packed_order_values.restype = ctypes.c_int
         lib.packed_order_force.argtypes = (
             layout + [ctypes.c_void_p] + [ctypes.c_int] * 2
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + geom
-            + [ctypes.c_int] * 2 + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_void_p])
         lib.packed_order_force.restype = ctypes.c_int
     return lib
 
@@ -282,15 +290,14 @@ def order_values_cuda(state: PackedState, spec: PackedSpec, cvs,
     partials = torch.empty((spec.n_cells, n_vals), dtype=torch.float32,
                            device=r.device)
     out = torch.empty(n_vals, dtype=torch.float32, device=r.device)
-    widths = state.box.perpendicular_widths_host()
     lib = _library()
     with torch.cuda.device(r.device):
         err = lib.packed_order_values(
             r.data_ptr(), pid, n_real, desc.data_ptr(), desc.numel(),
             len(cvs), n_vals, partials.data_ptr(), out.data_ptr(),
-            *geometry_args(state, spec), plan.cv_set, plan.l_fixed,
-            plan.lanes, plan.rc2_max,
-            prefilter_radius(plan.rc2_max, widths), *widths, m_ptr,
+            *geometry_args(state, spec, "order_values_cuda"), plan.cv_set,
+            plan.l_fixed, plan.lanes, plan.rc2_max,
+            prefilter_base(plan.rc2_max), PREFILTER_MARGIN, m_ptr,
             _stream(r.device))
     raise_on(err, "packed_order_values", spec)
     order_values_cuda.launches += 1
@@ -313,15 +320,14 @@ def order_force_cuda(state: PackedState, spec: PackedSpec, cvs, auxs,
         raise ValueError(f"order_force_cuda: {aux.numel()} aux lanes on "
                          f"{aux.device}, expected {plan.n_aux} on {r.device}")
     g = torch.empty_like(r)
-    widths = state.box.perpendicular_widths_host()
     lib = _library()
     with torch.cuda.device(r.device):
         err = lib.packed_order_force(
             r.data_ptr(), pid, n_real, plan.desc.data_ptr(),
             plan.desc.numel(), len(cvs), aux.data_ptr(), plan.n_aux,
-            g.data_ptr(), *geometry_args(state, spec), plan.cv_set,
-            plan.l_fixed, plan.rc2_max,
-            prefilter_radius(plan.rc2_max, widths), *widths,
+            g.data_ptr(), *geometry_args(state, spec, "order_force_cuda"),
+            plan.cv_set, plan.l_fixed, plan.rc2_max,
+            prefilter_base(plan.rc2_max), PREFILTER_MARGIN,
             _stream(r.device))
     raise_on(err, "packed_order_force", spec)
     order_force_cuda.launches += 1

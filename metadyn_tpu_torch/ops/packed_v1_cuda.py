@@ -2,7 +2,8 @@
 (``csrc/packed_lj_force_v1.cu``), the counterpart of
 ``metadyn_tpu/ops/packed_pallas.packed_lj_force_pallas``: LJ over per-slot
 ``se``/``hs`` with optional FENE or harmonic bonds, in an orthorhombic or
-a tilted box, always with energy and virial.  Like the reference's v1 it
+a tilted box (the cell matrix read from device memory), always with
+energy and virial.  Like the reference's v1 it
 has no production caller: it is the cross-check of the production kernel
 (``ops/packed_cuda.py``) in the per-slot and bonded layouts, written to a
 different design.
@@ -21,7 +22,7 @@ import torch
 from . import _build
 from .packed import PackedSpec, PackedState, packed_lj_force
 from .packed_cuda import (
-    BOND_KINDS, MAX_BOND_SLOTS, bond_ptrs, check_state, slot_ptr,
+    BOND_KINDS, MAX_BOND_SLOTS, bond_ptrs, box_ptr, check_state, slot_ptr,
 )
 
 KERNEL = "packed_lj_force_v1"
@@ -48,7 +49,8 @@ def _function():
     fn = _build.load(KERNEL).packed_lj_force_v1
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
-                       + [ctypes.c_float] * 9 + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] + [ctypes.c_float] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -83,7 +85,7 @@ def packed_lj_force_v1_cuda(state: PackedState,
                  spec.n_pad, spec.cap, cx, cy, cz,
                  BOND_KINDS[spec.bond_kind if spec.has_bonds else None],
                  spec.bond_slots if spec.has_bonds else 0,
-                 int(spec.shift_energy), *state.box.h_host(),
+                 int(spec.shift_energy), box_ptr(state, who),
                  float(spec.r_cut) ** 2, float(spec.fene_k or 0.0),
                  float(spec.fene_r0 or 0.0), stream)
     if err != 0:

@@ -19,7 +19,8 @@ mesh is an explicit list of ``n_dev`` torch devices, and:
   interior planes and writes them back in place.  Coordinates crossing the
   periodic seam shift by ∓Lx in transit (the x lattice vector a1 = (Lx, 0,
   0) under the upper-triangular cell matrix, tilted or not), so the pair
-  math stays absolute.
+  math stays absolute.  Lx is read from the device box: an NPT box moves
+  every step, and its host floats are gone.
 - **A ``psum``** becomes the sum of the shards' partial sums in shard
   order, so repeats are bit for bit.
 - **Shards may share a device.**  The card's count is 1, and the reference
@@ -58,9 +59,13 @@ their wrappers, which launch or raise; on the CPU the wrappers run the
 plain versions (``--device cpu`` runs virtual shards of the CPU, as the
 reference's tests run virtual CPU devices).
 
-Not ported: ``nested=True`` (walkers × space product meshes, ROADMAP.md
-queue 1 item 9), and the 2-D decomposition (``spatial2d.py``).  The
-engine takes no walker batch: its islands cut one state.
+With ``nested=True`` (the walkers × space product, ``parallel/
+walkers.py`` on the slab engine) the pair-force island and the migration
+take a walker batch: every shard's extended grid holds all W walkers,
+each in its own box, and kernel 1 runs once per shard for the whole
+batch.  The distributed mesh CV on the same slabs is ``parallel/
+mesh.ShardedPackedMesh``.  Not ported: the 2-D decomposition
+(``spatial2d.py``, ROADMAP.md queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -71,10 +76,10 @@ import numpy as np
 import torch
 
 from ..bias.metad import bias_value_and_grad
-from ..core.packed_engine import PackedAux, PackedEngine
+from ..core.packed_engine import PackedEngine
 from ..cv.packed_order import _tree_add
 from ..ops.packed import (
-    OFFSETS, VACANT_X, PackedSpec, PackedState, _cart3, _frac3, needs_repack,
+    OFFSETS, VACANT_X, PackedSpec, PackedState, _cart3, _frac3,
 )
 from ..ops.packed_cuda import packed_lj_force_cuda
 from ..ops.packed_fused_cuda import fused_lj_order_force_cuda
@@ -120,81 +125,87 @@ class Slabs:
             m[1:-1] = 1.0
             self.interior.append(torch.as_tensor(m.reshape(-1), device=dev))
 
-    def extend(self, cols: torch.Tensor, k: int, Lx: float,
+    def extend(self, cols: torch.Tensor, k: int, Lx,
                image_row: Optional[int] = None) -> torch.Tensor:
-        """Shard k's halo-extended columns: (W, Npad) f32 global columns
-        (row 0 the x coordinate) → (W, cap·C_e) on ``devices[k]``, its
+        """Shard k's halo-extended columns: (…, R, Npad) f32 global columns
+        (row 0 the x coordinate; a leading walker dimension where the
+        state is a walker batch) → (…, R, cap·C_e) on ``devices[k]``, its
         x planes between its ring neighbours' boundary planes.  Across the
-        periodic seam the x row shifts by ∓Lx, and ``image_row`` (the x
-        image counter, as f32) by ±1, so unwrapped coordinates stay put."""
-        W = cols.shape[0]
+        periodic seam the x row shifts by ∓Lx (a device tensor, one per
+        walker: the box may move), and ``image_row`` (the x image counter,
+        as f32) by ±1, so unwrapped coordinates stay put."""
+        lead, R = cols.shape[:-2], cols.shape[-2]
         cx = self.spec.cells_per_dim[0]
-        ext = cols.reshape(W, self.spec.cap, cx, self.plane).index_select(
-            2, self.planes[k])
+        ext = cols.reshape(*lead, R, self.spec.cap, cx,
+                           self.plane).index_select(-2, self.planes[k])
+        Lx = torch.as_tensor(Lx, dtype=cols.dtype,
+                             device=cols.device).reshape(*lead, 1, 1)
         if k == 0:
-            ext[0, :, 0] -= Lx
+            ext[..., 0, :, 0, :] -= Lx
             if image_row is not None:
-                ext[image_row, :, 0] += 1.0
+                ext[..., image_row, :, 0, :] += 1.0
         if k == self.n_dev - 1:
-            ext[0, :, -1] += Lx
+            ext[..., 0, :, -1, :] += Lx
             if image_row is not None:
-                ext[image_row, :, -1] -= 1.0
-        return ext.reshape(W, -1).to(self.devices[k])
+                ext[..., image_row, :, -1, :] -= 1.0
+        return ext.reshape(*lead, R, -1).to(self.devices[k])
 
     def interior_of(self, ext: torch.Tensor) -> torch.Tensor:
-        """(W, cap·C_e) → the interior planes, (W, cap, cx_l, plane)."""
-        W = ext.shape[0]
-        return ext.reshape(W, self.spec.cap, self.cx_l + 2,
-                           self.plane)[:, :, 1:-1]
+        """(…, cap·C_e) → the interior planes, (…, cap, cx_l, plane)."""
+        return ext.reshape(*ext.shape[:-1], self.spec.cap, self.cx_l + 2,
+                           self.plane)[..., 1:-1, :]
 
     def gather(self, parts: list, extended: bool = True) -> torch.Tensor:
-        """Shards' outputs → one global (W, Npad) tensor on
+        """Shards' outputs → one global (…, Npad) tensor on
         ``devices[0]``, each shard's interior written in place: extended
-        (W, cap·C_e) outputs, or with ``extended=False`` interiors already
-        cut, (W, cap·C_l)."""
-        W = parts[0].shape[0]
+        (…, cap·C_e) outputs, or with ``extended=False`` interiors already
+        cut, (…, cap·C_l)."""
+        lead = parts[0].shape[:-1]
         cap, cx = self.spec.cap, self.spec.cells_per_dim[0]
-        out = torch.empty((W, cap, cx, self.plane), dtype=parts[0].dtype,
+        out = torch.empty((*lead, cap, cx, self.plane), dtype=parts[0].dtype,
                           device=self.devices[0])
         for k, p in enumerate(parts):
             loc = (self.interior_of(p) if extended
-                   else p.reshape(W, cap, self.cx_l, self.plane))
-            out[:, :, k * self.cx_l:(k + 1) * self.cx_l] = \
+                   else p.reshape(*lead, cap, self.cx_l, self.plane))
+            out[..., k * self.cx_l:(k + 1) * self.cx_l, :] = \
                 loc.to(self.devices[0])
-        return out.reshape(W, -1)
+        return out.reshape(*lead, -1)
 
     def halo_states(self, state: PackedState, pid: bool = False,
                     typ: bool = False, attrs=()) -> list:
         """Every shard's PackedState on its extended grid, on its device:
         the positions and, as asked, pid, typ and the named attrs, stacked
-        into one column set and extended once per shard.  Where pid or typ
-        is not asked for, vacant pids and zero types fill them: the
-        kernels of that layout do not read them."""
+        into one column set and extended once per shard (for a walker
+        batch, every walker's at once).  Where pid or typ is not asked
+        for, vacant pids and zero types fill them: the kernels of that
+        layout do not read them."""
         cols = [state.r]
         if pid:
-            cols.append(state.pid.to(torch.float32)[None])
+            cols.append(state.pid.to(torch.float32)[..., None, :])
         if typ:
-            cols.append(state.typ.to(torch.float32)[None])
-        cols = torch.cat(cols + [state.attrs[n][None] for n in attrs])
+            cols.append(state.typ.to(torch.float32)[..., None, :])
+        cols = torch.cat(cols + [state.attrs[n][..., None, :]
+                                 for n in attrs], dim=-2)
         out = []
         for k in range(self.n_dev):
-            ext = self.extend(cols, k, state.box.L_host[0])
-            n, dev = ext.shape[1], ext.device
-            r = ext[:3].contiguous()
+            ext = self.extend(cols, k, state.box.L[..., 0])
+            shape, dev = ext[..., 0, :].shape, ext.device
+            r = ext[..., :3, :].contiguous()
             i = 3
-            pid_k = torch.full((n,), self.spec.n_real, dtype=torch.int32,
+            pid_k = torch.full(shape, self.spec.n_real, dtype=torch.int32,
                                device=dev)
-            typ_k = torch.zeros(n, dtype=torch.int32, device=dev)
+            typ_k = torch.zeros(shape, dtype=torch.int32, device=dev)
             if pid:
-                pid_k = ext[i].to(torch.int32)
+                pid_k = ext[..., i, :].to(torch.int32)
                 i += 1
             if typ:
-                typ_k = ext[i].to(torch.int32)
+                typ_k = ext[..., i, :].to(torch.int32)
                 i += 1
             out.append(PackedState(
                 r=r, v=r, f=r, image=r, ref_r=r, pid=pid_k, typ=typ_k,
-                slot_of=torch.zeros(0, dtype=torch.int32, device=dev),
-                attrs={a: ext[i + j].contiguous()
+                slot_of=torch.zeros((*shape[:-1], 0), dtype=torch.int32,
+                                    device=dev),
+                attrs={a: ext[..., i + j, :].contiguous()
                        for j, a in enumerate(attrs)},
                 box=state.box.to(dev),
                 potential_energy=state.potential_energy,
@@ -442,7 +453,7 @@ def make_sharded_repack(spec: PackedSpec, devices: Sequence):
             torch.where(valid, state.pid + 1, 0).to(torch.float32)[None],
             state.typ.to(torch.float32)[None],
             *(state.attrs[k].to(torch.float32)[None] for k in names)])
-        Lx = box.L_host[0]
+        Lx = box.L[0]
         parts = []
         for k in range(slabs.n_dev):
             ext = slabs.extend(cols, k, Lx, image_row=9)
@@ -496,19 +507,21 @@ class SpatialPackedEngine(PackedEngine):
     on) runs the order-CV sweeps and the lagged fused kernel as islands;
     off, the sampler runs them on the global state (the reference's GSPMD
     sweep).  On the CPU every island runs the plain versions.
-    ``nested=True`` (walkers × space) is not ported, and a walker batch
-    is not taken: ``parallel/walkers.py`` steps its walkers one by one."""
 
-    walker_batch = False
+    ``nested=True`` is the walkers × space product (the reference's
+    ``:813-899``): the engine then also takes a walker batch (W, 3, Npad)
+    on ``devices[0]``, every shard's extended grid holding all W walkers,
+    so kernel 1 runs once per shard for the whole batch (under the
+    interior mask where it computes the energy and the per-axis virial),
+    each walker in its own box; the sharded repack runs walker by walker
+    after one read of the (W,) repack flags, as ``PackedEngine``'s does.
+    The order-CV islands take one walker at a time (their CVs do not take
+    a batch, so ``parallel/walkers.py`` steps such walkers one by one)."""
 
     def __init__(self, spec: PackedSpec, devices: Sequence,
                  rebuild_every: int = 1, mass: float = 1.0,
                  nested: bool = False, always_repack: bool = False,
                  with_energy: bool = False, order_pallas: bool = True):
-        if nested:
-            raise NotImplementedError(
-                "not ported yet: walkers x space product meshes (nested="
-                "True; parallel/mesh.py, ROADMAP queue 1, item 9)")
         devices = [torch.device(d) for d in devices]
         if not devices:
             raise ValueError("SpatialPackedEngine: no devices")
@@ -521,6 +534,9 @@ class SpatialPackedEngine(PackedEngine):
         self._force_e = make_sharded_lj_force(spec, devices, with_energy=True)
         self._sharded_repack = make_sharded_repack(spec, devices)
         self.order_pallas = bool(order_pallas)
+        self.nested = bool(nested)
+        # a walker batch only on the product mesh, as in the reference
+        self.walker_batch = self.nested
 
     def _pair_force(self, state: PackedState,
                     with_energy: bool) -> PackedState:
@@ -547,10 +563,8 @@ class SpatialPackedEngine(PackedEngine):
         return make_sharded_lagged_parts(list(cvs), spec, self.devices,
                                          walls=walls)
 
-    def rebuild(self, state: PackedState, aux: PackedAux):
-        # one global decision (the largest displacement over all shards),
-        # one host read per rebuild block, as PackedEngine.rebuild
-        if self.always_repack or bool(needs_repack(state, self.spec)):
-            state, bad = self._sharded_repack(state)
-            aux = PackedAux(overflow=aux.overflow | bad, stale=aux.stale)
-        return state, aux
+    def _repack_one(self, state: PackedState):
+        # one walker's migration (PackedEngine.rebuild and its batch
+        # rebuild decide, one host read per rebuild block: the largest
+        # displacement over all shards, per walker)
+        return self._sharded_repack(state)

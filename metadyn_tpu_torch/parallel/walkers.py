@@ -11,8 +11,10 @@ one device as a walker batch (``core/batch.py``: every state tensor gains
 a leading dimension W) and the ``psum`` is a sum over that dimension.
 
 Where the engine and every CV take the batch (``walker_batch``: the
-packed engine, ``PackedLamellar``, ``PotentialEnergyCV``), a stride runs
-once for all W walkers: one pair-kernel launch per force call, one
+packed engine and the slab engine on the walkers x space product,
+``PackedLamellar``, ``PackedMSD``, ``AspectRatio``, ``PotentialEnergyCV``),
+a stride runs once for all W walkers, each in a box of its own (NPT
+walkers): one pair-kernel launch per force call (per shard), one
 device-to-host read per rebuild block, so the host's work per stride is
 one walker's.  Any other engine or CV (the particle-order engines, a
 plain force callable, the order and mesh CVs) steps the walkers one after
@@ -44,7 +46,7 @@ from ..io.checkpoint import load_checkpoint, save_checkpoint
 from ..io.hill_log import HillLog
 from ..sampler import (
     _CallableEngine, _metrics_to_host, cv_stack, make_bias_force_parts,
-    make_biased_force,
+    make_biased_force, wants_bias,
 )
 from ..utils.profiling import phase
 
@@ -119,6 +121,10 @@ def make_walker_chunk(
                          f"min(rebuild_every, stride)={r}")
     n_blocks = hills.stride // r
     spec_h = cv_hist_spec
+    want_bias = wants_bias(integrator_factory)
+    if want_bias and bias_every > 1:
+        raise ValueError("bias_every > 1 does not take a box-coupled "
+                         "(two-argument) integrator factory")
 
     def visit(hist, s, weight: float):
         if hist is None:
@@ -148,8 +154,10 @@ def make_walker_chunk(
                         for _ in range(bias_every):
                             st = step_fn(st, gen)
                 else:
-                    step_fn = integrator_factory(
-                        lambda s2, ax=ax: biased_force(s2, ax, bias))
+                    force_fn = (lambda s2, ax=ax:
+                                biased_force(s2, ax, bias))
+                    step_fn = (integrator_factory(force_fn, bias)
+                               if want_bias else integrator_factory(force_fn))
                     for _ in range(r):
                         st = step_fn(st, gen)
                         if hist is not None:

@@ -198,7 +198,7 @@ def make_bias_force_parts(engine, cvs, system: System,
             return state
         w = state.virial
         for i, cv in vir_cvs:
-            w = w + cv.bias_virial(state, system, dVds[i])
+            w = w + cv.bias_virial(state, system, dVds[..., i])
         return state.replace(virial=w)
 
     return eval_bias, apply_force
@@ -297,6 +297,19 @@ def with_held_g(state, g: torch.Tensor):
                                 **dict(zip(_HELD_G_ATTRS, g.unbind(0)))})
 
 
+def wants_bias(integrator_factory) -> bool:
+    """True for a two-argument ``integrator_factory(force_fn, bias)``: a
+    box-coupled integrator (NPT box-shape metadynamics, ``cv/
+    aspect_ratio.box_bias_fn_for``) that reads the live bias.  Only
+    parameters without defaults count, so a one-argument factory with a
+    defaulted closure parameter is not handed the bias."""
+    import inspect
+    params = inspect.signature(integrator_factory).parameters.values()
+    return sum(1 for p in params
+               if p.default is inspect.Parameter.empty
+               and p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)) >= 2
+
+
 def make_stride_chunk(
     engine,
     biased_force,
@@ -312,13 +325,20 @@ def make_stride_chunk(
     """One deposition stride: rebuild blocks × MD steps, then the energy
     refresh and a hill.  Returns ``chunk(carry) -> (carry, record,
     metrics)`` with device-tensor metrics.  ``lag_parts`` (from
-    :func:`make_lagged_parts`) selects the lagged sub-chunks."""
+    :func:`make_lagged_parts`) selects the lagged sub-chunks.  A
+    two-argument ``integrator_factory`` (:func:`wants_bias`) gets the
+    stride's bias too."""
+    want_bias = wants_bias(integrator_factory)
     r = min(engine.rebuild_every, hills.stride)
     if hills.stride % r:
         raise ValueError(f"stride={hills.stride} must be a multiple of "
                          f"rebuild_every={r}")
     n_blocks = hills.stride // r
     if bias_every > 1:
+        if want_bias:
+            raise ValueError("bias_every > 1 does not take a box-coupled "
+                             "(two-argument) integrator factory: the box "
+                             "needs the live bias")
         if r % bias_every:
             raise ValueError(f"bias_every={bias_every} must divide "
                              f"min(rebuild_every, stride)={r}")
@@ -404,8 +424,10 @@ def make_stride_chunk(
                         for _ in range(bias_every):
                             state = step_fn(state, gen)
                 else:
-                    step_fn = integrator_factory(
-                        lambda st, aux=aux: biased_force(st, aux, bias))
+                    force_fn = (lambda st, aux=aux:
+                                biased_force(st, aux, bias))
+                    step_fn = (integrator_factory(force_fn, bias)
+                               if want_bias else integrator_factory(force_fn))
                     for _ in range(r):
                         state = step_fn(state, gen)
         return finish(carry, state, aux, bias, carry.ctx)

@@ -44,11 +44,14 @@ Prints one line, ``AB {json}``, with the times in ms.
     python3 scripts/kernel_ab.py ROOT --bits OUT.npz
     python3 scripts/kernel_ab.py --compare A.npz B.npz
 
-``--bits`` also saves kernel 1's outputs (forces; with energy the energy
-and the virial too) on the liquid, the fcc, Config 2's layout and the
-triclinic start, and ``--compare`` prints, per array of two such files,
-whether the two trees gave the same bits and the largest difference: the
-check that a change to kernel 1 left a launch's results as they were.
+``--bits`` also saves every kernel's outputs: kernel 1's (forces; with
+energy the energy and the virial too) on the liquid, the fcc, Config 2's
+layout and the triclinic start, the v1 kernel's on the fcc, kernels 2 and
+3's (value lanes, bias force) on the triclinic start and Config 3's
+input, kernel 4's (LJ force, bias force, value lanes) on both; and
+``--compare`` prints, per array of two such files, whether the two trees
+gave the same bits and the largest difference: the check that a change to
+the kernels left a launch's results as they were.
 """
 import dataclasses
 import importlib.util
@@ -150,6 +153,19 @@ def main(root: pathlib.Path, bits=None) -> dict:
                 saved[f"{name}_pe"] = o.potential_energy.cpu().numpy()
                 saved[f"{name}_virial"] = o.virial.cpu().numpy()
 
+    def keep_out(name, value):
+        """One kernel call's outputs (a state, a tensor, the value terms,
+        or a tuple of them) for ``--bits``."""
+        if hasattr(value, "f"):
+            value = (value.f, value.potential_energy, value.virial)
+        if isinstance(value, torch.Tensor):
+            saved[name] = value.detach().cpu().numpy()
+            return
+        for i, v in enumerate(value):
+            if isinstance(v, (list, tuple)):
+                v = torch.cat([t.reshape(-1) for cv_t in v for t in cv_t])
+            saved[f"{name}_{i}"] = v.detach().cpu().numpy()
+
     out = {"tree": str(root), "card": torch.cuda.get_device_name(0)}
     d = np.load(root / "bench_data" / "liq64k.npz")
     L = float(d["L"])
@@ -175,6 +191,7 @@ def main(root: pathlib.Path, bits=None) -> dict:
     st = pack(spec, pos, L)
     keep("se_hs_fcc62k", st, spec)
     out["k1_se_hs_fcc62k"] = ms(lambda: packed_lj_force_cuda(st, spec, False))
+    keep_out("v1_se_hs_fcc62k", packed_lj_force_v1_cuda(st, spec))
     out["v1_se_hs_fcc62k"] = ms(lambda: packed_lj_force_v1_cuda(st, spec))
 
     pos, types, bonds, L = bcc_chains()
@@ -200,6 +217,8 @@ def main(root: pathlib.Path, bits=None) -> dict:
     cvs = [cs.triclinic_cv(spec)]
     auxs = [cvs[0].grad_aux(order_values_plain(st, spec, cvs)[0],
                             torch.tensor(0.9, device=dev))]
+    keep_out("values_tric_q6", [order_values_cuda(st, spec, cvs)])
+    keep_out("force_tric_q6", order_force_cuda(st, spec, cvs, auxs))
     out["values_tric_q6"] = ms(lambda: order_values_cuda(st, spec, cvs), 51)
     out["force_tric_q6"] = ms(lambda: order_force_cuda(st, spec, cvs, auxs),
                               51)
@@ -214,6 +233,8 @@ def main(root: pathlib.Path, bits=None) -> dict:
     dV = torch.tensor([0.9, -1.3], device=dev)
     auxs = [cv.grad_aux(t, dV[i]) for i, (cv, t) in
             enumerate(zip(cvs, order_values_plain(st, spec, cvs)))]
+    f, g, t = fused_lj_order_force_cuda(st, spec, cvs, auxs)
+    keep_out("fused_tric", (f, g, t))
     out["fused_tric"] = ms(
         lambda: fused_lj_order_force_cuda(st, spec, cvs, auxs), 51)
     out["fused_tric_dev"] = device_ms(
@@ -225,6 +246,10 @@ def main(root: pathlib.Path, bits=None) -> dict:
     dV = torch.tensor([0.9, -1.3], device=dev)
     auxs = [cv.grad_aux(t, dV[i]) for i, (cv, t) in
             enumerate(zip(cvs, order_values_plain(st, spec, cvs)))]
+    keep_out("values_cfg3", [order_values_cuda(st, spec, cvs)])
+    keep_out("force_cfg3", order_force_cuda(st, spec, cvs, auxs))
+    f, g, t = fused_lj_order_force_cuda(st, spec, cvs, auxs)
+    keep_out("fused_cfg3", (f, g, t))
     out["values_cfg3"] = ms(lambda: order_values_cuda(st, spec, cvs), 51)
     out["force_cfg3"] = ms(lambda: order_force_cuda(st, spec, cvs, auxs), 51)
     out["fused_cfg3"] = ms(

@@ -18,10 +18,13 @@
 - ``rdf`` on a port-written DCD against the reference's command on the
   same file (rtol 1e-6; ``sum-hills`` and ``fes`` are held on a run's
   files in tests/test_torch_cli_runs.py).
-- A refusal per unported kind, each naming its ROADMAP item, the three
-  example YAMLs the port refuses and a Config 1 variant with an MSD CV
-  among them; the NVT kinds on the packed engine raise the reference's
-  ValueError; and no silent CPU fallback.
+- A refusal per unported kind, each naming its ROADMAP item (every
+  example YAML runs; a variant of each that stays refused: hill-list
+  mode, a 2-D decomposition, GSD frames); the combinations the reference
+  refuses raise its ValueError (the NVT kinds on the packed engine, NPT
+  on a tilted box, the box bias of several walkers, the aspect ratio or a
+  mesh CV beside an order CV on the walkers x space product); and no
+  silent CPU fallback.
 """
 import contextlib
 import json
@@ -211,22 +214,21 @@ def test_prerelax_force_at_step0_matches_reference(seed):
                                float(ref.potential_energy), rtol=1e-5)
 
 
-# name -> (overrides, the item the refusal names).  Config 1 runs on the
-# port since the particle-order engines (ROADMAP queue 1, item 7), and
-# config4_walkers and config6_wte since the walkers (item 5) and the energy
-# CVs (item 2); each of their cases now holds a variant that stays refused:
-# Config 1 with an MSD CV, the walkers on two x-slabs (walkers x space,
-# what config4_walkers_sk_dd asks for too), the WTE run under NPT (the
-# reference's NPT + WTE combination, tests/test_spatial2d.py:221).
+# name -> (overrides, the item the refusal names).  Every example YAML runs
+# on the port as written since the box CVs, NPT and the walkers x space
+# product (ROADMAP queue 1, items 3 and 9's first part); each case holds a
+# variant that stays refused: Config 1 with an MSD CV in hill-list mode
+# (item 4), the walkers on a 2-D decomposition (item 9's second part, which
+# config4_walkers_sk_dd's walkers x space would take on a [2, 2] mesh
+# too), the WTE run under NPT with GSD frames (item 8).
 REFUSED_YAMLS = {
     "config1_lj_lamellar": (dict(cvs=[{
-        "name": "m", "kind": "msd",
-        "grid": {"min": 0, "max": 1, "num_points": 5, "sigma": 0.1}}]),
-        "item 3"),
-    "config4_walkers": (dict(engine={"spatial_devices": 2}), "item 9"),
-    "config4_walkers_sk_dd": ({}, "item 9"),
-    "config6_wte": (dict(integrator={"kind": "npt_scr", "pressure": 1.0}),
-                    "item 3"),
+        "name": "m", "kind": "msd", "sigma": 0.1}]), "item 4"),
+    "config4_walkers": (dict(engine={"spatial_devices": [2, 2]}), "item 9"),
+    "config4_walkers_sk_dd": (dict(engine={"spatial_devices": [2, 1]}),
+                              "item 9"),
+    "config6_wte": (dict(integrator={"kind": "npt_scr", "pressure": 1.0},
+                         output={"trajectory": "t.gsd"}), "item 8"),
 }
 
 
@@ -238,25 +240,39 @@ def test_refused_example_yaml_names_its_item(tmp_path, name):
         cli.main(["run", p, "--device", "cpu"])
 
 
+_MESH_CV = {"name": "sk", "kind": "mesh", "mesh": [8, 8, 8], "k0": 2.45,
+            "grid": {"min": 0.0, "max": 100.0, "num_points": 5,
+                     "sigma": 1.0}}
+_AR_CV = {"name": "a", "kind": "aspect_ratio",
+          "grid": {"min": 0, "max": 2, "num_points": 5, "sigma": 0.1}}
 REFUSED_KEYS = {
-    # the x-slab decomposition runs since item 9's first half (tests/
-    # test_torch_spatial_slice.py); the distributed mesh CV under it waits
-    "spatial_devices": (dict(engine={"spatial_devices": 2}, cvs=[
-        {"name": "sk", "kind": "mesh", "mesh": [8, 8, 8], "k0": 2.45,
-         "grid": {"min": 0.0, "max": 100.0, "num_points": 5,
-                  "sigma": 1.0}}]), "item 9"),
+    # the distributed mesh CV under spatial_devices and the walkers x space
+    # product run since item 9's first part; what the reference refuses on
+    # the product stays refused: the mesh CV beside an order CV
+    "spatial_devices": (dict(engine={"spatial_devices": 2},
+                             metadynamics={"n_walkers": 2},
+                             cvs=[_MESH_CV, {
+                                 "name": "q6", "kind": "steinhardt",
+                                 "r_cut": 1.49, "grid": {
+                                     "min": 0, "max": 1, "num_points": 5,
+                                     "sigma": 0.1}}]),
+                        "cannot be combined"),
     "spatial_2d": (dict(engine={"spatial_devices": [2, 2]}), "item 9"),
     "nbr_table": (dict(engine={"nbr_table": [2.0, 16]}), "item 6"),
-    "msd": (dict(cvs=[{"name": "m", "kind": "msd",
-                       "grid": {"min": 0, "max": 1, "num_points": 5,
-                                "sigma": 0.1}}]), "item 3"),
-    "aspect_ratio": (dict(cvs=[{"name": "a", "kind": "aspect_ratio",
-                                "grid": {"min": 0, "max": 2,
-                                         "num_points": 5, "sigma": 0.1}}]),
-                     "item 3"),
+    # the box CVs and NPT run since item 3; what stays refused: the MSD CV
+    # without a grid (hill-list mode, item 4), the aspect ratio on the
+    # walkers x space product and the box bias of several walkers (the
+    # reference's refusals), NPT on this YAML's tilted box
+    "msd": (dict(cvs=[{"name": "m", "kind": "msd", "sigma": 0.1}]),
+            "item 4"),
+    "aspect_ratio": (dict(engine={"spatial_devices": 2},
+                          metadynamics={"n_walkers": 2}, cvs=[_AR_CV]),
+                     "aspect-ratio"),
     "npt_scr": (dict(integrator={"kind": "npt_scr", "pressure": 1.0}),
-                "item 3"),
-    "box_bias": (dict(integrator={"box_bias": True}), "item 3"),
+                "orthorhombic"),
+    "box_bias": (dict(integrator={"kind": "npt_scr", "pressure": 1.0,
+                                  "box_bias": True},
+                      metadynamics={"n_walkers": 2}), "box_bias"),
     # the NVT integrators run on the particle-order engines since item 7;
     # on this packed YAML they raise the reference CLI's own ValueError
     "nvt_nh": (dict(integrator={"kind": "nvt_nh"}),

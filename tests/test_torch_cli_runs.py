@@ -346,10 +346,15 @@ def test_restart_from_grid(runs, tmp_path, case):
 # examples/config4_walkers.yaml (8 walkers of 864) and config6_wte.yaml
 # (2,048 particles) shrunk: 3 walkers of 864 over 2 strides of 20, and the
 # energy CV on 864 particles (n_cells 6) over 2 strides of 25, each with
-# every output file.  (example, overrides, walkers, T band: the fcc starts
+# every output file; config4_walkers_sk_dd.yaml as written (4 walkers of
+# 343 on 2 x-slab shards of the CPU, the distributed S(k) CV) but 1 of its
+# 5 strides of 20.  (example, overrides, walkers, T band: the fcc starts
 # dip in their first strides, config4's to ~0.6 at kT 1, config6's to ~1.0
-# at kT 1.5)
+# at kT 1.5; the sc start of config4_walkers_sk_dd at kT 1 is at 0.95-1.02
+# by steps 20-40)
 ENSEMBLE_RUNS = {
+    "config4_walkers_sk_dd": (dict(
+        run={"n_steps": 20, "report_every": 20}), 4, (0.5, 1.5)),
     "config4_walkers": (dict(
         metadynamics={"n_walkers": 3}, run={"n_steps": 40,
                                             "report_every": 20}), 3,
@@ -452,3 +457,54 @@ def test_cli_walkers_resume_matches_straight_run(ensemble_runs, what):
         assert torch.equal(ga.grid.dV, gb.grid.dV)
         return
     assert open(a[what], "rb").read() == open(b[what], "rb").read()
+
+
+# the box CVs and NPT through the CLI (ROADMAP queue 1, item 3): case ->
+# (example, overrides).  config6_wte shrunk to 864 particles (3³ cells of
+# 3.44 against r_list 2.9: room for the barostat) under isotropic SCR-NPT
+# with its energy CV, the packed MSD CV, and the aspect ratio with
+# anisotropic SCR and the box bias; config1 (all pairs) with the MSD CV
+# under SCR-NPT.  One stride each.
+BOX_BUILDS = {
+    "npt_scr": ("config6_wte", dict(integrator={
+        "kind": "npt_scr", "pressure": 1.0})),
+    "msd": ("config6_wte", dict(cvs=[{
+        "name": "m", "kind": "msd",
+        "grid": {"min": 0.0, "max": 2.0, "num_points": 41,
+                 "sigma": 0.05}}])),
+    "box_bias": ("config6_wte", dict(
+        integrator={"kind": "npt_scr", "pressure": 1.0, "anisotropic": True,
+                    "box_bias": True},
+        cvs=[{"name": "a", "kind": "aspect_ratio",
+              "grid": {"min": 0.8, "max": 1.2, "num_points": 41,
+                       "sigma": 0.01}}])),
+    "msd_all_pairs": ("config1_lj_lamellar", dict(
+        integrator={"kind": "npt_scr", "pressure": 1.0},
+        cvs=[{"name": "m", "kind": "msd",
+              "grid": {"min": 0.0, "max": 2.0, "num_points": 41,
+                       "sigma": 0.05}}])),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOX_BUILDS))
+def test_cli_box_builds(case):
+    """The CLI builds what the reference's builds: the packed SCR step with
+    the engine's energy on every force call, the MSD CV with its reference
+    positions, the aspect ratio with the two-argument box-bias factory;
+    a stride runs and the box moves on the device."""
+    name, over = BOX_BUILDS[case]
+    cfg = shrunk(name, system={"init": {"n_cells": 6}},
+                 metadynamics={"stride": 25}, **over)
+    sampler, _ = cli.build_sampler(cfg, device="cpu")
+    m = sampler.run(25)[-1]
+    box = sampler.state.box
+    assert np.all(np.isfinite(m["cv"])) and float(m["hill_height"]) > 0.0
+    if "npt_scr" in str(cfg["integrator"].get("kind")):
+        assert not box.fixed and float((box.L - 1.72 * 6).abs().max()) > 0.0
+        assert getattr(sampler.engine, "virial_live", True)
+    if case == "box_bias":
+        np.testing.assert_allclose(m["cv"][0], float(box.L[0] / box.L[1]),
+                                   rtol=1e-6)
+        assert float(box.L[0]) != float(box.L[1])
+    if case.startswith("msd"):
+        assert 0.0 < float(m["cv"][0]) < 2.0

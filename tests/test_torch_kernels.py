@@ -152,9 +152,9 @@ def test_kernel_refuses_specs_it_does_not_take(change):
 ])
 def test_plain_force_refuses_unported_physics(change):
     """Soft pairs, bonds, tables and the per-cell mask of the slab
-    decomposition are ported (the mask in each of those layouts); walkers
-    x space product meshes (nested islands) are not, in any of them."""
-    from metadyn_tpu_torch.parallel.spatial import SpatialPackedEngine
+    decomposition are ported (the mask in each of those layouts), and the
+    walkers x space product (nested islands); the slot neighbour table is
+    not, in any of them."""
     sampler, spec = _sampler("cpu")
     kw = dict(r_cut=2.5, skin=0.55, cap=40)
     other = PackedSpec.create(10.26, 864, **{**kw, **change})
@@ -164,8 +164,8 @@ def test_plain_force_refuses_unported_physics(change):
                                "bp1": torch.zeros_like(st.r[0])})
     out = packed_lj_force(st, other, cell_mask=torch.ones(other.n_cells))
     assert torch.isfinite(out.potential_energy)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SpatialPackedEngine(other, ["cpu"], nested=True)
+    with pytest.raises(NotImplementedError, match="nbr_table"):
+        PackedEngine(other, "cpu", nbr_table=(2.0, 16))
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -5,12 +5,15 @@ On the CPU: the extended grids ``parallel/spatial.Slabs`` builds (each
 shard's planes between its ring neighbours' boundary planes, the seam
 shift of ±Lx with the paired image adjustment, cx_l = 1 included), the
 interior masks, the shards' masked value sums against the unsharded sweep
-in the validity layout and a tilted box, and the refusals (a grid that
-does not divide, walkers × space).  On a card (``cuda`` tests, skipped
+in the validity layout and a tilted box, kernel 1's plain walker batch
+under the mask (each walker in its own box), and the refusals (a grid
+that does not divide; a walker batch only on the product).  On a card (``cuda`` tests, skipped
 elsewhere), on the extended grids of 2 and 4 shards: kernel 2 with
 ``cell_mask``, kernel 4 in the monomial mode with and without the mask,
 kernel 1's masked energy and virial, each against its plain version, and
-kernel 2's mask in the validity layout and a tilted box; the monomial mode
+kernel 2's mask in the validity layout and a tilted box; kernel 1's
+walker batch under the mask against single masked launches; the monomial
+mode
 against the recurrence mode on the whole grid; two calls give the same
 bits; and the slab engine against the single-grid engine over 20 lagged
 steps at γ = 0, with the sharded repack bit for bit.
@@ -126,8 +129,9 @@ def test_extended_grids_and_seam_shift(n_dev):
 
 
 def test_slabs_refuse_what_the_reference_refuses():
-    """cx must divide over the shards (the reference's assert); walkers ×
-    space product meshes (nested islands) are not ported."""
+    """cx must divide over the shards (the reference's assert); a walker
+    batch only on the walkers × space product (``nested=True``), as in the
+    reference."""
     _, spec, cvs = _case("cpu")
     with pytest.raises(ValueError, match="divide"):
         sp.Slabs(spec, ["cpu"] * 3)
@@ -136,8 +140,8 @@ def test_slabs_refuse_what_the_reference_refuses():
             make(spec, ["cpu"] * 3)
     with pytest.raises(ValueError, match="divide"):
         sp.make_sharded_order_parts(cvs, spec, ["cpu"] * 3)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sp.SpatialPackedEngine(spec, ["cpu"] * 2, nested=True)
+    assert not sp.SpatialPackedEngine(spec, ["cpu"] * 2).walker_batch
+    assert sp.SpatialPackedEngine(spec, ["cpu"] * 2, nested=True).walker_batch
 
 
 def _validity_tilted(device):
@@ -228,6 +232,45 @@ def test_variants_match_plain_on_extended_grids(cuda_device, n_dev):
         assert abs(float(a.potential_energy - b.potential_energy)) <= \
             1e-5 * abs(float(b.potential_energy))
         _close(a.virial, b.virial, 1e-5, 0.0, "virial")
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_walker_batch_under_the_mask(device):
+    """The walkers × space product: kernel 1 on a shard's extended grid for
+    a batch of 4 walkers, each with a box of its own, under the interior
+    mask with energy and virial.  On the CPU the plain batch is each
+    walker alone; on a card one launch equals 4 single masked launches to
+    the bit and is within tolerance of the plain version."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch finds no CUDA device)")
+    from metadyn_tpu_torch.core.batch import stack_walkers
+    from metadyn_tpu_torch.core.batch import walker as walker_of
+    singles = []
+    for w in range(4):
+        st, spec, _ = _case(device, seed=w)
+        box = Box.cubic(float(st.box.L[0]) * (1.0 + 0.005 * w), device)
+        singles.append(st.replace(box=box))
+    slabs = sp.Slabs(spec, [torch.device(device)] * 2)
+    batch = stack_walkers(singles)
+    for k, se in enumerate(_ext(slabs, batch)):
+        m = slabs.interior[k]
+        launches = packed_lj_force_cuda.launches
+        a = packed_lj_force_cuda(se, slabs.spec_ext, with_energy=True,
+                                 cell_mask=m)
+        if device == "cuda":
+            assert packed_lj_force_cuda.launches == launches + 1
+        b = packed_lj_force(se, slabs.spec_ext, with_energy=True,
+                            cell_mask=m)
+        for w in range(4):
+            one = packed_lj_force_cuda(walker_of(se, w), slabs.spec_ext,
+                                       with_energy=True, cell_mask=m)
+            assert torch.equal(a.f[w], one.f)
+            assert torch.equal(a.potential_energy[w], one.potential_energy)
+            assert torch.equal(a.virial[w], one.virial)
+            _close(a.f[w], b.f[w], 0.0,
+                   1e-4 + 1e-3 / float(b.f[w].abs().max()), "pair force")
+            _close(a.virial[w], b.virial[w], 1e-5, 0.0, "virial")
+        assert not torch.equal(a.virial[0], a.virial[1])
 
 
 @pytest.mark.cuda

@@ -2,8 +2,9 @@
 box stacked on a leading dimension, one launch for all W).
 
 On the CPU: the wrapper's plain path takes the batch walker by walker,
-equal to the bit to one call per walker, and a batch whose walkers' boxes
-differ is refused (the kernel takes one cell matrix).
+equal to the bit to one call per walker, each walker in its own box (the
+kernel reads one cell matrix per walker, ``Box.h`` (W, 6)), and a batch
+whose boxes differ in kind (tilted and not) is refused.
 
 On a card (``cuda`` tests, skipped elsewhere): in the sentinel, per-slot,
 table + FENE and soft layouts, forces only and with energy, the batched
@@ -41,6 +42,10 @@ LAYOUTS = {
                        fene_r0=1.5),
     "soft": dict(pair_kind="soft"),
 }
+
+
+# NPT walkers' boxes: each its own edge (the cell grid of L holds them all)
+OWN_BOXES = (L, L * 1.01, L * 1.02)
 
 
 @pytest.fixture(autouse=True)
@@ -108,9 +113,26 @@ def test_plain_batch_is_each_walker_alone(with_energy):
 
 
 def test_batch_of_different_boxes_is_refused():
-    states, spec = walker_batch("cpu", "se_hs", 2, box_L=(L, L * 1.01))
-    with pytest.raises(ValueError, match="boxes differ"):
-        packed_lj_force_cuda(stack_walkers(states), spec)
+    states, spec = walker_batch("cpu", "se_hs", 2)
+    tilted = states[1].replace(box=Box.triclinic(L, L, L, "cpu", 0.1))
+    with pytest.raises(ValueError, match="tilted, or none"):
+        stack_walkers([states[0], tilted])
+
+
+@pytest.mark.parametrize("with_energy", [False, True])
+def test_plain_batch_of_own_boxes_is_each_walker_alone(with_energy):
+    """NPT walkers: each walker's box of its own, the batch's cell
+    matrices (W, 6) stacked per walker."""
+    states, spec = walker_batch("cpu", "se_hs", 3, box_L=OWN_BOXES)
+    batch = stack_walkers(states)
+    assert batch.box.h.shape == (3, 6)
+    out = packed_lj_force_cuda(batch, spec, with_energy=with_energy)
+    for w, st in enumerate(states):
+        one = packed_lj_force(st, spec, with_energy=with_energy)
+        assert torch.equal(out.f[w], one.f)
+        if with_energy:
+            assert torch.equal(out.virial[w], one.virial)
+    assert not torch.equal(out.f[0], out.f[1])
 
 
 @pytest.mark.cuda
@@ -141,6 +163,31 @@ def test_walker_batch_is_single_launches_to_the_bit(cuda_device, layout,
                                        bw.potential_energy, rtol=1e-5,
                                        atol=0.0)
             torch.testing.assert_close(aw.virial, bw.virial, rtol=1e-5,
+                                       atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_energy", [False, True])
+@pytest.mark.parametrize("layout", ["sentinel", "table_fene"])
+def test_walker_batch_of_own_boxes_is_single_launches(cuda_device, layout,
+                                                      with_energy):
+    """Each block reads its walker's cell matrix from device memory: a
+    batch of three boxes equals three single launches to the bit and its
+    plain version within tolerance."""
+    states, spec = walker_batch(cuda_device, layout, 3, box_L=OWN_BOXES)
+    batch = stack_walkers(states)
+    a = packed_lj_force_cuda(batch, spec, with_energy=with_energy)
+    b = packed_lj_force(batch, spec, with_energy=with_energy)
+    for w, st in enumerate(states):
+        one = packed_lj_force_cuda(st, spec, with_energy=with_energy)
+        assert torch.equal(a.f[w], one.f)
+        if with_energy:
+            assert torch.equal(a.virial[w], one.virial)
+        fmax = float(b.f[w].abs().max())
+        df = float((a.f[w] - b.f[w]).abs().max())
+        assert np.isfinite(df) and df <= 1e-4 * fmax + 1e-3, (df, fmax)
+        if with_energy:
+            torch.testing.assert_close(a.virial[w], b.virial[w], rtol=1e-5,
                                        atol=0.0)
 
 
