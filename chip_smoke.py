@@ -4,8 +4,9 @@
 Five workloads, all at full size, then the example YAMLs through the
 port's CLI (phase 22), the particle-order path (phases 23-25), Config 3
 on the x-slab decomposition (phases 26-27), the well-tempered ensemble
-(phase 28), multiple walkers on the one card (phase 29), and the moving
-box and the walkers x space product (phases 30-34):
+(phase 28), multiple walkers on the one card (phase 29), the moving box
+and the walkers x space product (phases 30-34), and the 2-D decomposition,
+hill-list mode and the neighbour table (phases 35-39):
 
 - the headline one (bench.py): the 62,500-particle LJ liquid
   (bench_data/liq64k.npz) on the packed cell engine (r_cut 2.5, skin 0.55,
@@ -225,7 +226,32 @@ Phases, one line or more each:
      20 steps at gamma 0 against phase 29's unsharded walker batch; 1 warm
      and 2 timed strides (exact launches), the rate summed over walkers.
      Phase 22 runs examples/config4_walkers_sk_dd.yaml (4 walkers x 2
-     slabs, the sharded S(k) CV) as written, with its resume leg.
+     slabs, the sharded S(k) CV) as written, with its resume leg;
+ 35. the kernels on the 2-D blocks' extended grids: Config 3 on 2 x 2
+     blocks (9 x 9 x 14 each): kernel 1 forces only and with energy under
+     the interior mask, kernel 2 masked, kernel 3, each against its plain
+     version; the blocks' sums and gathered forces against the single
+     grid's kernels; kernel 1's walker batch under the mask on block 0
+     (4 x liq64k + noise 0.02) against 4 single launches (bits);
+ 36. Config 3 exact on SpatialPackedEngine2D (2 x 2): 20 steps at gamma 0
+     against PackedEngine, the 2-D repack against repack_incremental
+     (bits), timed as phase 11 (exact launches: 4 per force call) with
+     its busy ms and device-to-host copies beside phase 11's;
+ 37. Config 5 at 1M on 2 x 2 blocks with ShardedPackedMesh2D 48^3 from
+     phase 21's relaxed melt: S(k0), bias force and virial against
+     PackedMesh; two calls of the mesh CVs (Config 2's PackedMesh, Config
+     5's PackedMesh and the pencils) bit for bit; the fixed-point scatter
+     against the float index_add it replaced; one warm, one timed and one
+     profiled flux period (exact launches), peak memory;
+ 38. examples/config4_walkers_sk_dd.yaml through the CLI on
+     spatial_devices [2, 2] (exact launches, the files) and its resume leg
+     (bits); walkers x 2-D space: 4 x liq64k on the nested blocks, one
+     timed stride (exact launches, 4 walkers per launch);
+ 39. hill-list mode: liq64k's lamellar CVs without a grid (exact launches
+     as grid mode, V and dV/ds against float64 and evaluate_on_grid), the
+     spill grid and the overflow flag at capacity 8; the neighbour table
+     at Config 3 (its values and forces against kernels 2 and 3, exact
+     launches, timed beside phase 11).
 
 After each timed run one more stride runs under torch.profiler, and a line
 reports the GPU's busy share of it and the top kernels.  The launch counts
@@ -4014,6 +4040,929 @@ def walkers_space_phase(dev, smi: str, unsharded_rate: float) -> dict:
     return out
 
 
+# Phases 35-39: the 2-D decomposition (SpatialPackedEngine2D on 2 x 2
+# blocks of the one card, the pencil-FFT ShardedPackedMesh2D), hill-list
+# mode and the neighbour-table path.
+BLOCKS = (2, 2)
+N_BLOCKS = BLOCKS[0] * BLOCKS[1]
+
+
+def engine_2d(shape=BLOCKS, **kw):
+    """An engine_cls for config3_sampler: SpatialPackedEngine2D with the
+    shape's shards all on the one card."""
+    from metadyn_tpu_torch.parallel.spatial2d import SpatialPackedEngine2D
+
+    def make(spec, dev, rebuild_every):
+        return SpatialPackedEngine2D(spec, [dev] * (shape[0] * shape[1]),
+                                     shape, rebuild_every=rebuild_every, **kw)
+    return make
+
+
+def table_engine(r_nb: float, K: int):
+    """An engine_cls for config3_sampler: PackedEngine keeping the slot
+    neighbour table (r_nb, K)."""
+    from metadyn_tpu_torch import PackedEngine
+
+    def make(spec, dev, rebuild_every):
+        return PackedEngine(spec, dev, rebuild_every=rebuild_every,
+                            nbr_table=(r_nb, K))
+    return make
+
+
+def blocks_kernels(dev, smi: str) -> dict:
+    """Phase 35: the kernels on the 2-D blocks' extended grids at full
+    size.  Config 3 (fcc + noise 0.05, cap 32, 14^3 cells) on 2 x 2 blocks
+    (parallel/spatial2d.Blocks), each a 9 x 9 x 14 extended grid: kernel 1
+    forces only and with energy under the interior mask, kernel 2 under the
+    mask, kernel 3, each against its plain version on the same grid
+    (phase 8's and 26's gates); the four blocks' summed energy and virial
+    (rtol 1e-5) and CV value sums (rtol 2e-5) against the single grid's
+    kernels, the forces gathered from the blocks' interiors against the
+    single grid's; then kernel 1's walker batch under the mask on block 0
+    (4 x liq64k + noise 0.02, as phase 34) against 4 single masked launches
+    to the bit and the plain batched version.  Returns per variant (max
+    abs error, kernel ms, plain ms, bound ms, bound by)."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import Box, PackedEngine
+    from metadyn_tpu_torch.core.batch import stack_walkers, walker
+    from metadyn_tpu_torch.cv.packed_order import (
+        order_force_plain, order_values_plain,
+    )
+    from metadyn_tpu_torch.ops.packed import packed_lj_force
+    from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
+    from metadyn_tpu_torch.ops.packed_order_cuda import (
+        order_force_cuda, order_values_cuda,
+    )
+    from metadyn_tpu_torch.parallel.spatial2d import Blocks
+
+    t35 = time.perf_counter()
+    pos, vel, L, a, spec = config3_inputs(32, noise=0.05)
+    n = pos.shape[0]
+    st, overflow = PackedEngine(spec, dev).pack_state(
+        pos, Box.cubic(L, dev), np.zeros(n, np.int32), np.ones(n, np.float32),
+        np.ones(n, np.float32), vel=vel)
+    assert not overflow, "cell capacity overflow at pack (phase 35)"
+    cvs = config3_cvs(spec, a)
+    dV = torch.tensor([0.9, -1.3], device=dev)
+    auxs = [cv.grad_aux(t, dV[i]) for i, (cv, t)
+            in enumerate(zip(cvs, order_values_cuda(st, spec, cvs)))]
+    blocks = Blocks(spec, [dev] * N_BLOCKS, BLOCKS)
+    sx = blocks.spec_ext
+    assert sx.cells_per_dim == (9, 9, 14), sx.cells_per_dim
+    exts = blocks.halo_states(st, pid=True, attrs=("se", "hs"))
+    fp = FLOP_PER_PAIR
+    out, fs, gs = {}, [], []
+    e_sum = w_sum = t_sum = None
+    for k, se in enumerate(exts):
+        m = blocks.interior[k]
+        tag = f"phase 35 block {k} ext {sx.cells_per_dim}"
+        lines = []
+        for we in (False, True):
+            mask = m if we else None
+            ak = packed_lj_force_cuda(se, sx, with_energy=we, cell_mask=mask)
+            bp = packed_lj_force(se, sx, with_energy=we, cell_mask=mask)
+            torch.cuda.synchronize()
+            err, line = pair_close(f"{tag} pair we={we}", ak, bp, we)
+            lines.append(f"pair{' masked energy' if we else ''} {line}")
+            if we:
+                e_sum = (ak.potential_energy if e_sum is None
+                         else e_sum + ak.potential_energy)
+                w_sum = ak.virial if w_sum is None else w_sum + ak.virial
+            else:
+                fs.append(ak.f)
+            if k == 0:
+                lj = pairs_within(se, sx, sx.r_cut)
+                ljm = pairs_within(se, sx, sx.r_cut, m)
+                flops = lj * fp["lj"] + (ljm * (fp["lj_energy"] - fp["lj"])
+                                         if we else 0)
+                key = "pair masked energy" if we else "pair"
+                out[key] = (
+                    err, cuda_ms(lambda: packed_lj_force_cuda(
+                        se, sx, with_energy=we, cell_mask=mask)),
+                    cuda_ms(lambda: packed_lj_force(
+                        se, sx, with_energy=we, cell_mask=mask), calls=10),
+                    *bound(pair_kernel_bytes(sx, we) + 4 * sx.n_cells * we,
+                           flops))
+        tk = order_values_cuda(se, sx, cvs, cell_mask=m)
+        tp = order_values_plain(se, sx, cvs, cell_mask=m)
+        torch.cuda.synchronize()
+        ev = lanes_close(f"{tag} values masked", cvs, tk, tp, 2e-5)
+        t_sum = tk if t_sum is None else tuple(
+            tuple(x + y for x, y in zip(u, v)) for u, v in zip(t_sum, tk))
+        gk = order_force_cuda(se, sx, cvs, auxs)
+        gp = order_force_plain(se, sx, cvs, auxs)
+        torch.cuda.synchronize()
+        eg, gmax = force_close(f"{tag} order force", gk, gp, 2e-3, 2e-4)
+        gs.append(gk)
+        if k == 0:
+            q6m, com = (pairs_within(se, sx, cv.r_cut, m) for cv in cvs)
+            q6, co = (pairs_within(se, sx, cv.r_cut) for cv in cvs)
+            out["values masked"] = (
+                ev, cuda_ms(lambda: order_values_cuda(se, sx, cvs,
+                                                      cell_mask=m)),
+                cuda_ms(lambda: order_values_plain(se, sx, cvs, cell_mask=m),
+                        calls=10),
+                *bound(12 * sx.n_pad + 4 * sx.n_cells,
+                       q6m * fp["q6_value"] + com * fp["coord_value"]))
+            out["force"] = (
+                eg, cuda_ms(lambda: order_force_cuda(se, sx, cvs, auxs)),
+                cuda_ms(lambda: order_force_plain(se, sx, cvs, auxs),
+                        calls=10),
+                *bound(24 * sx.n_pad,
+                       q6 * fp["q6_force"] + co * fp["coord_force"]))
+        print(f"{tag}: {'; '.join(lines)}; values masked max|dlane|="
+              f"{ev:.3e}; order force max|dg|={eg:.3e} (max|g|={gmax:.3e})")
+    # the blocks against the single grid's kernels
+    whole = packed_lj_force_cuda(st, spec, with_energy=True)
+    f_whole = packed_lj_force_cuda(st, spec, with_energy=False).f
+    t_whole = order_values_cuda(st, spec, cvs)
+    g_whole = order_force_cuda(st, spec, cvs, auxs)
+    torch.cuda.synchronize()
+    dpe = abs(float(e_sum - whole.potential_energy)) / abs(
+        float(whole.potential_energy))
+    dw = float(((w_sum - whole.virial).abs() / whole.virial.abs()).max())
+    es = lanes_close("phase 35 summed masked values vs single grid", cvs,
+                     t_sum, t_whole, 2e-5)
+    f_blk, g_blk = blocks.gather(fs), blocks.gather(gs)
+    ef, fmax = force_close("phase 35 gathered forces vs single grid", f_blk,
+                           f_whole, 0.0, 1e-4)
+    eg, _ = force_close("phase 35 gathered bias forces vs single grid",
+                        g_blk, g_whole, 2e-3, 2e-4)
+    assert dpe <= 1e-5 and dw <= 1e-5, (dpe, dw)
+    print(f"phase 35 the {N_BLOCKS} blocks against the single grid "
+          f"(N={n}): rel_dPE={dpe:.3e} rel_dvirial={dw:.3e} values "
+          f"max|dlane|={es:.3e}; gathered forces max|df|={ef:.3e} "
+          f"(max|f|={fmax:.3e}, bitwise equal={torch.equal(f_blk, f_whole)})"
+          f"; gathered bias forces max|dg|={eg:.3e} (bitwise equal="
+          f"{torch.equal(g_blk, g_whole)})")
+    del exts, fs, gs, f_blk, g_blk, whole, f_whole, g_whole
+    torch.cuda.empty_cache()
+
+    # kernel 1's walker batch under the mask on block 0 of the liquid
+    lspec, lcvs, _, _ = liq_parts(dev)
+    W = WALKERS_DD
+    batch = stack_walkers(liq_walker_states(
+        dev, lspec, PackedEngine(lspec, dev), lcvs, W, noise=0.02))
+    lb = Blocks(lspec, [dev] * N_BLOCKS, BLOCKS)
+    lx, m = lb.spec_ext, lb.interior[0]
+    se = lb.halo_states(batch)[0]
+    ab = packed_lj_force_cuda(se, lx, with_energy=True, cell_mask=m)
+    one = [packed_lj_force_cuda(walker(se, w), lx, with_energy=True,
+                                cell_mask=m) for w in range(W)]
+    same = all(torch.equal(ab.f[w], one[w].f)
+               and torch.equal(ab.potential_energy[w],
+                               one[w].potential_energy)
+               and torch.equal(ab.virial[w], one[w].virial)
+               for w in range(W))
+    assert same, "block 0: the masked walker batch differs from single " \
+                 "launches"
+    sp = lb.halo_states(batch, pid=True, attrs=("se", "hs"))[0]
+    bp = packed_lj_force(sp, lx, with_energy=True, cell_mask=m)
+    torch.cuda.synchronize()
+    errs = [pair_close(f"phase 35 walker batch w={w}", walker(ab, w),
+                       walker(bp, w), True,
+                       near_cutoff_slots(walker(sp, w), lx), lj_jump(lx))
+            for w in range(W)]
+    del ab, bp, one
+    ms = cuda_ms(lambda: packed_lj_force_cuda(se, lx, with_energy=True,
+                                              cell_mask=m))
+    ms_one = cuda_ms(lambda: [packed_lj_force_cuda(
+        walker(se, w), lx, with_energy=True, cell_mask=m) for w in range(W)])
+    plain = cuda_ms(lambda: packed_lj_force(sp, lx, with_energy=True,
+                                            cell_mask=m), calls=3, warm=1)
+    pairs = sum(pairs_within(walker(sp, w), lx, lx.r_cut, cell_mask=m)
+                for w in range(W))
+    bms, by = bound(W * pair_kernel_bytes(lx, True),
+                    pairs * FLOP_PER_PAIR["lj_energy"])
+    err = max(e[0] for e in errs)
+    out["walker batch masked"] = (err, ms, plain, bms, by)
+    out["walker batch masked as single launches"] = (0.0, ms_one, plain, bms,
+                                                     by)
+    print(f"phase 35 walker batch W={W} on block 0 ({lx.cells_per_dim} "
+          f"cells, masked energy): equal to {W} single launches to the bit="
+          f"{same}; vs plain max|df|={err:.3e} batch_ms={ms:.4f} "
+          f"single_launches_ms={ms_one:.4f} plain_ms={plain:.4f} "
+          f"bound_ms={bms:.5f} ({by}; {pairs} masked pairs) on {smi}")
+    del batch, se, sp
+    torch.cuda.empty_cache()
+    for key, v in out.items():
+        print(f"phase 35 {key} [block 0 of {BLOCKS}]: max_abs_err={v[0]:.3e} "
+              f"kernel_ms={v[1]:.4f} plain_ms={v[2]:.4f} "
+              f"bound_ms={v[3]:.5f} ({v[4]}) on {smi}")
+    print(f"blocks phase 35: {time.perf_counter() - t35:.1f} s")
+    return out
+
+
+def config3_blocks(dev, smi: str, exact: dict) -> dict:
+    """Phase 36: Config 3 exact (mts_lag off, bias_every 10) on
+    SpatialPackedEngine2D, 2 x 2 blocks of the card.  (1) 20 steps at gamma
+    0 against PackedEngine from one state: positions to 1e-3, CV values
+    rtol 1e-4, PE rtol 1e-5; (2) after that stride the 2-D repack of a
+    displaced state against repack_incremental, bit for bit; (3) timed as
+    phase 11 times the single grid (2 warm runs of 2 strides, 2 timed
+    strides, exact launches per stride: 4 pair launches per force call, 4
+    masked at the refresh, 4 masked values and 4 force launches per bias
+    evaluation, the stride end's 2 values on the global state), one
+    profiled stride; rate, busy ms per stride and device-to-host copies
+    beside phase 11's (``exact``)."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import PackedEngine
+    from metadyn_tpu_torch.ops.packed import (
+        repack_incremental, unpack_positions,
+    )
+    from metadyn_tpu_torch.parallel.spatial2d import make_sharded_repack_2d
+
+    t36 = time.perf_counter()
+    finals = []
+    for cls in (PackedEngine, engine_2d()):
+        reset_counts()
+        s = config3_sampler(cls, dev, 32, mts_lag=False, gamma=0.0,
+                            stride=20)
+        assert s is not None, "cell capacity overflow at pack (phase 36)"
+        m = s.run(20)[-1]
+        counts = read_counts()
+        finals.append((unpack_positions(s.state, s.engine.spec).cpu().numpy(),
+                       np.asarray(m["cv"]), float(m["potential_energy"]),
+                       counts))
+    assert all(finals[1][3][k] > 0 for k in (
+        "pair", "pair masked", "values masked", "force")), finals[1][3]
+    L = float(s.state.box.L_host[0])
+    dpos = finals[0][0] - finals[1][0]
+    dpos -= L * np.round(dpos / L)
+    dpos = float(np.abs(dpos).max())
+    dcv = float(np.max(np.abs(finals[0][1] - finals[1][1])
+                       / np.abs(finals[0][1])))
+    dpe = abs(finals[0][2] - finals[1][2]) / abs(finals[0][2])
+    assert dpos <= 1e-3 and dcv <= 1e-4 and dpe <= 1e-5, (dpos, dcv, dpe)
+    print(f"phase 36 2-D {BLOCKS} vs PackedEngine exact gamma=0 20 steps: "
+          f"max|dpos|={dpos:.3e} positions bitwise equal="
+          f"{bool((finals[0][0] == finals[1][0]).all())} rel_dcv={dcv:.3e} "
+          f"rel_dPE={dpe:.3e} cv={finals[1][1].tolist()} "
+          f"launches={finals[1][3]} (single grid {finals[0][3]})")
+
+    spec = s.engine.spec
+    st = s.state
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    disp = 0.15 * torch.randn(st.r.shape, generator=gen, device=dev)
+    st = st.replace(r=torch.where((st.pid < spec.n_real)[None], st.r + disp,
+                                  st.r))
+    ref, bad_ref = repack_incremental(st, spec)
+    got, bad = make_sharded_repack_2d(spec, [dev] * N_BLOCKS, BLOCKS)(st)
+    assert not bool(bad_ref) and not bool(bad), (bad_ref, bad)
+    for k in ("r", "v", "f", "image", "pid", "typ", "slot_of"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+    for k in ref.attrs:
+        assert torch.equal(got.attrs[k], ref.attrs[k]), k
+    moved = int((ref.pid != st.pid).sum())
+    print(f"phase 36 2-D repack {BLOCKS}: bit for bit against "
+          f"repack_incremental ({moved} of {spec.n_pad} slots changed)")
+    del s, st, ref, got, finals
+    torch.cuda.empty_cache()
+
+    got = {}
+    counts = config3_timed(
+        dev, False, warm=(2, 2), n_runs=1, n_timed=2,
+        per_stride={"pair": 101 * N_BLOCKS, "pair masked": N_BLOCKS,
+                    "values": 10 * N_BLOCKS + 2,
+                    "values masked": 10 * N_BLOCKS,
+                    "force": 10 * N_BLOCKS},
+        smi=smi, engine_cls=engine_2d(),
+        tag=f"config3 exact 2-D blocks={BLOCKS}", out=got)
+    prof, base = got["profile"], exact["profile"]
+    print(f"phase 36 config3 exact particle-steps/s: 2-D {BLOCKS} "
+          f"{got['rates']} against the single grid (phase 11) "
+          f"{exact['rates']}; busy ms per stride {prof['busy_ms']:.1f} "
+          f"against {base['busy_ms']:.1f}; kernel 1 launches per stride "
+          f"{counts['pair'] // 2} against {101}; device-to-host copies per "
+          f"stride {prof['d2h_count']} against {base['d2h_count']} on {smi}")
+    print(f"config3 blocks phase 36: {time.perf_counter() - t36:.1f} s")
+    return {"counts": counts, "rates": got["rates"], "profile": prof,
+            "build": got["build"]}
+
+
+def mesh_repeats(tag: str, cv, st, system) -> None:
+    """Two calls of ``cv.value`` and of its autograd bias force give the
+    same bits (the fixed-point scatter of cv/mesh.assign)."""
+    import torch
+    vals, grads = [], []
+    for _ in range(2):
+        r = st.r.detach().requires_grad_(True)
+        v = cv.value(st.replace(r=r), system)
+        (g,) = torch.autograd.grad(v, r)
+        vals.append(v.detach())
+        grads.append(g)
+        del r, v, g
+    same_v = torch.equal(vals[0], vals[1])
+    same_g = torch.equal(grads[0], grads[1])
+    print(f"{tag}: two calls of {type(cv).__name__}: values bitwise equal="
+          f"{same_v} ({float(vals[0]):.9g}), bias forces bitwise equal="
+          f"{same_g}")
+    assert same_v and same_g, tag
+
+
+def scatter_ab(cv, st, dev, smi: str) -> dict:
+    """The mesh CV's value and autograd force at Config 5's 1M state with
+    the fixed-point scatter (cv/mesh.FixedPointScatter, this slice) and
+    with the float index_add it replaced: ms per call and peak memory of
+    each, in one call of the script."""
+    import torch
+    import metadyn_tpu_torch.cv.mesh as cm
+
+    class FloatScatter(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, idx, val, size):
+            ctx.save_for_backward(idx)
+            return torch.zeros(size, dtype=torch.float32,
+                               device=val.device).index_add(0, idx, val)
+
+        @staticmethod
+        def backward(ctx, grad):
+            (idx,) = ctx.saved_tensors
+            return None, grad[idx], None
+
+    def value_and_force():
+        r = st.r.detach().requires_grad_(True)
+        v = cv.value(st.replace(r=r), None)
+        (g,) = torch.autograd.grad(v, r)
+        return g
+
+    out = {}
+    fixed = cm.FixedPointScatter
+    for name, scatter in (("fixed point", fixed), ("float index_add",
+                                                   FloatScatter)):
+        cm.FixedPointScatter = scatter
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            value_and_force()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2.0 ** 30
+            ms = cuda_ms(value_and_force, calls=5, warm=1)
+        finally:
+            cm.FixedPointScatter = fixed
+        out[name] = (ms, peak)
+    print(f"phase 37 mesh CV value + autograd force at N={st.pid.numel()} "
+          f"slots, {cv.mesh_shape} mesh: " + "; ".join(
+              f"{k} {v[0]:.2f} ms, {v[1]:.3f} GiB above the state"
+              for k, v in out.items()) + f" on {smi}")
+    return out
+
+
+def config5_blocks(melt: dict, relaxed: tuple, melt2: dict, dev,
+                   smi: str, slabs5: dict) -> dict:
+    """Phase 37: Config 5 at 1,048,576 beads on 2 x 2 blocks of the card
+    (SpatialPackedEngine2D, 33 x 33 x 66 cells per block) with the pencil-
+    FFT ShardedPackedMesh2D 48^3 (24 x 24 columns per block) under
+    FluxTemperedSampler, from phase 21's relaxed melt.  S(k0), its bias
+    force and the bias virial against the single grid's PackedMesh (phase
+    33's gates); two calls of each bit for bit, and of PackedMesh on
+    Config 2's melt (phase 13); the mesh CV's scatter, fixed point against
+    the float index_add it replaced; then one warm, one timed and one
+    profiled flux period (exactly 4 x 51 launches per stride, 4 of them
+    masked with energy), peak memory, beside phase 33's slabs."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import (
+        Box, FluxTemperedSampler, GridSpec, PackedMesh, PackedSpec,
+        make_packed_langevin_step, make_system,
+    )
+    from metadyn_tpu_torch.parallel.mesh2d import ShardedPackedMesh2D
+    from metadyn_tpu_torch.parallel.spatial2d import SpatialPackedEngine2D
+    from metadyn_tpu_torch.utils.profiling import device_profile
+
+    t37 = time.perf_counter()
+    # Config 2's melt first: PackedMesh 32^3, two calls bit for bit
+    s2, _ = config2_sampler(melt2, dev)
+    mesh_repeats("phase 37 config2 N=8192", s2.cvs[0], s2.state, s2.system)
+    del s2
+    gib = 2.0 ** 30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pos, vel = relaxed
+    n, L, types = melt["n"], melt["L"], melt["types"]
+    spec = PackedSpec.create(L, n, r_cut=WCA_RC, skin=0.5, cap=48,
+                             fene_k=30.0, fene_r0=1.5, uniform_sigma=1.0)
+    devs = [dev] * N_BLOCKS
+    engine = SpatialPackedEngine2D(spec, devs, BLOCKS, rebuild_every=1)
+    k0 = 2 * np.pi * 4 / L
+    cv = ShardedPackedMesh2D.create((48, 48, 48), spec, devs, BLOCKS,
+                                    n_real=n, k0=k0, width=0.3, box_L=L,
+                                    name="dsa")
+    one = PackedMesh.create((48, 48, 48), L, n_real=n, k0=k0, width=0.3,
+                            name="dsa")
+    st, ovf = engine.pack_state(
+        pos, Box.cubic(L, dev), types, np.ones(n, np.float32),
+        np.ones(n, np.float32), vel=vel,
+        extra_attrs={**melt["bp"], cv.attr_name: np.asarray(
+            [1.0, -1.0], np.float32)[types]})
+    assert not ovf, "cell capacity overflow at the production pack"
+    system = make_system(n, dev, types=types, bonds=melt["bonds"])
+    grads = []
+    for c in (cv, one):
+        r = st.r.detach().requires_grad_(True)
+        v = c.value(st.replace(r=r), system)
+        (g,) = torch.autograd.grad(v, r)
+        grads.append((float(v.detach()), g,
+                      c.bias_virial(st, system, torch.tensor(1.0,
+                                                             device=dev))))
+        del r, v, g
+    (v2, g2, w2), (v1, g1, w1) = grads
+    dv = abs(v2 - v1) / abs(v1)
+    gbad = float(((g2 - g1).abs() - 2e-2 * g1.abs()).max())
+    wbad = float(((w2 - w1).abs() - 2e-4 * w1.abs()).max())
+    print(f"phase 37 config5 blocks N={n}: S(k0) pencils {v2:.9g} single "
+          f"grid {v1:.9g} (rel {dv:.3e}); bias force max|dg|="
+          f"{float((g2 - g1).abs().max()):.3e} of max|g| "
+          f"{float(g1.abs().max()):.3e}; bias virial pencils {w2.tolist()} "
+          f"single {w1.tolist()}; halo {cv.halo} columns; "
+          f"{spec.cells_per_dim[0] // BLOCKS[0]} x "
+          f"{spec.cells_per_dim[1] // BLOCKS[1]} planes and "
+          f"{48 // BLOCKS[0]} x {48 // BLOCKS[1]} mesh columns per block")
+    assert dv <= 2e-4 and gbad <= 1e-5 and wbad <= 1e-6, (dv, gbad, wbad)
+    del grads, g1, g2
+    torch.cuda.empty_cache()
+    mesh_repeats(f"phase 37 config5 N={n} single grid", one, st, system)
+    mesh_repeats(f"phase 37 config5 N={n} pencils {BLOCKS}", cv, st, system)
+    ab = scatter_ab(one, st, dev, smi)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_checks = time.perf_counter() - t37
+    s0 = v1
+    hi = max(8.0 * s0, 10.0)
+    s = FluxTemperedSampler(
+        system, st, engine, [cv],
+        GridSpec.create([0.0], [hi], [101], [hi / 40], dev),
+        lambda f: make_packed_langevin_step(f, dt=0.002, kT=1.0, gamma=2.0),
+        kT=1.0, stride=CFG5_STRIDE, update_period=CFG5_PERIOD, seed=0,
+        bias_every=1)
+    per_period = CFG5_STRIDE * CFG5_PERIOD
+    t_init = time.perf_counter() - t37 - t_checks
+    s.run(per_period)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    timed = s.run(per_period)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    want = CFG5_PERIOD * (CFG5_STRIDE + 1) * N_BLOCKS
+    assert counts == {**{k: 0 for k in counts}, "pair": want,
+                      "pair masked": CFG5_PERIOD * N_BLOCKS}, counts
+    for m in s.history:
+        for k in ("cv", "temperature", "potential_energy"):
+            assert np.all(np.isfinite(m[k])), (k, m)
+        assert not np.any(m["nlist_overflow"]), m
+    t = np.asarray(timed[-1]["temperature"])
+    assert np.all((CFG5_T_BAND[0] < t) & (t < CFG5_T_BAND[1])), t
+    rate = n * per_period / dt
+    peak = torch.cuda.max_memory_allocated() / gib
+    prof = device_profile(lambda: s.run(per_period))
+    prof["busy_share_untraced"] = prof["busy_ms"] / (1e3 * dt)
+    prof["busy_ms_per_stride"] = prof["busy_ms"] / CFG5_PERIOD
+    print(f"phase 37 seconds: the checks {t_checks:.1f}, the sampler's "
+          f"construction {t_init:.1f}, the profile's hand-over "
+          f"{prof['post_s']:.1f}")
+    print(f"phase 37 config5 blocks N={n} {BLOCKS}: 1 period ({per_period} "
+          f"steps) {dt:.3f} s {rate:.1f} particle-steps/s (phase 33's 2 "
+          f"slabs {slabs5['rate']:.1f}) T by stride "
+          f"{np.round(t, 4).tolist()} S(k0)="
+          f"{float(timed[-1]['cv'][-1][0]):.4f} launches={counts} "
+          f"peak_mem={peak:.3f} GiB busy_ms_per_stride="
+          f"{prof['busy_ms_per_stride']:.1f} on {smi}")
+    print(f"profile config5 blocks N={n} one period ({CFG5_PERIOD} strides):"
+          f" {json.dumps(prof)} on {smi}")
+    del s, st, engine
+    torch.cuda.empty_cache()
+    print(f"config5 blocks phase 37: {time.perf_counter() - t37:.1f} s")
+    return {"launches": counts["pair"], "masked": counts["pair masked"],
+            "rate": rate, "scatter": ab}
+
+
+def cli_blocks(dev, smi: str) -> dict:
+    """Phase 38: examples/config4_walkers_sk_dd.yaml through the CLI with
+    engine.spatial_devices [2, 2] (4 walkers x 2 x 2 blocks of a 4^3-cell
+    box on the card, the pencil-FFT 8^3 S(k)) and only output.* changed:
+    a straight run with exact launches (per walker and stride 21 force
+    calls of 4 launches, the refresh's 4 masked) and the files; then its
+    resume leg (K steps with a checkpoint, --resume for K more) against a
+    straight 2K, the hill files and the grid dumps bit for bit."""
+    import tempfile
+    import torch
+    from metadyn_tpu_torch.cli import CliRun
+    from metadyn_tpu_torch.io.grid_file import load_grid
+    from metadyn_tpu_torch.parallel.mesh2d import ShardedPackedMesh2D
+    from metadyn_tpu_torch.parallel.spatial2d import SpatialPackedEngine2D
+
+    t38 = time.perf_counter()
+    name = "config4_walkers_sk_dd"
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_2d_"))
+    d = tmp / "straight"
+    d.mkdir()
+    cfg = cli_yaml(name, d)
+    cfg["engine"]["spatial_devices"] = list(BLOCKS)
+    W = int(cfg["metadynamics"]["n_walkers"])
+    reset_counts()
+    t0 = time.perf_counter()
+    runner = CliRun(cfg, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    build = read_counts()
+    assert isinstance(runner.sampler.engine, SpatialPackedEngine2D)
+    assert isinstance(runner.sampler.cvs[0], ShardedPackedMesh2D)
+    reset_counts()
+    t1 = time.perf_counter()
+    runner.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t1
+    run = read_counts()
+    strides = int(cfg["run"]["n_steps"]) // int(cfg["metadynamics"]["stride"])
+    per = int(cfg["metadynamics"]["stride"]) + 1
+    want_build = {**{k: 0 for k in build}, "pair": W * 2 * N_BLOCKS}
+    want_run = {**{k: 0 for k in run}, "pair": strides * W * per * N_BLOCKS,
+                "pair masked": strides * W * N_BLOCKS}
+    bad = cli_checks(name, cfg, runner, band=C4SK_T_BAND)
+    if build != want_build:
+        bad.append(f"build launches {build}, want {want_build}")
+    if run != want_run:
+        bad.append(f"run launches {run}, want {want_run}")
+    files = sorted(p.name for p in d.iterdir())
+    print(f"phase 38 cli {name} spatial_devices={list(BLOCKS)}: {W} walkers "
+          f"x {N_BLOCKS} blocks, N={runner.sampler.engine.spec.n_real} per "
+          f"walker, build {t_build:.3f} s run {cfg['run']['n_steps']} steps "
+          f"{t_run:.3f} s wall {t_build + t_run:.3f} s build_launches={build}"
+          f" run_launches={run} files={files} on {smi}")
+    legs = {}
+    for leg in ("resumed", "straight"):
+        d = tmp / f"resume_{leg}"
+        d.mkdir()
+        cfg = cli_yaml(name, d, checkpoint="ck.npz", grid_file="grid.npz")
+        cfg["engine"]["spatial_devices"] = list(BLOCKS)
+        # legs of 2 strides: its walkers step one by one on 4 blocks, ~0.2 s
+        # a step on the host
+        k = 2 * int(cfg["metadynamics"]["stride"])
+        cfg["run"]["n_steps"] = cfg["run"]["report_every"] = k
+        if leg == "straight":
+            cfg["run"]["n_steps"] = 2 * k
+            CliRun(cfg, device=dev).run()
+        else:
+            CliRun(cfg, device=dev).run()
+            CliRun(cfg, resume=True, device=dev).run()
+        legs[leg] = cfg["output"]
+    same_hills = (open(legs["resumed"]["hill_file"], "rb").read()
+                  == open(legs["straight"]["hill_file"], "rb").read())
+    va = load_grid(legs["resumed"]["grid_file"])[0].grid.V
+    vb = load_grid(legs["straight"]["grid_file"])[0].grid.V
+    if not (same_hills and torch.equal(va, vb)):
+        bad.append(f"resume leg: hill files equal {same_hills}, max|dV| "
+                   f"{float((va - vb).abs().max()):.3e}")
+    print(f"phase 38 cli {name} resume leg: {k} + {k} steps (--resume) "
+          f"against {2 * k} straight: hill files equal={same_hills} grid V "
+          f"bitwise equal={torch.equal(va, vb)}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    for b in bad:
+        print(f"phase 38 FAILED: {b}", file=sys.stderr)
+    assert not bad, bad
+    walk = walkers_blocks(dev, smi)
+    print(f"cli blocks phase 38: {time.perf_counter() - t38:.1f} s")
+    return {"build": build, "run": run, **walk}
+
+
+def walkers_blocks(dev, smi: str) -> dict:
+    """Phase 38's walkers x 2-D space with a walker batch: WALKERS_DD x
+    liq64k (the lamellar CVs take the batch) on the nested
+    SpatialPackedEngine2D, 2 x 2 blocks: 1 warm and 1 timed stride of 100
+    (exactly 101 launches per block, one for all walkers; 4 masked with
+    energy), T in 0.9-1.1, the rate summed over walkers."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import (
+        HillSpec, WalkerSampler, WELL_TEMPERED, make_packed_langevin_step,
+        make_system,
+    )
+    from metadyn_tpu_torch.core.batch import stack_walkers
+    from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
+    from metadyn_tpu_torch.parallel.spatial2d import SpatialPackedEngine2D
+
+    spec, cvs, gspec, walls = liq_parts(dev)
+    n, W, stride = spec.n_real, WALKERS_DD, 100
+    engine = SpatialPackedEngine2D(spec, [dev] * N_BLOCKS, BLOCKS,
+                                   rebuild_every=10, nested=True)
+    s = WalkerSampler(
+        make_system(n, dev),
+        stack_walkers(liq_walker_states(dev, spec, engine, cvs, W)),
+        engine, cvs, gspec,
+        HillSpec.create(W=0.1, stride=stride, mode=WELL_TEMPERED,
+                        deltaT=5.0),
+        lambda f: make_packed_langevin_step(f, dt=0.005, kT=KT),
+        seed=0, walls=walls, bias_every=5, chunks_per_block=8)
+    assert s.batched
+    s.run(stride)
+    torch.cuda.synchronize()
+    reset_counts()
+    packed_lj_force_cuda.walkers = 0
+    t0 = time.perf_counter()
+    (m,) = s.run(stride)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    want = (stride + 1) * N_BLOCKS
+    assert counts == {**{k: 0 for k in counts}, "pair": want,
+                      "pair masked": N_BLOCKS}, counts
+    assert packed_lj_force_cuda.walkers == W * want
+    assert np.all(np.isfinite(m["cv"])) and not m["nlist_overflow"].any(), m
+    assert ((0.9 < m["temperature"]) & (m["temperature"] < 1.1)).all(), m
+    rate = W * n * stride / dt
+    print(f"phase 38 walkers x 2-D space {W} x liq64k on {BLOCKS} blocks "
+          f"bias_every=5: 1 stride of {stride} {dt:.3f} s {rate:.1f} "
+          f"particle-steps/s summed over walkers launches={counts} "
+          f"(walkers per launch {packed_lj_force_cuda.walkers // want}) "
+          f"T={np.round(m['temperature'], 4).tolist()} on {smi}")
+    return {"batch": counts["pair"], "batch masked": counts["pair masked"],
+            "batch rate": rate}
+
+
+# phase 39's hill-list runs: liq64k's two lamellar CVs, bench.py's hill
+# widths, stride 500 (capacity 4096) and 50 (capacity 8 with and without
+# a spill grid)
+HL_SIGMA = 0.004
+
+
+def hill_list_sampler(dev, capacity: int, stride: int, spill: bool):
+    """liq64k (bench.py's spec and CVs) in hill-list mode through
+    MetadSampler: grid_spec None, hill_sigma, hill_capacity and, with
+    ``spill``, bench.py's grid as the spill grid."""
+    from metadyn_tpu_torch import (
+        HillSpec, MetadSampler, PackedEngine, WELL_TEMPERED,
+        make_packed_langevin_step, make_system,
+    )
+    spec, cvs, gspec, _ = liq_parts(dev)
+    engine = PackedEngine(spec, dev, rebuild_every=10)
+    (state,) = liq_walker_states(dev, spec, engine, cvs, 1)
+    return MetadSampler(
+        make_system(spec.n_real, dev), state, engine, cvs, None,
+        HillSpec.create(W=0.1, stride=stride, mode=WELL_TEMPERED,
+                        deltaT=5.0),
+        lambda f: make_packed_langevin_step(f, dt=0.005, kT=KT),
+        seed=0, bias_every=5, chunks_per_block=8,
+        hill_sigma=[HL_SIGMA, HL_SIGMA], hill_capacity=capacity,
+        spill_grid=gspec if spill else None)
+
+
+def hill_list_table(dev, smi: str, exact: dict) -> dict:
+    """Phase 39: hill-list mode and the neighbour-table path.  (1) liq64k
+    in list mode (capacity 4096, stride 500): 1 warm and 2 timed strides
+    (exactly 501 launches per stride, as grid mode), then V and dV/ds at
+    the last CV point against evaluate_on_grid's V and the analytic sum in
+    float64 of the same hills (rtol 1e-5; gradient rtol 1e-4 + 1e-6 max);
+    (2) capacity 8, stride 50, 10 strides: with the spill grid the two
+    hills past capacity go onto it (no overflow; the spill grid's V equals
+    the float64 sum of those two hills at its nodes, atol 1e-6 of its max),
+    without one the flag is raised and cv_out_of_grid reports it;
+    (3) Config 3 exact at 62,500 with nbr_table = (coordination r_cut +
+    skin, 96): the table's values and bias forces against kernels 2 and 3
+    on the same state (rtol 2e-5; 2e-3 + 2e-4 max), no overflow; timed as
+    phase 11 (per stride 101 pair launches and the stride end's 2 values,
+    no order kernel inside a stride), rate and busy ms beside phase 11's."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import Box, GridSpec, PackedEngine
+    from metadyn_tpu_torch.bias.hill_list import (
+        evaluate_on_grid, value_and_grad,
+    )
+    from metadyn_tpu_torch.cv.packed_order import make_table_order_force
+    from metadyn_tpu_torch.ops.neighbor_table import (
+        build_slot_neighbor_table,
+    )
+    from metadyn_tpu_torch.ops.packed_order_cuda import (
+        order_force_cuda, order_values_cuda,
+    )
+
+    t39 = time.perf_counter()
+    out = {}
+    # (1) list mode at capacity 4096
+    s = hill_list_sampler(dev, 4096, STRIDE, False)
+    s.run(STRIDE)
+    n = s.engine.spec.n_real
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = s.run(2 * STRIDE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    assert counts == {**{k: 0 for k in counts}, "pair": 2 * (STRIDE + 1)}, \
+        counts
+    for m in hist:
+        assert 0.9 < float(m["temperature"]) < 1.1, m
+        assert not m["cv_out_of_grid"] and not m["nlist_overflow"], m
+    b = s.bias
+    assert int(b.n_hills) == 3 and not bool(b.overflowed)
+    c = b.centers[:3].double().cpu().numpy()
+    h = b.heights[:3].double().cpu().numpy()
+
+    def sum64(pts):
+        """V and dV/ds of the three hills at points (P, 2), float64."""
+        dd = (pts[:, None, :] - c[None]) / HL_SIGMA
+        g = h * np.exp(-0.5 * (dd ** 2).sum(-1))
+        return g.sum(1), (g[..., None] * (-dd / HL_SIGMA)).sum(1)
+
+    # half a width from the last hill's centre: its own term dominates and
+    # the gradient is not 0
+    x = (c[2] + 0.5 * HL_SIGMA).astype(np.float32)
+    V64, dV64 = sum64(x[None].astype(np.float64))
+    V, dV = value_and_grad(b, torch.as_tensor(x, device=dev))
+    ev = GridSpec.create(list(x - 2 * HL_SIGMA), list(x + 2 * HL_SIGMA),
+                         [5, 5], [HL_SIGMA, HL_SIGMA], dev)
+    nodes = torch.stack(torch.meshgrid(ev.axis_coords(0), ev.axis_coords(1),
+                                       indexing="ij"), -1).reshape(-1, 2)
+    Vn64, _ = sum64(nodes.double().cpu().numpy())
+    Vg = evaluate_on_grid(b, ev).reshape(-1).double().cpu().numpy()
+    dVV = abs(float(V) - V64[0]) / abs(V64[0])
+    dVg = float(np.abs(Vg - Vn64).max() / np.abs(Vn64).max())
+    dG = float(np.abs(dV.cpu().numpy() - dV64[0]).max())
+    assert dVV <= 1e-5 and dVg <= 1e-5, (dVV, dVg)
+    assert dG <= 1e-4 * np.abs(dV64).max() + 1e-6, (dG, dV64)
+    rate = n * 2 * STRIDE / dt
+    print(f"phase 39 hill-list liq64k capacity 4096: 2 strides {dt:.3f} s "
+          f"{rate:.1f} particle-steps/s launches={counts} n_hills="
+          f"{int(b.n_hills)}; at s={x.tolist()}: V {float(V):.9g} float64 "
+          f"{V64[0]:.9g} (rel {dVV:.3e}); evaluate_on_grid on 5 x 5 nodes "
+          f"around it against float64: max rel {dVg:.3e}; max|d dV/ds|="
+          f"{dG:.3e} of {np.abs(dV64).max():.3e} on {smi}")
+    out["list"] = {"launches": counts["pair"], "rate": rate}
+    del s, b
+    # (2) capacity 8 with and without the spill grid
+    from metadyn_tpu_torch.bias.grid import hill_field
+    for spill in (True, False):
+        s = hill_list_sampler(dev, 8, 50, spill)
+        hist = s.run(10 * 50)
+        b = s.bias
+        assert int(b.n_hills) == 10, int(b.n_hills)
+        if spill:
+            assert not bool(b.overflowed) and not hist[-1]["cv_out_of_grid"]
+            ref = None
+            for m in hist[8:]:
+                dv, _ = hill_field(b.spill.spec, torch.as_tensor(
+                    m["cv"], device=dev).double(), torch.tensor(
+                    float(m["hill_height"]), dtype=torch.float64,
+                    device=dev))
+                ref = dv if ref is None else ref + dv
+            dsp = float((b.spill.V.double() - ref).abs().max())
+            vmax = float(ref.abs().max())
+            assert vmax > 0 and dsp <= 1e-6 * vmax, (dsp, vmax)
+            print(f"phase 39 hill-list capacity 8 with the spill grid: 10 "
+                  f"hills, 8 in the buffer, the spill grid's V against the "
+                  f"float64 sum of the last 2: max|dV|={dsp:.3e} of "
+                  f"{vmax:.3e}; overflowed={bool(b.overflowed)}")
+        else:
+            assert bool(b.overflowed) and hist[-1]["cv_out_of_grid"]
+            assert not hist[7]["cv_out_of_grid"]
+            first = 1 + next(i for i, m in enumerate(hist)
+                             if m["cv_out_of_grid"])
+            print(f"phase 39 hill-list capacity 8 without a spill grid: "
+                  f"overflowed={bool(b.overflowed)}, cv_out_of_grid from "
+                  f"stride {first}")
+        del s, b
+    torch.cuda.empty_cache()
+
+    # (3) the neighbour table at Config 3
+    pos, vel, L, a, spec = config3_inputs(32, noise=0.05)
+    cvs = config3_cvs(spec, a)
+    r_nb = cvs[1].r_cut + spec.skin
+    K = 96
+    st, overflow = PackedEngine(spec, dev).pack_state(
+        pos, Box.cubic(L, dev), np.zeros(pos.shape[0], np.int32),
+        np.ones(pos.shape[0], np.float32), np.ones(pos.shape[0], np.float32),
+        vel=vel)
+    assert not overflow
+    tbl, ovf = build_slot_neighbor_table(st, spec, r_nb, K)
+    assert not bool(ovf), "the neighbour table overflows K"
+    tv, tf = make_table_order_force(cvs, spec)
+    s_t, terms = tv(st, tbl)
+    tk = order_values_cuda(st, spec, cvs)
+    s_k = torch.stack([cv.finalize_value(t) for cv, t in zip(cvs, tk)])
+    dV = torch.tensor([0.9, -1.3], device=dev)
+    g_t = tf(st, tbl, terms, dV)
+    auxs = [cv.grad_aux(t, dV[i]) for i, (cv, t) in enumerate(zip(cvs, tk))]
+    g_k = order_force_cuda(st, spec, cvs, auxs)
+    torch.cuda.synchronize()
+    ds = float(((s_t - s_k).abs() / s_k.abs()).max())
+    assert ds <= 2e-5, (ds, s_t, s_k)
+    eg, gmax = force_close("phase 39 table force vs kernel 3", g_t, g_k,
+                           2e-3, 2e-4)
+    most = int((tbl < spec.n_pad).sum(0).max())
+    build_ms = cuda_ms(lambda: build_slot_neighbor_table(st, spec, r_nb, K),
+                       calls=5, warm=1)
+    vals_ms = cuda_ms(lambda: tv(st, tbl), calls=10)
+    force_ms = cuda_ms(lambda: tf(st, tbl, terms, dV), calls=10)
+    print(f"phase 39 neighbour table Config 3 N={spec.n_real} r_nb={r_nb:.4f}"
+          f" K={K}: the most neighbours of a slot {most}; table values vs "
+          f"kernel 2 rel_ds={ds:.3e} s={s_t.tolist()}; table force vs kernel "
+          f"3 max|dg|={eg:.3e} (max|g|={gmax:.3e}); build_ms={build_ms:.3f} "
+          f"values_ms={vals_ms:.3f} force_ms={force_ms:.3f} (plain PyTorch "
+          f"gathers) on {smi}")
+    del st, tbl, terms, g_t, g_k
+    torch.cuda.empty_cache()
+    got = {}
+    counts = config3_timed(
+        dev, False, warm=(2, 2), n_runs=1, n_timed=2,
+        per_stride={"pair": 101, "values": 2}, smi=smi,
+        engine_cls=table_engine(r_nb, K),
+        tag=f"config3 exact nbr_table=({r_nb:.4f}, {K})", out=got)
+    prof, base = got["profile"], exact["profile"]
+    print(f"phase 39 config3 exact particle-steps/s: nbr_table "
+          f"{got['rates']} against the order kernels (phase 11) "
+          f"{exact['rates']}; busy ms per stride {prof['busy_ms']:.1f} "
+          f"against {base['busy_ms']:.1f} on {smi}")
+    out["table"] = {"counts": counts, "rates": got["rates"],
+                    "busy_ms": prof["busy_ms"]}
+    print(f"hill-list and table phase 39: {time.perf_counter() - t39:.1f} s")
+    return out
+
+
+def blocks_entries(b35: dict, b36: dict, b37: dict, b38: dict, entry,
+                   keys) -> list:
+    """The kernels line's entries of the 2-D blocks' variants (phase 35,
+    timed on block 0's 9 x 9 x 14 extended grid of Config 3, the walker
+    batch on block 0 of the liquid's); launches from phase 36's timed run
+    (2 strides of Config 3 exact), phase 37's (1 period of Config 5) and
+    phase 38's CLI run."""
+    staged = "the staged block-per-cell kernel (csrc/cell_stage.cuh)"
+    c36, r38 = b36["counts"], b38["run"]
+
+    def var(key):
+        return {f"block 0 of {BLOCKS} (9 x 9 x 14) config3": dict(
+            zip(keys, b35[key]))}
+
+    return [
+        entry("packed_lj_force 2-D blocks", "packed_lj_force",
+              "metadyn_tpu/ops/packed_pallas2.py:301 on the reference's "
+              "2-D islands, metadyn_tpu/parallel/spatial2d.py:179-185",
+              c36["pair"], b35["pair"],
+              design=staged + " on a block's (cx_l + 2, cy_l + 2, cz) "
+              "extended grid, ghost rows dropped",
+              launches_by_path={
+                  "config3 exact 2-D 2x2 (2 timed strides)": c36["pair"],
+                  "config5 N=1048576 2-D 2x2 (1 period)": b37["launches"],
+                  "cli config4_walkers_sk_dd [2, 2] run": r38["pair"]},
+              variants=var("pair")),
+        entry("packed_lj_force cell_mask energy 2-D blocks",
+              "packed_lj_force",
+              "XLA packed_lj_force(cell_mask=) in the reference's 2-D "
+              "island, metadyn_tpu/parallel/spatial2d.py:188-189",
+              c36["pair masked"], b35["pair masked energy"],
+              design=staged + "; each block's energy and virial times its "
+              "cell's interior weight (ghost planes of x and y 0)",
+              launches_by_path={
+                  "config3 exact 2-D 2x2 (2 timed strides)":
+                  c36["pair masked"],
+                  "config5 N=1048576 2-D 2x2 (1 period)": b37["masked"],
+                  "cli config4_walkers_sk_dd [2, 2] run":
+                  r38["pair masked"]},
+              variants=var("pair masked energy")),
+        entry("packed_order_values cell_mask 2-D blocks", "packed_order",
+              "metadyn_tpu/ops/packed_order_pallas.py:257 on the "
+              "reference's 2-D islands, metadyn_tpu/parallel/"
+              "spatial2d.py:270", c36["values masked"],
+              b35["values masked"],
+              design=staged + "; each cell's partials row times its weight",
+              launches_by_path={"config3 exact 2-D 2x2 (2 timed strides)":
+                                c36["values masked"]},
+              variants=var("values masked")),
+        entry("packed_order_force 2-D blocks", "packed_order",
+              "metadyn_tpu/ops/packed_order_pallas.py:309 on the "
+              "reference's 2-D islands, metadyn_tpu/parallel/"
+              "spatial2d.py:282", c36["force"], b35["force"],
+              design=staged + ", ghost rows dropped",
+              launches_by_path={"config3 exact 2-D 2x2 (2 timed strides)":
+                                c36["force"]},
+              variants=var("force")),
+        entry("packed_lj_force walker batch x cell_mask 2-D blocks",
+              "packed_lj_force",
+              "metadyn_tpu/ops/packed_pallas2.py:301 and metadyn_tpu/"
+              "parallel/spatial2d.py:188 (the reference's nested 2-D "
+              "islands: one walker per chip plane)", b38["batch masked"],
+              b35["walker batch masked"],
+              design=staged + "; the walker batch on a block's extended "
+              "grid, each block's energy and virial times its cell's "
+              "interior weight",
+              launches_by_path={f"walkers x 2-D space {WALKERS_DD} x "
+                                "liq64k (1 stride of 100; masked, with "
+                                "energy)": b38["batch masked"],
+                                f"walkers x 2-D space (1 stride; every "
+                                f"launch, {WALKERS_DD} walkers each)":
+                                b38["batch"]},
+              variants={f"{k} block 0 of {BLOCKS} liq64k W={WALKERS_DD}":
+                        dict(zip(keys, v)) for k, v in b35.items()
+                        if k.startswith("walker batch")}),
+    ]
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -4185,9 +5134,11 @@ def main() -> int:
         dev, True, warm=(2, 2), n_runs=2, n_timed=4,
         per_stride={"pair": 91, "fused": 10, "values": 2}, smi=smi[0],
         out=lag_out)
+    exact_out = {}
     exact_counts = config3_timed(
         dev, False, warm=(2, 2), n_runs=1, n_timed=2,
-        per_stride={"pair": 101, "values": 12, "force": 10}, smi=smi[0])
+        per_stride={"pair": 101, "values": 12, "force": 10}, smi=smi[0],
+        out=exact_out)
 
     # 12. the v1 pair kernel (built in phase 2)
     v1_lib = packed_v1_cuda.KERNEL
@@ -4271,8 +5222,21 @@ def main() -> int:
     box = box_meta_phase(dev, smi[0], npt)
     del npt["state"]
     npt_walk = npt_walkers_phase(dev, smi[0], npt)
-    slabs5 = config5_slabs(melt5, cfg5.pop("relaxed"), dev, smi[0])
+    relaxed5 = cfg5.pop("relaxed")
+    slabs5 = config5_slabs(melt5, relaxed5, dev, smi[0])
     wsp = walkers_space_phase(dev, smi[0], walk["rate"])
+
+    # 35.-39. the 2-D decomposition: the kernels on the blocks' extended
+    # grids, Config 3 exact on 2 x 2 blocks, Config 5 at 1M with the
+    # pencil-FFT S(k) (and the mesh CV's deterministic scatter), the CLI
+    # with spatial_devices [2, 2] and walkers x 2-D space; hill-list mode
+    # and the neighbour-table path
+    b35 = blocks_kernels(dev, smi[0])
+    b36 = config3_blocks(dev, smi[0], exact_out)
+    b37 = config5_blocks(melt5, relaxed5, melt, dev, smi[0], slabs5)
+    del relaxed5
+    b38 = cli_blocks(dev, smi[0])
+    hill_list_table(dev, smi[0], exact_out)
     print(f"chip_smoke wall: {time.perf_counter() - t_main:.1f} s")
 
     def cli_launches(kernel: str) -> dict:
@@ -4437,6 +5401,7 @@ def main() -> int:
                                 **cli_launches("fused")},
               variants=tric_variants("fused", "sentinel")),
         *spatial_entries(sp_kern, sp, entry, keys),
+        *blocks_entries(b35, b36, b37, b38, entry, keys),
         entry(v1_lib, v1_lib, "metadyn_tpu/ops/packed_pallas.py:185",
               lag_counts["v1"],
               cfg2["v1 se_hs_fene_wca"],

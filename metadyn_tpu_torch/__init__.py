@@ -57,6 +57,9 @@ from .flux_sampler import FluxTemperedSampler
 from .parallel.walkers import WalkerSampler
 from .parallel.mesh import ShardedPackedMesh
 from .parallel.spatial import SpatialPackedEngine
+from .parallel.mesh2d import ShardedPackedMesh2D
+from .parallel.spatial2d import SpatialPackedEngine2D
+from .bias.hill_list import HillListBias
 from .utils.lattice import fcc_lattice, polymer_melt, sc_lattice
 
 __all__ = [
@@ -80,6 +83,7 @@ __all__ = [
     "free_energy", "FLUX", "VISITS", "FluxState", "accumulate", "bin_of",
     "round_trips", "update_bias", "MetadSampler", "lag_supported",
     "make_biased_force", "FluxTemperedSampler", "WalkerSampler",
-    "ShardedPackedMesh", "SpatialPackedEngine", "fcc_lattice",
+    "ShardedPackedMesh", "SpatialPackedEngine", "ShardedPackedMesh2D",
+    "SpatialPackedEngine2D", "HillListBias", "fcc_lattice",
     "polymer_melt", "sc_lattice",
 ]

@@ -1,14 +1,15 @@
 """Metadynamics bias: hill schedule, well-tempered scaling, walls, FES
-(counterpart of ``metadyn_tpu/bias/metad.py``, grid mode only).
+(counterpart of ``metadyn_tpu/bias/metad.py``).
 
 Every ``stride`` steps a hill of height
 
     W' = W                      (standard)
     W' = W · exp(−V(s)/ΔT)      (well-tempered)
 
-is deposited on the grid.  Flux-tempered mode (``FLUX_TEMPERED``) deposits
-no hills: ``bias/flux.py`` rebuilds its bias from histograms.  Hill-list
-mode waits.
+is deposited on the grid (``BiasState``) or, in hill-list mode, into the
+hill buffer (``bias/hill_list.HillListBias``): the functions here take
+either, as the reference's do.  Flux-tempered mode (``FLUX_TEMPERED``)
+deposits no hills: ``bias/flux.py`` rebuilds its bias from histograms.
 """
 from __future__ import annotations
 
@@ -18,6 +19,9 @@ from typing import NamedTuple
 import torch
 
 from .grid import BiasGrid, GridSpec, deposit_hill, value_and_grad
+from .hill_list import HillListBias
+from .hill_list import deposit as hill_list_deposit
+from .hill_list import value_and_grad as hill_list_value_and_grad
 
 STANDARD = "standard"
 WELL_TEMPERED = "well_tempered"
@@ -86,13 +90,16 @@ class HillRecord(NamedTuple):
     height: torch.Tensor  # ()
 
 
-def bias_value_and_grad(bias: BiasState, s: torch.Tensor
+def bias_value_and_grad(bias, s: torch.Tensor
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(V(s), ∂V/∂s) of the grid bias."""
+    """(V(s), ∂V/∂s) of either bias: the grid (``BiasState``) or the hill
+    list (``HillListBias``)."""
+    if isinstance(bias, HillListBias):
+        return hill_list_value_and_grad(bias, s)
     return value_and_grad(bias.grid, s)
 
 
-def hill_height(hills: HillSpec, bias: BiasState,
+def hill_height(hills: HillSpec, bias,
                 s: torch.Tensor) -> torch.Tensor:
     """The deposit height W' given the existing bias at s; (W,) at W
     walkers' points (W, d)."""
@@ -103,11 +110,14 @@ def hill_height(hills: HillSpec, bias: BiasState,
                       device=s.device)
 
 
-def deposit(hills: HillSpec, bias: BiasState, s: torch.Tensor,
-            step: int) -> tuple[BiasState, HillRecord]:
+def deposit(hills: HillSpec, bias, s: torch.Tensor, step: int) -> tuple:
+    """Deposit one hill at s into either bias: (new bias, its record)."""
     h = hill_height(hills, bias, s)
-    new = BiasState(grid=deposit_hill(bias.grid, s, h),
-                    n_hills=bias.n_hills + 1)
+    if isinstance(bias, HillListBias):
+        new = hill_list_deposit(bias, s, h)
+    else:
+        new = BiasState(grid=deposit_hill(bias.grid, s, h),
+                        n_hills=bias.n_hills + 1)
     return new, HillRecord(step=step, center=s, height=h)
 
 

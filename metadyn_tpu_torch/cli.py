@@ -10,26 +10,34 @@ drives one replica (or, with ``metadynamics.n_walkers`` W > 1, W walkers
 sharing one bias, all on the one device: ``parallel/walkers.py``, or the
 flux sampler's walker mode) on the packed engine (with an integer
 ``engine.spatial_devices`` > 1 on ``parallel/spatial.SpatialPackedEngine``,
-the x-slab decomposition: its shards on the visible cards in turn under
-CUDA, shared when fewer than N, N virtual shards of the CPU under
-``--device cpu``; with walkers too, the
-walkers × space product, ``nested=True``) or, with ``engine.kind:
+the x-slab decomposition, and with a list ``[nx, ny]`` on
+``parallel/spatial2d.SpatialPackedEngine2D``, the 2-D decomposition: its
+shards on the visible cards in turn under CUDA, shared when fewer than
+the shards, virtual shards of the CPU under ``--device cpu``; with walkers
+too, the walkers × space product, ``nested=True``; with
+``engine.nbr_table: [r_nb, K]`` the single-grid engine keeps the slot
+neighbour table of the order CVs) or, with ``engine.kind:
 all_pairs``, on the particle-order all-pairs engine: inits ``fcc``, ``sc``
 and ``melt`` (with the push-off of ``init.prerelax_steps``, ``core/
 pushoff.prerelax_melt``), tilted boxes, diblock types and per-type-pair
 tables, FENE or harmonic bonds, the LJ, WCA and soft pairs; the lamellar,
 mesh (under ``spatial_devices`` the distributed slab-FFT ``parallel/
-mesh.ShardedPackedMesh``), Q6, coordination, MSD and aspect-ratio CVs
+mesh.ShardedPackedMesh``, under a list the pencil-FFT ``parallel/
+mesh2d.ShardedPackedMesh2D``), Q6, coordination, MSD and aspect-ratio CVs
 (all-pairs: lamellar, mesh, Steinhardt Q_l and MSD by autograd, and the
 aspect ratio) and the well-tempered ensemble's energy CV (``kind: wte``,
 which turns on the packed engine's energy at every force call, as
 ``npt_scr`` does); Langevin, NVE and SCR-NPT (``npt_scr``, isotropic or
 anisotropic, with ``box_bias`` the box-shape metadynamics of the aspect
 ratio; all-pairs: Langevin, Nosé–Hoover ``nvt_nh``, ``nvt_bdp`` and
-``npt_scr``); standard, well-tempered and flux-tempered metadynamics, with ``restart_from_grid``, edge walls, ``add_hills``,
-``bias_every`` and ``mts_lag``.  Its outputs are the reference's files:
-the hill log, the CSV metrics, grid dumps (also every ``grid_every``
-steps, ``{step}`` in the name numbering them), checkpoints (every
+``npt_scr``); standard, well-tempered and flux-tempered metadynamics, with
+``restart_from_grid``, edge walls, ``add_hills``, ``bias_every`` and
+``mts_lag``; and, where a CV has no ``grid``, the hill-list mode (hill
+widths from each CV's ``sigma``, ``metadynamics.hill_capacity``, walls
+from each CV's ``wall: {min, max}``).  Its outputs are the reference's
+files: the hill log, the CSV metrics, grid dumps (also every
+``grid_every`` steps, ``{step}`` in the name numbering them; none in
+hill-list mode, which has no grid), checkpoints (every
 ``checkpoint_every`` steps; ``--resume`` loads one and runs ``n_steps``
 more) and, for the all-pairs engine, trajectory frames (``.dcd`` or npz,
 ``io/trajectory.py``) at every report; like the reference's, a packed run
@@ -38,9 +46,7 @@ exits with an error when no CUDA device is found: it never falls back to
 the CPU.
 
 What the port lacks raises NotImplementedError at build time, naming its
-item of ROADMAP.md's queue 1: the 2-D decomposition (a list
-``spatial_devices``; item 9), ``nbr_table`` (item 6), hill-list mode
-(item 4) and GSD trajectories (item 8).
+item of ROADMAP.md's queue 1: GSD trajectories (item 8).
 """
 from __future__ import annotations
 
@@ -51,10 +57,6 @@ import sys
 import numpy as np
 
 UNPORTED = {
-    "spatial_2d": ("the 2-D spatial decomposition (engine.spatial_devices "
-                   "as a list: parallel/spatial2d.py)", 9),
-    "nbr_table": ("the neighbour-table path (engine.nbr_table)", 6),
-    "hill_list": ("hill-list mode (a CV without a grid)", 4),
     "gsd": ("GSD trajectories (io/gsd_file.py and its native _gsd.cpp)", 8),
 }
 
@@ -68,14 +70,6 @@ def refuse(what: str):
 
 def check_ported(cfg: dict) -> None:
     """Raise ``refuse(...)`` for the first key or kind the port lacks."""
-    eng = cfg["engine"]
-    if isinstance(eng.get("spatial_devices", 1), (list, tuple)):
-        raise refuse("spatial_2d")
-    if eng.get("nbr_table") is not None:
-        raise refuse("nbr_table")
-    for c in cfg.get("cvs", []):
-        if "grid" not in c:
-            raise refuse("hill_list")
     if str(cfg.get("output", {}).get("trajectory", "")).endswith(".gsd"):
         raise refuse("gsd")
 
@@ -91,11 +85,13 @@ def _assign_order(c: dict) -> int:
 
 
 def _build_packed_cvs(cvs_cfg, spec, n: int, types, n_types: int, device,
-                      pos, shards=None, box_L=None):
+                      pos, shards=None, box_L=None, blocks=None):
     """The packed CVs and their per-particle attrs (lamellar and mesh
     coefficients from ``mode``, one per type; the MSD's reference
     positions).  With ``shards`` (the slab engine's devices) the mesh CV is
-    the distributed slab-FFT ``ShardedPackedMesh``."""
+    the distributed slab-FFT ``ShardedPackedMesh``; with ``blocks`` (the
+    2-D engine's devices and shape) the pencil-FFT
+    ``ShardedPackedMesh2D``."""
     from .cv.aspect_ratio import AspectRatio
     from .cv.packed import (
         PackedLamellar, PackedMesh, PackedMSD, msd_reference_attrs,
@@ -103,6 +99,7 @@ def _build_packed_cvs(cvs_cfg, spec, n: int, types, n_types: int, device,
     from .cv.packed_order import PackedCoordination, PackedSteinhardtQl
     from .cv.simple import PotentialEnergyCV
     from .parallel.mesh import ShardedPackedMesh
+    from .parallel.mesh2d import ShardedPackedMesh2D
 
     cvs, extra_attrs = [], {}
     for c in cvs_cfg:
@@ -110,6 +107,11 @@ def _build_packed_cvs(cvs_cfg, spec, n: int, types, n_types: int, device,
         if kind == "lamellar":
             cv = PackedLamellar.create([c["lattice_vector"]], n, device,
                                        name=c["name"])
+        elif kind == "mesh" and blocks is not None:
+            cv = ShardedPackedMesh2D.create(
+                tuple(c["mesh"]), spec, *blocks, n_real=n, k0=c["k0"],
+                width=c.get("width", 0.5), box_L=box_L, name=c["name"],
+                assign_order=_assign_order(c))
         elif kind == "mesh" and shards is not None:
             cv = ShardedPackedMesh.create(
                 tuple(c["mesh"]), spec, shards, n_real=n, k0=c["k0"],
@@ -197,7 +199,10 @@ def _check_wte(cvs, cvs_cfg) -> None:
 
 
 def _grid_from_cfg(cvs_cfg, device):
+    """The bias grid, or None (hill-list mode) where a CV has no grid."""
     from .bias.grid import GridSpec
+    if not all("grid" in c for c in cvs_cfg):
+        return None
     return GridSpec.create(
         [c["grid"]["min"] for c in cvs_cfg],
         [c["grid"]["max"] for c in cvs_cfg],
@@ -431,9 +436,37 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
             uniform_eps=eng_cfg.get("uniform_eps"),
             pair_kind="soft" if pair["kind"] == "soft" else "lj",
             eps_scale=eps_scale, sigma_scale=sigma_scale, tilt=tilt)
-        sp_dev = int(eng_cfg.get("spatial_devices", 1) or 1)
-        shards = None
-        if sp_dev > 1:
+        sp_raw = eng_cfg.get("spatial_devices", 1) or 1
+        sp_2d = isinstance(sp_raw, (list, tuple))
+        sp_dev = 1 if sp_2d else int(sp_raw)
+        shards = blocks = None
+        nbr_table = eng_cfg.get("nbr_table")
+        if nbr_table is not None and (sp_2d or sp_dev > 1):
+            raise ValueError("engine.nbr_table: the slot neighbour table is "
+                             "the single-grid engine's (no spatial_devices)")
+        if sp_2d:
+            from .parallel.spatial2d import SpatialPackedEngine2D
+            shape = (int(sp_raw[0]), int(sp_raw[1]))
+            bad = {c["kind"] for c in cvs_cfg} - {
+                "lamellar", "msd", "steinhardt", "q6", "coordination",
+                "wte", "mesh"}
+            if bad:
+                raise ValueError(
+                    f"cv kinds {sorted(bad)} are not supported under the "
+                    "2-D decomposition yet")
+            pair_k, order_k = (eng_cfg.get("pair_pallas"),
+                               eng_cfg.get("order_pallas"))
+            devs = _spatial_devices(shape[0] * shape[1], device)
+            blocks = (devs, shape)
+            # with walkers: walkers x 2-D space, all W walkers on every
+            # shard (the reference's ``mpirun -n W*nx*ny --nrank W``)
+            engine = SpatialPackedEngine2D(
+                spec, devs, shape, nested=n_walkers > 1,
+                rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
+                with_energy=(want_energy
+                             or (pair_k is not None and not pair_k)),
+                order_pallas=order_k is None or bool(order_k))
+        elif sp_dev > 1:
             from .parallel.spatial import SpatialPackedEngine
             # the schema's pair_pallas: false is the reference's XLA pair
             # island, which computes the energy and virial on every force
@@ -467,10 +500,12 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
             engine = PackedEngine(
                 spec, device,
                 rebuild_every=int(eng_cfg.get("rebuild_every", 1)),
-                with_energy=want_energy)
+                with_energy=want_energy,
+                nbr_table=None if nbr_table is None else tuple(nbr_table))
         cvs, extra_attrs = _build_packed_cvs(cvs_cfg, spec, n, types,
                                              system.n_types, device, pos,
-                                             shards=shards, box_L=L)
+                                             shards=shards, box_L=L,
+                                             blocks=blocks)
         if fene is not None:
             if bonds is None:
                 raise ValueError("engine bonds (fene/bonds) need init "
@@ -525,11 +560,14 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
 
     # --- metadynamics ----------------------------------------------------
     grid = _grid_from_cfg(cvs_cfg, device)
-    _check_start_in_grid(cvs, cvs_cfg, grid, state, system)
+    if grid is not None:
+        _check_start_in_grid(cvs, cvs_cfg, grid, state, system)
     # restart_from_grid: seed the bias from a grid dump and keep depositing
     # (unlike --resume, the MD state starts fresh)
     initial_bias = None
     if "restart_from_grid" in mcfg:
+        if grid is None:
+            raise ValueError("restart_from_grid needs grid-mode CVs")
         initial_bias, _ = load_grid(mcfg["restart_from_grid"], device)
         lspec = initial_bias.grid.spec
         if tuple(lspec.shape) != tuple(grid.shape):
@@ -539,8 +577,22 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
                 and np.allclose(lspec.hi.cpu(), grid.hi.cpu())):
             raise ValueError("grid dump CV ranges differ from the config's "
                              "grid ranges")
-    walls = (WallSpec.at_grid_edges(grid, k=float(mcfg["wall_k"]))
-             if "wall_k" in mcfg else None)
+    walls = None
+    if "wall_k" in mcfg and grid is not None:
+        walls = WallSpec.at_grid_edges(grid, k=float(mcfg["wall_k"]))
+    elif "wall_k" in mcfg:
+        # hill-list mode: the walls from each CV's wall: {min, max}
+        if not all("wall" in c for c in cvs_cfg):
+            raise ValueError("wall_k without a grid needs wall: {min, max} "
+                             "on every cv")
+        import torch
+
+        def t(v):
+            return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+        walls = WallSpec(k=t([float(mcfg["wall_k"])] * len(cvs_cfg)),
+                         lo=t([float(c["wall"]["min"]) for c in cvs_cfg]),
+                         hi=t([float(c["wall"]["max"]) for c in cvs_cfg]))
     # resuming appends to the hill history instead of truncating it
     hill_overwrite = bool(out_cfg.get("overwrite", True)) and not resume
     # add_hills: false = a frozen-bias production run
@@ -548,6 +600,8 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
     bias_every = int(mcfg.get("bias_every", 1))
 
     if mode == "flux_tempered":
+        if grid is None:
+            raise ValueError("flux-tempered mode needs a CV grid")
         if not add_hills:
             raise ValueError(
                 "add_hills: false is a hill-deposition concept; flux-"
@@ -572,6 +626,8 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
     hills = HillSpec.create(W=float(mcfg["W"]), stride=int(mcfg["stride"]),
                             mode=mode, deltaT=float(mcfg.get("deltaT", 1.0)))
     if n_walkers > 1:
+        if grid is None:
+            raise ValueError("multi-walker mode needs a CV grid")
         if bool(mcfg.get("mts_lag", False)):
             print("note: metadynamics.mts_lag applies to single-replica "
                   "runs; multi-walker mode uses plain bias_every MTS",
@@ -590,6 +646,9 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
         initial_bias=initial_bias, integrator_factory=integ,
         seed=int(cfg.get("seed", 0)), hill_file=out_cfg.get("hill_file"),
         overwrite=hill_overwrite, walls=walls,
+        hill_sigma=([float(c.get("sigma", mcfg.get("sigma", 0.1)))
+                     for c in cvs_cfg] if grid is None else None),
+        hill_capacity=int(mcfg.get("hill_capacity", 4096)),
         chunks_per_block=int(cfg.get("chunks_per_block", 16)),
         add_hills=add_hills, bias_every=bias_every,
         mts_lag=_want_lag(mcfg, engine, cvs))
@@ -663,7 +722,9 @@ class CliRun:
 
     def dump_bias_grid(self, step=None) -> None:
         from .io.grid_file import dump_grid
-        if "grid_file" not in self.out:
+        # hill-list mode has no grid to dump
+        if "grid_file" not in self.out or not hasattr(self.sampler.bias,
+                                                      "grid"):
             return
         path = self.out["grid_file"]
         if step is not None and "{step}" in path:

@@ -15,6 +15,11 @@ walkers.WalkerSampler`` drives it: one kernel launch per force call for
 all W walkers, the repack check one device-to-host read per rebuild block
 for all of them, and the run-health flags and metrics per walker.
 
+With ``nbr_table=(r_nb, K)`` the engine keeps the slot neighbour table of
+the order CVs (``ops/neighbor_table.py``), built at init and rebuilt at
+every repack, in ``PackedAux.nbr``; the sampler's order-CV path reads it
+(``cv/packed_order.make_table_order_force``).
+
 The box may move (the NPT barostat rescales it on the device): the kernels
 read the cell matrix from device memory, and the check that the fixed
 cell grid still covers ``r_list`` (``cell_width_violation``) rides in the
@@ -22,7 +27,9 @@ repack check's read.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,9 +48,11 @@ class PackedAux:
     """Run-health flags, OR-accumulated on the device and read with the
     stride metrics."""
 
-    overflow: torch.Tensor  # () bool: capacity overflow or a lost particle
+    overflow: torch.Tensor  # () bool: capacity overflow, a lost particle
+    #                         or a full neighbour table
     stale: torch.Tensor     # () bool: half-skin violation
     # (W,) each for a walker batch
+    nbr: Optional[torch.Tensor] = None  # (K, Npad) i32 slot neighbour table
 
     @classmethod
     def create(cls, device, lead: tuple = ()) -> "PackedAux":
@@ -68,7 +77,10 @@ class PackedEngine:
         """``with_energy=True`` makes every force call accumulate the
         energy and virial (default: only the stride-end refresh does).
         ``always_repack=True`` repacks at every rebuild boundary (a test
-        hook that makes repack timing deterministic)."""
+        hook that makes repack timing deterministic).  ``nbr_table=(r_nb,
+        K)`` keeps the slot neighbour table (K a multiple of 8, as the
+        reference asks; r_nb within the smallest cell width, checked at
+        init; orthorhombic boxes, one walker at a time)."""
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -81,8 +93,11 @@ class PackedEngine:
         elif self.device.type != "cpu":
             raise ValueError(f"PackedEngine: unsupported device {self.device}")
         if nbr_table is not None:
-            raise NotImplementedError("PackedEngine: the slot neighbour table "
-                                      "(nbr_table) is not ported yet")
+            nbr_table = (float(nbr_table[0]), int(nbr_table[1]))
+            if nbr_table[1] % 8:
+                raise ValueError("nbr_table: K should be sublane-aligned "
+                                 "(multiple of 8)")
+        self.nbr_table = nbr_table
         self.spec = spec
         self.rebuild_every = rebuild_every
         self.mass = mass
@@ -109,7 +124,35 @@ class PackedEngine:
     def init(self, state: PackedState):
         w = batch_size(state)
         aux = PackedAux.create(self.device, () if w is None else (w,))
+        if self.nbr_table is not None:
+            if w is not None:
+                raise ValueError("nbr_table: the slot neighbour table takes "
+                                 "one walker at a time")
+            self._check_table_box(state)
+            tbl, ovf = self._build_table(state)
+            aux = PackedAux(overflow=ovf, stale=aux.stale, nbr=tbl)
         return self.force_into(state, aux), aux
+
+    def _check_table_box(self, state: PackedState) -> None:
+        """The reference's checks of the table: an orthorhombic box, and
+        r_nb within the smallest cell width (the 27-cell stencil holds
+        every pair within r_nb); one host read of L at init."""
+        if state.box.tilt is not None:
+            raise ValueError("the slot neighbor table uses orthorhombic "
+                             "minimum image; triclinic runs stay on the "
+                             "cell-sweep path")
+        r_nb = self.nbr_table[0]
+        L = state.box.L.detach().cpu().numpy().astype(np.float64)
+        min_width = min(float(l) / c
+                        for l, c in zip(L, self.spec.cells_per_dim))
+        if r_nb > min_width + 1e-6:
+            raise ValueError(f"nbr_table radius {r_nb} exceeds the stencil "
+                             f"guarantee (min cell width {min_width:.3f})")
+
+    def _build_table(self, state: PackedState):
+        from ..ops.neighbor_table import build_slot_neighbor_table
+        r_nb, K = self.nbr_table
+        return build_slot_neighbor_table(state, self.spec, r_nb, K)
 
     def rebuild(self, state: PackedState, aux: PackedAux):
         # forces travel with the slots, so a migration needs no new force
@@ -117,7 +160,14 @@ class PackedEngine:
             return self._rebuild_walkers(state, aux)
         if self.always_repack or self._repack_flags(state):
             state, bad = self._repack_one(state)
-            aux = PackedAux(overflow=aux.overflow | bad, stale=aux.stale)
+            aux = dataclasses.replace(aux, overflow=aux.overflow | bad)
+            if self.nbr_table is not None:
+                # the slots moved, so the table's indices are void: rebuild
+                # it (r_nb ≥ cut-off + skin keeps it complete until the
+                # next half-skin trigger)
+                tbl, ovf = self._build_table(state)
+                aux = dataclasses.replace(aux, overflow=aux.overflow | ovf,
+                                          nbr=tbl)
         return state, aux
 
     def cell_width_violation(self, state: PackedState) -> torch.Tensor:
@@ -164,8 +214,8 @@ class PackedEngine:
         for w in todo:
             parts[w], bad_w = self._repack_one(walker(state, w))
             bad[w] = bad_w
-        return stack_walkers(parts), PackedAux(overflow=aux.overflow | bad,
-                                               stale=aux.stale)
+        return stack_walkers(parts), dataclasses.replace(
+            aux, overflow=aux.overflow | bad)
 
     def _repack_one(self, state: PackedState):
         return repack_incremental(state, self.spec)

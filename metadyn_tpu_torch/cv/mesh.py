@@ -11,6 +11,13 @@ with u(k) a Gaussian window around |k₀| at the current box's wave vectors
 comes from autograd through the assignment weights.  ``cv/packed.
 PackedMesh`` uses the same stencils, scatter and window
 (:func:`axis_stencil`, :func:`assign`, :func:`window`).
+
+The scatter of :func:`assign` sums in 64-bit fixed point
+(:class:`FixedPointScatter`): integer additions give the same bits in any
+order, where a float ``index_add``'s atomic adds on a GPU land in a
+different order on every call, so ρ, S(k) and a whole trajectory would
+differ in their last bits from run to run.  The sharded mesh CVs
+(``parallel/mesh.py``, ``parallel/mesh2d.py``) sum with it too.
 """
 from __future__ import annotations
 
@@ -24,6 +31,34 @@ import torch
 
 from ..core.box import fractional, reciprocal_matrix
 from ..core.state import State, System
+
+
+# the fixed-point scale of the deterministic scatter: a step of 2^-40
+# (9e-13) against |rho| up to 2^23, far below the f32 rounding of rho
+_FIXED = 2.0 ** 40
+
+
+class FixedPointScatter(torch.autograd.Function):
+    """rho (size,) = the sum of ``val`` at ``idx``, added as 64-bit
+    integers of ``val`` · 2^40: integer additions give the same bits in any
+    order, where ``index_add``'s float atomic adds on a GPU land in a
+    different order every call.  The backward is ``index_add``'s: the
+    gradient at each entry's node."""
+
+    @staticmethod
+    def forward(ctx, idx, val, size: int):
+        ctx.save_for_backward(idx)
+        # scaling by a power of 2 is exact in val's own precision, so the
+        # integers are those of a float64 product, without its copy
+        q = torch.round(val * _FIXED).to(torch.int64)
+        acc = torch.zeros(size, dtype=torch.int64, device=val.device)
+        return (acc.index_add_(0, idx, q).double() / _FIXED).to(
+            torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        return None, grad[idx], None
 
 
 def axis_stencil(f: torch.Tensor, order: int):
@@ -52,7 +87,8 @@ def assign(frac, w: torch.Tensor, mesh_shape: tuple, order: int,
            spread: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The flat mesh density (nx·ny·nz,) of weights ``w`` (N,) at
     fractional coordinates ``frac`` (three (N,) tensors in [−½, ½)), all
-    stencil entries in one ``index_add``.
+    stencil entries in one deterministic scatter
+    (:class:`FixedPointScatter`).
 
     An entry of weight 0 adds nothing, but zero-weight entries that sit
     together (the vacant slots of the packed layout) would all land on one
@@ -78,9 +114,8 @@ def assign(frac, w: torch.Tensor, mesh_shape: tuple, order: int,
                 idx.append(torch.where(live, (ix * ny + iy) * nz + iz,
                                        spread))
                 val.append(w * wx * wy * wz)
-    idx, val = torch.cat(idx), torch.cat(val)
-    return torch.zeros(nx * ny * nz, dtype=torch.float32,
-                       device=w.device).index_add(0, idx, val)
+    return FixedPointScatter.apply(torch.cat(idx), torch.cat(val),
+                                   nx * ny * nz)
 
 
 def power(rho_flat: torch.Tensor, mesh_shape: tuple) -> torch.Tensor:

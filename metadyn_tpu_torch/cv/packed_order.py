@@ -41,8 +41,8 @@ one-dimensional tensors where the reference has tuples of scalars, and its
 ``terms`` structure: (re (l+1,), im (l+1,), n_b) for Q_l, a 1-tuple for
 coordination.
 
-Not ported (it raises NotImplementedError): :func:`make_table_order_force`,
-which needs the slot neighbour table.
+:func:`make_table_order_force` is the neighbour-table path: the same CV
+math on the pairs of the slot neighbour table (``ops/neighbor_table.py``).
 """
 from __future__ import annotations
 
@@ -596,8 +596,49 @@ def make_fused_order_force(cvs, spec: PackedSpec):
     return values_fn, force_fn
 
 
+def _table_pairs(state: PackedState, spec: PackedSpec, tbl: torch.Tensor):
+    """The pair geometry over the slot neighbour table (``ops/
+    neighbor_table.py``): dx (3, K, Npad), r2 (K, Npad) and the weight w
+    (K, Npad), 1 on the table's pairs and 0 on its vacant entries;
+    minimum-imaged per axis (r_nb < L/2, orthorhombic)."""
+    rp = torch.cat([state.r, torch.zeros((3, 1), dtype=state.r.dtype,
+                                         device=state.r.device)], dim=1)
+    dx = state.r[:, None, :] - rp[:, tbl.long()]
+    Lb = state.box.L[:, None, None]
+    dx = dx - Lb * torch.round(dx / Lb)
+    r2 = dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]
+    return dx, r2, (tbl < spec.n_pad).to(torch.float32)
+
+
 def make_table_order_force(cvs, spec: PackedSpec):
-    """The neighbour-table twin of :func:`make_fused_order_force`: not
-    ported (the slot neighbour table ``nbr_table`` is not)."""
-    raise NotImplementedError("the neighbour-table order-CV path is not "
-                              "ported (nbr_table is not)")
+    """The neighbour-table twin of :func:`make_fused_order_force`: the
+    cell sweeps mask every (cap, cap) pair of the 27 neighbour cells, the
+    table path gathers only the real pairs (the reference's ``:572``, XLA
+    gathers there, PyTorch's here on every device).
+
+    Returns ``(values_fn, force_fn)``:
+      values_fn(state, tbl) -> (s_stack, terms)
+      force_fn(state, tbl, terms, dVds) -> (3, Npad) bias force
+    The full table lists each unordered pair from both sides with weight 1:
+    the same ordered-pair totals as the halved sweep's weight 2, and each
+    slot sums only its own side, so ``grad_aux``'s parity factor holds
+    unchanged."""
+    cvs = list(cvs)
+
+    def values_fn(state, tbl):
+        dx, r2, w = _table_pairs(state, spec, tbl)
+        terms = tuple(cv.pair_value_terms(dx[0], dx[1], dx[2], r2, w)
+                      for cv in cvs)
+        s = torch.stack([cv.finalize_value(t) for cv, t in zip(cvs, terms)])
+        return s, terms
+
+    def force_fn(state, tbl, terms, dVds):
+        dx, r2, w = _table_pairs(state, spec, tbl)
+        gx = gy = gz = 0.0
+        for i, (cv, t) in enumerate(zip(cvs, terms)):
+            aux = cv.grad_aux(t, dVds[i])
+            ax, ay, az = cv.pair_grad_terms(dx[0], dx[1], dx[2], r2, aux)
+            gx, gy, gz = gx + ax, gy + ay, gz + az
+        return torch.stack([torch.sum(w * g, dim=0) for g in (gx, gy, gz)])
+
+    return values_fn, force_fn

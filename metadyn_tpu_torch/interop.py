@@ -22,8 +22,10 @@ or particle-order, ↔ the port's walker batch (``walker_state_from``,
 boxes differ).  The box CVs: ``MSD`` (its reference positions),
 ``PackedMSD`` (its reference positions are the ``msd_*`` attrs of the
 state, ``cv.packed.msd_reference_attrs``) and ``AspectRatio``; the slab
-engine's mesh CV ``ShardedPackedMesh`` (its coefficients are the state's
-``mesh_<name>`` attr, as the single-grid ``PackedMesh``'s).
+engine's mesh CV ``ShardedPackedMesh`` and the 2-D blocks' pencil-FFT
+``ShardedPackedMesh2D`` (their coefficients are the state's
+``mesh_<name>`` attr, as the single-grid ``PackedMesh``'s); the hill-list
+bias ``HillListBias``.
 """
 from __future__ import annotations
 
@@ -203,6 +205,33 @@ def sharded_mesh_arrays(cv) -> dict:
     return {"k0": cv.k0, "width": cv.width, "mesh_shape": cv.mesh_shape,
             "n_real": cv.n_real, "halo": cv.halo, "name": cv.name,
             "assign_order": cv.assign_order}
+
+
+def sharded_mesh2d_from(obj, spec: PackedSpec, devices, shape):
+    """The reference's ``ShardedPackedMesh2D`` on the port's (n_x, n_y)
+    blocks of ``devices`` (its per-axis halo kept; its coefficients are the
+    state's ``mesh_<name>`` attr)."""
+    from .parallel.mesh2d import ShardedPackedMesh2D
+    return ShardedPackedMesh2D(tuple(obj.mesh_shape), spec, devices, shape,
+                               obj.n_real, obj.k0, width=obj.width,
+                               halo=tuple(obj.halo), name=obj.name,
+                               assign_order=obj.assign_order)
+
+
+def hill_list_from(obj, device):
+    """The reference's ``HillListBias`` (buffer, widths, count, overflow
+    flag and spill grid) on ``device``."""
+    from .bias.hill_list import HillListBias
+    spill = None
+    if obj.spill is not None:
+        spill = BiasGrid(spec=grid_spec_from(obj.spill.spec, device),
+                         V=_t(obj.spill.V, device),
+                         dV=_t(obj.spill.dV, device))
+    return HillListBias(
+        centers=_t(obj.centers, device), heights=_t(obj.heights, device),
+        sigma=_t(obj.sigma, device),
+        n_hills=_t(np.asarray(obj.n_hills, np.int32), device),
+        overflowed=_t(np.asarray(obj.overflowed, bool), device), spill=spill)
 
 
 def packed_msd_from(obj) -> PackedMSD:

@@ -16,10 +16,13 @@ import numpy as np
 
 class HillLog:
     def __init__(self, path: str, sampler, overwrite: bool = False):
-        """``sampler`` gives the widths (``grid_spec.sigma``) and the CV
-        names (``cvs[i].log_name``)."""
+        """``sampler`` gives the widths (``grid_spec.sigma``, or in
+        hill-list mode the buffer's ``bias.sigma``) and the CV names
+        (``cvs[i].log_name``)."""
         self.path = path
-        self._sigma = np.asarray(sampler.grid_spec.sigma.cpu())
+        sigma = (sampler.grid_spec.sigma if sampler.grid_spec is not None
+                 else sampler.bias.sigma)
+        self._sigma = np.asarray(sigma.cpu())
         names = [cv.log_name for cv in sampler.cvs]
         if overwrite or not os.path.exists(path):
             with open(path, "w") as f:

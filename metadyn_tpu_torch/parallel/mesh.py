@@ -16,7 +16,7 @@ Per shard k (its device ``devices[k]``; shards may share one):
    vacant ones) go to node j mod M of their slot j, not to one node (at
    Config 5's 1M beads the piled scatter took most of the device time,
    ``cv/mesh.assign``).  The scatter sums in 64-bit fixed point
-   (:class:`_FixedPointScatter`), so its result does not depend on the
+   (``cv/mesh.FixedPointScatter``), so its result does not depend on the
    order in which a GPU's atomic adds land: a resumed run repeats the
    straight one bit for bit.
 2. **Halo fold.**  Each halo block is added into the ring neighbour's
@@ -47,34 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.state import System
-from ..cv.mesh import axis_stencil
+from ..cv.mesh import FixedPointScatter, axis_stencil
 from ..ops.packed import PackedSpec, PackedState
-
-
-# the fixed-point scale of the deterministic scatter: a step of 2^-40
-# (9e-13) against |rho| up to 2^23, far below the f32 rounding of rho
-_FIXED = 2.0 ** 40
-
-
-class _FixedPointScatter(torch.autograd.Function):
-    """rho (size,) = the sum of ``val`` at ``idx``, added as 64-bit
-    integers of ``val`` · 2^40: integer additions give the same bits in any
-    order, where ``index_add``'s float atomic adds on a GPU land in a
-    different order every call.  The backward is ``index_add``'s: the
-    gradient at each entry's node."""
-
-    @staticmethod
-    def forward(ctx, idx, val, size: int):
-        ctx.save_for_backward(idx)
-        q = torch.round(val.double() * _FIXED).to(torch.int64)
-        acc = torch.zeros(size, dtype=torch.int64, device=val.device)
-        return (acc.index_add_(0, idx, q).double() / _FIXED).to(
-            torch.float32)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (idx,) = ctx.saved_tensors
-        return None, grad[idx], None
 
 
 class ShardedPackedMesh:
@@ -196,7 +170,7 @@ class ShardedPackedMesh:
                     idx.append(torch.where(inside, (lx * ny + iy) * nz + iz,
                                            spread))
                     val.append(torch.where(inside, w * wx * wy * wz, 0.0))
-        rho = _FixedPointScatter.apply(torch.cat(idx), torch.cat(val),
+        rho = FixedPointScatter.apply(torch.cat(idx), torch.cat(val),
                                        nx_e * ny * nz)
         return rho.reshape(nx_e, ny, nz)
 

@@ -64,8 +64,9 @@ walkers.py`` on the slab engine) the pair-force island and the migration
 take a walker batch: every shard's extended grid holds all W walkers,
 each in its own box, and kernel 1 runs once per shard for the whole
 batch.  The distributed mesh CV on the same slabs is ``parallel/
-mesh.ShardedPackedMesh``.  Not ported: the 2-D decomposition
-(``spatial2d.py``, ROADMAP.md queue 1 item 9).
+mesh.ShardedPackedMesh``.  The 2-D decomposition (``parallel/
+spatial2d.py``) runs these islands on its blocks through their
+``geometry`` argument: a ``Blocks`` in place of :class:`Slabs`.
 """
 from __future__ import annotations
 
@@ -114,6 +115,8 @@ class Slabs:
         self.C_e = (self.cx_l + 2) * self.plane
         self.spec_ext = dataclasses.replace(
             spec, cells_per_dim=(self.cx_l + 2, cy, cz))
+        self.ext_dims = (self.cx_l + 2, cy, cz)
+        self.loc_dims = (self.cx_l, cy, cz)
         self.planes = []
         self.interior = []
         for k, dev in enumerate(self.devices):
@@ -149,6 +152,24 @@ class Slabs:
             if image_row is not None:
                 ext[..., image_row, :, -1, :] -= 1.0
         return ext.reshape(*lead, R, -1).to(self.devices[k])
+
+    # the sharded cell axes: x
+    sharded = (0,)
+
+    def local_cells(self, f3: torch.Tensor, k: int) -> tuple:
+        """The cells of fractional rows ``f3`` (3, …) in shard k's frame:
+        the extended-local x plane (interior 1 .. cx_l), y and z clamped."""
+        cx, cy, cz = self.spec.cells_per_dim
+        lx = (torch.floor((f3[0] + 0.5) * cx).to(torch.int32)
+              - k * self.cx_l + 1)
+        return (lx,) + tuple(
+            torch.clamp(torch.floor((f3[a] + 0.5) * c).to(torch.int32),
+                        0, c - 1) for a, c in ((1, cy), (2, cz)))
+
+    @staticmethod
+    def seam_lengths(box):
+        """The box lengths :meth:`extend` shifts by across the seam: Lx."""
+        return box.L[..., 0]
 
     def interior_of(self, ext: torch.Tensor) -> torch.Tensor:
         """(…, cap·C_e) → the interior planes, (…, cap, cx_l, plane)."""
@@ -188,7 +209,7 @@ class Slabs:
                                  for n in attrs], dim=-2)
         out = []
         for k in range(self.n_dev):
-            ext = self.extend(cols, k, state.box.L[..., 0])
+            ext = self.extend(cols, k, self.seam_lengths(state.box))
             shape, dev = ext[..., 0, :].shape, ext.device
             r = ext[..., :3, :].contiguous()
             i = 3
@@ -227,15 +248,17 @@ def _force_columns(spec: PackedSpec, plain: bool) -> dict:
 
 
 def make_sharded_lj_force(spec: PackedSpec, devices: Sequence,
-                          with_energy: bool = False):
+                          with_energy: bool = False, geometry=None):
     """``force(state) -> state`` with the cell grid cut into x-slabs.
 
     Each shard runs kernel 1 (``packed_lj_force_cuda``) on its extended
     grid and keeps its interior rows.  ``with_energy``: the energy and
     virial too, each shard's under the interior mask, summed over the
     shards in order (the reference's XLA island, ``:270-278``); without,
-    they keep their old values (the inner-step mode)."""
-    slabs = Slabs(spec, devices)
+    they keep their old values (the inner-step mode).  ``geometry``: the
+    shards' halo geometry, :class:`Slabs` of ``devices`` by default (the
+    2-D decomposition passes its ``spatial2d.Blocks``)."""
+    slabs = geometry or Slabs(spec, devices)
 
     def force(state: PackedState) -> PackedState:
         cols = _force_columns(spec, state.r.device.type == "cpu")
@@ -270,7 +293,8 @@ def _order_columns(state: PackedState, spec: PackedSpec,
                 attrs=("se", "hs") if pair and plain else ())
 
 
-def make_sharded_order_parts(cvs, spec: PackedSpec, devices: Sequence):
+def make_sharded_order_parts(cvs, spec: PackedSpec, devices: Sequence,
+                             geometry=None):
     """The fused order-CV path's ``(values_fn, force_fn)`` (the contract of
     ``cv.packed_order.make_fused_order_force``) on the slabs:
 
@@ -279,9 +303,9 @@ def make_sharded_order_parts(cvs, spec: PackedSpec, devices: Sequence):
 
     The value sums weight every ordered pair by its i cell's interior mask
     and add over the shards; the bias force keeps each shard's interior
-    rows."""
+    rows.  ``geometry``: as in :func:`make_sharded_lj_force`."""
     cvs = list(cvs)
-    slabs = Slabs(spec, devices)
+    slabs = geometry or Slabs(spec, devices)
 
     def values_fn(state: PackedState):
         terms = None
@@ -359,55 +383,66 @@ def make_sharded_lagged_parts(cvs, spec: PackedSpec, devices: Sequence,
 class _RepackTables:
     """Static tables of the 27-offset assignment on one extended grid."""
 
-    tgt_x: torch.Tensor    # (27, C_e) i32 extended-local x plane of c + o
-    tgt_y: torch.Tensor    # (27, C_e) i32 y of c + o (periodic)
-    tgt_z: torch.Tensor    # (27, C_e) i32 z of c + o (periodic)
-    in_int: torch.Tensor   # (27, C_e) bool: c + o on an interior plane
+    tgt: torch.Tensor      # (3, 27, C_e) i32 cell of c + o: extended-local
+    #                        on a sharded axis, periodic on a whole one
+    in_int: torch.Tensor   # (27, C_e) bool: c + o in the interior
     dest: torch.Tensor     # (27, C_e) i64 interior linear cell of c + o (0
     #                        off the interior)
     src: torch.Tensor      # (27, C_l) i64 extended linear cell of d − o
 
 
-def _repack_tables(slabs: Slabs, device) -> _RepackTables:
-    cx_e, (_, cy, cz) = slabs.cx_l + 2, slabs.spec.cells_per_dim
-    ex, ey, ez = np.unravel_index(np.arange(slabs.C_e), (cx_e, cy, cz))
+def _repack_tables(geom, device) -> _RepackTables:
+    """The tables of ``geom`` (:class:`Slabs`, or the 2-D decomposition's
+    ``Blocks``): an axis in ``geom.sharded`` has one ghost plane per side
+    and an interior 1 .. n_l; a whole axis wraps periodically."""
+    ext, loc = geom.ext_dims, geom.loc_dims
+    e = np.unravel_index(np.arange(int(np.prod(ext))), ext)
+    d = np.unravel_index(np.arange(int(np.prod(loc))), loc)
     o = np.asarray(OFFSETS, np.int64)
-    ox, oy, oz = o[:, 0, None], o[:, 1, None], o[:, 2, None]
-    tx, ty, tz = ex[None] + ox, (ey[None] + oy) % cy, (ez[None] + oz) % cz
-    in_int = (tx >= 1) & (tx <= slabs.cx_l)
-    dest = np.where(in_int, ((tx - 1) * cy + ty) * cz + tz, 0)
-    dx, dy, dz = np.unravel_index(np.arange(slabs.C_l), (slabs.cx_l, cy, cz))
-    src = ((dx[None] + 1 - ox) * cy + (dy[None] - oy) % cy) * cz \
-        + (dz[None] - oz) % cz
+    tgt, in_int, dest, src = [], True, 0, 0
+    for a in range(3):
+        h = 1 if a in geom.sharded else 0
+        t_a = e[a][None] + o[:, a, None]
+        s_a = d[a][None] + h - o[:, a, None]
+        if h:
+            in_int = in_int & (t_a >= 1) & (t_a <= loc[a])
+        else:
+            t_a, s_a = t_a % loc[a], s_a % loc[a]
+        tgt.append(t_a)
+        dest = dest * loc[a] + (t_a - h)
+        src = src * ext[a] + s_a
+    dest = np.where(in_int, dest, 0)
 
     def t(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
 
-    return _RepackTables(t(tx, torch.int32), t(ty, torch.int32),
-                         t(tz, torch.int32), t(in_int, torch.bool),
+    return _RepackTables(t(np.stack(tgt), torch.int32), t(in_int, torch.bool),
                          t(dest, torch.int64), t(src, torch.int64))
 
 
-def make_sharded_repack(spec: PackedSpec, devices: Sequence):
+def make_sharded_repack(spec: PackedSpec, devices: Sequence, geometry=None):
     """``repack(state) -> (state, bad)``: slot migration with ghost-plane
     ownership hand-off, no global repack (the reference's ``:601-810``).
 
-    y and z wrap first (elementwise); then every column (positions,
-    velocities, forces, images, pid + 1 with 0 for vacant, type and every
-    attr, the held bias force of the lagged path among them) is extended by
-    one ghost plane per side, the x row shifted across the seam with the
-    paired image adjustment.  Each shard runs the 27-offset sort-free
-    assignment on its extended grid and keeps only arrivals into its
-    interior: a particle leaving a shard lands in its neighbour's ghost
-    plane and is claimed by the neighbour's interior.  The arrival ranking
-    is the single-device one (offset, then source column, then rank), so
-    the slot assignment equals ``ops.packed.repack_incremental``'s bit for
-    bit.  ``bad`` (a device bool) is True iff the particle count changed
-    (a particle moved more than one cell, or a cell overflowed)."""
-    slabs = Slabs(spec, devices)
+    The whole axes (y and z of the slabs) wrap first (elementwise); then
+    every column (positions, velocities, forces, images, pid + 1 with 0 for
+    vacant, type and every attr, the held bias force of the lagged path
+    among them) is extended by one ghost plane per side of each sharded
+    axis, the coordinate row shifted across the seam with the paired image
+    adjustment.  Each shard runs the 27-offset sort-free assignment on its
+    extended grid and keeps only arrivals into its interior: a particle
+    leaving a shard lands in its neighbour's ghost plane and is claimed by
+    the neighbour's interior.  The arrival ranking is the single-device one
+    (offset, then source column, then rank), so the slot assignment equals
+    ``ops.packed.repack_incremental``'s bit for bit.  ``bad`` (a device
+    bool) is True iff the particle count changed (a particle moved more
+    than one cell, or a cell overflowed).  ``geometry``: as in
+    :func:`make_sharded_lj_force` (the 2-D blocks shard x and y, so only z
+    wraps first, and x and y in transit)."""
+    slabs = geometry or Slabs(spec, devices)
     tables = [_repack_tables(slabs, d) for d in slabs.devices]
-    cap, (cx, cy, cz) = spec.cap, spec.cells_per_dim
+    cap = spec.cap
     n_pad_l = cap * slabs.C_l
 
     def assign(ext: torch.Tensor, k: int, box) -> torch.Tensor:
@@ -416,14 +451,9 @@ def make_sharded_repack(spec: PackedSpec, devices: Sequence):
         tab = tables[k]
         valid2 = (ext[12] > 0).reshape(1, cap, slabs.C_e)
         f3 = _frac3(ext[:3], box).reshape(3, 1, cap, slabs.C_e)
-        lx = (torch.floor((f3[0] + 0.5) * cx).to(torch.int32)
-              - k * slabs.cx_l + 1)
-        ny = torch.clamp(torch.floor((f3[1] + 0.5) * cy).to(torch.int32),
-                         0, cy - 1)
-        nz = torch.clamp(torch.floor((f3[2] + 0.5) * cz).to(torch.int32),
-                         0, cz - 1)
-        m = (valid2 & tab.in_int[:, None] & (lx == tab.tgt_x[:, None])
-             & (ny == tab.tgt_y[:, None]) & (nz == tab.tgt_z[:, None]))
+        m = valid2 & tab.in_int[:, None]
+        for a, cell in enumerate(slabs.local_cells(f3, k)):
+            m = m & (cell == tab.tgt[a][:, None])
         m_i = m.to(torch.int32)                          # (27, cap, C_e)
         grp_rank = torch.cumsum(m_i, dim=1, dtype=torch.int32) - m_i
         col_cnt = m_i.sum(dim=1, dtype=torch.int32)      # (27, C_e)
@@ -440,11 +470,13 @@ def make_sharded_repack(spec: PackedSpec, devices: Sequence):
     def repack(state: PackedState):
         box = state.box
         names = sorted(state.attrs.keys())
-        # wrap y and z now (a y or z wrap leaves the fractional x, and so
-        # the slab, unchanged); x wraps in transit across the seam
+        # wrap the whole axes now (such a wrap leaves the fractional
+        # coordinates of the sharded axes, and so the shard, unchanged);
+        # the sharded axes wrap in transit across the seam
         fr = _frac3(state.r, box)
         shv = torch.floor(fr + 0.5)
-        shv[0] = 0.0
+        for a in slabs.sharded:
+            shv[a] = 0.0
         r = state.r - _cart3(shv, box)
         im = state.image.to(torch.float32) + shv
         valid = state.pid < spec.n_real
@@ -453,10 +485,10 @@ def make_sharded_repack(spec: PackedSpec, devices: Sequence):
             torch.where(valid, state.pid + 1, 0).to(torch.float32)[None],
             state.typ.to(torch.float32)[None],
             *(state.attrs[k].to(torch.float32)[None] for k in names)])
-        Lx = box.L[0]
+        seam = slabs.seam_lengths(box)
         parts = []
         for k in range(slabs.n_dev):
-            ext = slabs.extend(cols, k, Lx, image_row=9)
+            ext = slabs.extend(cols, k, seam, image_row=9)
             slot = assign(ext, k, box.to(slabs.devices[k]))
             out = torch.zeros((n_pad_l + 1, ext.shape[0]),
                               dtype=torch.float32, device=ext.device)
@@ -466,11 +498,16 @@ def make_sharded_repack(spec: PackedSpec, devices: Sequence):
         r_n = out[0:3]
         im_n = out[9:12]
         valid_new = out[12] > 0
-        # x of the migrated seam particles: the paired image update keeps
-        # unwrapped coordinates exact (a1 = (Lx, 0, 0) in any box)
-        shx = torch.floor(_frac3(r_n, box)[0] + 0.5)
-        r_n = torch.stack([r_n[0] - Lx * shx, r_n[1], r_n[2]])
-        im_n = torch.stack([im_n[0] + shx, im_n[1], im_n[2]])
+        # the sharded coordinates of the migrated seam particles: the paired
+        # image update keeps unwrapped coordinates exact (a1 = (Lx, 0, 0)
+        # in any box; the blocks' a2 = (0, Ly, 0) in their orthorhombic one)
+        f_n = _frac3(r_n, box)
+        r_rows, im_rows = list(r_n.unbind(0)), list(im_n.unbind(0))
+        for a in slabs.sharded:
+            sh = torch.floor(f_n[a] + 0.5)
+            r_rows[a] = r_rows[a] - box.L[a] * sh
+            im_rows[a] = im_rows[a] + sh
+        r_n, im_n = torch.stack(r_rows), torch.stack(im_rows)
         if spec.uniform_eps is not None:
             r_n = torch.where(valid_new[None, :], r_n, VACANT_X)
         pid_n = torch.where(valid_new, out[12] - 1.0,

@@ -38,11 +38,13 @@ stride's hill record (step, centre, height) is its ``step``, ``cv`` and
 generator's state included (``io/checkpoint.py``): a resumed run repeats
 the straight one bit for bit.
 
-Ported: grid mode with analytic-force CVs (the energy CVs of the
+Ported: grid mode and the reference's hill-list mode (``grid_spec=None``:
+``bias/hill_list.py``, the hills in a buffer on the device, with an
+optional spill grid), analytic-force CVs (the energy CVs of the
 well-tempered ensemble among them), the autograd path (the packed mesh CV
-and every particle-order CV) and the fused order-CV path, with and without
-``mts_lag``.  Hill-list mode and the table order-CV path raise
-NotImplementedError.
+and every particle-order CV), the fused order-CV path, with and without
+``mts_lag``, and its neighbour-table twin where the engine keeps a slot
+neighbour table (``PackedEngine(nbr_table=...)``).
 
 The CV functions here take one walker's state or a walker batch
 (``core/batch.py``) where the engine and the CVs do: the stacked CV values
@@ -60,10 +62,11 @@ from .bias.metad import (
     BiasState, HillRecord, HillSpec, WallSpec, bias_value_and_grad, deposit,
     free_energy,
 )
-from .bias.grid import GridSpec
+from .bias.grid import BiasGrid, GridSpec
+from .bias.hill_list import HillListBias, evaluate_on_grid
 from .core.engine import EngineAux
 from .core.state import System, temperature
-from .cv.packed_order import make_fused_order_force
+from .cv.packed_order import make_fused_order_force, make_table_order_force
 from .io.checkpoint import load_checkpoint, save_checkpoint
 from .io.hill_log import HillLog
 from .ops.packed_fused_cuda import fused_lj_order_force_cuda
@@ -73,7 +76,7 @@ from .utils.profiling import phase
 @dataclass
 class SamplerCarry:
     state: object
-    bias: BiasState
+    bias: object  # BiasState, or HillListBias in hill-list mode
     aux: object
     generator: torch.Generator
     step: int  # global step counter (host)
@@ -127,7 +130,7 @@ def cv_stack(cvs, state, system: System) -> torch.Tensor:
     return torch.stack([cv.value(state, system) for cv in cvs], dim=-1)
 
 
-def _grad_with_walls(bias: BiasState, s: torch.Tensor,
+def _grad_with_walls(bias, s: torch.Tensor,
                      walls: Optional[WallSpec]) -> torch.Tensor:
     """∂V/∂s of the bias, plus the walls' gradient."""
     _, dVds = bias_value_and_grad(bias, s)
@@ -161,7 +164,23 @@ def make_bias_force_parts(engine, cvs, system: System,
             "the energy accumulation. Construct it with with_energy=True.")
     fused = (len(cvs) > 0 and hasattr(engine, "spec")
              and all(hasattr(cv, "pair_value_terms") for cv in cvs))
-    if fused:
+    # the neighbour-table path: the engine keeps a (K, Npad) slot neighbour
+    # table (PackedEngine(nbr_table=...)) and the sweeps gather its pairs
+    table = fused and getattr(engine, "nbr_table", None) is not None
+    if table:
+        r_nb, _ = engine.nbr_table
+        for cv in cvs:
+            rc = getattr(cv, "r_cut", None)
+            if rc is None:
+                raise AssertionError(
+                    f"CV {cv.name}: the neighbor-table path needs an "
+                    "explicit r_cut (set PackedCoordination(r_cut=...))")
+            if rc + engine.spec.skin > r_nb + 1e-6:
+                raise AssertionError(
+                    f"CV {cv.name}: r_cut {rc} + skin {engine.spec.skin} "
+                    f"exceeds the table radius {r_nb}")
+        tbl_values, tbl_force = make_table_order_force(cvs, engine.spec)
+    if fused and not table:
         # a slab engine gives the sweeps as islands on its extended grids
         # (parallel.spatial.make_sharded_order_parts): the same contract
         sharded = (engine.make_order_parts(list(cvs))
@@ -174,6 +193,10 @@ def make_bias_force_parts(engine, cvs, system: System,
                if hasattr(cv, "bias_virial")]
 
     def eval_bias(state, aux, bias):
+        if table:
+            s, terms = tbl_values(state, aux.nbr)
+            dVds = _grad_with_walls(bias, s, walls)
+            return tbl_force(state, aux.nbr, terms, dVds), dVds, s
         if fused:
             s, ctx = fused_values(state)
             dVds = _grad_with_walls(bias, s, walls)
@@ -360,13 +383,18 @@ def make_stride_chunk(
                 rec = HillRecord(step=new_step, center=s,
                                  height=torch.zeros((), device=s.device))
         V, _ = bias_value_and_grad(new_bias, s)
-        spec = new_bias.grid.spec
+        if isinstance(new_bias, HillListBias):
+            # list mode has no bounds: the buffer's overflow instead
+            oob = new_bias.overflowed
+        else:
+            spec = new_bias.grid.spec
+            oob = torch.any((s < spec.lo) | (s > spec.hi))
         metrics = {
             "step": new_step,
             "cv": s,
             "bias_V": V,
             "hill_height": rec.height,
-            "cv_out_of_grid": torch.any((s < spec.lo) | (s > spec.hi)),
+            "cv_out_of_grid": oob,
             **engine.metrics(state, aux),
         }
         return (SamplerCarry(state, new_bias, aux, carry.generator, new_step,
@@ -460,7 +488,7 @@ def _metrics_to_host(metrics: list) -> list:
 
 
 class MetadSampler:
-    """User-facing entry point mirroring ``mode_metadynamics`` (grid mode).
+    """User-facing entry point mirroring ``mode_metadynamics``.
 
     ``engine`` is an engine-protocol object (the packed engine, or the
     particle-order ``AllPairsEngine`` and ``NeighborEngine``) or a plain
@@ -484,12 +512,18 @@ class MetadSampler:
         chunks_per_block: int = 64,
         walls: Optional[WallSpec] = None,
         hill_sigma: Optional[Sequence[float]] = None,
+        hill_capacity: int = 4096,
         spill_grid: Optional[GridSpec] = None,
         bias_every: int = 1,
         add_hills: bool = True,
         mts_lag: bool = False,
     ):
-        """``hill_file`` logs every hill (appending unless ``overwrite``;
+        """``grid_spec=None`` selects the reference's hill-list mode: pass
+        ``hill_sigma`` (one width per CV), and optionally ``hill_capacity``
+        and a coarse ``spill_grid`` that takes the hills past capacity, so
+        no bias is lost (without one they are dropped and the
+        ``cv_out_of_grid`` metric, the buffer's ``overflowed`` flag, says
+        so).  ``hill_file`` logs every hill (appending unless ``overwrite``;
         no log when ``add_hills`` is False).  ``bias_every`` > 1 holds the
         bias force for that many MD steps between CV evaluations.
         ``add_hills=False`` freezes the bias.
@@ -498,12 +532,12 @@ class MetadSampler:
         packed engine and order CVs) runs each sub-chunk's last force call
         as one fused traversal with the bias coefficients lagged by one
         sub-chunk (:func:`make_lagged_parts`)."""
-        if grid_spec is None or hill_sigma is not None or spill_grid is not None:
-            raise NotImplementedError(
-                "hill-list mode (grid_spec=None, hill_sigma, spill_grid) is "
-                "not ported yet; pass a GridSpec")
-        if len(cvs) != grid_spec.ndim:
-            raise ValueError("one grid dimension per CV")
+        if grid_spec is not None:
+            if len(cvs) != grid_spec.ndim:
+                raise ValueError("one grid dimension per CV")
+        elif hill_sigma is None or len(hill_sigma) != len(cvs):
+            raise ValueError("hill-list mode (grid_spec=None) needs "
+                             "hill_sigma per CV")
         if not hasattr(engine, "force_into"):
             engine = _CallableEngine(engine, system)
         self.engine = engine
@@ -525,8 +559,15 @@ class MetadSampler:
         _eval, _apply = self._bias_parts
         self.biased_force = lambda st, aux, bias: _apply(
             st, aux, *_eval(st, aux, bias)[:2])
-        bias = (initial_bias if initial_bias is not None
-                else BiasState.zeros(grid_spec))
+        if initial_bias is not None:
+            bias = initial_bias
+        elif grid_spec is not None:
+            bias = BiasState.zeros(grid_spec)
+        else:
+            bias = HillListBias.create(
+                hill_sigma, capacity=hill_capacity, spill_spec=spill_grid,
+                device=getattr(engine, "device",
+                               engine.positions(state).device))
 
         # prime the aux and the forces at the initial positions (two pair
         # force calls: one in init, one in the biased force)
@@ -557,7 +598,7 @@ class MetadSampler:
         return self.carry.state
 
     @property
-    def bias(self) -> BiasState:
+    def bias(self):
         return self.carry.bias
 
     def run(self, n_steps: int) -> list[dict]:
@@ -595,9 +636,22 @@ class MetadSampler:
         sampler (built as the saving one was)."""
         self.carry, _ = load_checkpoint(path, self.carry)
 
-    def free_energy(self, kT: float) -> np.ndarray:
-        """FES estimate on the bias grid."""
-        return free_energy(self.hills, self.carry.bias, kT).cpu().numpy()
+    def free_energy(self, kT: float,
+                    eval_spec: Optional[GridSpec] = None) -> np.ndarray:
+        """FES estimate on the bias grid.  Hill-list mode has no grid of
+        its own: pass ``eval_spec``, the points the hills are summed onto
+        (``bias/hill_list.evaluate_on_grid``)."""
+        bias = self.carry.bias
+        if isinstance(bias, HillListBias):
+            if eval_spec is None:
+                raise ValueError("hill-list mode: pass eval_spec for FES "
+                                 "reconstruction")
+            V = evaluate_on_grid(bias, eval_spec)
+            bias = BiasState(grid=BiasGrid(
+                spec=eval_spec, V=V,
+                dV=torch.zeros((eval_spec.ndim, *eval_spec.shape),
+                               device=V.device)), n_hills=0)
+        return free_energy(self.hills, bias, kT).cpu().numpy()
 
     def grid_coords(self, d: int = 0) -> np.ndarray:
         return self.grid_spec.axis_coords(d).cpu().numpy()

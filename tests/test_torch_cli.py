@@ -214,19 +214,28 @@ def test_prerelax_force_at_step0_matches_reference(seed):
                                float(ref.potential_energy), rtol=1e-5)
 
 
-# name -> (overrides, the item the refusal names).  Every example YAML runs
-# on the port as written since the box CVs, NPT and the walkers x space
-# product (ROADMAP queue 1, items 3 and 9's first part); each case holds a
-# variant that stays refused: Config 1 with an MSD CV in hill-list mode
-# (item 4), the walkers on a 2-D decomposition (item 9's second part, which
-# config4_walkers_sk_dd's walkers x space would take on a [2, 2] mesh
-# too), the WTE run under NPT with GSD frames (item 8).
+# name -> (overrides, the item the refusal names, or "runs").  Every example
+# YAML runs on the port as written since the box CVs, NPT and the walkers x
+# space product (ROADMAP queue 1, items 3 and 9's first part); the variants
+# that stayed refused run since hill-list mode (item 4) and the 2-D
+# decomposition (item 9's second part): Config 1 with an MSD CV in hill-list
+# mode, the walkers on 2-D blocks ([3, 1]: config4_walkers has 3^3 cells)
+# and config4_walkers_sk_dd's walkers x space with the pencil-FFT S(k) on
+# [2, 1], each one stride (of 5 steps on the blocks of 864 particles)
+# with two walkers; what stays refused is the WTE
+# run under NPT with GSD frames (item 8).
+_ONE_STRIDE = {"n_steps": 20, "report_every": 20}
 REFUSED_YAMLS = {
     "config1_lj_lamellar": (dict(cvs=[{
-        "name": "m", "kind": "msd", "sigma": 0.1}]), "item 4"),
-    "config4_walkers": (dict(engine={"spatial_devices": [2, 2]}), "item 9"),
-    "config4_walkers_sk_dd": (dict(engine={"spatial_devices": [2, 1]}),
-                              "item 9"),
+        "name": "m", "kind": "msd", "sigma": 0.1}],
+        run={"n_steps": 25, "report_every": 25}), "runs"),
+    "config4_walkers": (dict(engine={"spatial_devices": [3, 1]},
+                             metadynamics={"n_walkers": 2, "stride": 5},
+                             run={"n_steps": 5, "report_every": 5}),
+                        "runs"),
+    "config4_walkers_sk_dd": (dict(engine={"spatial_devices": [2, 1]},
+                                   metadynamics={"n_walkers": 2},
+                                   run=_ONE_STRIDE), "runs"),
     "config6_wte": (dict(integrator={"kind": "npt_scr", "pressure": 1.0},
                          output={"trajectory": "t.gsd"}), "item 8"),
 }
@@ -234,10 +243,21 @@ REFUSED_YAMLS = {
 
 @pytest.mark.parametrize("name", sorted(REFUSED_YAMLS))
 def test_refused_example_yaml_names_its_item(tmp_path, name):
+    """What stays unported raises NotImplementedError naming its item; the
+    variants ported since run one stride on the CPU and log one hill per
+    walker."""
     over, item = REFUSED_YAMLS[name]
-    p = write_cfg(shrunk(name, tmp_path, **over), tmp_path / "cfg.json")
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(["run", p, "--device", "cpu"])
+    cfg = shrunk(name, tmp_path, **over)
+    p = write_cfg(cfg, tmp_path / "cfg.json")
+    if item != "runs":
+        with pytest.raises(NotImplementedError, match=item):
+            cli.main(["run", p, "--device", "cpu"])
+        return
+    assert cli.main(["run", p, "--device", "cpu"]) == 0
+    rows = open(cfg["output"]["hill_file"]).read().splitlines()[1:]
+    assert len(rows) == int(cfg["metadynamics"].get("n_walkers", 1))
+    assert all(np.isfinite([float(x) for x in r.split()]).all()
+               for r in rows)
 
 
 _MESH_CV = {"name": "sk", "kind": "mesh", "mesh": [8, 8, 8], "k0": 2.45,
@@ -245,6 +265,52 @@ _MESH_CV = {"name": "sk", "kind": "mesh", "mesh": [8, 8, 8], "k0": 2.45,
                      "sigma": 1.0}}
 _AR_CV = {"name": "a", "kind": "aspect_ratio",
           "grid": {"min": 0, "max": 2, "num_points": 5, "sigma": 0.1}}
+
+
+def _runs_2d(sampler, cfg):
+    """The 2-D blocks run a stride; on the YAML's tilted box they refuse,
+    as the reference's 2-D islands assert."""
+    from metadyn_tpu_torch.parallel.spatial2d import SpatialPackedEngine2D
+    assert isinstance(sampler.engine, SpatialPackedEngine2D)
+    assert sampler.engine.shape == (3, 1)
+    m = sampler.run(10)[-1]
+    assert 0.0 < float(m["cv"][0]) < 1.0
+    tilted = shrunk("triclinic_packed", system={"init": {"n_cells": 6}},
+                    engine=cfg["engine"])
+    with pytest.raises(ValueError, match="orthorhombic"):
+        cli.build_sampler(tilted, device="cpu")
+
+
+def _runs_table(sampler, cfg):
+    """The table engine runs a stride and its CV through the table is the
+    cell sweeps'; on the YAML's tilted box it refuses (orthorhombic
+    minimum image, as the reference)."""
+    from metadyn_tpu_torch.cv.packed_order import make_table_order_force
+    assert sampler.engine.nbr_table == (2.0, 48)
+    m = sampler.run(10)[-1]
+    assert not bool(m["nlist_overflow"])
+    st = sampler.state
+    tv, _ = make_table_order_force(sampler.cvs, sampler.engine.spec)
+    np.testing.assert_allclose(
+        tv(st, sampler.carry.aux.nbr)[0].numpy(),
+        [float(cv.value(st, None)) for cv in sampler.cvs], rtol=2e-5)
+    tilted = shrunk("triclinic_packed", system={"init": {"n_cells": 6}},
+                    engine=cfg["engine"])
+    with pytest.raises(ValueError, match="orthorhombic"):
+        cli.build_sampler(tilted, device="cpu")
+
+
+def _runs_list_mode(sampler, cfg):
+    """Hill-list mode: two strides deposit two hills into the buffer."""
+    from metadyn_tpu_torch.bias.hill_list import HillListBias
+    assert isinstance(sampler.bias, HillListBias)
+    hist = sampler.run(20)
+    assert int(sampler.bias.n_hills) == 2
+    assert not bool(hist[-1]["cv_out_of_grid"])
+    np.testing.assert_allclose(sampler.bias.sigma.numpy(),
+                               [cfg["cvs"][0]["sigma"]])
+
+
 REFUSED_KEYS = {
     # the distributed mesh CV under spatial_devices and the walkers x space
     # product run since item 9's first part; what the reference refuses on
@@ -257,14 +323,20 @@ REFUSED_KEYS = {
                                      "min": 0, "max": 1, "num_points": 5,
                                      "sigma": 0.1}}]),
                         "cannot be combined"),
-    "spatial_2d": (dict(engine={"spatial_devices": [2, 2]}), "item 9"),
-    "nbr_table": (dict(engine={"nbr_table": [2.0, 16]}), "item 6"),
-    # the box CVs and NPT run since item 3; what stays refused: the MSD CV
-    # without a grid (hill-list mode, item 4), the aspect ratio on the
-    # walkers x space product and the box bias of several walkers (the
-    # reference's refusals), NPT on this YAML's tilted box
-    "msd": (dict(cvs=[{"name": "m", "kind": "msd", "sigma": 0.1}]),
-            "item 4"),
+    # the 2-D decomposition (item 9) and the neighbour table (item 6) run
+    # on the YAML's box made orthorhombic (3^3 cells: a [3, 1] mesh)
+    "spatial_2d": (dict(engine={"spatial_devices": [3, 1]},
+                        system={"tilt": None},
+                        metadynamics={"stride": 10}), _runs_2d),
+    "nbr_table": (dict(engine={"nbr_table": [2.0, 48]},
+                       system={"tilt": None},
+                       metadynamics={"stride": 10}), _runs_table),
+    # the box CVs and NPT run since item 3, hill-list mode since item 4 (the
+    # MSD and the Q6 CV without a grid); what stays refused: the aspect
+    # ratio on the walkers x space product and the box bias of several
+    # walkers (the reference's refusals), NPT on this YAML's tilted box
+    "msd": (dict(cvs=[{"name": "m", "kind": "msd", "sigma": 0.1}],
+                 metadynamics={"stride": 10}), _runs_list_mode),
     "aspect_ratio": (dict(engine={"spatial_devices": 2},
                           metadynamics={"n_walkers": 2}, cvs=[_AR_CV]),
                      "aspect-ratio"),
@@ -280,16 +352,24 @@ REFUSED_KEYS = {
     "nvt_bdp": (dict(integrator={"kind": "nvt_bdp"}),
                 "packed engine supports langevin/nve/npt_scr"),
     "hill_list": (dict(cvs=[{"name": "q6", "kind": "steinhardt",
-                             "r_cut": 1.49, "sigma": 0.02}]), "item 4"),
+                             "r_cut": 1.49, "sigma": 0.02}],
+                       metadynamics={"stride": 10}), _runs_list_mode),
     "gsd": (dict(output={"trajectory": "t.gsd"}), "item 8"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED_KEYS))
 def test_unported_keys_raise_naming_their_item(case):
-    over, item = REFUSED_KEYS[case]
-    cfg = shrunk("triclinic_packed", system={"init": {"n_cells": 6}},
-                 **over)
+    """What stays unported raises NotImplementedError naming its item, what
+    the reference refuses raises its ValueError; a key ported since builds
+    and runs on the CPU, and its check holds."""
+    over, item = dict(REFUSED_KEYS[case][0]), REFUSED_KEYS[case][1]
+    system = {"init": {"n_cells": 6}, **over.pop("system", {})}
+    cfg = shrunk("triclinic_packed", system=system, **over)
+    if callable(item):
+        sampler, cfg = cli.build_sampler(cfg, device="cpu")
+        item(sampler, cfg)
+        return
     error = (NotImplementedError if item.startswith("item ")
              else ValueError)
     with pytest.raises(error, match=item):

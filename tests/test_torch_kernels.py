@@ -41,6 +41,10 @@ SLICE_MODULES = [
     "metadyn_tpu_torch.utils.lattice",
     "metadyn_tpu_torch.ops.packed_order_cuda",
     "metadyn_tpu_torch.ops.packed_fused_cuda",
+    "metadyn_tpu_torch.parallel.spatial2d",
+    "metadyn_tpu_torch.parallel.mesh2d",
+    "metadyn_tpu_torch.bias.hill_list",
+    "metadyn_tpu_torch.ops.neighbor_table",
 ]
 
 
@@ -153,8 +157,9 @@ def test_kernel_refuses_specs_it_does_not_take(change):
 def test_plain_force_refuses_unported_physics(change):
     """Soft pairs, bonds, tables and the per-cell mask of the slab
     decomposition are ported (the mask in each of those layouts), and the
-    walkers x space product (nested islands); the slot neighbour table is
-    not, in any of them."""
+    walkers x space product (nested islands); since the neighbour-table
+    path is ported too, an engine of each layout keeps the slot neighbour
+    table: every real slot lists exactly its neighbours within r_nb."""
     sampler, spec = _sampler("cpu")
     kw = dict(r_cut=2.5, skin=0.55, cap=40)
     other = PackedSpec.create(10.26, 864, **{**kw, **change})
@@ -164,35 +169,63 @@ def test_plain_force_refuses_unported_physics(change):
                                "bp1": torch.zeros_like(st.r[0])})
     out = packed_lj_force(st, other, cell_mask=torch.ones(other.n_cells))
     assert torch.isfinite(out.potential_energy)
-    with pytest.raises(NotImplementedError, match="nbr_table"):
-        PackedEngine(other, "cpu", nbr_table=(2.0, 16))
+    engine = PackedEngine(other, "cpu", nbr_table=(2.0, 64))
+    _, aux = engine.init(st)
+    assert not bool(aux.overflow)
+    real = (st.pid < other.n_real).numpy()
+    r = st.r.numpy()[:, real].T.astype(np.float64)
+    d = r[:, None, :] - r[None, :, :]
+    d -= 10.26 * np.round(d / 10.26)
+    near = (d ** 2).sum(-1) < 4.0
+    np.fill_diagonal(near, False)
+    counts = (aux.nbr < other.n_pad).sum(dim=0).numpy()[real]
+    np.testing.assert_array_equal(counts, near.sum(1))
 
 
 @pytest.mark.parametrize("kwargs", [
     dict(grid_spec=None, hill_sigma=[0.01, 0.01]),
     dict(mts_lag=True, bias_every=5),
-    dict(hill_file="hills.txt", spill_grid="grid"),
+    dict(grid_spec=None, hill_sigma=[0.01, 0.01], hill_capacity=1,
+         hill_file="hills.txt", spill_grid="grid"),
 ])
-def test_sampler_refuses_unported_modes(kwargs):
-    """Unported modes raise NotImplementedError: hill-list mode, and its
-    spill grid even beside a hill log (the hill log itself is ported).
-    ``mts_lag`` is ported, but refused here for the reference's reason: the
-    lagged path takes order CVs only, and these CVs are lamellar."""
+def test_sampler_refuses_unported_modes(kwargs, tmp_path):
+    """Hill-list mode and its spill grid beside a hill log are ported: a
+    run deposits into the buffer (V at the hill's own centre is its
+    height), and past a capacity of 1 the spill grid takes the second hill
+    and the log has both rows.  ``mts_lag`` is ported, but refused here for
+    the reference's reason: the lagged path takes order CVs only, and these
+    CVs are lamellar."""
     sampler, _ = _sampler("cpu")
     args = dict(grid_spec=sampler.grid_spec)
     args.update(kwargs)
     if args.get("spill_grid") == "grid":
         args["spill_grid"] = sampler.grid_spec
+    if "hill_file" in args:
+        args["hill_file"] = str(tmp_path / args["hill_file"])
     if kwargs.get("mts_lag"):
         assert not lag_supported(sampler.engine, sampler.cvs)
-        refused = pytest.raises(ValueError, match="order CVs only")
-    else:
-        refused = pytest.raises(NotImplementedError)
-    with refused:
-        MetadSampler(sampler.system, sampler.state, sampler.engine,
+        with pytest.raises(ValueError, match="order CVs only"):
+            MetadSampler(sampler.system, sampler.state, sampler.engine,
+                         sampler.cvs, hills=sampler.hills,
+                         integrator_factory=lambda f:
+                         make_packed_langevin_step(f, dt=0.005, kT=1.0),
+                         **args)
+        return
+    s = MetadSampler(sampler.system, sampler.state, sampler.engine,
                      sampler.cvs, hills=sampler.hills,
                      integrator_factory=lambda f: make_packed_langevin_step(
                          f, dt=0.005, kT=1.0), **args)
+    if "hill_file" not in args:
+        m = s.run(20)[-1]
+        assert int(s.bias.n_hills) == 1
+        np.testing.assert_allclose(m["bias_V"], m["hill_height"], rtol=1e-6)
+        return
+    hist = s.run(40)
+    assert int(s.bias.n_hills) == 2 and not bool(s.bias.overflowed)
+    assert not bool(hist[-1]["cv_out_of_grid"])
+    assert float(s.bias.spill.V.max()) > 0.0
+    rows = open(args["hill_file"]).read().splitlines()
+    assert rows[0].startswith("#! FIELDS") and len(rows) == 3
 
 
 @pytest.mark.cuda

@@ -237,8 +237,18 @@ def test_order_cvs_refuse_what_the_reference_refuses():
         tpo.PackedSteinhardtQl(spec, r_cut=3.5, l=6)
     with pytest.raises(ValueError, match="stencil"):
         tpo.PackedCoordination(spec, r0=2.5)
-    with pytest.raises(NotImplementedError):
-        tpo.make_table_order_force([], spec)
+    # the neighbour-table path is ported (tests/test_torch_neighbor_table.py);
+    # it refuses, as the reference's sampler does, a CV without an explicit
+    # r_cut and a table radius short of a CV's r_cut + skin
+    from metadyn_tpu_torch.core.packed_engine import PackedEngine
+    from metadyn_tpu_torch.sampler import make_bias_force_parts
+    eng = PackedEngine(spec, "cpu", nbr_table=(2.0, 8))
+    with pytest.raises(AssertionError, match="explicit r_cut"):
+        make_bias_force_parts(eng, [tpo.PackedCoordination(spec, r0=1.0)],
+                              None)
+    with pytest.raises(AssertionError, match="exceeds the table radius"):
+        make_bias_force_parts(
+            eng, [tpo.PackedSteinhardtQl(spec, r_cut=1.8, l=6)], None)
     # the monomial protocol is ported (tests/test_torch_ylm_mono.py); the
     # card's monomial kernel takes Q_6 alone (its 63 + 1 aux lanes fill
     # the kernel's 64), and the fused kernel's mask needs the mode

@@ -124,7 +124,9 @@ def test_fixed_point_scatter_is_order_free():
     """The sharded CV's scatter adds in 64-bit fixed point: any order of
     the entries gives the same bits (a GPU's float atomics would not), and
     its gradient is the node's gradient at each entry."""
-    from metadyn_tpu_torch.parallel.mesh import _FixedPointScatter
+    from metadyn_tpu_torch.cv.mesh import (
+        FixedPointScatter as _FixedPointScatter,
+    )
     rng = np.random.default_rng(2)
     idx = torch.as_tensor(rng.integers(0, 50, 4000))
     val = torch.as_tensor(rng.normal(size=4000).astype(np.float32))
