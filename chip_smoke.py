@@ -5,8 +5,9 @@ Five workloads, all at full size, then the example YAMLs through the
 port's CLI (phase 22), the particle-order path (phases 23-25), Config 3
 on the x-slab decomposition (phases 26-27), the well-tempered ensemble
 (phase 28), multiple walkers on the one card (phase 29), the moving box
-and the walkers x space product (phases 30-34), and the 2-D decomposition,
-hill-list mode and the neighbour table (phases 35-39):
+and the walkers x space product (phases 30-34), the 2-D decomposition,
+hill-list mode and the neighbour table (phases 35-39), and kernel 4's parts
+subsets, GSD trajectories and the sort-based pack (phases 40-42):
 
 - the headline one (bench.py): the 62,500-particle LJ liquid
   (bench_data/liq64k.npz) on the packed cell engine (r_cut 2.5, skin 0.55,
@@ -251,7 +252,24 @@ Phases, one line or more each:
      as grid mode, V and dV/ds against float64 and evaluate_on_grid), the
      spill grid and the overflow flag at capacity 8; the neighbour table
      at Config 3 (its values and forces against kernels 2 and 3, exact
-     launches, timed beside phase 11).
+     launches, timed beside phase 11);
+ 40. kernel 4's parts subsets (csrc/packed_fused_parts.cu, a timing mode
+     with no production caller) at Config 3 on the lagged path's state:
+     each of the 8 subsets in the recurrence and the monomial mode against
+     its plain version at kernel 4's gates, the outputs it leaves out
+     exactly zero, timed with the launch, the kernel alone on the device
+     (the profiler's kernel events) and the wrapper on the device, with
+     its bound; the split of kernel 4's device time into staging ({}) and
+     what lj, vals and force each add; every subset launched, none on any
+     main path (every path's read_counts fails on a "fused parts" launch,
+     and the kernels line prints those reads by path);
+ 41. examples/config1_lj_lamellar.yaml through the CLI to an npz and to
+     a .gsd trajectory (the native core): the frames equal to the bit,
+     rdf equal, the .gsd's two legs (the second --resume) byte for byte
+     the straight run's frames with each leg's own step count, as the
+     reference's CLI writes them;
+ 42. ops/packed.pack on the card at Config 5's 1M production start against
+     pack_host, every array to the bit, both timed, pack's peak memory.
 
 After each timed run one more stride runs under torch.profiler, and a line
 reports the GPU's busy share of it and the top kernels.  The launch counts
@@ -681,12 +699,46 @@ def counters() -> dict:
 
 
 def reset_counts() -> None:
+    from metadyn_tpu_torch.ops.packed_fused_cuda import (
+        fused_lj_order_force_cuda,
+    )
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
+    fused_lj_order_force_cuda.parts_launches.clear()
+
+
+# (the function that read, "fused parts") of every read_counts() call: the
+# kernels line sums them by reader
+PARTS_READS: list = []
 
 
 def read_counts() -> dict:
-    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    """Every counter of counters(), and "fused parts": the launches of
+    kernel 4's parts subsets summed.  Each read is kept in PARTS_READS under
+    the function that made it, and fails if a parts subset was launched:
+    they are a timing mode (phase 40 reads its own counts), never on a
+    main path."""
+    from metadyn_tpu_torch.ops.packed_fused_cuda import (
+        fused_lj_order_force_cuda,
+    )
+    out = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    out["fused parts"] = sum(fused_lj_order_force_cuda.parts_launches.values())
+    reader = sys._getframe(1).f_code.co_name
+    PARTS_READS.append((reader, out["fused parts"]))
+    assert out["fused parts"] == 0, (
+        f"{reader}: kernel 4's parts subsets launched on a main path "
+        f"{dict(fused_lj_order_force_cuda.parts_launches)}")
+    return out
+
+
+def parts_reads_by_path() -> dict:
+    """The "fused parts" counts of every main path's reads, summed by the
+    function that read them (launches_by_path of the kernels line)."""
+    out: dict = {}
+    for reader, n in PARTS_READS:
+        key = f"{reader} (read_counts 'fused parts')"
+        out[key] = out.get(key, 0) + n
+    return out
 
 
 @contextlib.contextmanager
@@ -1016,7 +1068,8 @@ def config3_timed(dev, mts_lag: bool, warm: tuple, n_runs: int, n_timed: int,
     print(f"profile {tag} one stride: {json.dumps(prof)} on {smi}")
     if out is not None:
         out.update(rates=[n * CFG3_STRIDE * n_timed / r[0] for r in runs],
-                   profile=prof, build=built)
+                   profile=prof, build=built, state=s.state, cvs=s.cvs,
+                   spec=s.engine.spec)
     return runs[-1][1]
 
 
@@ -4963,6 +5016,366 @@ def blocks_entries(b35: dict, b36: dict, b37: dict, b38: dict, entry,
     ]
 
 
+def kernel_ab_device_ms():
+    """scripts/kernel_ab.py's device_ms (each call enqueued while the device
+    sleeps, between two CUDA events: the device time alone), loaded by
+    path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab", ROOT / "scripts" / "kernel_ab.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.device_ms
+
+
+def kernel_event_ms(fn, match: str, calls: int = 25, warm: int = 3,
+                    windows: int = 4) -> float:
+    """Median device time in ms of the one kernel whose name holds
+    ``match`` that each call of ``fn()`` launches, from torch.profiler's
+    kernel events (the device's own start and end): the call's other device
+    work (memsets, copies, other kernels) left out.  Late in a long process
+    the first profiling window after a stretch without the profiler hands
+    over fewer events than kernels ran (11-21 of 25, with or without idle
+    host time around the calls), and the next window all of them: a
+    window that leaves the events short of ``calls`` is followed by
+    another, up to ``windows``.  The median is taken over all the events
+    handed over, at least ``calls`` // 2, and never more than ``calls``
+    from one window.  The events each window handed over are kept in
+    ``kernel_event_ms.handed``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    durs, handed = [], []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        got = [e.duration_ns() / 1e6
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda and match in e.name()]
+        assert len(got) <= calls, (match, len(got), calls)
+        handed.append(len(got))
+        durs += got
+        if len(durs) >= calls:
+            break
+    kernel_event_ms.handed = handed
+    assert len(durs) >= calls // 2, (match, handed, calls)
+    return statistics.median(durs)
+
+
+kernel_event_ms.handed = []
+
+
+def parts_bound(parts, mono: bool, n_pad: int, pairs: dict) -> tuple:
+    """(bound ms, bound by) of one parts subset: the positions read and the
+    forces it writes, and the FP32 operations of the pairs its math needs
+    (the LJ pairs with lj, each CV's pairs inside its cut-off with vals or
+    force); {} moves the positions alone."""
+    fp = FLOP_PER_PAIR
+    q6 = "q6_mono" if mono else "q6"
+    nbytes = 12 * n_pad * (1 + ("lj" in parts) + ("force" in parts))
+    ops = pairs["lj"] * fp["lj"] if "lj" in parts else 0
+    for part, suffix in (("vals", "value"), ("force", "force")):
+        if part in parts:
+            ops += (pairs["q6"] * fp[f"{q6}_{suffix}"]
+                    + pairs["coord"] * fp[f"coord_{suffix}"])
+    return bound(nbytes, ops)
+
+
+def staged_regs(parts, mono: bool) -> str:
+    """ptxas's registers and spill stores of the order_staged_kernel
+    instantiation that a subset runs on Config 3's CV list ([Q6,
+    coordination]: kinds mixed, l 6, the fixed value lanes with vals): the
+    parts library's (Split), or kernel 4's for the full set."""
+    import re
+    from metadyn_tpu_torch.ops.packed_fused_cuda import (
+        ALL_PARTS, KERNEL as FUSED, PARTS_KERNEL,
+    )
+    full = frozenset(parts) == ALL_PARTS
+    bits = [int(p in parts) for p in ("lj", "vals", "force")]
+    pat = (f"order_staged_kernelILb{bits[0]}ELb{bits[1]}ELb{bits[2]}ELb0ELi3"
+           f"ELi6ELi{2 if bits[1] else 0}ELb{int(mono)}ELb{int(not full)}EE")
+    text = " ".join(ptxas_lines(FUSED if full else PARTS_KERNEL, pat))
+    regs = re.search(r"Used (\d+) registers", text)
+    spill = re.search(r"(\d+) bytes spill stores", text)
+    return (f"{regs.group(1) if regs else '?'} registers, "
+            f"{spill.group(1) if spill else '?'} bytes spill stores")
+
+
+def parts_split(dev, smi: str, lag: dict) -> dict:
+    """Phase 40: kernel 4's parts subsets at Config 3 (62,500, Npad 87,808,
+    the lagged path's state after its timed strides, Q6 + coordination,
+    bias coefficients from dV/ds = (0.9, -1.3)).  For each of the 8 subsets
+    (the full one is kernel 4 itself) in the recurrence and the monomial
+    mode: the kernel against its plain version at kernel 4's gates (f
+    atol 1e-3 max|f|, g rtol 2e-3 + 2e-4 max|g|, values rtol 2e-4), the
+    outputs it leaves out exactly zero, its time with the launch (cuda_ms),
+    the kernel's own device time (kernel_event_ms: the profiler's events of
+    order_staged_kernel alone) and the wrapper's (kernel_ab's device_ms:
+    with the zeroed outputs' memsets, the geometry copy, the value lanes'
+    reduction and, in mono mode, the aux and decode products), its plain
+    version's time and its bound.  Prints the split of the kernel's time:
+    staging ({}), then what lj, vals and force each add.  The parts
+    counters are set to 0 just before and read just after: every subset
+    launched.  Returns {variant key: (max abs err, ms, plain ms, bound ms,
+    bound by, kernel device ms, wrapper device ms, launches)}."""
+    import itertools
+    import torch
+    from metadyn_tpu_torch.cv.packed_order import order_values_plain
+    from metadyn_tpu_torch.ops.packed_fused_cuda import (
+        ALL_PARTS, fused_lj_order_force_cuda, fused_lj_order_force_plain,
+        parts_key,
+    )
+
+    t40 = time.perf_counter()
+    st, spec, cvs = lag["state"], lag["spec"], lag["cvs"]
+    assert (spec.cap, spec.n_pad) == (32, 87808), (spec.cap, spec.n_pad)
+    dV = torch.tensor([0.9, -1.3], device=dev)
+    terms = order_values_plain(st, spec, cvs)
+    auxs = [cv.grad_aux(t, dV[i]) for i, (cv, t) in enumerate(zip(cvs, terms))]
+    device_ms = kernel_ab_device_ms()
+    pairs = {"q6": pairs_within(st, spec, cvs[0].r_cut),
+             "coord": pairs_within(st, spec, cvs[1].r_cut),
+             "lj": pairs_within(st, spec, spec.r_cut)}
+    subsets = [frozenset(c) for k in range(4)
+               for c in itertools.combinations(sorted(ALL_PARTS), k)]
+    torch.cuda.synchronize()
+    reset_counts()
+    out, dev_ms, wrap_ms, handed = {}, {}, {}, {}
+    for mono in (False, True):
+        for parts in subsets:
+            def kernel():
+                return fused_lj_order_force_cuda(st, spec, cvs, auxs,
+                                                 parts=parts, mono=mono)
+
+            def plain():
+                return fused_lj_order_force_plain(st, spec, cvs, auxs,
+                                                  parts=parts, mono=mono)
+
+            key = parts_key(parts, mono)
+            fk, gk, tk = kernel()
+            fp, gp, tp = plain()
+            torch.cuda.synchronize()
+            errs = []
+            for part, a, b, rtol, atol in (("lj", fk, fp, 0.0, 1e-3),
+                                           ("force", gk, gp, 2e-3, 2e-4)):
+                if part in parts:
+                    errs.append(force_close(f"{key} {part}", a, b, rtol,
+                                            atol)[0])
+                else:
+                    assert int(torch.count_nonzero(a)) == 0, (key, part)
+            if "vals" in parts:
+                sk = torch.stack([cv.finalize_value(t)
+                                  for cv, t in zip(cvs, tk)])
+                sp = torch.stack([cv.finalize_value(t)
+                                  for cv, t in zip(cvs, tp)])
+                ds = float(((sk - sp).abs() / sp.abs()).max())
+                assert ds <= 2e-4, (key, ds, sk, sp)
+                lanes_close(f"{key} values", cvs, tk, tp, 2e-4)
+                errs.append(float((lanes_of(tk) - lanes_of(tp)).abs().max()))
+            else:
+                assert int(torch.count_nonzero(lanes_of(tk))) == 0, key
+            ms = cuda_ms(kernel)
+            dev_ms[key] = kernel_event_ms(kernel, "order_staged_kernel")
+            handed[key] = kernel_event_ms.handed
+            wrap_ms[key] = device_ms(kernel)
+            plain_ms = cuda_ms(plain, calls=5, warm=1)
+            out[key] = (max(errs, default=0.0), ms, plain_ms,
+                        *parts_bound(parts, mono, spec.n_pad, pairs),
+                        dev_ms[key], wrap_ms[key])
+    torch.cuda.synchronize()
+    counts = dict(fused_lj_order_force_cuda.parts_launches)
+    mono_full = fused_lj_order_force_cuda.mono_launches
+    counts[parts_key(ALL_PARTS, True)] = mono_full
+    counts[parts_key(ALL_PARTS, False)] = (fused_lj_order_force_cuda.launches
+                                           - mono_full)
+    assert set(counts) == set(out) and all(v > 0 for v in counts.values()), \
+        counts
+    for key, v in out.items():
+        n_launch = counts[key]
+        out[key] = (*v, n_launch)
+        parts_of = next(p for p in subsets for m in (False, True)
+                        if parts_key(p, m) == key)
+        print(f"parts {key}: max_abs_err={v[0]:.3e} kernel_ms={v[1]:.4f} "
+              f"kernel_device_ms={v[5]:.4f} (events handed over per window "
+              f"{handed[key]} of 25) wrapper_device_ms={v[6]:.4f} "
+              f"plain_ms={v[2]:.4f} "
+              f"bound_ms={v[3]:.5f} ({v[4]}) share={v[3] / v[5]:.4f} "
+              f"launches={n_launch} "
+              f"({staged_regs(parts_of, key.endswith('mono'))}) on {smi}")
+    for mono in (False, True):
+        m = " mono" if mono else ""
+        base = dev_ms["{}" + m]
+        adds = {p: dev_ms["{" + p + "}" + m] - base
+                for p in ("lj", "vals", "force")}
+        whole = dev_ms["{force, lj, vals}" + m]
+        print(f"parts split{m or ' recurrence'} (order_staged_kernel's "
+              f"device ms): staging {{}} "
+              f"{base:.4f}; + lj {adds['lj']:.4f}, + vals "
+              f"{adds['vals']:.4f}, + force {adds['force']:.4f}; staging + "
+              f"the three adds {base + sum(adds.values()):.4f} against the "
+              f"whole kernel {whole:.4f}; {{vals, force}} "
+              f"{dev_ms['{force, vals}' + m]:.4f}; the wrapper's device ms "
+              f"{{}} {wrap_ms['{}' + m]:.4f}, whole "
+              f"{wrap_ms['{force, lj, vals}' + m]:.4f} on {smi}")
+    print(f"parts phase 40: {time.perf_counter() - t40:.1f} s; pairs "
+          f"{pairs}")
+    return out
+
+
+def gsd_cli(dev, smi: str) -> dict:
+    """Phase 41: GSD trajectories through the CLI on the card.
+    examples/config1_lj_lamellar.yaml (the example whose runs write frames:
+    packed runs write none, as in the reference), with only output.*
+    changed, as written (500 steps, a frame per report of 250) once to an
+    npz and once to a .gsd trajectory: the native core wrote, every frame's
+    positions, images, box and step equal between the files to the bit,
+    rdf on the .gsd equal to rdf on the npz; then the .gsd run's resume leg
+    (--resume for 500 more; run.n_steps is per leg) against one straight
+    run of 1000 steps: the legs' file is the straight run's frames written
+    again with each leg's own step count (the reference's CLI counts each
+    leg from 0), byte for byte.  The launch counts are set to 0 before the
+    runs and read after (no parts subset).  Returns the walls."""
+    import tempfile
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import cli
+    from metadyn_tpu_torch.io.gsd_file import GSDWriter, read_gsd_frames
+    from metadyn_tpu_torch.io.trajectory import read_trajectory
+
+    t41 = time.perf_counter()
+    reset_counts()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_gsd_"))
+    walls, paths, rdfs = {}, {}, {}
+    for tag, traj, extra, n_mult, resume in (
+            ("npz", "traj.npz", {}, 1, False),
+            ("gsd", "traj.gsd", {"checkpoint": "ck.npz"}, 1, False),
+            ("gsd resume leg", "traj.gsd", {"checkpoint": "ck.npz"}, 1,
+             True),
+            ("gsd straight", "straight.gsd", {}, 2, False)):
+        d = tmp / ("straight" if n_mult == 2 else traj.split(".")[1])
+        d.mkdir(exist_ok=True)
+        cfg = cli_yaml("config1_lj_lamellar", d, trajectory=str(d / traj),
+                       **extra)
+        cfg["run"]["n_steps"] = int(cfg["run"]["n_steps"]) * n_mult
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = cli.CliRun(cfg, resume=resume, device=dev)
+        r.run()
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        paths[tag] = cfg["output"]["trajectory"]
+        if tag == "gsd":
+            assert r.traj.native, "the GSD writer's native core"
+            n = r.sampler.state.n
+        if tag in ("npz", "gsd"):
+            outp = str(tmp / f"rdf_{tag}.npz")
+            assert cli.main(["rdf", paths[tag], "--out", outp]) == 0
+            with np.load(outp) as z:
+                rdfs[tag] = (z["r"], z["g"])
+            if tag == "gsd":
+                first = read_gsd_frames(paths[tag])
+    npz = read_trajectory(paths["npz"])
+    assert len(first) == npz["step"].shape[0] == 2, len(first)
+    for i, fr in enumerate(first):
+        assert np.array_equal(fr["particles/position"], npz["pos"][i]), i
+        assert np.array_equal(fr["particles/image"], npz["image"][i]), i
+        assert int(fr["configuration/step"][0]) == int(npz["step"][i]), i
+        assert np.array_equal(fr["configuration/box"][:3], npz["box_L"][i])
+    assert all(np.array_equal(a, b)
+               for a, b in zip(rdfs["npz"], rdfs["gsd"])), "rdf differs"
+    counts = read_counts()
+    legs = pathlib.Path(paths["gsd resume leg"]).read_bytes()
+    straight = read_gsd_frames(paths["gsd straight"])
+    leg_steps = [int(f["configuration/step"][0])
+                 for f in read_gsd_frames(paths["gsd resume leg"])]
+    n_leg = len(straight) // 2
+    assert leg_steps == [int(f["configuration/step"][0])
+                         for f in straight[:n_leg]] * 2, leg_steps
+    expected = tmp / "expected.gsd"
+    w = GSDWriter(str(expected))
+    for fr, step in zip(straight, leg_steps):
+        w.append(fr["particles/position"], fr["particles/image"],
+                 fr["configuration/box"][:3], step=step)
+    w.close()
+    assert legs == expected.read_bytes(), "the two legs' .gsd differs " \
+        "from the straight run's frames"
+    print(f"gsd phase 41: config1 N={n} walls (s) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f"; native core; .gsd and npz frames equal to the bit (2 "
+          f"frames), rdf equal; the two legs' file byte for byte the "
+          f"straight run's {len(straight)} frames with the legs' steps "
+          f"{leg_steps} ({len(legs)} bytes); packed launches "
+          f"{ {k: v for k, v in counts.items() if v} }; "
+          f"{time.perf_counter() - t41:.1f} s on {smi}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return walls
+
+
+def pack_1m(melt: dict, relaxed: tuple, dev, smi: str) -> dict:
+    """Phase 42: ops/packed.pack on the card at Config 5's 1,048,576-bead
+    production start (phase 21's relaxed melt, config5_sampler's spec: cap
+    48, Npad 13,799,808, the bond partners and the mesh coefficients as
+    attributes) against pack_host: every array to the bit.  Prints both
+    times (pack cold, then warm; pack_host with its one copy to the card)
+    and pack's peak device memory."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import Box, PackedSpec
+    from metadyn_tpu_torch.ops.packed import pack, pack_host
+
+    n, L, types = melt["n"], melt["L"], melt["types"]
+    pos, vel = relaxed
+    spec = PackedSpec.create(L, n, r_cut=WCA_RC, skin=0.5, cap=48,
+                             fene_k=30.0, fene_r0=1.5, uniform_sigma=1.0)
+    box = Box.cubic(L, dev)
+    ones = np.ones(n, np.float32)
+    attrs = {**melt["bp"],
+             "mesh": np.asarray([1.0, -1.0], np.float32)[types]}
+    args = (pos, box, spec, types, ones, ones, dev)
+    times = {}
+    gib = 2.0 ** 30
+    torch.cuda.empty_cache()
+    for tag in ("pack cold", "pack warm", "pack_host"):
+        fn = pack_host if tag == "pack_host" else pack
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st, ovf = fn(*args, vel=vel, extra_attrs=attrs)
+        ovf = bool(ovf)
+        torch.cuda.synchronize()
+        times[tag] = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / gib
+        if tag == "pack warm":
+            mine, peak_pack = st, peak
+        elif tag == "pack_host":
+            host = st
+        assert not ovf, f"{tag}: overflow at the production pack"
+        del st
+    fields = ("r", "v", "f", "image", "ref_r", "pid", "typ", "slot_of",
+              "potential_energy", "virial")
+    for k in fields:
+        a, b = getattr(mine, k), getattr(host, k)
+        if k == "potential_energy":   # 0-d against pack_host's (1,) zero
+            a, b = a.reshape(-1), b.reshape(-1)
+        assert a.dtype == b.dtype and torch.equal(a, b), k
+    assert mine.attrs.keys() == host.attrs.keys()
+    for k in mine.attrs:
+        assert torch.equal(mine.attrs[k], host.attrs[k]), k
+    print(f"pack phase 42: config5 N={n} cap {spec.cap} Npad {spec.n_pad}: "
+          f"pack equal to pack_host to the bit ({len(fields)} arrays and "
+          f"{len(mine.attrs)} attrs); "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in times.items())
+          + f"; pack's peak device memory above its inputs "
+          f"{peak_pack:.3f} GiB on {smi}")
+    return {"times": times, "peak_gib": peak_pack}
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -4995,9 +5408,15 @@ def main() -> int:
           f"cuda={torch.version.cuda}")
     print(smi[0])
 
-    # 2. build, every source at once
-    order_libs = (packed_order_cuda.KERNEL, packed_fused_cuda.KERNEL)
-    build_secs = build_all((KERNEL, packed_v1_cuda.KERNEL) + order_libs)
+    # 2. build, every source at once (the kernels with nvcc, the GSD
+    # writer's core with the host compiler)
+    from metadyn_tpu_torch.io.gsd_file import NATIVE as GSD_LIB
+    order_libs = (packed_order_cuda.KERNEL, packed_fused_cuda.KERNEL,
+                  packed_fused_cuda.PARTS_KERNEL)
+    build_secs = build_all((KERNEL, packed_v1_cuda.KERNEL) + order_libs
+                           + (GSD_LIB,))
+    print(f"build: csrc/{GSD_LIB}.cpp {_build.cxx()} "
+          f"{' '.join(_build.CXX_FLAGS)} {build_secs[GSD_LIB]:.2f} s")
     print("\n".join(ptxas_lines(KERNEL)), file=sys.stderr)
     print(f"build: csrc/{KERNEL}.cu nvcc {' '.join(_build.NVCC_FLAGS[:2])} "
           f"{build_secs[KERNEL]:.2f} s")
@@ -5234,9 +5653,16 @@ def main() -> int:
     b35 = blocks_kernels(dev, smi[0])
     b36 = config3_blocks(dev, smi[0], exact_out)
     b37 = config5_blocks(melt5, relaxed5, melt, dev, smi[0], slabs5)
-    del relaxed5
     b38 = cli_blocks(dev, smi[0])
     hill_list_table(dev, smi[0], exact_out)
+
+    # 40.-42. the last slice: kernel 4's parts subsets at Config 3 (the
+    # split of its time), GSD trajectories through the CLI, the sort-based
+    # pack at 1M against pack_host
+    parts = parts_split(dev, smi[0], lag_out)
+    gsd_cli(dev, smi[0])
+    pack_1m(melt5, relaxed5, dev, smi[0])
+    del relaxed5
     print(f"chip_smoke wall: {time.perf_counter() - t_main:.1f} s")
 
     def cli_launches(kernel: str) -> dict:
@@ -5400,6 +5826,24 @@ def main() -> int:
               launches_by_path={"config3 mts_lag": lag_counts["fused"],
                                 **cli_launches("fused")},
               variants=tric_variants("fused", "sentinel")),
+        entry("packed_fused_parts", packed_fused_cuda.PARTS_KERNEL,
+              "metadyn_tpu/ops/packed_fused_pallas.py:296 (parts, :75, "
+              ":143-229)",
+              sum(v[-1] for k, v in parts.items()
+                  if not k.startswith("{force, lj, vals}")),
+              parts["{}"][:5],
+              design=staged + ", prefiltered to the larger of the LJ and CV "
+              "cut-offs for every subset; the outputs a subset leaves out "
+              "are zeros (the wrapper's torch.zeros)",
+              launches_by_path={"parts split at config3 N=62500 (phase 40: "
+                                "checks and timing)": sum(
+                                    v[-1] for k, v in parts.items()
+                                    if not k.startswith("{force, lj, vals}")),
+                                **parts_reads_by_path()},
+              variants={k: {**dict(zip(keys, v[:5])),
+                            "kernel_device_ms": v[5],
+                            "wrapper_device_ms": v[6], "launches": v[7]}
+                        for k, v in parts.items()}),
         *spatial_entries(sp_kern, sp, entry, keys),
         *blocks_entries(b35, b36, b37, b38, entry, keys),
         entry(v1_lib, v1_lib, "metadyn_tpu/ops/packed_pallas.py:185",

@@ -11,8 +11,8 @@ numpy, never jax.
 
 from .core.box import Box, minimum_image, unwrap
 from .core.state import (
-    State, System, kinetic_energy, make_state, make_system, temperature,
-    thermal_velocities,
+    State, System, kinetic_energy, make_state, make_system, pressure,
+    temperature, thermal_velocities,
 )
 from .core.engine import (
     AllPairsEngine, EngineAux, NeighborEngine, run_md_blocks,
@@ -64,7 +64,8 @@ from .utils.lattice import fcc_lattice, polymer_melt, sc_lattice
 
 __all__ = [
     "Box", "minimum_image", "unwrap", "State", "System", "kinetic_energy",
-    "make_state", "make_system", "temperature", "thermal_velocities",
+    "make_state", "make_system", "pressure", "temperature",
+    "thermal_velocities",
     "AllPairsEngine", "EngineAux", "NeighborEngine", "run_md_blocks",
     "ForceField", "run_steps", "make_langevin_step", "make_nve_step",
     "make_nvt_bdp_step", "make_nvt_nh_step", "CellSpec",

@@ -3,7 +3,7 @@
     python -m metadyn_tpu_torch.cli run config.yaml [--resume] [--device cpu]
     python -m metadyn_tpu_torch.cli sum-hills HILLS [--blocks N] ...
     python -m metadyn_tpu_torch.cli fes grid.npz ...
-    python -m metadyn_tpu_torch.cli rdf traj.dcd ...
+    python -m metadyn_tpu_torch.cli rdf traj.gsd ...
 
 ``run`` reads the reference's YAML schema (``io/config.py``, no PyYAML) and
 drives one replica (or, with ``metadynamics.n_walkers`` W > 1, W walkers
@@ -39,14 +39,14 @@ files: the hill log, the CSV metrics, grid dumps (also every
 ``grid_every`` steps, ``{step}`` in the name numbering them; none in
 hill-list mode, which has no grid), checkpoints (every
 ``checkpoint_every`` steps; ``--resume`` loads one and runs ``n_steps``
-more) and, for the all-pairs engine, trajectory frames (``.dcd`` or npz,
-``io/trajectory.py``) at every report; like the reference's, a packed run
-writes no frames.  It runs on CUDA unless ``--device cpu`` is given, and
-exits with an error when no CUDA device is found: it never falls back to
-the CPU.
-
-What the port lacks raises NotImplementedError at build time, naming its
-item of ROADMAP.md's queue 1: GSD trajectories (item 8).
+more) and, for the all-pairs engine, trajectory frames (``.gsd`` through
+the native writer of ``io/gsd_file.py``, ``.dcd`` or npz,
+``io/trajectory.py``) at every report, each frame with the leg's step
+count (a ``--resume`` leg counts from 0, as in the reference); like the
+reference's, a packed run writes no frames.  It runs on CUDA unless
+``--device cpu`` is given, and exits with an error when no CUDA device is
+found: it never falls back to the CPU.  What the reference refuses raises
+its ValueError.
 """
 from __future__ import annotations
 
@@ -55,24 +55,6 @@ import os
 import sys
 
 import numpy as np
-
-UNPORTED = {
-    "gsd": ("GSD trajectories (io/gsd_file.py and its native _gsd.cpp)", 8),
-}
-
-
-def refuse(what: str):
-    """NotImplementedError naming the ROADMAP item of an unported piece."""
-    text, item = UNPORTED[what]
-    return NotImplementedError(f"not ported yet: {text} (ROADMAP queue "
-                               f"1, item {item})")
-
-
-def check_ported(cfg: dict) -> None:
-    """Raise ``refuse(...)`` for the first key or kind the port lacks."""
-    if str(cfg.get("output", {}).get("trajectory", "")).endswith(".gsd"):
-        raise refuse("gsd")
-
 
 def _assign_order(c: dict) -> int:
     """Mesh-CV assignment window: ``assign: cic`` (default, order 2) or
@@ -350,7 +332,6 @@ def build_sampler(cfg: dict, resume: bool = False, device="cuda"):
     from .parallel.walkers import WalkerSampler
     from .sampler import MetadSampler
 
-    check_ported(cfg)
     sys_cfg = cfg["system"]
     icfg = cfg["integrator"]
     kT = float(icfg.get("kT", 1.0))
@@ -767,6 +748,8 @@ class CliRun:
                   f"deposits clamp to the edge node (widen grid.min/max "
                   f"if this persists)", file=sys.stderr, flush=True)
         if self.traj is not None:
+            # the leg's own count, as the reference writes it: a --resume
+            # leg's frames count from 0 again
             st = self.sampler.state
             self.traj.append(st.pos.cpu().numpy(), st.image.cpu().numpy(),
                              st.box.L.cpu().numpy(), done)
@@ -783,6 +766,8 @@ class CliRun:
             self.advance(min(self.report, self.n_steps - self.done))
         self.save_ckpt()
         self.dump_bias_grid(step=self.n_steps)
+        if hasattr(self.traj, "close"):
+            self.traj.close()
 
 
 def resolve_device(device):
@@ -890,13 +875,22 @@ def cmd_fes(args) -> int:
 
 
 def cmd_rdf(args) -> int:
-    """g(r) of a dumped trajectory (``.dcd`` or npz frames)."""
+    """g(r) of a dumped trajectory (``.gsd``, ``.dcd`` or npz frames)."""
     from .io.trajectory import read_dcd, read_trajectory
     from .utils.analysis import rdf
 
     if args.traj.endswith(".gsd"):
-        raise refuse("gsd")
-    read = read_dcd if args.traj.endswith(".dcd") else read_trajectory
+        from .io.gsd_file import read_gsd_frames
+
+        def read(path):
+            frames = read_gsd_frames(path)
+            return {
+                "pos": np.stack([f["particles/position"] for f in frames]),
+                "box_L": np.stack([f["configuration/box"][:3]
+                                   for f in frames]),
+            }
+    else:
+        read = read_dcd if args.traj.endswith(".dcd") else read_trajectory
     d = read(args.traj)
     pos, box_L = d["pos"][args.skip:], np.asarray(d["box_L"])
     if box_L.ndim == 2:
@@ -949,7 +943,7 @@ def main(argv=None) -> int:
     fesp.add_argument("--kT", type=float, default=1.0)
     rdfp = sub.add_parser(
         "rdf", help="radial distribution function g(r) of a trajectory")
-    rdfp.add_argument("traj", help="trajectory (.dcd or .npz)")
+    rdfp.add_argument("traj", help="trajectory (.gsd, .dcd or .npz)")
     rdfp.add_argument("--out", default="rdf.dat",
                       help="output table: r, g(r)")
     rdfp.add_argument("--bins", type=int, default=100)

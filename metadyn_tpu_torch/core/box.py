@@ -287,6 +287,14 @@ def perpendicular_widths(box: Box) -> torch.Tensor:
                                          torch.sum(ab * ab)]))
 
 
+def min_perpendicular_width(box: Box) -> torch.Tensor:
+    """(3,) perpendicular widths of the cell (the distances between
+    opposite faces), the reference's name for :func:`perpendicular_widths`.
+    Interaction cut-offs must stay below half the smallest width for the
+    fractional-rounding minimum image to be exact."""
+    return perpendicular_widths(box)
+
+
 def reciprocal_matrix(box: Box) -> torch.Tensor:
     """Reciprocal basis B = h⁻¹: ``k = 2π (n @ B)`` is the wave vector of
     integer Miller row(s) n.  Orthorhombic: B = diag(1/L)."""

@@ -10,7 +10,9 @@
 //                                                 recurrence and the
 //                                                 monomial mode, cell_mask
 //                                                 optional;
-//                                                 packed_fused_lj_order.cu)
+//                                                 packed_fused_lj_order.cu;
+//                                                 the parts subsets, Split:
+//                                                 packed_fused_parts.cu)
 //
 // Layout as in packed_lj_force.cu: positions (3, Npad) f32, slot = rank * C +
 // cell; a cell's partners are the `cap` rows of each of its 27 neighbour
@@ -410,7 +412,10 @@ inline size_t staged_smem(int cap) {
 // force into g.  Valid: the validity layout, vacancy from pid (otherwise
 // from the coordinate sentinel; pid is then not read and may be null).
 // Mono: Q_l in the monomial mode.  With Vals alone, a warp keeps one hit
-// queue across its rows.
+// queue across its rows, unless Split.  Split (the parts subsets of the
+// fused sweep, packed_fused_parts.cu): the fused sweep's traversal and
+// launch bounds whatever the subset, so that the subsets differ in their
+// math alone.
 // Blocks per SM each sweep keeps: the values and force sweeps 5 (48
 // registers a thread), the fused sweep 4 (64).  Reading the box from
 // constant memory (c_geo) took the values sweep to 54 registers, 4 blocks
@@ -422,8 +427,9 @@ constexpr int min_blocks() {
 }
 
 template <bool WithLJ, bool Vals, bool Grad, bool Valid, int Kinds, int L,
-          int Lanes, bool Mono>
-__global__ void __launch_bounds__(kStageThreads, min_blocks<WithLJ>())
+          int Lanes, bool Mono, bool Split = false>
+__global__ void __launch_bounds__(kStageThreads,
+                                  min_blocks<WithLJ || Split>())
 order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
                     const float* __restrict__ desc, int desc_len, int n_cvs,
                     int n_terms, const float* __restrict__ aux, int n_aux,
@@ -542,7 +548,7 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
     return r2 > 1.0e-12f && r2 < p.rc2_hit;  // not the slot itself
   };
 
-  if constexpr (Vals && !Grad && !WithLJ) {
+  if constexpr (Vals && !Grad && !WithLJ && !Split) {
     float unused = 0.0f;
     cell_stage::warp_sweep_rows(
         i0 + warp, i0 + n_i, kStageWarps, n_rows, queue,
@@ -658,11 +664,11 @@ struct StagedArgs {
 // pass.  Returns 0, a CUDA error of the shared-memory request, or
 // cell_stage::kSmemTooLarge when cap does not fit a block's shared memory.
 template <bool WithLJ, bool Vals, bool Grad, bool Valid, int Kinds, int L,
-          int Lanes, bool Mono = false>
+          int Lanes, bool Mono = false, bool Split = false>
 int launch_staged(const StagedArgs& a, cudaStream_t st) {
   const size_t smem = staged_smem(a.p.g.cap);
-  auto kernel =
-      order_staged_kernel<WithLJ, Vals, Grad, Valid, Kinds, L, Lanes, Mono>;
+  auto kernel = order_staged_kernel<WithLJ, Vals, Grad, Valid, Kinds, L,
+                                    Lanes, Mono, Split>;
   const int rc = cell_stage::request_smem(kernel, smem, kStaticSmem);
   if (rc != 0) return rc;
   const cudaError_t copied = cudaMemcpyToSymbolAsync(
@@ -685,7 +691,8 @@ int launch_staged(const StagedArgs& a, cudaStream_t st) {
 // Mono (the fused kernel's monomial mode) needs a Q_l and l_fixed = 6.
 // Returns launch_staged's code, or cudaErrorInvalidValue for a combination
 // without an instantiation.
-template <bool WithLJ, bool Vals, bool Grad, bool Valid, bool Mono = false>
+template <bool WithLJ, bool Vals, bool Grad, bool Valid, bool Mono = false,
+          bool Split = false>
 int launch_staged_set(int cv_set, int l_fixed, int lanes,
                       const StagedArgs& a, cudaStream_t st) {
   constexpr int bad = static_cast<int>(cudaErrorInvalidValue);
@@ -698,7 +705,7 @@ int launch_staged_set(int cv_set, int l_fixed, int lanes,
         return bad;
       }
       return launch_staged<WithLJ, Vals, Grad, Valid, kSetQl, 6, kLanesQ6,
-                           Mono>(a, st);
+                           Mono, Split>(a, st);
     }
     if (lanes == kLanesQ6Coord) {
       if (cv_set != kSetMixed || l_fixed != 6 || a.n_cvs != 2 ||
@@ -706,33 +713,33 @@ int launch_staged_set(int cv_set, int l_fixed, int lanes,
         return bad;
       }
       return launch_staged<WithLJ, Vals, Grad, Valid, kSetMixed, 6,
-                           kLanesQ6Coord, Mono>(a, st);
+                           kLanesQ6Coord, Mono, Split>(a, st);
     }
     if (lanes != kLanesAny) return bad;
   }
   if constexpr (Mono) {
     return cv_set == kSetQl
                ? launch_staged<WithLJ, Vals, Grad, Valid, kSetQl, 6,
-                               kLanesAny, true>(a, st)
+                               kLanesAny, true, Split>(a, st)
                : launch_staged<WithLJ, Vals, Grad, Valid, kSetMixed, 6,
-                               kLanesAny, true>(a, st);
+                               kLanesAny, true, Split>(a, st);
   } else {
     switch (cv_set) {
       case kSetQl:
         return l_fixed
                    ? launch_staged<WithLJ, Vals, Grad, Valid, kSetQl, 6,
-                                   kLanesAny>(a, st)
+                                   kLanesAny, false, Split>(a, st)
                    : launch_staged<WithLJ, Vals, Grad, Valid, kSetQl, 0,
-                                   kLanesAny>(a, st);
+                                   kLanesAny, false, Split>(a, st);
       case kSetCoord:
         return launch_staged<WithLJ, Vals, Grad, Valid, kSetCoord, 0,
-                             kLanesAny>(a, st);
+                             kLanesAny, false, Split>(a, st);
       case kSetMixed:
         return l_fixed
                    ? launch_staged<WithLJ, Vals, Grad, Valid, kSetMixed, 6,
-                                   kLanesAny>(a, st)
+                                   kLanesAny, false, Split>(a, st)
                    : launch_staged<WithLJ, Vals, Grad, Valid, kSetMixed, 0,
-                                   kLanesAny>(a, st);
+                                   kLanesAny, false, Split>(a, st);
       default: return bad;
     }
   }

@@ -2,20 +2,30 @@
 ``metadyn_tpu/cv/base.py``; the reference plugin's ``CollectiveVariable``).
 
 A CV is an object with ``value(state, system) -> ()`` tensor and a
-``log_name``.  Bias forces F = −Σ_d (∂V/∂s_d) ∂s_d/∂r come from one
+``log_name`` (:class:`CollectiveVariable`, a typing ``Protocol``).  Bias forces F = −Σ_d (∂V/∂s_d) ∂s_d/∂r come from one
 ``torch.autograd.grad`` through the stacked values, the reference's
 ``jax.vjp``.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Protocol, Sequence, runtime_checkable
 
 import torch
 
 from ..core.state import State, System
 
 
-def cv_values(cvs: Sequence, state: State, system: System) -> torch.Tensor:
+@runtime_checkable
+class CollectiveVariable(Protocol):
+    """Anything with a scalar ``value(state, system)`` is a CV."""
+
+    def value(self, state: State, system: System) -> torch.Tensor: ...
+
+    @property
+    def log_name(self) -> str: ...
+
+
+def cv_values(cvs: Sequence[CollectiveVariable], state: State, system: System) -> torch.Tensor:
     """Stacked CV values s, (d,)."""
     return torch.stack([cv.value(state, system) for cv in cvs])
 

@@ -6,9 +6,9 @@ npz frames and binary DCD, byte for byte the reference's files.
 - ``.dcd``: the CHARMM/NAMD binary format (Fortran records, CHARMM version
   24 with the unit-cell flag), which VMD, MDAnalysis and mdtraj read.
 
-``make_trajectory_writer`` picks by extension; both writers share the
-``append(pos, image, box_L, step)`` interface.  GSD (``.gsd``, the
-reference's native C++ writer) is not ported: ROADMAP queue 1, item 8.
+``make_trajectory_writer`` picks by extension (``.gsd``: the HOOMD-schema
+writer of ``io/gsd_file.py``); the writers share the
+``append(pos, image, box_L, step)`` interface.
 """
 from __future__ import annotations
 
@@ -159,11 +159,10 @@ def read_dcd(path: str) -> dict:
 
 
 def make_trajectory_writer(path: str, overwrite: bool = True):
-    """``.dcd`` → DCDWriter, ``.gsd`` → not ported (raises), else npz."""
+    """``.dcd`` → DCDWriter, ``.gsd`` → GSDWriter, else npz."""
     if path.endswith(".gsd"):
-        raise NotImplementedError(
-            "GSD trajectories (io/gsd_file.py and its native _gsd.cpp) are "
-            "not ported yet (ROADMAP queue 1, item 8)")
+        from .gsd_file import GSDWriter
+        return GSDWriter(path, overwrite=overwrite)
     if path.endswith(".dcd"):
         return DCDWriter(path, overwrite=overwrite)
     return TrajectoryWriter(path, overwrite=overwrite)

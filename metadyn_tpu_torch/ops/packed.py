@@ -21,9 +21,12 @@ cap_i, C) broadcasts reduced over cap_j.  It is the plain PyTorch version of
 the pair-force kernel: the CPU path, and the oracle the kernel is held
 against on the card.
 
-**Repack.**  :func:`repack_incremental` migrates slots without a sort: a
-particle moves at most one cell between repacks, so its new rank is a sum of
-per-cell arrival counts over the 27 offsets plus its rank among the
+**Build and repack.**  :func:`pack` (any device) and :func:`pack_host`
+(numpy) build the slots from particle order by a stable sort of the cell
+ids; :func:`repack` rebuilds them the same way from any state.
+:func:`repack_incremental`, the production repack, migrates slots without a
+sort: a particle moves at most one cell between repacks, so its new rank is
+a sum of per-cell arrival counts over the 27 offsets plus its rank among the
 particles leaving its old cell the same way.
 """
 from __future__ import annotations
@@ -317,6 +320,114 @@ def _scatter_rows(cols: list, slot: torch.Tensor, n_pad: int) -> list:
     return [rows[i].to(c.dtype) for i, c in enumerate(cols)]
 
 
+def _slot_assignment(cid: torch.Tensor, valid: torch.Tensor,
+                     spec: PackedSpec) -> tuple:
+    """(slot, overflow): slot = rank·C + cell for a valid entry whose rank
+    in its cell is below cap, ``n_pad`` (dropped) for the others; the rank
+    from a stable sort of the cell ids and ``searchsorted``, so entries keep
+    their input order within a cell (the reference's
+    ``_slot_assignment``).  ``overflow``: a device bool."""
+    C, cap = spec.n_cells, spec.cap
+    m = cid.shape[0]
+    key = torch.where(valid, cid.to(torch.int64), C)
+    order = torch.argsort(key, stable=True)
+    sorted_key = key[order]
+    rank = torch.arange(m, device=cid.device) - torch.searchsorted(
+        sorted_key, sorted_key, side="left")
+    in_grid = sorted_key < C
+    slot_sorted = torch.where(in_grid & (rank < cap), rank * C + sorted_key,
+                              spec.n_pad)
+    overflow = torch.any(in_grid & (rank >= cap))
+    slot = torch.empty_like(slot_sorted)
+    slot[order] = slot_sorted
+    return slot.to(torch.int32), overflow
+
+
+def pack(
+    pos,
+    box: Box,
+    spec: PackedSpec,
+    types,
+    eps_i,
+    sigma_i,
+    device,
+    vel=None,
+    image=None,
+    extra_attrs=None,
+) -> tuple[PackedState, torch.Tensor]:
+    """Initial build from particle-order arrays (numpy or tensors), on
+    ``device``: the reference's ``pack`` (the wrap, the cell of each
+    particle, a stable-sort slot assignment, one row scatter), with
+    :func:`pack_host`'s arithmetic, so that both give the same arrays to
+    the bit on an orthorhombic box (under tilt the wrap and the fractional
+    coordinates are the elementwise :func:`_frac3` and :func:`_cart3`,
+    where ``pack_host`` takes matrix products); its zero energy is 0-d, as
+    the reference's, where ``pack_host``'s is (1,).  The cell of a fractional
+    coordinate f is ``floor((f + 0.5)·c)`` with the product taken exactly,
+    in f64.  Returns (state, overflow), overflow a device bool."""
+    def t(a, dtype):
+        return torch.as_tensor(a, device=device).to(dtype)
+
+    n = spec.n_real
+    box = box.to(device)
+    r = t(pos, torch.float32).reshape(n, 3).T.contiguous()     # (3, N)
+    v = (torch.zeros_like(r) if vel is None
+         else t(vel, torch.float32).reshape(n, 3).T.contiguous())
+    im = (torch.zeros((3, n), dtype=torch.int32, device=device)
+          if image is None else t(image, torch.int32).reshape(n, 3).T)
+    if box.tilt is None:
+        L = box.L[:, None]
+        shift = torch.floor(r / L + 0.5)
+        r = r - L * shift
+        frac = r / L + 0.5
+    else:
+        shift = torch.floor(_frac3(r, box) + 0.5)
+        r = r - _cart3(shift, box)
+        frac = _frac3(r, box) + 0.5
+    im = im + shift.to(torch.int32)
+    cid = torch.zeros(n, dtype=torch.int64, device=device)
+    for d, c in enumerate(spec.cells_per_dim):
+        cd = torch.clamp(torch.floor(frac[d].double() * c).to(torch.int64),
+                         0, c - 1)
+        cid = cid * c + cd
+    slot, overflow = _slot_assignment(
+        cid, torch.ones(n, dtype=torch.bool, device=device), spec)
+
+    types = t(types, torch.int32).reshape(n)
+    names = sorted((extra_attrs or {}).keys())
+    # the f32 root correctly rounded, as numpy's and XLA's (torch's CPU
+    # sqrt is not): rounding the f64 root to f32 is exact rounding
+    attr_cols = ([torch.sqrt(t(eps_i, torch.float32).reshape(n).double()
+                             ).float(),
+                  0.5 * t(sigma_i, torch.float32).reshape(n)]
+                 + [t(extra_attrs[k], torch.float32).reshape(n)
+                    for k in names])
+    pid1 = torch.arange(1, n + 1, dtype=torch.int32, device=device)
+    cols = ([r[d] for d in range(3)] + [v[d] for d in range(3)]
+            + [im[d] for d in range(3)] + [pid1, types] + attr_cols)
+    out = _scatter_rows(cols, slot, spec.n_pad)
+    r_o = torch.stack(out[0:3])
+    valid = out[9] > 0
+    if spec.uniform_eps is not None:
+        r_o = torch.where(valid[None, :], r_o, VACANT_X)
+    n_types = int(types.max()) + 1 if n else 1
+    state = PackedState(
+        r=r_o,
+        v=torch.stack(out[3:6]),
+        f=torch.zeros_like(r_o),
+        image=torch.stack(out[6:9]),
+        ref_r=r_o,
+        pid=torch.where(valid, out[9] - 1, n).to(torch.int32),
+        typ=torch.where(valid, out[10], n_types).to(torch.int32),
+        slot_of=slot,
+        attrs=dict(zip(["se", "hs"] + names, out[11:])),
+        box=box,
+        potential_energy=torch.zeros((), dtype=torch.float32, device=device),
+        virial=torch.zeros(3, dtype=torch.float32, device=device),
+    )
+    return state, overflow
+
+
 def pack_host(
     pos: np.ndarray,
     box: Box,
@@ -361,7 +472,10 @@ def pack_host(
             frac = r[d] / L[d] + np.float32(0.5)
         else:
             frac = f[d] + np.float32(0.5)
-        c = np.clip(np.floor(frac * cpd[d]).astype(np.int64), 0, cpd[d] - 1)
+        # the product in f64, exact for an f32 times a cell count (numpy 2
+        # promotes f32 * np.int32 to f64; written out so numpy 1 agrees)
+        c = np.clip(np.floor(frac.astype(np.float64) * cpd[d]
+                             ).astype(np.int64), 0, cpd[d] - 1)
         cid = cid * cpd[d] + c
     order = np.argsort(cid, kind="stable")
     sorted_cid = cid[order]
@@ -409,6 +523,44 @@ def pack_host(
         virial=t(np.zeros(3, np.float32)),
     )
     return state, overflow
+
+
+def repack(state: PackedState, spec: PackedSpec
+           ) -> tuple[PackedState, torch.Tensor]:
+    """The full sort-based rebuild (the reference's ``repack``): wrap, each
+    slot's current cell, a stable-sort slot assignment and one row scatter
+    of every per-slot array.  Unlike :func:`repack_incremental` it takes
+    any displacement.  Returns (state, overflow), overflow a device bool."""
+    state = _wrap_state(state)
+    valid_in = state.pid < spec.n_real
+    cid = _cell_id_packed(state.r, state.box, spec)
+    slot, overflow = _slot_assignment(cid, valid_in, spec)
+    attr_names = sorted(state.attrs.keys())
+    cols = ([state.r[d] for d in range(3)] + [state.v[d] for d in range(3)]
+            + [state.f[d] for d in range(3)]
+            + [state.image[d] for d in range(3)]
+            + [torch.where(valid_in, state.pid + 1, 0), state.typ]
+            + [state.attrs[k] for k in attr_names])
+    out = _scatter_rows(cols, slot, spec.n_pad)
+    r = torch.stack(out[0:3])
+    valid = out[12] > 0
+    if spec.uniform_eps is not None:
+        r = torch.where(valid[None, :], r, VACANT_X)
+    # vacant slots have pid == n_real: their writes land in the drop entry
+    slot_of = torch.zeros(spec.n_real + 1, dtype=torch.int32,
+                          device=slot.device)
+    slot_of[state.pid.long()] = slot
+    return state.replace(
+        r=r,
+        v=torch.stack(out[3:6]),
+        f=torch.stack(out[6:9]),
+        image=torch.stack(out[9:12]),
+        ref_r=r,
+        pid=torch.where(valid, out[12] - 1, spec.n_real).to(torch.int32),
+        typ=torch.where(valid, out[13], torch.max(state.typ)),
+        slot_of=slot_of[:spec.n_real],
+        attrs=dict(zip(attr_names, out[14:])),
+    ), overflow
 
 
 def repack_incremental(state: PackedState, spec: PackedSpec
@@ -727,6 +879,23 @@ def packed_lj_force(state: PackedState, spec: PackedSpec,
         return state.replace(f=force)
     return state.replace(f=force, potential_energy=0.5 * e_tot,
                          virial=0.5 * w_tot)
+
+
+def assert_no_vacant_drift(state: PackedState, spec: PackedSpec) -> None:
+    """Check the sentinel layout's invariant: every vacant slot sits at
+    exactly ``VACANT_X``, which the kernels' vacancy test relies on; every
+    repack and packed integrator re-pins vacant slots.  Raises
+    AssertionError naming the count of drifted coordinates; a no-op
+    outside the sentinel layout.  Reads the state on the host."""
+    if spec.uniform_eps is None:
+        return
+    vac = (state.pid >= spec.n_real).cpu()
+    r = state.r.cpu()[..., vac]
+    bad = int((r != VACANT_X).sum())
+    if bad:
+        raise AssertionError(
+            f"{bad} vacant-slot coordinates drifted off the VACANT_X "
+            f"sentinel: an integrator or repack did not re-pin them")
 
 
 def unpack_positions(state: PackedState, spec: PackedSpec) -> torch.Tensor:

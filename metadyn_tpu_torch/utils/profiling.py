@@ -1,16 +1,29 @@
-"""Named phases and a device-time profile (counterpart of
-``metadyn_tpu/utils/profiling.py``).
+"""Named phases, traces, a step-rate counter and a device-time profile
+(counterpart of ``metadyn_tpu/utils/profiling.py``).
 
 ``phase(name)`` marks a region that ``torch.profiler`` shows by name.  The
 sampler uses the reference's phase names (``nlist_rebuild``, ``md_steps``,
 ``cv_eval``, ``energy_refresh``, ``hill_deposit``), so traces of the two
 packages read alike.  Outside a profiler run it has no effect on results.
 
+``trace(log_dir)`` captures a ``torch.profiler`` trace of a block (the
+host, and the GPU when there is one) into a Chrome-trace file under
+``log_dir``; ``StepTimer`` counts steps and particle-steps per second of
+wall time::
+
+    with trace("/tmp/tb"):
+        sampler.run(5000)
+    timer = StepTimer(n_particles=n)
+    sampler.run(5000); timer.lap(5000)   # synchronizes a CUDA device first
+    print(timer.report())
+
 ``device_profile(fn)`` runs ``fn()`` once under ``torch.profiler`` and
 reports how much of the wall time the GPU was busy, and on what.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from collections import defaultdict
 
@@ -20,6 +33,66 @@ import torch
 def phase(name: str):
     """Named region in ``torch.profiler`` traces."""
     return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a ``torch.profiler`` trace of the block (CPU activity, and
+    CUDA activity when a CUDA device is there) into
+    ``log_dir/trace_<pid>_<ns>.json`` (Chrome trace format: Perfetto and
+    ``chrome://tracing`` read it); the counterpart of
+    ``jax.profiler.start_trace``/``stop_trace``.  The file is written when
+    the block ends, also when it raises."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+class StepTimer:
+    """Wall-clock step-rate counter (the north-star metric: particle-steps
+    per second).  ``lap`` first waits for a CUDA device's queued work, so a
+    lap times the work, not its enqueueing."""
+
+    def __init__(self, n_particles: int):
+        self.n = n_particles
+        self.t0 = time.perf_counter()
+        self.steps = 0
+        self.laps: list[tuple[int, float]] = []
+
+    def lap(self, n_steps: int) -> float:
+        """Record a finished segment of ``n_steps``; returns its
+        particle-steps per second."""
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        dt = t - self.t0
+        self.t0 = t
+        self.steps += n_steps
+        self.laps.append((n_steps, dt))
+        return self.n * n_steps / dt
+
+    def report(self) -> dict:
+        tot_t = sum(d for _, d in self.laps)
+        tot_s = sum(s for s, _ in self.laps)
+        rate = tot_s / tot_t if tot_t else 0.0
+        return {
+            "steps": tot_s,
+            "seconds": round(tot_t, 3),
+            "steps_per_sec": round(rate, 1),
+            "particle_steps_per_sec": round(rate * self.n, 1),
+        }
 
 
 def device_profile(fn, top: int = 8) -> dict:

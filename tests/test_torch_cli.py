@@ -18,13 +18,14 @@
 - ``rdf`` on a port-written DCD against the reference's command on the
   same file (rtol 1e-6; ``sum-hills`` and ``fes`` are held on a run's
   files in tests/test_torch_cli_runs.py).
-- A refusal per unported kind, each naming its ROADMAP item (every
-  example YAML runs; a variant of each that stays refused: hill-list
-  mode, a 2-D decomposition, GSD frames); the combinations the reference
-  refuses raise its ValueError (the NVT kinds on the packed engine, NPT
-  on a tilted box, the box bias of several walkers, the aspect ratio or a
-  mesh CV beside an order CV on the walkers x space product); and no
-  silent CPU fallback.
+- ``rdf`` on a port-written GSD file in both CLIs, as on the DCD.
+- The variants of the example YAMLs and the keys that the port once
+  refused run (hill-list mode, the 2-D decomposition, the neighbour
+  table, GSD frames: the port refuses nothing that the reference runs);
+  the combinations the reference refuses raise its ValueError (the NVT
+  kinds on the packed engine, NPT on a tilted box, the box bias of
+  several walkers, the aspect ratio or a mesh CV beside an order CV on the
+  walkers x space product); and no silent CPU fallback.
 """
 import contextlib
 import json
@@ -214,7 +215,7 @@ def test_prerelax_force_at_step0_matches_reference(seed):
                                float(ref.potential_energy), rtol=1e-5)
 
 
-# name -> (overrides, the item the refusal names, or "runs").  Every example
+# name -> (overrides, "runs").  Every example
 # YAML runs on the port as written since the box CVs, NPT and the walkers x
 # space product (ROADMAP queue 1, items 3 and 9's first part); the variants
 # that stayed refused run since hill-list mode (item 4) and the 2-D
@@ -222,8 +223,9 @@ def test_prerelax_force_at_step0_matches_reference(seed):
 # mode, the walkers on 2-D blocks ([3, 1]: config4_walkers has 3^3 cells)
 # and config4_walkers_sk_dd's walkers x space with the pencil-FFT S(k) on
 # [2, 1], each one stride (of 5 steps on the blocks of 864 particles)
-# with two walkers; what stays refused is the WTE
-# run under NPT with GSD frames (item 8).
+# with two walkers; and the WTE run under NPT with GSD frames since GSD
+# (item 8), at 864 particles for one stride of 25 steps (its packed run
+# writes no frames, as the reference's).
 _ONE_STRIDE = {"n_steps": 20, "report_every": 20}
 REFUSED_YAMLS = {
     "config1_lj_lamellar": (dict(cvs=[{
@@ -237,22 +239,20 @@ REFUSED_YAMLS = {
                                    metadynamics={"n_walkers": 2},
                                    run=_ONE_STRIDE), "runs"),
     "config6_wte": (dict(integrator={"kind": "npt_scr", "pressure": 1.0},
-                         output={"trajectory": "t.gsd"}), "item 8"),
+                         system={"init": {"n_cells": 6}},
+                         run={"n_steps": 25, "report_every": 25},
+                         output={"trajectory": "t.gsd"}), "runs"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED_YAMLS))
 def test_refused_example_yaml_names_its_item(tmp_path, name):
-    """What stays unported raises NotImplementedError naming its item; the
-    variants ported since run one stride on the CPU and log one hill per
-    walker."""
+    """The variants once refused run one stride on the CPU and log one hill
+    per walker (the port refuses none of them since GSD)."""
     over, item = REFUSED_YAMLS[name]
+    assert item == "runs"
     cfg = shrunk(name, tmp_path, **over)
     p = write_cfg(cfg, tmp_path / "cfg.json")
-    if item != "runs":
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(["run", p, "--device", "cpu"])
-        return
     assert cli.main(["run", p, "--device", "cpu"]) == 0
     rows = open(cfg["output"]["hill_file"]).read().splitlines()[1:]
     assert len(rows) == int(cfg["metadynamics"].get("n_walkers", 1))
@@ -311,6 +311,21 @@ def _runs_list_mode(sampler, cfg):
                                [cfg["cvs"][0]["sigma"]])
 
 
+def _runs_gsd(sampler, cfg):
+    """A ``.gsd`` trajectory builds and runs a stride; its writer is the
+    native GSDWriter."""
+    import tempfile
+    from metadyn_tpu_torch.io.gsd_file import GSDWriter
+    from metadyn_tpu_torch.io.trajectory import make_trajectory_writer
+    m = sampler.run(10)[-1]
+    assert np.isfinite(m["cv"]).all()
+    assert cfg["output"]["trajectory"] == "t.gsd"
+    with tempfile.TemporaryDirectory() as d:
+        w = make_trajectory_writer(os.path.join(d, "t.gsd"))
+        assert isinstance(w, GSDWriter) and w.native
+        w.close()
+
+
 REFUSED_KEYS = {
     # the distributed mesh CV under spatial_devices and the walkers x space
     # product run since item 9's first part; what the reference refuses on
@@ -354,15 +369,17 @@ REFUSED_KEYS = {
     "hill_list": (dict(cvs=[{"name": "q6", "kind": "steinhardt",
                              "r_cut": 1.49, "sigma": 0.02}],
                        metadynamics={"stride": 10}), _runs_list_mode),
-    "gsd": (dict(output={"trajectory": "t.gsd"}), "item 8"),
+    # GSD frames since item 8: the native writer (a packed run writes no
+    # frames, as in the reference)
+    "gsd": (dict(output={"trajectory": "t.gsd"},
+                 metadynamics={"stride": 10}), _runs_gsd),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED_KEYS))
 def test_unported_keys_raise_naming_their_item(case):
-    """What stays unported raises NotImplementedError naming its item, what
-    the reference refuses raises its ValueError; a key ported since builds
-    and runs on the CPU, and its check holds."""
+    """What the reference refuses raises its ValueError; a key once
+    refused builds and runs on the CPU, and its check holds."""
     over, item = dict(REFUSED_KEYS[case][0]), REFUSED_KEYS[case][1]
     system = {"init": {"n_cells": 6}, **over.pop("system", {})}
     cfg = shrunk("triclinic_packed", system=system, **over)
@@ -370,15 +387,24 @@ def test_unported_keys_raise_naming_their_item(case):
         sampler, cfg = cli.build_sampler(cfg, device="cpu")
         item(sampler, cfg)
         return
-    error = (NotImplementedError if item.startswith("item ")
-             else ValueError)
-    with pytest.raises(error, match=item):
+    with pytest.raises(ValueError, match=item):
         cli.build_sampler(cfg, device="cpu")
 
 
-def test_rdf_refuses_gsd(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["rdf", str(tmp_path / "t.gsd")])
+def test_rdf_reads_gsd(tmp_path):
+    """``rdf`` on a port-written GSD file, against the reference's command
+    on the same file (formerly refused)."""
+    from metadyn_tpu_torch.io.gsd_file import GSDWriter
+    rng = np.random.default_rng(4)
+    w = GSDWriter(str(tmp_path / "t.gsd"))
+    for i in range(3):
+        w.append(rng.uniform(-4.0, 4.0, (300, 3)), np.zeros((300, 3)),
+                 [8.0, 8.0, 8.0], 100 * i)
+    w.close()
+    ref, port = _both(lambda p: ["rdf", str(tmp_path / "t.gsd"), "--out", p,
+                                 "--bins", "40", "--skip", "1"],
+                      tmp_path, "dat")
+    np.testing.assert_allclose(port["tab"], ref["tab"], rtol=1e-6)
 
 
 def test_run_without_cuda_exits_with_an_error(tmp_path, capsys):

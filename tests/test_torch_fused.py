@@ -125,12 +125,20 @@ def test_fused_wrapper_refuses_unported_modes():
     auxs = [(torch.zeros(7), torch.zeros(7))]
     # the monomial mode and its cell_mask are ported (tests/
     # test_torch_spatial.py); a mask without it stays refused, as in the
-    # reference, and so do the parts subsets, with or without it
-    for kw in (dict(mono=True, parts=frozenset({"vals"})),
-               dict(cell_mask=torch.ones(spec.n_cells)),
-               dict(parts=frozenset({"lj"}))):
-        with pytest.raises(NotImplementedError):
-            tfc.fused_lj_order_force_cuda(st, spec, cvs, auxs, **kw)
+    # reference
+    with pytest.raises(NotImplementedError):
+        tfc.fused_lj_order_force_cuda(st, spec, cvs, auxs,
+                                      cell_mask=torch.ones(spec.n_cells))
+    # the parts subsets run (tests/test_torch_parts.py holds them against
+    # the reference): what a subset leaves out is exactly zero
+    f, g, terms = tfc.fused_lj_order_force_cuda(
+        st, spec, cvs, auxs, mono=True, parts=frozenset({"vals"}))
+    assert torch.count_nonzero(f) == 0 and torch.count_nonzero(g) == 0
+    assert float(cvs[0].finalize_value(terms[0])) > 0.0
+    f, g, terms = tfc.fused_lj_order_force_cuda(st, spec, cvs, auxs,
+                                                parts=frozenset({"lj"}))
+    assert torch.count_nonzero(f) > 0 and torch.count_nonzero(g) == 0
+    assert all(torch.count_nonzero(x) == 0 for t in terms for x in t)
     validity = interop.packed_spec_from(
         JSpec.create(5 * A_LAT, 500, r_cut=2.5, skin=0.15, cap=40))
     with pytest.raises(ValueError, match="sentinel"):
