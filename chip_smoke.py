@@ -357,8 +357,10 @@ PEAK_BYTES = 3.35e12  # B/s
 # recurrence over m = 0..6; its bias force twice that); a coordination
 # pair (the switching function; its force); a Q_6 bond in the monomial
 # mode (u and the monomials of degrees 2, 3 and 6, 28 sums: 77; the
-# degree-5 monomials, three 21-term dot products and the projection: 164).  Estimates to within ~50%:
-# the bound they give is a floor, not a prediction.
+# degree-5 monomials, three 21-term dot products and the projection: 164;
+# the kernel's conversion of the bias coefficients, ~900 per block, and
+# its decode, ~800 per call, are not per pair).  Estimates to within ~50%: the bound they give is a floor, not a
+# prediction.
 FLOP_PER_PAIR = {"lj": 24, "lj_energy": 37, "soft": 20, "soft_energy": 34,
                  "bond": 45, "q6_value": 150, "q6_force": 300,
                  "coord_value": 20, "coord_force": 30,
@@ -484,6 +486,16 @@ def lanes_close(name: str, cvs, terms, ref, rtol: float) -> float:
         assert np.isfinite(d) and d <= rtol * scale, (name, cv.name, d, scale)
         worst = max(worst, d)
     return worst
+
+
+def same_bits(name: str, a, b) -> None:
+    """Two calls' outputs ((f, g, terms) of kernel 4) are equal bit for
+    bit."""
+    import torch
+    torch.cuda.synchronize()
+    for x, y in ((a[0], b[0]), (a[1], b[1]), (lanes_of(a[2]),
+                                             lanes_of(b[2]))):
+        assert torch.equal(x, y), f"{name}: two calls differ"
 
 
 def force_close(name: str, a, b, rtol: float, atol_frac: float) -> tuple:
@@ -2602,7 +2614,10 @@ def spatial_kernels_vs_plain(dev) -> dict:
     and SPATIAL_SHARDS slabs, on each shard's extended grid: kernel 2 with
     the interior mask, kernel 4 in the monomial mode unmasked and masked,
     kernel 1's masked energy and virial; then kernel 4's monomial mode
-    against its recurrence mode on the whole 62,500 grid.  Gates of §2:
+    against its recurrence mode on the whole 62,500 grid.  Every kernel-4
+    call is repeated and must give the same bits, and a monomial call
+    (whole grid, and masked on shard 0 of SPATIAL_SHARDS) must run as many
+    device operations as a recurrence call (device_ops).  Gates of §2:
     values lanes rtol 2e-5, fused lanes 2e-4, bias forces rtol 2e-3 + 2e-4
     max, LJ forces 1e-3 max, pair forces 1e-4 max + 1e-3, PE and virial
     rtol 1e-5.  Returns per variant and grid (max abs error, kernel ms,
@@ -2678,6 +2693,10 @@ def spatial_kernels_vs_plain(dev) -> dict:
                 ef, fmax = force_close(f"{tag} {key} f_lj", fk, fpl, 0.0, 1e-3)
                 eg, gmax = force_close(f"{tag} {key} g", gk, gpl, 2e-3, 2e-4)
                 el = lanes_close(f"{tag} {key} lanes", cvs, tk4, tp4, 2e-4)
+                same_bits(f"{tag} {key}", (fk, gk, tk4),
+                          fused_lj_order_force_cuda(se, sx, cvs, auxs,
+                                                    mono=True,
+                                                    cell_mask=mask))
                 if first:
                     out[(key, n_dev)] = (
                         max(ef, eg, el),
@@ -2730,6 +2749,22 @@ def spatial_kernels_vs_plain(dev) -> dict:
     assert ds <= 2e-5, (ds, sm, sr)
     ef, _ = force_close("mono vs recurrence f_lj", fm, fr, 0.0, 1e-3)
     eg, gmax = force_close("mono vs recurrence g", gm, gr, 2e-3, 2e-4)
+    same_bits("mono whole grid", (fm, gm, tm),
+              fused_lj_order_force_cuda(st, spec, cvs, auxs, mono=True))
+    # a mono call runs the recurrence's device operations (one profiled
+    # call each; the slab path's masked call on shard 0 of 2 too)
+    slabs, exts = spatial_ext_states(st, spec, SPATIAL_SHARDS, dev)
+    ops = {
+        "recurrence": device_ops(lambda: fused_lj_order_force_cuda(
+            st, spec, cvs, auxs)),
+        "mono": device_ops(lambda: fused_lj_order_force_cuda(
+            st, spec, cvs, auxs, mono=True)),
+        "mono masked shard 0": device_ops(lambda: fused_lj_order_force_cuda(
+            exts[0], slabs.spec_ext, cvs, auxs, mono=True,
+            cell_mask=slabs.interior[0]))}
+    for key, names in ops.items():
+        print(f"phase 26 device ops per call, {key}: {len(names)} {names}")
+    assert len({len(v) for v in ops.values()}) == 1, ops
     mono_ms = cuda_ms(lambda: fused_lj_order_force_cuda(st, spec, cvs, auxs,
                                                         mono=True))
     rec_ms = cuda_ms(lambda: fused_lj_order_force_cuda(st, spec, cvs, auxs))
@@ -5016,58 +5051,132 @@ def blocks_entries(b35: dict, b36: dict, b37: dict, b38: dict, entry,
     ]
 
 
-def kernel_ab_device_ms():
-    """scripts/kernel_ab.py's device_ms (each call enqueued while the device
-    sleeps, between two CUDA events: the device time alone), loaded by
-    path."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "kernel_ab", ROOT / "scripts" / "kernel_ab.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.device_ms
+def _is_sleep(name: str) -> bool:
+    """Whether a device event is torch.cuda._sleep's spin kernel."""
+    return "spin_kernel" in name or "sleep" in name.lower()
 
 
-def kernel_event_ms(fn, match: str, calls: int = 25, warm: int = 3,
-                    windows: int = 4) -> float:
-    """Median device time in ms of the one kernel whose name holds
-    ``match`` that each call of ``fn()`` launches, from torch.profiler's
-    kernel events (the device's own start and end): the call's other device
-    work (memsets, copies, other kernels) left out.  Late in a long process
-    the first profiling window after a stretch without the profiler hands
-    over fewer events than kernels ran (11-21 of 25, with or without idle
-    host time around the calls), and the next window all of them: a
-    window that leaves the events short of ``calls`` is followed by
-    another, up to ``windows``.  The median is taken over all the events
-    handed over, at least ``calls`` // 2, and never more than ``calls``
-    from one window.  The events each window handed over are kept in
-    ``kernel_event_ms.handed``."""
+def kernel_event_check(fn, match: str, calls: int = 25, warm: int = 3,
+                       windows: int = 4, tol: float = 0.10) -> dict:
+    """The device time of the one kernel whose name holds ``match`` that
+    each call of ``fn()`` launches, from the profiler's kernel events,
+    checked against CUDA events around the same calls.  In one profiling
+    window each call is queued behind a device sleep (~2e6 cycles, as
+    kernel_ab.device_ms) between two CUDA events.  A window is taken when
+    the profiler hands over ``match`` once per call and, as medians over
+    the calls, the span of each call's device records (the first start to
+    the last end) lies within ``tol`` of the CUDA events' time, and the
+    widest hole between two of its records is under ``tol`` of that span:
+    a record lost at either end, or a short last one, shortens the span; a
+    short or late one elsewhere leaves a hole (device operations queued
+    back to back leave ~2 us).  Otherwise the next window, up to
+    ``windows``; none taken fails.  Returns {"kernel_ms": the median of
+    ``match``'s events, "events_ms": the median sum of a call's records,
+    "span_ms", "call_ms": the median of the CUDA events' time, "windows":
+    per window (records of match, span ms, call ms, widest hole ms)}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    durs, handed = [], []
+    seen = []
     for _ in range(windows):
+        marks = []
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(2_000_000)
+                a.record()
                 fn()
+                b.record()
+                marks.append((a, b))
             torch.cuda.synchronize()
-        got = [e.duration_ns() / 1e6
-               for e in prof.profiler.kineto_results.events()
-               if e.device_type() == cuda and match in e.name()]
-        assert len(got) <= calls, (match, len(got), calls)
-        handed.append(len(got))
-        durs += got
-        if len(durs) >= calls:
-            break
-    kernel_event_ms.handed = handed
-    assert len(durs) >= calls // 2, (match, handed, calls)
-    return statistics.median(durs)
+        call_ms = statistics.median(a.elapsed_time(b) for a, b in marks)
+        evs = sorted((e for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == cuda),
+                     key=lambda e: e.start_ns())
+        per_call, kern = [], []  # per call: [(start ns, end ns)]
+        for e in evs:
+            if _is_sleep(e.name()):
+                per_call.append([])
+            elif per_call:
+                per_call[-1].append((e.start_ns(),
+                                     e.start_ns() + e.duration_ns()))
+                if match in e.name():
+                    kern.append(e.duration_ns() / 1e6)
+        per_call = [c for c in per_call if c]
+        sums = [sum(b - a for a, b in c) / 1e6 for c in per_call]
+        spans = [(max(b for _, b in c) - c[0][0]) / 1e6 for c in per_call]
+        holes = [max([0] + [c[k + 1][0] - max(b for _, b in c[:k + 1])
+                            for k in range(len(c) - 1)]) / 1e6
+                 for c in per_call]
+        span = statistics.median(spans) if spans else 0.0
+        hole = statistics.median(holes) if holes else 0.0
+        seen.append((len(kern), span, call_ms, hole))
+        if (len(kern) == calls and len(per_call) == calls
+                and abs(span - call_ms) <= tol * call_ms
+                and hole <= tol * span):
+            return {"kernel_ms": statistics.median(kern),
+                    "events_ms": statistics.median(sums), "span_ms": span,
+                    "call_ms": call_ms, "windows": seen}
+    raise AssertionError(
+        f"the profiler's records of {match} disagree with CUDA events or "
+        f"come short in every window (records, span ms, CUDA-event ms, "
+        f"widest hole ms): {seen}")
 
 
-kernel_event_ms.handed = []
+def device_ops(fn, windows: int = 3) -> list:
+    """The names of the device operations (kernels, copies, fills) that one
+    call of ``fn()`` runs, after a warm call, from the profiler: the
+    longest list over ``windows`` windows of one call each (a window may
+    hand over fewer records than ran, never more)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    best = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name() for e in sorted(
+            (e for e in prof.profiler.kineto_results.events()
+             if e.device_type() == cuda), key=lambda e: e.start_ns())]
+        if len(names) > len(best):
+            best = names
+    return best
+
+
+# an order_staged_kernel instantiation in the monomial mode: its last two
+# template arguments are Mono (true) and Split
+MONO_ENTRY = r"order_staged_kernel.*ELb1ELb[01]EE"
+
+
+def mono_ptxas(log: str) -> list:
+    """[entry, registers, spill store bytes] of every order_staged_kernel
+    instantiation in the monomial mode in an nvcc build log (ptxas -v)."""
+    import re
+    out, fn = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1) if re.search(MONO_ENTRY, m.group(1)) else None
+            if fn:
+                out.append([fn, None, None])
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            out[-1][2] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[-1][1] = int(m.group(1))
+    return out
 
 
 def parts_bound(parts, mono: bool, n_pad: int, pairs: dict) -> tuple:
@@ -5114,10 +5223,12 @@ def parts_split(dev, smi: str, lag: dict) -> dict:
     mode: the kernel against its plain version at kernel 4's gates (f
     atol 1e-3 max|f|, g rtol 2e-3 + 2e-4 max|g|, values rtol 2e-4), the
     outputs it leaves out exactly zero, its time with the launch (cuda_ms),
-    the kernel's own device time (kernel_event_ms: the profiler's events of
-    order_staged_kernel alone) and the wrapper's (kernel_ab's device_ms:
-    with the zeroed outputs' memsets, the geometry copy, the value lanes'
-    reduction and, in mono mode, the aux and decode products), its plain
+    the kernel's own device time (the profiler's events of
+    order_staged_kernel alone) and the wrapper's (CUDA events around the
+    same calls: with the zeroed outputs' fills, the aux lanes' cat, the
+    geometry copy and the value lanes' second pass), the two checked
+    against each other (kernel_event_check: the span of the call's records
+    within 10% of the CUDA events' time, no hole in it), its plain
     version's time and its bound.  Prints the split of the kernel's time:
     staging ({}), then what lj, vals and force each add.  The parts
     counters are set to 0 just before and read just after: every subset
@@ -5137,7 +5248,6 @@ def parts_split(dev, smi: str, lag: dict) -> dict:
     dV = torch.tensor([0.9, -1.3], device=dev)
     terms = order_values_plain(st, spec, cvs)
     auxs = [cv.grad_aux(t, dV[i]) for i, (cv, t) in enumerate(zip(cvs, terms))]
-    device_ms = kernel_ab_device_ms()
     pairs = {"q6": pairs_within(st, spec, cvs[0].r_cut),
              "coord": pairs_within(st, spec, cvs[1].r_cut),
              "lj": pairs_within(st, spec, spec.r_cut)}
@@ -5180,9 +5290,10 @@ def parts_split(dev, smi: str, lag: dict) -> dict:
             else:
                 assert int(torch.count_nonzero(lanes_of(tk))) == 0, key
             ms = cuda_ms(kernel)
-            dev_ms[key] = kernel_event_ms(kernel, "order_staged_kernel")
-            handed[key] = kernel_event_ms.handed
-            wrap_ms[key] = device_ms(kernel)
+            ev = kernel_event_check(kernel, "order_staged_kernel")
+            dev_ms[key] = ev["kernel_ms"]
+            handed[key] = ev["windows"]
+            wrap_ms[key] = ev["call_ms"]
             plain_ms = cuda_ms(plain, calls=5, warm=1)
             out[key] = (max(errs, default=0.0), ms, plain_ms,
                         *parts_bound(parts, mono, spec.n_pad, pairs),
@@ -5201,8 +5312,9 @@ def parts_split(dev, smi: str, lag: dict) -> dict:
         parts_of = next(p for p in subsets for m in (False, True)
                         if parts_key(p, m) == key)
         print(f"parts {key}: max_abs_err={v[0]:.3e} kernel_ms={v[1]:.4f} "
-              f"kernel_device_ms={v[5]:.4f} (events handed over per window "
-              f"{handed[key]} of 25) wrapper_device_ms={v[6]:.4f} "
+              f"kernel_device_ms={v[5]:.4f} wrapper_device_ms={v[6]:.4f} "
+              f"(per window: the kernel's records of 25, the records' span "
+              f"ms, CUDA events' ms, widest hole ms {handed[key]}) "
               f"plain_ms={v[2]:.4f} "
               f"bound_ms={v[3]:.5f} ({v[4]}) share={v[3] / v[5]:.4f} "
               f"launches={n_launch} "
@@ -5534,12 +5646,21 @@ def main() -> int:
         print(f"profile bias_every={bias_every} one stride: "
               f"{json.dumps(prof)} on {smi[0]}")
 
-    # 7. the order-CV libraries (built in phase 2)
+    # 7. the order-CV libraries (built in phase 2); every instantiation of
+    # kernel 4's monomial mode without register spills
     for lib in order_libs:
         print("\n".join(ptxas_lines(lib)), file=sys.stderr)
         print(f"build: csrc/{lib}.cu nvcc {' '.join(_build.NVCC_FLAGS[:2])} "
               f"{build_secs[lib]:.2f} s; "
               + "; ".join(ptxas_lines(lib)[-4:]))
+    for lib in order_libs[1:]:
+        rows = mono_ptxas(_build.log_path(lib).read_text())
+        assert rows and all(None not in r for r in rows), (lib, rows)
+        for fn, regs, spill in rows:
+            print(f"build: csrc/{lib}.cu mono {fn}: {regs} registers, "
+                  f"{spill} bytes spill stores")
+        spilled = [r for r in rows if r[2]]
+        assert not spilled, f"monomial instantiations spill: {spilled}"
 
     # 8. order-CV kernels vs plain at Config 3's shapes
     order = order_kernels_vs_plain(dev)

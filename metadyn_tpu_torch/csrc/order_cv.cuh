@@ -98,14 +98,31 @@
 // value sums, each ordered pair on exactly one shard.
 //
 // Monomial mode (Mono; metadyn_tpu/cv/ylm_mono.py, the fused kernel's
-// mono=True): Q_l with l = 6 in the homogeneous-monomial basis of the unit
-// bond vector u.  Its value lanes hold sum mono_6(u) (28) and the bond
-// count; its bias force per pair is g_a = b_a . mono_5(u) for a = x, y, z
-// (three aux vectors of 21, from the CV's mono_force_vecs), projected off
-// u and divided by r.  The monomials are built by degree halving in the
-// reference's order (build_mono, cv/ylm_mono.py _split_plan), so every
-// monomial is the same f32 product as the plain version's.  Coordination
-// keeps its math.  l = 6 alone: its 63 + 1 aux lanes fill kMaxAux.
+// mono=True): one Q_l, l = 6, in the homogeneous-monomial basis of the unit
+// bond vector u; coordination keeps its math.  Per pair the bias force is
+// g_a = b_a . mono_5(u) for a = x, y, z, projected off u and divided by r,
+// and the value terms are mono_6(u) (28) and the bond count.  The monomials
+// are built by degree halving in the reference's order (each_mono,
+// cv/ylm_mono.py _split_plan), so every monomial is the same f32 product as
+// the plain version's.  The design keeps the sweep inside 64 registers:
+// - the kernel takes the Q_6's grad_aux as the recurrence does (Re, Im: 14
+//   lanes) and forms a = C^T aux and b_a = D_a a once per block into shared
+//   memory (C = ylm_mono_matrix(6), D_a = diff_matrices(6): the Q_6's table
+//   in the descriptor, which every block copies to shared memory; from
+//   constant memory, each lane's column of C cost a serialized read);
+// - the Q_6 hits have a queue of their own (mono_sweep), so the monomial
+//   math runs on about 12 lanes once per i row, not on every round of the
+//   ~60 LJ and coordination hits;
+// - the force builds each degree-5 monomial into the three dot products
+//   (no mono_5 array), then the values build the degree-6 ones, never both
+//   at once;
+// - a round's degree-6 monomials go to a per-warp tile in shared memory,
+//   one column per Q_6 hit, and lane t < 28 adds row t in column order: one
+//   running sum per lane, not 28;
+// - the second pass (reduce_mono_kernel) sums the partials as
+//   reduce_terms_kernel does and writes the recurrence's value lanes, C
+//   times the monomial sums, in double.
+// So a mono call runs the same device operations as a recurrence call.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -135,6 +152,19 @@ constexpr int kLanesQ6Coord = 2;  // [Q6, coordination]: 0..14, 15
 constexpr int kQ6Terms = 15;      // Re (7), Im (7), bond count
 constexpr int kQ6MonoTerms = 29;  // mono_6 sums (28), bond count
 
+// The monomial mode's sizes, and its Q_6's table in the descriptor
+// (ops/packed_order_cuda.py mono_tables, from cv/ylm_mono.py): C =
+// ylm_mono_matrix(6), (14, 28) row-major, Re rows then Im rows; then each
+// row of D_x, D_y, D_z (21 x 28 each, one nonzero per row) as its column,
+// then as its value.
+constexpr int kMono6 = 28;        // n_mono(6)
+constexpr int kMono5 = 21;        // n_mono(5)
+constexpr int kY6 = 14;           // Q_6's Re and Im lanes
+constexpr int kMonoDcol = kY6 * kMono6;             // the table's columns
+constexpr int kMonoDval = kMonoDcol + 3 * kMono5;   // and values
+constexpr int kMonoB = 64;  // s_aux: (b_x, b_y, b_z, 0)_t after the aux lanes
+constexpr int kTileLd = 33;       // a tile row: 32 columns and a pad
+
 // Q6's value lanes in the recurrence (15) or the monomial mode (29).
 template <bool Mono>
 __host__ __device__ constexpr int q6_terms() {
@@ -144,6 +174,7 @@ __host__ __device__ constexpr int q6_terms() {
 constexpr int kStageThreads = 256;
 constexpr int kStageWarps = kStageThreads / 32;
 constexpr int kReduceThreads = 512;
+constexpr int kMonoReduceThreads = 1024;  // a warp per monomial lane
 
 // The arguments every entry point validates before a launch.  Returns 0 or
 // cudaErrorInvalidValue.
@@ -245,12 +276,14 @@ __host__ __device__ constexpr int mono_index(int d, int i, int j) {
 }
 
 // The degree-D monomials from those of degree hi = D - D/2 (mh) and lo =
-// D/2 (ml): each the product of the greedy split of its exponents, as
-// cv/ylm_mono.py _split_plan plans it.  Both loops unroll, so every index
-// is a constant and the arrays stay in registers.
-template <int D>
-__device__ __forceinline__ void build_mono(const float* mh, const float* ml,
-                                           float* out) {
+// D/2 (ml), each handed to f(index, value) as it is built: the product of
+// the greedy split of its exponents, as cv/ylm_mono.py _split_plan plans
+// it.  Both loops unroll, so every index is a constant and mh, ml stay in
+// registers; a caller that takes each monomial into its sums at once holds
+// no array of them.
+template <int D, class F>
+__device__ __forceinline__ void each_mono(const float* mh, const float* ml,
+                                          F f) {
   constexpr int hi = D - D / 2;
   constexpr int lo = D / 2;
 #pragma unroll
@@ -259,51 +292,91 @@ __device__ __forceinline__ void build_mono(const float* mh, const float* ml,
     for (int j = D - i; j >= 0; --j) {
       const int i2 = i < hi ? i : hi;
       const int j2 = j < hi - i2 ? j : hi - i2;
-      out[mono_index(D, i, j)] =
-          mh[mono_index(hi, i2, j2)] * ml[mono_index(lo, i - i2, j - j2)];
+      f(mono_index(D, i, j),
+        mh[mono_index(hi, i2, j2)] * ml[mono_index(lo, i - i2, j - j2)]);
     }
   }
 }
 
-// Q_6 of one ordered pair in the monomial mode (cv/packed_order.
-// PackedSteinhardtQl pair_mono_sums and pair_mono_grad_terms): value lanes
-// sum mono_6(u) and the bond count; gradient (g - u (u . g)) / r with g_a =
-// b_a . mono_5(u), the b_a at aux lanes h[3] + 21 a.  VO as ql_pair.
-template <bool Vals, bool Grad, int VO = -1>
-__device__ __forceinline__ void ql_mono_pair(const float* h, const float* aux,
-                                             float dx, float dy, float dz,
-                                             float r2, float* vacc, float& gx,
-                                             float& gy, float& gz) {
-  if (!(r2 < h[5])) return;
-  const float inv_r = rsqrtf(r2);
-  const float m1[3] = {dx * inv_r, dy * inv_r, dz * inv_r};
-  float m2[n_mono(2)], m3[n_mono(3)];
-  build_mono<2>(m1, m1, m2);
-  build_mono<3>(m2, m1, m3);
-  if (Vals) {
-    const int vo = VO >= 0 ? VO : static_cast<int>(h[2]);
-    float m6[n_mono(6)];
-    build_mono<6>(m3, m3, m6);
-#pragma unroll
-    for (int t = 0; t < n_mono(6); ++t) vacc[vo + t] += m6[t];
-    vacc[vo + n_mono(6)] += 1.0f;
-  }
-  if (Grad) {
-    float m5[n_mono(5)];
-    build_mono<5>(m3, m2, m5);
-    const float* b = aux + static_cast<int>(h[3]);
-    float gux = 0.0f, guy = 0.0f, guz = 0.0f;
-#pragma unroll
-    for (int t = 0; t < n_mono(5); ++t) {
-      gux += b[t] * m5[t];
-      guy += b[n_mono(5) + t] * m5[t];
-      guz += b[2 * n_mono(5) + t] * m5[t];
+// u and its monomials of degrees 2 and 3 (m1, m2, m3) for one pair.
+__device__ __forceinline__ void mono_low(float dx, float dy, float dz,
+                                         float inv_r, float* m1, float* m2,
+                                         float* m3) {
+  m1[0] = dx * inv_r;
+  m1[1] = dy * inv_r;
+  m1[2] = dz * inv_r;
+  each_mono<2>(m1, m1, [&](int t, float v) { m2[t] = v; });
+  each_mono<3>(m2, m1, [&](int t, float v) { m3[t] = v; });
+}
+
+// Q_6's bias force of one pair in the monomial mode (cv/packed_order.
+// PackedSteinhardtQl pair_mono_grad_terms): (g - u (u . g)) / r with g_a =
+// b_a . mono_5(u), (b_x, b_y, b_z)_t in b[t] (one 16-byte load each).
+__device__ __forceinline__ void q6_mono_grad(const float4* b, const float* m1,
+                                             const float* m2, const float* m3,
+                                             float inv_r, float& gx, float& gy,
+                                             float& gz) {
+  float gux = 0.0f, guy = 0.0f, guz = 0.0f;
+  each_mono<5>(m3, m2, [&](int t, float v) {
+    const float4 c = b[t];
+    gux += c.x * v;
+    guy += c.y * v;
+    guz += c.z * v;
+  });
+  const float dot = m1[0] * gux + m1[1] * guy + m1[2] * guz;
+  gx += (gux - m1[0] * dot) * inv_r;
+  gy += (guy - m1[1] * dot) * inv_r;
+  gz += (guz - m1[2] * dot) * inv_r;
+}
+
+// One warp's sweep of one i row in the monomial mode: cell_stage::
+// warp_sweep with the Q_6 pairs apart.  hit(q) is the cheap test; hits are
+// queued in staged order and run 32 at a time through near(q, live) (LJ and
+// the other CVs), which returns whether the pair lies inside Q_6's cut-off.
+// A round's Q_6 pairs are then moved onto queue_q, and q6(q, live) runs on
+// 32 of them at a time and on the rest at the row's end, so the monomial
+// math runs about once per row rather than beside near on every round.
+// Every lane calls near and q6 with the warp converged, live false on a
+// lane without an entry, so that q6 may sum across the warp.  Called by
+// all 32 lanes of the warp.
+template <class Hit, class Near, class Q6>
+__device__ void mono_sweep(int n_rows, int* queue, int* queue_q, Hit hit,
+                           Near near, Q6 q6) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lower = (1u << lane) - 1u;
+  int qn = 0, qm = 0;
+  auto round = [&](int e, bool live) {
+    const bool in_q6 = near(e, live);
+    const unsigned mq = __ballot_sync(cell_stage::kFull, in_q6);
+    if (in_q6) queue_q[qm + __popc(mq & lower)] = e;
+    qm += __popc(mq);
+    __syncwarp();
+    if (qm >= 32) {
+      q6(queue_q[lane], true);
+      qm -= 32;
+      __syncwarp();
+      if (lane < qm) queue_q[lane] = queue_q[32 + lane];
+      __syncwarp();
     }
-    const float dot = m1[0] * gux + m1[1] * guy + m1[2] * guz;
-    gx += (gux - m1[0] * dot) * inv_r;
-    gy += (guy - m1[1] * dot) * inv_r;
-    gz += (guz - m1[2] * dot) * inv_r;
+  };
+  for (int base = 0; base < n_rows; base += 32) {
+    const int q = base + lane;
+    const bool h = q < n_rows && hit(q);
+    const unsigned m = __ballot_sync(cell_stage::kFull, h);
+    if (h) queue[qn + __popc(m & lower)] = q;
+    qn += __popc(m);
+    __syncwarp();
+    if (qn >= 32) {
+      round(queue[lane], true);
+      qn -= 32;
+      __syncwarp();
+      if (lane < qn) queue[lane] = queue[32 + lane];
+      __syncwarp();
+    }
   }
+  round(lane < qn ? queue[lane] : 0, lane < qn);
+  q6(lane < qm ? queue_q[lane] : 0, lane < qm);
+  __syncwarp();
 }
 
 // Coordination of one ordered pair (cv/packed_order.PackedCoordination):
@@ -329,39 +402,51 @@ __device__ __forceinline__ void coord_pair(const float* h, const float* aux,
   }
 }
 
-// Every CV of the descriptor on one pair.  Kinds: kSet*; L: 6 or 0 (ql_pair);
-// Lanes: kLanes* (with a fixed layout, Kinds and L are implied); Mono: Q_l
-// in the monomial mode (L = 6).
-template <bool Vals, bool Grad, int Kinds, int L, int Lanes, bool Mono>
+// Every CV of the descriptor on one pair (the recurrence).  Kinds: kSet*;
+// L: 6 or 0 (ql_pair); Lanes: kLanes* (with a fixed layout, Kinds and L are
+// implied).
+template <bool Vals, bool Grad, int Kinds, int L, int Lanes>
 __device__ __forceinline__ void cv_pair(const float* desc, int n_cvs,
                                         const float* aux, float dx, float dy,
                                         float dz, float r2, float* vacc,
                                         float& gx, float& gy, float& gz) {
-  static_assert(!Mono || L == 6, "the monomial mode is Q_6's");
   if constexpr (Lanes != kLanesAny) {
-    if constexpr (Mono) {
-      ql_mono_pair<Vals, Grad, 0>(desc, aux, dx, dy, dz, r2, vacc, gx, gy,
-                                  gz);
-    } else {
-      ql_pair<Vals, Grad, 6, 0>(desc, desc + static_cast<int>(desc[4]), aux,
-                                dx, dy, dz, r2, vacc, gx, gy, gz);
-    }
+    ql_pair<Vals, Grad, 6, 0>(desc, desc + static_cast<int>(desc[4]), aux,
+                              dx, dy, dz, r2, vacc, gx, gy, gz);
     if constexpr (Lanes == kLanesQ6Coord) {
-      coord_pair<Vals, Grad, q6_terms<Mono>()>(desc + kHdr, aux, dx, dy, dz,
-                                               r2, vacc, gx, gy, gz);
+      coord_pair<Vals, Grad, kQ6Terms>(desc + kHdr, aux, dx, dy, dz, r2, vacc,
+                                       gx, gy, gz);
     }
   } else {
     for (int c = 0; c < n_cvs; ++c) {
       const float* h = desc + c * kHdr;
       if (Kinds == kSetQl ||
           (Kinds == kSetMixed && static_cast<int>(h[0]) == kQl)) {
-        if constexpr (Mono) {
-          ql_mono_pair<Vals, Grad>(h, aux, dx, dy, dz, r2, vacc, gx, gy, gz);
-        } else {
-          ql_pair<Vals, Grad, L>(h, desc + static_cast<int>(h[4]), aux, dx,
-                                 dy, dz, r2, vacc, gx, gy, gz);
-        }
+        ql_pair<Vals, Grad, L>(h, desc + static_cast<int>(h[4]), aux, dx, dy,
+                               dz, r2, vacc, gx, gy, gz);
       } else {
+        coord_pair<Vals, Grad>(h, aux, dx, dy, dz, r2, vacc, gx, gy, gz);
+      }
+    }
+  }
+}
+
+// The CVs other than the Q_6 on one pair in the monomial mode: the
+// coordination of [Q6, coordination] (its value lane after the Q_6's 29),
+// or every non-Q_l CV of a list read from the descriptor.
+template <bool Vals, bool Grad, int Kinds, int Lanes>
+__device__ __forceinline__ void mono_others(const float* desc, int n_cvs,
+                                            const float* aux, float dx,
+                                            float dy, float dz, float r2,
+                                            float* vacc, float& gx, float& gy,
+                                            float& gz) {
+  if constexpr (Lanes == kLanesQ6Coord) {
+    coord_pair<Vals, Grad, kQ6MonoTerms>(desc + kHdr, aux, dx, dy, dz, r2,
+                                         vacc, gx, gy, gz);
+  } else if constexpr (Lanes == kLanesAny && Kinds == kSetMixed) {
+    for (int c = 0; c < n_cvs; ++c) {
+      const float* h = desc + c * kHdr;
+      if (static_cast<int>(h[0]) != kQl) {
         coord_pair<Vals, Grad>(h, aux, dx, dy, dz, r2, vacc, gx, gy, gz);
       }
     }
@@ -395,14 +480,56 @@ struct StagedParams {
 // time).  One per library: each .cu file has its own.
 __constant__ cell_geom::BoxRow c_geo;
 
-// Static shared memory of order_staged_kernel, beside its dynamic rows.
-constexpr size_t kStaticSmem =
-    sizeof(float) * (kMaxDesc + kMaxAux + 6 + kStageWarps * kMaxTerms);
+// The aux lanes in shared memory: the CVs' lanes, then (Mono) the Q_6's
+// (b_x, b_y, b_z, 0) per degree-5 monomial at kMonoB.
+template <bool Mono>
+__host__ __device__ constexpr int aux_smem() {
+  return Mono ? kMonoB + 4 * kMono5 : kMaxAux;
+}
 
-// Dynamic shared memory: the staged rows and cell_stage's scratch.
+// Static shared memory of order_staged_kernel, beside its dynamic rows.
+template <bool Mono>
+constexpr size_t static_smem() {
+  return sizeof(float) *
+         (kMaxDesc + aux_smem<Mono>() + 6 + kStageWarps * kMaxTerms);
+}
+
+// The monomial mode's dynamic shared memory past cell_stage's scratch
+// (which then holds no hit queues), per warp: its hit queue and its Q_6
+// queue (kQueue ints each); with Vals its tile, kMono6 rows of kTileLd
+// floats: row t takes monomial t of each Q_6 pair of a round, one column
+// per pair.  The tile takes the 28 value sums off each lane's registers
+// (PERF.md: with them in registers the fused sweep spilled).
+template <bool Mono, bool Vals, bool Grad>
+struct MonoSmem {
+  static constexpr bool kOn = Mono && (Vals || Grad);
+  static constexpr bool kTile = kOn && Vals;
+  static constexpr int kQueueWords = kOn ? 2 * cell_stage::kQueue : 0;
+  static constexpr int kWarpWords =
+      kQueueWords + (kTile ? kMono6 * kTileLd : 0);
+  static constexpr int kScratchWarps = kOn ? 0 : kStageWarps;
+  static constexpr size_t kBytes = sizeof(float) * kStageWarps * kWarpWords;
+};
+
+// Dynamic shared memory: the staged rows, cell_stage's scratch and MonoSmem.
+template <bool Mono, bool Vals, bool Grad>
 inline size_t staged_smem(int cap) {
+  using MS = MonoSmem<Mono, Vals, Grad>;
   return sizeof(float4) * cell_stage::kOffsets * cap +
-         cell_stage::scratch_bytes(cap, kStageWarps);
+         cell_stage::scratch_bytes(cap, MS::kScratchWarps) + MS::kBytes;
+}
+
+// The Q_6's place in the monomial mode's CV list: 0 in the fixed layouts,
+// else the list's one Q_l.
+template <int Lanes>
+__device__ __forceinline__ int mono_cv(const float* desc, int n_cvs) {
+  int qc = 0;
+  if constexpr (Lanes == kLanesAny) {
+    for (int c = 0; c < n_cvs; ++c) {
+      if (static_cast<int>(desc[c * kHdr]) == kQl) qc = c;
+    }
+  }
+  return qc;
 }
 
 // The block-per-cell kernel.  WithLJ adds the Lennard-Jones pair force
@@ -411,34 +538,37 @@ inline size_t staged_smem(int cap) {
 // cell's weight in cell_mask where it is not null); Grad writes the CV bias
 // force into g.  Valid: the validity layout, vacancy from pid (otherwise
 // from the coordinate sentinel; pid is then not read and may be null).
-// Mono: Q_l in the monomial mode.  With Vals alone, a warp keeps one hit
-// queue across its rows, unless Split.  Split (the parts subsets of the
-// fused sweep, packed_fused_parts.cu): the fused sweep's traversal and
-// launch bounds whatever the subset, so that the subsets differ in their
-// math alone.
+// Mono: the Q_6 in the monomial mode (mono_sweep; aux holds the CVs'
+// grad_aux lanes as in the recurrence, partials the monomial sums).  With
+// Vals alone, a warp keeps one hit queue across its rows, unless Split.
+// Split (the parts subsets of the fused sweep, packed_fused_parts.cu): the
+// fused sweep's traversal and launch bounds whatever the subset, so that
+// the subsets differ in their math alone.
 // Blocks per SM each sweep keeps: the values and force sweeps 5 (48
-// registers a thread), the fused sweep 4 (64).  Reading the box from
-// constant memory (c_geo) took the values sweep to 54 registers, 4 blocks
-// per SM and 9% of its time on Config 3's input, and a bound of 1 lets
-// the compiler take more than 64.
-template <bool WithLJ>
+// registers a thread), the fused sweep and the monomial mode 4 (64; 3
+// blocks at 80 registers measured slower, PERF.md).  Reading the box from constant memory (c_geo)
+// took the values sweep to 54 registers, 4 blocks per SM and 9% of its
+// time on Config 3's input, and a bound of 1 lets the compiler take more
+// than 64.
+template <bool WithLJ, bool Mono>
 constexpr int min_blocks() {
-  return WithLJ ? 4 : 5;
+  return WithLJ || Mono ? 4 : 5;
 }
 
 template <bool WithLJ, bool Vals, bool Grad, bool Valid, int Kinds, int L,
           int Lanes, bool Mono, bool Split = false>
 __global__ void __launch_bounds__(kStageThreads,
-                                  min_blocks<WithLJ || Split>())
+                                  min_blocks<WithLJ || Split, Mono>())
 order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
                     const float* __restrict__ desc, int desc_len, int n_cvs,
                     int n_terms, const float* __restrict__ aux, int n_aux,
                     StagedParams p, float* __restrict__ f,
                     float* __restrict__ g, float* __restrict__ partials,
                     const float* __restrict__ cell_mask) {
+  using MS = MonoSmem<Mono, Vals, Grad>;
   extern __shared__ float4 s_pos[];  // (27 cap): x, y, z with the shift
   __shared__ float s_desc[kMaxDesc];
-  __shared__ float s_aux[kMaxAux];
+  __shared__ __align__(16) float s_aux[aux_smem<Mono>()];
   __shared__ float s_box[6];  // fractional lo (3) and hi (3) of the i rows
   const int cap = p.g.cap;
   const int n_pad = p.g.n_pad;
@@ -448,13 +578,18 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
   const int warp = threadIdx.x >> 5;
   const cell_stage::Scratch sc = cell_stage::scratch_at(
       s_pos + cell_stage::kOffsets * cap, cap);
+  // this warp's MonoSmem past the scratch
+  float* const m_warp =
+      reinterpret_cast<float*>(
+          reinterpret_cast<char*>(s_pos + cell_stage::kOffsets * cap) +
+          cell_stage::scratch_bytes(cap, MS::kScratchWarps)) +
+      warp * MS::kWarpWords;
   for (int k = threadIdx.x; k < desc_len; k += kStageThreads) {
     s_desc[k] = desc[k];
   }
   if (Grad) {
     for (int k = threadIdx.x; k < n_aux; k += kStageThreads) s_aux[k] = aux[k];
   }
-
   auto real = [&](int j) -> bool {
     return Valid ? pid[j] < p.n_real : r[j] < kVacantThr;
   };
@@ -488,6 +623,31 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
     }
   }
   __syncthreads();
+  if constexpr (MS::kOn && Grad) {
+    // b_a = D_a C^T (Re, Im) of the Q_6's aux lanes into s_aux, by warp 1
+    // (its share of the staging below is one column of the nine, warp 0's
+    // two): lane t < 28 forms a_t, then lane j takes b_j = value_j
+    // a[column_j] from that lane; read after the staging's barriers
+    if (warp == 1) {
+      const float* h = s_desc + mono_cv<Lanes>(s_desc, n_cvs) * kHdr;
+      const float* re_im = s_aux + static_cast<int>(h[3]);
+      const float* tab = s_desc + static_cast<int>(h[4]);
+      float a = 0.0f;
+      if (lane < kMono6) {
+#pragma unroll
+        for (int m = 0; m < kY6; ++m) a += tab[m * kMono6 + lane] * re_im[m];
+      }
+#pragma unroll
+      for (int j = lane; j < 64; j += 32) {
+        const int jj = j < 3 * kMono5 ? j : 0;
+        const float v =
+            tab[kMonoDval + jj] *
+            __shfl_sync(cell_stage::kFull, a,
+                        static_cast<int>(tab[kMonoDcol + jj]));
+        if (j < 3 * kMono5) s_aux[kMonoB + 4 * (j % kMono5) + j / kMono5] = v;
+      }
+    }
+  }
   auto near = [&](float3 x) -> bool {
     const float3 fr = cell_stage::fractional(x, c_geo.h);
     const float gx =
@@ -547,8 +707,120 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
     const float r2 = geom(xi, q, &dx, &dy, &dz);
     return r2 > 1.0e-12f && r2 < p.rc2_hit;  // not the slot itself
   };
+  // the LJ force of a pair inside r_cut (WithLJ)
+  auto lj = [&](float dx, float dy, float dz, float r2, float& fx, float& fy,
+                float& fz) {
+    if (WithLJ && r2 < p.rc2_lj) {
+      const float inv = 1.0f / r2;
+      const float s2 = p.sig2 * inv;
+      const float s6 = s2 * s2 * s2;
+      const float coef = p.eps4 * (12.0f * s6 * s6 - 6.0f * s6) * inv;
+      fx += coef * dx;
+      fy += coef * dy;
+      fz += coef * dz;
+    }
+  };
+  // the i row's outputs: LJ and bias force summed over the warp
+  auto write_row = [&](int ii, float fx, float fy, float fz, float gx,
+                       float gy, float gz) {
+    const int s = sc.islot[ii];
+    if (WithLJ) {
+      fx = cell_stage::warp_sum(fx);
+      fy = cell_stage::warp_sum(fy);
+      fz = cell_stage::warp_sum(fz);
+      if (lane == 0) {
+        f[s] = fx;
+        f[n_pad + s] = fy;
+        f[2 * n_pad + s] = fz;
+      }
+    }
+    if (Grad) {
+      gx = cell_stage::warp_sum(gx);
+      gy = cell_stage::warp_sum(gy);
+      gz = cell_stage::warp_sum(gz);
+      if (lane == 0) {
+        g[s] = gx;
+        g[n_pad + s] = gy;
+        g[2 * n_pad + s] = gz;
+      }
+    }
+  };
 
-  if constexpr (Vals && !Grad && !WithLJ && !Split) {
+  // the monomial mode: the Q_6's header at qc (0 at compile time in the
+  // fixed layouts), its value lanes from vq (the monomial sums, then its
+  // bond count)
+  const int qc = MS::kOn ? mono_cv<Lanes>(s_desc, n_cvs) : 0;
+  const int vq = MS::kOn && Vals && Lanes == kLanesAny
+                     ? static_cast<int>(s_desc[qc * kHdr + 2])
+                     : 0;
+  float tacc = 0.0f;
+  if constexpr (MS::kOn) {
+    // Q_6's cut-off and the i row read from shared memory where used:
+    // two registers fewer across the sweep, none spilled
+    auto rc2_q = [&]() -> float { return s_desc[qc * kHdr + 5]; };
+    int* const mqueue = reinterpret_cast<int*>(m_warp);
+    int* const queue_q = mqueue + cell_stage::kQueue;
+    float* const tile = m_warp + MS::kQueueWords;
+    const float4* const bvec = reinterpret_cast<const float4*>(s_aux + kMonoB);
+    for (int ii = warp; ii < n_i; ii += kStageWarps) {
+      const float4 xi = s_pos[i0 + ii];
+      float fx = 0.0f, fy = 0.0f, fz = 0.0f;
+      float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+      mono_sweep(
+          n_rows, mqueue, queue_q,
+          [&](int q) { return hit(xi, q); },
+          [&](int q, bool live) -> bool {
+            if (!live) return false;
+            float dx, dy, dz;
+            const float r2 = geom(xi, q, &dx, &dy, &dz);
+            lj(dx, dy, dz, r2, fx, fy, fz);
+            mono_others<Vals, Grad, Kinds, Lanes>(s_desc, n_cvs, s_aux, dx,
+                                                  dy, dz, r2, vacc, gx, gy,
+                                                  gz);
+            return r2 < rc2_q();
+          },
+          [&](int q, bool live) {
+            float dx = 0.0f, dy = 0.0f, dz = 0.0f, r2 = 0.0f;
+            if (live) {
+              r2 = geom(s_pos[i0 + ii], q, &dx, &dy, &dz);
+            }
+            const bool on = live && r2 < rc2_q();
+            // one column of this warp's tile per Q_6 pair, in lane order
+            unsigned mq = 0u;
+            if constexpr (MS::kTile) {
+              mq = __ballot_sync(cell_stage::kFull, on);
+              if (mq == 0u) return;  // the same on every lane
+            }
+            if (on) {
+              // the force from u and its monomials of degrees 2 and 3,
+              // then the values from the degree-3 ones
+              const float inv_r = rsqrtf(r2);
+              float m1[3], m2[n_mono(2)], m3[n_mono(3)];
+              mono_low(dx, dy, dz, inv_r, m1, m2, m3);
+              if constexpr (Grad) {
+                q6_mono_grad(bvec, m1, m2, m3, inv_r, gx, gy, gz);
+              }
+              if constexpr (MS::kTile) {
+                float* const column = tile + __popc(mq & ((1u << lane) - 1u));
+                each_mono<6>(m3, m3,
+                             [&](int t, float v) { column[t * kTileLd] = v; });
+              }
+            }
+            if constexpr (MS::kTile) {
+              // lane t < 28 adds row t in column order, lane 28 the count
+              __syncwarp();
+              const int n_on = __popc(mq);
+              if (lane < kMono6) {
+                for (int c = 0; c < n_on; ++c) tacc += tile[lane * kTileLd + c];
+              } else if (lane == kMono6) {
+                tacc += static_cast<float>(n_on);
+              }
+              __syncwarp();
+            }
+          });
+      write_row(ii, fx, fy, fz, gx, gy, gz);
+    }
+  } else if constexpr (Vals && !Grad && !WithLJ && !Split) {
     float unused = 0.0f;
     cell_stage::warp_sweep_rows(
         i0 + warp, i0 + n_i, kStageWarps, n_rows, queue,
@@ -556,7 +828,7 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
         [&](int i, int q) {
           float dx, dy, dz;
           const float r2 = geom(s_pos[i], q, &dx, &dy, &dz);
-          cv_pair<true, false, Kinds, L, Lanes, Mono>(
+          cv_pair<true, false, Kinds, L, Lanes>(
               s_desc, n_cvs, s_aux, dx, dy, dz, r2, vacc, unused, unused,
               unused);
         });
@@ -570,47 +842,26 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
           [&](int q) {
             float dx, dy, dz;
             const float r2 = geom(xi, q, &dx, &dy, &dz);
-            if (WithLJ && r2 < p.rc2_lj) {
-              const float inv = 1.0f / r2;
-              const float s2 = p.sig2 * inv;
-              const float s6 = s2 * s2 * s2;
-              const float coef = p.eps4 * (12.0f * s6 * s6 - 6.0f * s6) * inv;
-              fx += coef * dx;
-              fy += coef * dy;
-              fz += coef * dz;
+            lj(dx, dy, dz, r2, fx, fy, fz);
+            if constexpr (!Mono) {
+              cv_pair<Vals, Grad, Kinds, L, Lanes>(
+                  s_desc, n_cvs, s_aux, dx, dy, dz, r2, vacc, gx, gy, gz);
             }
-            cv_pair<Vals, Grad, Kinds, L, Lanes, Mono>(
-                s_desc, n_cvs, s_aux, dx, dy, dz, r2, vacc, gx, gy, gz);
           });
-      const int s = sc.islot[ii];
-      if (WithLJ) {
-        fx = cell_stage::warp_sum(fx);
-        fy = cell_stage::warp_sum(fy);
-        fz = cell_stage::warp_sum(fz);
-        if (lane == 0) {
-          f[s] = fx;
-          f[n_pad + s] = fy;
-          f[2 * n_pad + s] = fz;
-        }
-      }
-      if (Grad) {
-        gx = cell_stage::warp_sum(gx);
-        gy = cell_stage::warp_sum(gy);
-        gz = cell_stage::warp_sum(gz);
-        if (lane == 0) {
-          g[s] = gx;
-          g[n_pad + s] = gy;
-          g[2 * n_pad + s] = gz;
-        }
-      }
+      write_row(ii, fx, fy, fz, gx, gy, gz);
     }
   }
 
   if (Vals) {
-    // a shuffle tree per term, then the warps in order into the cell's row
+    // a shuffle tree per term (the tile's terms: lane t's sum), then the
+    // warps in order into the cell's row
     __shared__ float s_red[kStageWarps][kMaxTerms];
+    if constexpr (MS::kTile) {
+      if (lane <= kMono6) s_red[warp][vq + lane] = tacc;
+    }
 #pragma unroll
     for (int t = 0; t < nt; ++t) {
+      if (MS::kTile && t >= vq && t <= vq + kMono6) continue;
       const float v = cell_stage::warp_sum(vacc[t]);
       if (lane == 0) s_red[warp][t] = v;
     }
@@ -643,6 +894,53 @@ reduce_terms_kernel(const float* __restrict__ partials, int n_blocks,
   }
 }
 
+// The monomial mode's second pass: every partials lane summed as
+// reduce_terms_kernel sums it, then written as the recurrence's value lanes,
+// the descriptor's CVs in order: a Q_6's Re and Im lanes C . (its monomial
+// sums) in double, k = 0..27 in order, then its bond count; a
+// coordination's lane as summed.  out: the recurrence's lanes (15 per Q_6,
+// 1 per coordination).  Two calls give the same bits.
+__global__ void __launch_bounds__(kMonoReduceThreads)
+reduce_mono_kernel(const float* __restrict__ partials, int n_blocks,
+                   int n_terms, const float* __restrict__ desc, int n_cvs,
+                   float* __restrict__ out) {
+  __shared__ double s_sum[kMaxTerms];
+  const int lane = threadIdx.x & 31;
+  for (int t = threadIdx.x >> 5; t < n_terms;
+       t += kMonoReduceThreads / 32) {
+    double acc = 0.0;
+#pragma unroll 4
+    for (int b = lane; b < n_blocks; b += 32) acc += partials[b * n_terms + t];
+    for (int off = 16; off > 0; off >>= 1) {
+      acc += __shfl_down_sync(cell_stage::kFull, acc, off);
+    }
+    if (lane == 0) s_sum[t] = acc;
+  }
+  __syncthreads();
+  const int k = threadIdx.x;  // this thread's output lane
+  int dec = 0;
+  for (int c = 0; c < n_cvs; ++c) {
+    const float* h = desc + c * kHdr;
+    const int vo = static_cast<int>(h[2]);
+    const bool ql = static_cast<int>(h[0]) == kQl;
+    const int width = ql ? kY6 + 1 : 1;
+    if (k >= dec && k < dec + width) {
+      const int j = k - dec;
+      double v = 0.0;
+      if (ql && j < kY6) {
+        const float* C = desc + static_cast<int>(h[4]);
+        for (int t = 0; t < kMono6; ++t) {
+          v += static_cast<double>(C[j * kMono6 + t]) * s_sum[vo + t];
+        }
+      } else {
+        v = s_sum[vo + (ql ? kMono6 : 0)];
+      }
+      out[k] = static_cast<float>(v);
+    }
+    dec += width;
+  }
+}
+
 struct StagedArgs {
   const float* r;
   const int* pid;
@@ -656,7 +954,7 @@ struct StagedArgs {
   float* f;
   float* g;
   float* partials;  // (cells, n_terms) with Vals
-  float* out;       // (n_terms,) with Vals
+  float* out;       // (n_terms,) with Vals; Mono: the recurrence's lanes
   const float* cell_mask;  // (cells,) value weights with Vals, or null
 };
 
@@ -666,10 +964,10 @@ struct StagedArgs {
 template <bool WithLJ, bool Vals, bool Grad, bool Valid, int Kinds, int L,
           int Lanes, bool Mono = false, bool Split = false>
 int launch_staged(const StagedArgs& a, cudaStream_t st) {
-  const size_t smem = staged_smem(a.p.g.cap);
+  const size_t smem = staged_smem<Mono, Vals, Grad>(a.p.g.cap);
   auto kernel = order_staged_kernel<WithLJ, Vals, Grad, Valid, Kinds, L,
                                     Lanes, Mono, Split>;
-  const int rc = cell_stage::request_smem(kernel, smem, kStaticSmem);
+  const int rc = cell_stage::request_smem(kernel, smem, static_smem<Mono>());
   if (rc != 0) return rc;
   const cudaError_t copied = cudaMemcpyToSymbolAsync(
       c_geo, a.p.g.box, sizeof(cell_geom::BoxRow), 0,
@@ -679,7 +977,10 @@ int launch_staged(const StagedArgs& a, cudaStream_t st) {
   kernel<<<n_cells, kStageThreads, smem, st>>>(
       a.r, a.pid, a.desc, a.desc_len, a.n_cvs, a.n_terms, a.aux, a.n_aux,
       a.p, a.f, a.g, a.partials, a.cell_mask);
-  if (Vals) {
+  if constexpr (Vals && Mono) {
+    reduce_mono_kernel<<<1, kMonoReduceThreads, 0, st>>>(
+        a.partials, n_cells, a.n_terms, a.desc, a.n_cvs, a.out);
+  } else if constexpr (Vals) {
     reduce_terms_kernel<<<1, kReduceThreads, 0, st>>>(a.partials, n_cells,
                                                       a.n_terms, a.out);
   }
@@ -717,7 +1018,13 @@ int launch_staged_set(int cv_set, int l_fixed, int lanes,
     }
     if (lanes != kLanesAny) return bad;
   }
-  if constexpr (Mono) {
+  if constexpr (Mono && Vals) {
+    // one Q_6 alone has the fixed layout kLanesQ6
+    return cv_set == kSetMixed
+               ? launch_staged<WithLJ, Vals, Grad, Valid, kSetMixed, 6,
+                               kLanesAny, true, Split>(a, st)
+               : bad;
+  } else if constexpr (Mono) {
     return cv_set == kSetQl
                ? launch_staged<WithLJ, Vals, Grad, Valid, kSetQl, 6,
                                kLanesAny, true, Split>(a, st)

@@ -39,10 +39,11 @@ extern "C" {
 // (packed_order.cu packed_order_values); rc2_hit: max(r_cut^2, the largest
 // CV cut-off squared) (inf if a CV has none); pre_rc, margin: the
 // prefilter radius is pre_rc + margin * (the sum of the box's perpendicular
-// widths; pre_rc inf: no prefilter); mono:
-// nonzero for the monomial mode (aux and value lanes in its layout,
-// order_cv.cuh); cell_mask: (cx cy cz,) f32 weights of each cell's value
-// sums, or null.
+// widths; pre_rc inf: no prefilter); mono: nonzero for the monomial mode
+// (aux as in the recurrence; n_terms and partials the monomial sums'
+// lanes, out the recurrence's value lanes, the Q_6's table the monomial
+// one; order_cv.cuh); cell_mask: (cx cy cz,) f32 weights of each cell's
+// value sums, or null.
 // Launches on `stream` and returns 0, a refused argument
 // (cudaErrorInvalidValue), -2 when cap does not fit a block's shared
 // memory, or a CUDA error.

@@ -12,9 +12,10 @@
 // Every subset runs kernel 4's sweep (order_cv.cuh Split): the same
 // staged rows, the prefilter radius the larger of the LJ cut-off and the
 // largest CV cut-off whatever the subset computes (ops/packed_fused_cuda.py
-// fused_reach), one hit queue per i row, and kernel 4's launch bounds (4
-// blocks per SM, 64 registers a thread), so the subsets differ only in the
-// math on the queued pairs and {} is the staging, the candidate tests and
+// fused_reach), one hit queue per i row (the monomial mode's subsets with
+// vals or force: its two, order_cv.cuh mono_sweep), and kernel 4's launch
+// bounds in each mode, so the subsets differ only in the math on the queued
+// pairs and {} is the staging, the candidate tests and
 // the queue alone.  The outputs a subset does not compute are not written
 // here: the wrapper allocates them as zeros.
 //

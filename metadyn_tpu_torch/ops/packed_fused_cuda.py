@@ -15,6 +15,12 @@ given (lagged) bias coefficients, and fresh CV value terms at the current
 positions: the trailing force call of each sub-chunk on the lagged
 multiple-time-stepping path (``sampler.make_lagged_parts``).
 
+In the monomial mode the kernel takes the CVs' ``grad_aux`` lanes as in the
+recurrence and returns the recurrence's value lanes: it forms the monomial
+coefficients and decodes the monomial sums itself, from the tables of
+``packed_order_cuda.mono_tables`` in the CV descriptor.  So a mono call runs
+the same device operations as a recurrence call.
+
 On a CUDA tensor :func:`fused_lj_order_force_cuda` launches the kernel or
 raises; on a CPU tensor it runs :func:`fused_lj_order_force_plain`, the
 reference's own oracle chain: the plain pair force, the plain force sweep
@@ -123,10 +129,8 @@ def fused_lj_order_force_plain(state: PackedState, spec: PackedSpec, cvs,
         terms = order_values_plain(state, spec, cvs, stacks=stacks,
                                    cell_mask=cell_mask, mono=mono)
     else:
-        n_vals = lane_layout(cvs, mono)[3]
-        terms = decode_value_lanes(
-            cvs, torch.zeros(n_vals, dtype=torch.float32, device=r.device),
-            mono)
+        terms = decode_value_lanes(cvs, torch.zeros(
+            lane_layout(cvs)[3], dtype=torch.float32, device=r.device))
     return f_lj, g, terms
 
 
@@ -161,7 +165,7 @@ def fused_lj_order_force_cuda(state: PackedState, spec: PackedSpec, cvs,
     plan = _plan(tuple(cvs), r.device, mono)
     desc, n_vals, n_aux = plan.desc, plan.n_vals, plan.n_aux
     m_ptr = mask_ptr(cell_mask, spec, r.device, "fused_lj_order_force_cuda")
-    aux = pack_force_aux(cvs, auxs, mono)
+    aux = pack_force_aux(cvs, auxs)
     if aux.numel() != n_aux or aux.device != r.device:
         raise ValueError(f"fused_lj_order_force_cuda: {aux.numel()} aux "
                          f"lanes on {aux.device}, expected {n_aux} on "
@@ -175,7 +179,7 @@ def fused_lj_order_force_cuda(state: PackedState, spec: PackedSpec, cvs,
     f = output("lj", r.shape)
     g = output("force", r.shape)
     partials = output("vals", (spec.n_cells, n_vals))
-    out = output("vals", (n_vals,))
+    out = output("vals", (plan.n_out,))
     sig2 = float(spec.uniform_sigma) ** 2
     # the hit radius; the kernel widens the prefilter radius around it by
     # the margin from the box it reads (fused_reach is the same rule), the
@@ -207,7 +211,7 @@ def fused_lj_order_force_cuda(state: PackedState, spec: PackedSpec, cvs,
         key = parts_key(parts, plan.mono)
         counts = fused_lj_order_force_cuda.parts_launches
         counts[key] = counts.get(key, 0) + 1
-    return f, g, decode_value_lanes(cvs, out, mono)
+    return f, g, decode_value_lanes(cvs, out)
 
 
 fused_lj_order_force_cuda.launches = 0

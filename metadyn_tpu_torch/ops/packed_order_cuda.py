@@ -28,9 +28,11 @@ The CVs reach the kernels as a float descriptor (format in
 ``csrc/order_cv.cuh``) built from each CV's ``kernel_descriptor()`` and
 uploaded once per (CV list, device, mode).  Value terms and bias
 coefficients use the lane layout of :func:`lane_layout`: per CV its
-``n_value_terms`` value lanes and ``aux_size`` aux lanes, in list order, or
-in the fused kernel's monomial mode n_mono(l) + 1 value lanes and
-3·n_mono(l − 1) aux lanes for a Q_l (the reference's ``_lane_layout``).
+``n_value_terms`` value lanes and ``aux_size`` aux lanes, in list order.
+In the fused kernel's monomial mode a Q_6 sums n_mono(6) + 1 value lanes
+per cell, and the kernel's second pass writes them back as the
+recurrence's lanes; the aux lanes are the recurrence's in both modes (the
+kernel forms the monomial coefficients itself).
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 from . import _build
-from ..cv.ylm_mono import n_mono
+from ..cv.ylm_mono import diff_matrices, n_mono, ylm_mono_matrix
 from .packed import PackedSpec, PackedState, _frac3
 from .packed_cuda import box_ptr, check_state, mask_ptr, raise_on, slot_ptr
 
@@ -75,56 +77,60 @@ def is_mono(cv, mono: bool) -> bool:
 
 
 def lane_layout(cvs, mono: bool = False) -> tuple[list, list, int, int]:
-    """(aux lane offsets, value lane offsets, aux lanes, value lanes)."""
+    """(aux lane offsets, value lane offsets, aux lanes, value lanes) as the
+    sweeps take and sum them: the CVs' ``grad_aux`` lanes, and their value
+    lanes per cell, in the monomial mode a Q_l's n_mono(l) monomial sums
+    and its bond count."""
     aux_off, val_off = [], []
     na = nv = 0
     for cv in cvs:
         aux_off.append(na)
         val_off.append(nv)
-        if is_mono(cv, mono):
-            na += 3 * n_mono(cv.l - 1)
-            nv += n_mono(cv.l) + 1
-        else:
-            na += cv.aux_size
-            nv += cv.n_value_terms
+        na += cv.aux_size
+        nv += n_mono(cv.l) + 1 if is_mono(cv, mono) else cv.n_value_terms
     return aux_off, val_off, na, nv
 
 
-def pack_force_aux(cvs, auxs, mono: bool = False) -> torch.Tensor:
+def pack_force_aux(cvs, auxs) -> torch.Tensor:
     """The CVs' ``grad_aux`` outputs as one (aux lanes,) f32 device tensor
     (the reference pads to a (1, 128) lane row; the kernels take the
-    length); in the monomial mode a Q_l's lanes are its three
-    ``mono_force_vecs``."""
-    lanes = []
-    for cv, aux in zip(cvs, auxs):
-        if is_mono(cv, mono):
-            lanes += [b.reshape(-1) for b in cv.mono_force_vecs(aux)]
-        else:
-            lanes.append(cv.aux_flat(aux).reshape(-1))
+    length), in both modes."""
+    lanes = [cv.aux_flat(aux).reshape(-1) for cv, aux in zip(cvs, auxs)]
     return torch.cat([a.to(torch.float32) for a in lanes]).contiguous()
 
 
-def decode_value_lanes(cvs, vals: torch.Tensor, mono: bool = False) -> tuple:
-    """Kernel value lanes → per-CV ``terms`` (the plain sweep's structure);
-    in the monomial mode a Q_l's monomial sums go through
-    ``mono_value_decode``."""
-    _, val_off, _, _ = lane_layout(cvs, mono)
-    out = []
-    for cv, off in zip(cvs, val_off):
-        if is_mono(cv, mono):
-            nm = n_mono(cv.l)
-            out.append(cv.mono_value_decode(vals[off:off + nm],
-                                            vals[off + nm]))
-        else:
-            out.append(cv.terms_from_flat(vals[off:off + cv.n_value_terms]))
-    return tuple(out)
+def decode_value_lanes(cvs, vals: torch.Tensor) -> tuple:
+    """The value lanes a kernel writes → per-CV ``terms`` (the plain sweep's
+    structure), in both modes."""
+    _, val_off, _, _ = lane_layout(cvs)
+    return tuple(cv.terms_from_flat(vals[off:off + cv.n_value_terms])
+                 for cv, off in zip(cvs, val_off))
+
+
+@functools.lru_cache(maxsize=1)
+def mono_tables() -> tuple:
+    """The monomial mode's tables as the fused kernel takes them (a Q_6's
+    table in the descriptor, ``csrc/order_cv.cuh``), from
+    ``cv/ylm_mono.py``: C = ``ylm_mono_matrix(6)`` as (14, 28) f32, and
+    each row of the differentiation matrices D_x, D_y, D_z (21 × 28 each,
+    one nonzero per row) as that nonzero's column (63,) and value (63,)."""
+    C = np.ascontiguousarray(ylm_mono_matrix(6), np.float32)
+    cols, vals = [], []
+    for D in diff_matrices(6):
+        for row in D:
+            (k,) = np.flatnonzero(row)
+            cols.append(k)
+            vals.append(row[k])
+    return (C, np.asarray(cols, np.int32),
+            np.asarray(vals, np.float32))
 
 
 def cv_descriptor(cvs, mono: bool = False) -> np.ndarray:
     """The kernels' CV descriptor: one header of ``HDR`` floats per CV
     ``[kind, l, val_off, aux_off, tab_off, rc2, r02, sc, scale]``, then the
-    CVs' tables; ``mono``: the lane offsets of the monomial mode, whose
-    kernel takes Q_l with l = 6 only.  Raises on a CV without kernel math,
+    CVs' tables; ``mono``: the value lanes of the monomial mode, whose
+    kernel takes one Q_l, with l = 6, its table :func:`mono_tables` (C,
+    then the columns, then the values).  Raises on a CV without kernel math,
     on l > ``MAX_L`` and beyond the kernels' lane and descriptor limits."""
     cvs = list(cvs)
     if not 1 <= len(cvs) <= MAX_CVS:
@@ -134,8 +140,12 @@ def cv_descriptor(cvs, mono: bool = False) -> np.ndarray:
         if is_mono(cv, mono) and cv.l != 6:
             raise NotImplementedError(
                 f"CUDA fused kernel: the monomial mode takes Q_6 only "
-                f"(CV {cv.name!r} has l={cv.l}; l = 8 needs 108 aux lanes "
-                f"past the kernel's {MAX_AUX})")
+                f"(CV {cv.name!r} has l={cv.l}: the kernel's monomial "
+                f"tables are degree 6's)")
+    if sum(is_mono(cv, mono) for cv in cvs) > 1:
+        raise NotImplementedError(
+            "CUDA fused kernel: the monomial mode takes one Q_6 (its "
+            "monomial coefficients fill the kernel's shared table)")
     aux_off, val_off, n_aux, n_vals = lane_layout(cvs, mono)
     if n_vals > MAX_TERMS or n_aux > MAX_AUX:
         raise ValueError(f"CUDA order kernels: {n_vals} value and {n_aux} aux "
@@ -148,6 +158,9 @@ def cv_descriptor(cvs, mono: bool = False) -> np.ndarray:
                 f"CUDA order kernels: CV {getattr(cv, 'name', cv)!r} has no "
                 "kernel math (Q_l and coordination only)")
         kind, l, rc2, r02, sc, scale, table = cv.kernel_descriptor()
+        if is_mono(cv, mono):
+            table = np.concatenate([t.reshape(-1).astype(np.float32)
+                                    for t in mono_tables()])
         if kind == 0 and l > MAX_L:
             raise NotImplementedError(f"CUDA order kernels: Q_l with l={l} > "
                                       f"{MAX_L}")
@@ -172,6 +185,8 @@ class Plan(NamedTuple):
     rc2_max: float      # the largest cut-off squared (inf if a CV has none)
     lanes: int          # LANES_*: the value-lane layout
     mono: bool          # the monomial mode (with at least one Q_l)
+    n_out: int          # value lanes the kernels write (n_vals but in the
+                        # monomial mode, where the second pass decodes)
 
 
 @functools.lru_cache(maxsize=32)
@@ -191,7 +206,7 @@ def _plan(cvs: tuple, device: torch.device, mono: bool = False) -> Plan:
              LANES_ANY)
     return Plan(torch.as_tensor(desc, device=device), n_vals, n_aux, cv_set,
                 l_fixed, float(heads[:, 5].max()), lanes,
-                any(is_mono(cv, mono) for cv in cvs))
+                any(is_mono(cv, mono) for cv in cvs), lane_layout(cvs)[3])
 
 
 def prefilter_base(rc2_max: float) -> float:

@@ -31,13 +31,21 @@ trees are timed alike), at the main paths' shapes:
   alone, the triclinic main path's CV;
 - kernel 4 on the triclinic start in the sentinel layout (tilted) with Q6
   and coordination (r0 1.35 a / sqrt 2, r_cut 2.4), as chip_smoke.py's
-  phase 16 holds it.
+  phase 16 holds it;
+- kernel 4 in the monomial mode on Config 3's input: the whole grid, and
+  shard 0 of 2 x-slabs (chip_smoke.spatial_ext_states) without and with
+  its interior mask (the slab path's call).
 
 The order-CV kernels (2, 3, 4) are also timed on the device alone, under
 the keys ending in ``_dev``: each call is queued behind a device sleep of
 ~1 ms, so that the host's launch is out of the span and the CUDA events
-bracket only the kernel's own work (for kernels 2 and 4 the sweep and the
-second pass).  Compare those only with each other.
+bracket only the call's device work (for kernels 2 and 4 the sweep, the
+second pass and the wrapper's small ops).  Compare those only with each
+other.  Kernel 4's calls on Config 3 also give the sweep kernel's own time,
+under the keys ending in ``_kernel``: the median of torch.profiler's
+events of order_staged_kernel over 25 calls, each window checked against
+CUDA events around the same calls (``kernel_event_check`` of the
+chip_smoke.py beside this script).
 
 Prints one line, ``AB {json}``, with the times in ms.
 
@@ -259,6 +267,26 @@ def main(root: pathlib.Path, bits=None) -> dict:
         lambda: order_force_cuda(st, spec, cvs, auxs))
     out["fused_cfg3_dev"] = device_ms(
         lambda: fused_lj_order_force_cuda(st, spec, cvs, auxs))
+    out["fused_cfg3_kernel"] = timing.kernel_event_check(
+        lambda: fused_lj_order_force_cuda(st, spec, cvs, auxs),
+        "order_staged_kernel")["kernel_ms"]
+    # the monomial mode: the whole grid, and shard 0 of 2 slabs without and
+    # with its interior mask
+    slabs, exts = cs.spatial_ext_states(st, spec, 2, dev)
+    mono_calls = {
+        "fused_mono_cfg3": (st, spec, None),
+        "fused_mono_shard0": (exts[0], slabs.spec_ext, None),
+        "fused_mono_masked_shard0": (exts[0], slabs.spec_ext,
+                                     slabs.interior[0])}
+    for key, (s_, sp_, m_) in mono_calls.items():
+        def call(s_=s_, sp_=sp_, m_=m_):
+            return fused_lj_order_force_cuda(s_, sp_, cvs, auxs, mono=True,
+                                             cell_mask=m_)
+        keep_out(key, call())
+        out[key] = ms(call, 51)
+        out[f"{key}_dev"] = device_ms(call)
+        out[f"{key}_kernel"] = timing.kernel_event_check(
+            call, "order_staged_kernel")["kernel_ms"]
     if bits:
         np.savez(bits, **saved)
     return out

@@ -6,13 +6,12 @@ instantiation of the parts library and of kernel 4 in SASS instructions.
 
 Config 3's fcc + noise start (62,500 particles, cap 32; phase 8 of
 chip_smoke.py), bias coefficients from dV/ds = (0.9, -1.3); device time
-of the kernel alone from torch.profiler's kernel events
-(chip_smoke.kernel_event_ms), beside the wrapper's device time (its
-memsets, copies, reduction and mono products included; scripts/
-kernel_ab.py's device_ms).  The SASS comes from the CUDA
-toolkit's cuobjdump ($CUDA_HOME/bin, default /usr/local/cuda); functions
-of 4096 instructions or more print as 4096 (the count reads 4-digit
-offsets).
+of the kernel alone from torch.profiler's kernel events, beside the
+wrapper's device time by CUDA events around the same calls (its memsets,
+copies and reduction included; chip_smoke.kernel_event_check).  The SASS
+comes from the CUDA toolkit's cuobjdump ($CUDA_HOME/bin, default
+/usr/local/cuda); functions of 4096 instructions or more print as 4096
+(the count reads 4-digit offsets).
 """
 import os
 import re
@@ -48,7 +47,6 @@ def main() -> int:
     terms = order_values_plain(st, spec, cvs)
     auxs = [cv.grad_aux(t, dV[i]) for i, (cv, t) in
             enumerate(zip(cvs, terms))]
-    device_ms = cs.kernel_ab_device_ms()
     print(torch.cuda.get_device_name(0))
     for turn in range(4):
         for mono in (False, True):
@@ -57,11 +55,10 @@ def main() -> int:
                     return pfc.fused_lj_order_force_cuda(
                         st, spec, cvs, auxs, parts=parts, mono=mono)
 
-                ms = cs.kernel_event_ms(call, "order_staged_kernel")
-                wrap = device_ms(call)
+                ev = cs.kernel_event_check(call, "order_staged_kernel")
                 print(f"probe turn {turn} {pfc.parts_key(parts, mono)}: "
-                      f"kernel_device_ms={ms:.4f} "
-                      f"wrapper_device_ms={wrap:.4f}")
+                      f"kernel_device_ms={ev['kernel_ms']:.4f} "
+                      f"wrapper_device_ms={ev['call_ms']:.4f}")
     cuobj = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" \
         / "cuobjdump"
     for lib in (pfc.PARTS_KERNEL, pfc.KERNEL):
