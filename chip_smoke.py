@@ -6,8 +6,10 @@ port's CLI (phase 22), the particle-order path (phases 23-25), Config 3
 on the x-slab decomposition (phases 26-27), the well-tempered ensemble
 (phase 28), multiple walkers on the one card (phase 29), the moving box
 and the walkers x space product (phases 30-34), the 2-D decomposition,
-hill-list mode and the neighbour table (phases 35-39), and kernel 4's parts
-subsets, GSD trajectories and the sort-based pack (phases 40-42):
+hill-list mode and the neighbour table (phases 35-39), kernel 4's parts
+subsets, GSD trajectories and the sort-based pack (phases 40-42), and the
+kernels at the reference's limits: 128 lanes, kernel 4's monomial mode for
+any Q_l list, any number of bond slots (phases 43-45):
 
 - the headline one (bench.py): the 62,500-particle LJ liquid
   (bench_data/liq64k.npz) on the packed cell engine (r_cut 2.5, skin 0.55,
@@ -59,7 +61,7 @@ Phases, one line or more each:
   4. the liquid slice for 20 steps at gamma = 0 on the kernel engine and on
      the plain-force engine, from one state: positions must agree;
   5. the liquid slice with bias_every=5: 1 warm stride, 4 timed strides;
-  6. the strict liquid slice with bias_every=1: 1 warm stride, 2 timed;
+  6. the strict liquid slice with bias_every=1: 1 warm stride, 1 timed;
   7. the order-CV libraries' build report (ptxas registers and spills);
   8. the order-CV kernels (values, force, fused LJ + CV) vs their plain
      versions at Config 3's shapes on fcc plus noise, with times per call,
@@ -90,7 +92,7 @@ Phases, one line or more each:
  15. Config 2 timed: the production pack (no overflow, S(k0) inside the
      grid), 24 warm strides (the switch from the soft push-off to LJ
      heats the melt to T ~ 6, and T - 1 decays by ~0.77 per stride), then
-     2 runs of 3 timed strides with exact launch counts;
+     3 timed strides with exact launch counts;
  16. the triclinic kernels against their plain versions at 62,500 and
      4,000 particles: the pair kernel (b) and v1 on the tilted per-slot
      start, the values and force kernels in the validity layout with Q6 +
@@ -147,8 +149,8 @@ Phases, one line or more each:
      witness (particles past skin/2 after 5 and 10 steps); then
      MetadSampler on NeighborEngine with bench.py's CVs as particle-order
      LamellarOPs, its 64x64 well-tempered grid and walls, stride 500,
-     bias_every 5, the list rebuilt every 5 steps: 1 warm and 2 timed
-     strides (rate, peak memory, no overflow, no stale list, T in
+     bias_every 5, the list rebuilt every 5 steps: 1 warm and 1 timed
+     stride (rate, peak memory, no overflow, no stale list, T in
      0.9-1.1) and one profiled stride;
  25. the double-well sampler of scripts/fes_oracle.py (one
      particle, ForceField(external=) by autograd through the sampler's
@@ -189,7 +191,7 @@ Phases, one line or more each:
      with times and the bound; WalkerSampler with 2 walkers, add_hills
      False and gamma 0 against two MetadSamplers under the same frozen
      grid (20 steps, positions 1e-4); 8 x liq64k (bench.py's settings,
-     500,000 particles) timed: 1 warm and 2 timed strides, exactly 501
+     500,000 particles) timed: 1 warm and 1 timed stride, exactly 501
      launches per stride for all 8 walkers, one device-to-host read per
      rebuild block, 8 hills per stride, one profiled stride;
      examples/config4_walkers.yaml through the CLI (8 x 864) and its
@@ -201,7 +203,7 @@ Phases, one line or more each:
      every force call; its mean NVT pressure over 4 strides of 100; 20
      steps of isotropic SCR-NPT at gamma 0, kernel engine against the
      plain-force engine (positions 1e-3, box L rtol 1e-5); NPT timed (1
-     warm and 2 timed strides of 500, bias_every 5: exactly 501 launches
+     warm and 1 timed stride of 500, bias_every 5: exactly 501 launches
      per stride, all with energy; the box trace; no cell-width violation)
      and one profiled stride, its device-to-host copies no more than phase
      5's; kernel 1 (a) with energy against its plain version on the moved
@@ -253,7 +255,8 @@ Phases, one line or more each:
      spill grid and the overflow flag at capacity 8; the neighbour table
      at Config 3 (its values and forces against kernels 2 and 3, exact
      launches, timed beside phase 11);
- 40. kernel 4's parts subsets (csrc/packed_fused_parts.cu, a timing mode
+ 40. kernel 4's parts subsets (csrc/packed_fused_parts.cu and, in the
+     monomial mode, csrc/packed_fused_parts_mono.cu; a timing mode
      with no production caller) at Config 3 on the lagged path's state:
      each of the 8 subsets in the recurrence and the monomial mode against
      its plain version at kernel 4's gates, the outputs it leaves out
@@ -270,6 +273,26 @@ Phases, one line or more each:
      reference's CLI writes them;
  42. ops/packed.pack on the card at Config 5's 1M production start against
      pack_host, every array to the bit, both timed, pack's peak memory.
+ 43. the order kernels past 64 lanes: Config 3 (fcc + noise 0.05) with
+     [Q8, Q10, Q12] (each at Q6's r_cut; 69 value and 66 aux lanes, the
+     wide layout of csrc/order_cv.cuh): kernels 2, 3 and 4 against their
+     plain versions with times and bounds, repeat calls to the bit;
+     kernel 2's f32 error against float64 at l = 12, 16 and 20; the slice
+     on a 32^3 well-tempered grid, lagged and exact, 20 steps each at
+     gamma 0 against the plain path, then the lagged one timed with exact
+     launches;
+ 44. kernel 4's general monomial mode: Config 3 with [Q6, Q4] on the whole
+     grid and on shard 0 of 2 x-slabs under its interior mask, against
+     the plain monomial version, with times and bounds; the slab slice
+     (mts_lag, 48 x 48 grid) 20 steps at gamma 0 against the unsharded
+     plain path, then timed with exact launches;
+ 45. kernels 1 and v1 at 6 bond slots: a melt of 2,016 stars of a centre
+     and six arms of 5 beads (62,496 beads at rho 0.85, built here): the
+     soft layout at the start against the plain sweep, Config 5's
+     push-off (T after it in 0.5-10), Config 5's production layout and
+     the per-slot WCA + FENE layout and v1 against the plain force, the
+     slice (Config 2's S(k) CV at 32^3) 20 steps at gamma 0 against the
+     plain-force engine, then timed with exact launches and T in a band.
 
 After each timed run one more stride runs under torch.profiler, and a line
 reports the GPU's busy share of it and the top kernels.  The launch counts
@@ -635,20 +658,39 @@ def config3_inputs(cap: int, noise: float = 0.0):
     return pos, vel, L, a, spec
 
 
-def config3_cvs(spec, a):
+def config3_cvs(spec, a, kind: str = "q6_coord"):
+    """Config 3's CVs (bench_config3.py: Q6 and coordination), or another
+    list of CFG3_LISTS on its start: [Q8, Q10, Q12] (69 value and 66 aux
+    lanes, phase 43) or [Q6, Q4] (phase 44), each Q_l at Q6's r_cut."""
     import numpy as np
     from metadyn_tpu_torch import PackedCoordination, PackedSteinhardtQl
     nn = a / np.sqrt(2)
+    if kind != "q6_coord":
+        return [PackedSteinhardtQl(spec, r_cut=nn * 1.2, l=l, name=f"q{l}")
+                for l in CFG3_LISTS[kind][0]]
     return [PackedSteinhardtQl(spec, r_cut=nn * 1.2, l=6, name="q6"),
             PackedCoordination(spec, r0=nn * 1.35, name="coord",
                                r_cut=nn * 1.35 * 1.5)]
 
 
+# Config 3's other CV lists: name -> (degrees, grid lower and upper edges,
+# points per axis, hill widths); fcc's ideal Q4, Q6, Q8, Q10, Q12 are
+# 0.19, 0.57, 0.40, 0.01, 0.60
+CFG3_LISTS = {
+    "q8_q10_q12": ((8, 10, 12), [0.0, 0.0, 0.0], [0.7, 0.7, 0.8],
+                   [32, 32, 32], [0.02, 0.02, 0.02]),
+    "q6_q4": ((6, 4), [0.0, 0.0], [0.7, 0.4], [48, 48], [0.015, 0.01]),
+}
+
+
 def config3_sampler(engine_cls, dev, cap: int, mts_lag: bool,
-                    gamma: float = 1.0, stride: int = CFG3_STRIDE):
+                    gamma: float = 1.0, stride: int = CFG3_STRIDE,
+                    cvs: str = "q6_coord"):
     """The Config 3 sampler through the port's entry points, or None if the
     initial pack overflows ``cap``.  ``engine_cls(spec, dev,
-    rebuild_every=10)`` builds the engine."""
+    rebuild_every=10)`` builds the engine; ``cvs`` a list of CFG3_LISTS on
+    its grid (the same hills and walls) in place of Q6 and coordination's
+    48 x 48."""
     import numpy as np
     from metadyn_tpu_torch import (
         Box, GridSpec, HillSpec, MetadSampler, WallSpec, WELL_TEMPERED,
@@ -662,10 +704,11 @@ def config3_sampler(engine_cls, dev, cap: int, mts_lag: bool,
         np.ones(n, np.float32), vel=vel)
     if overflow:
         return None
-    grid = GridSpec.create([0.0, 4.0], [0.7, 28.0], [48, 48], [0.015, 0.5],
-                           dev)
+    grid = (GridSpec.create(*CFG3_LISTS[cvs][1:], dev) if cvs != "q6_coord"
+            else GridSpec.create([0.0, 4.0], [0.7, 28.0], [48, 48],
+                                 [0.015, 0.5], dev))
     return MetadSampler(
-        make_system(n, dev), state, engine, config3_cvs(spec, a), grid,
+        make_system(n, dev), state, engine, config3_cvs(spec, a, cvs), grid,
         HillSpec.create(W=0.4, stride=stride, mode=WELL_TEMPERED, deltaT=6.0),
         lambda f: make_packed_langevin_step(f, dt=0.004, kT=CFG3_KT,
                                             gamma=gamma),
@@ -974,9 +1017,13 @@ def order_kernels_vs_plain(dev) -> dict:
     return out
 
 
-def config3_kernel_vs_plain(dev) -> None:
+def config3_kernel_vs_plain(dev, mts_lag: bool = True, cvs: str = "q6_coord",
+                            engine_cls=None, need=("pair", "values",
+                                                   "fused")) -> dict:
     """Phase 9: 20 steps of the lagged Config 3 slice at gamma = 0, kernels
-    against plain versions, from one state."""
+    against plain versions, from one state (phases 43 and 44: another CV
+    list, the exact path, the slab engine on the kernels' side).  Returns
+    the kernel run's launches."""
     import numpy as np
     from metadyn_tpu_torch import PackedEngine
     from metadyn_tpu_torch.ops.packed import unpack_positions
@@ -985,17 +1032,18 @@ def config3_kernel_vs_plain(dev) -> None:
     for plain in (False, True):
         reset_counts()
         with plain_order_path() if plain else contextlib.nullcontext():
-            engine_cls = plain_force_engine() if plain else PackedEngine
-            s = config3_sampler(engine_cls, dev, 32, mts_lag=True, gamma=0.0,
-                                stride=20)
+            cls = (plain_force_engine() if plain
+                   else engine_cls or PackedEngine)
+            s = config3_sampler(cls, dev, 32, mts_lag=mts_lag, gamma=0.0,
+                                stride=20, cvs=cvs)
             assert s is not None, "cell capacity overflow at pack (phase 9)"
             m = s.run(20)[-1]
         counts = read_counts()
         if plain:
             assert not any(counts.values()), counts
         else:
-            assert all(counts[k] > 0 for k in ("pair", "values", "fused")), \
-                counts
+            assert all(counts[k] > 0 for k in need), counts
+            kernel_counts = counts
         finals.append((unpack_positions(s.state, s.engine.spec).cpu().numpy(),
                        np.asarray(m["cv"])))
     L = float(s.state.box.L_host[0])
@@ -1004,14 +1052,16 @@ def config3_kernel_vs_plain(dev) -> None:
     dpos = float(np.abs(dpos).max())
     dcv = float(np.abs(finals[0][1] - finals[1][1]).max())
     assert dpos <= 1e-3, dpos
-    print(f"config3_kernel_vs_plain mts_lag gamma=0 20 steps: "
-          f"max|dpos|={dpos:.3e} max|dcv|={dcv:.3e} "
-          f"cv={finals[0][1].tolist()}")
+    print(f"config3_kernel_vs_plain {cvs} mts_lag={mts_lag} gamma=0 20 "
+          f"steps: max|dpos|={dpos:.3e} max|dcv|={dcv:.3e} "
+          f"cv={finals[0][1].tolist()} launches={kernel_counts}")
+    return kernel_counts
 
 
 def config3_timed(dev, mts_lag: bool, warm: tuple, n_runs: int, n_timed: int,
                   per_stride: dict, smi: str, engine_cls=None,
-                  tag: str = None, out: dict = None) -> dict:
+                  tag: str = None, out: dict = None,
+                  cvs: str = "q6_coord") -> dict:
     """Phases 10, 11 and 27: Config 3 timed, with the physics checks and
     exact launch counts per stride.  Returns the launch counts of the last
     run; ``out`` gets the rate, the profile and the launches of the timed
@@ -1024,7 +1074,8 @@ def config3_timed(dev, mts_lag: bool, warm: tuple, n_runs: int, n_timed: int,
     tag = tag or f"config3 mts_lag={mts_lag}"
     for cap in (32, 36):
         reset_counts()
-        s = config3_sampler(engine_cls or PackedEngine, dev, cap, mts_lag)
+        s = config3_sampler(engine_cls or PackedEngine, dev, cap, mts_lag,
+                            cvs=cvs)
         built = read_counts()
         if s is None:
             print(f"{tag}: cap {cap} overflows at pack")
@@ -1671,7 +1722,7 @@ def config2_kernel_vs_plain(melt: dict, dev) -> None:
 
 
 def config2_timed(melt: dict, dev, smi: str, warm: int = 24,
-                  n_runs: int = 2, n_timed: int = 3) -> int:
+                  n_runs: int = 1, n_timed: int = 3) -> int:
     """Phase 15: Config 2 timed, with the physics checks and exact launch
     counts per stride.  Returns the pair kernel's launches in the last
     run."""
@@ -2526,10 +2577,10 @@ def engines_cross_check(dev, smi: str) -> dict:
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    hist = sampler.run(2 * STRIDE)
+    hist = sampler.run(STRIDE)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    rate = n * 2 * STRIDE / dt
+    rate = n * STRIDE / dt
     peak = torch.cuda.max_memory_allocated()
     assert not any(read_counts().values()), read_counts()
     for m in hist:
@@ -2539,11 +2590,11 @@ def engines_cross_check(dev, smi: str) -> dict:
         for k in ("cv", "bias_V", "hill_height", "potential_energy"):
             assert np.all(np.isfinite(m[k])), (k, m)
     prof = device_profile(lambda: sampler.run(STRIDE))
-    prof["busy_share_untraced"] = prof["busy_ms"] / (1e3 * dt / 2)
+    prof["busy_share_untraced"] = prof["busy_ms"] / (1e3 * dt)
     last = hist[-1]
     print(f"neighbor sampler (skin 0.4, rebuild_every {NB_REBUILD}, "
           f"bias_every 5): "
-          f"2 strides {dt:.3f} s {rate:.1f} particle-steps/s "
+          f"1 stride {dt:.3f} s {rate:.1f} particle-steps/s "
           f"T={float(last['temperature']):.4f} "
           f"PE/N={float(last['potential_energy']) / n:.4f} "
           f"cv={last['cv'].tolist()} peak {peak / 2 ** 30:.2f} GiB on {smi}")
@@ -3202,7 +3253,7 @@ def walkers_phase(dev, smi: str, single_rate: float) -> dict:
     and against the plain batched version (phase 3's gates), with times
     and bounds; WalkerSampler with W = 2, add_hills=False, gamma 0 against
     two MetadSamplers under the same frozen grid (20 steps, positions to
-    1e-4); path 1 timed (1 warm and 2 timed strides: 501 launches per
+    1e-4); path 1 timed (1 warm and 1 timed stride: 501 launches per
     stride, 8 walkers each; one device-to-host read per rebuild block;
     n_hills 8 per stride; one profiled stride); examples/config4_walkers.
     yaml through the CLI with its resume leg, bit for bit; the flux
@@ -3534,8 +3585,8 @@ def npt_phase(dev, smi: str, nvt_d2h: int) -> dict:
     1 with energy) for NPT_WARM strides, its mean pressure measured at each
     stride's end; 20 steps of SCR-NPT at gamma 0 (barostat noise from the
     same generator) of the kernel engine against the plain-force engine
-    (positions 1e-3, box L rtol 1e-5); the NPT run timed (1 warm and 2
-    timed strides of 500, bias_every 5: exactly 501 launches per stride,
+    (positions 1e-3, box L rtol 1e-5); the NPT run timed (1 warm and 1
+    timed stride of 500, bias_every 5: exactly 501 launches per stride,
     every one with energy; the box trace; no cell-width violation; T in
     0.9-1.1) and one profiled stride, whose device-to-host copies must not
     exceed phase 5's NVT liquid's (``nvt_d2h``); then kernel 1 (a) with
@@ -3596,7 +3647,7 @@ def npt_phase(dev, smi: str, nvt_d2h: int) -> dict:
     s = npt_sampler(dev, spec, cvs, gspec, walls, start, p0, PackedEngine,
                     stride=STRIDE)
     s.run(STRIDE)
-    n_timed = 2
+    n_timed = 1
     L0 = s.state.box.L.cpu().numpy()
     torch.cuda.synchronize()
     reset_counts()
@@ -4098,7 +4149,7 @@ def walkers_space_phase(dev, smi: str, unsharded_rate: float) -> dict:
     s = build(SpatialPackedEngine(spec, devs, rebuild_every=10,
                                   nested=True))
     s.run(STRIDE)
-    n_timed = 2
+    n_timed = 1
     torch.cuda.synchronize()
     reset_counts()
     packed_lj_force_cuda.walkers = 0
@@ -5202,13 +5253,14 @@ def staged_regs(parts, mono: bool) -> str:
     parts library's (Split), or kernel 4's for the full set."""
     import re
     from metadyn_tpu_torch.ops.packed_fused_cuda import (
-        ALL_PARTS, KERNEL as FUSED, PARTS_KERNEL,
+        ALL_PARTS, KERNEL as FUSED, PARTS_KERNEL, PARTS_MONO_KERNEL,
     )
     full = frozenset(parts) == ALL_PARTS
     bits = [int(p in parts) for p in ("lj", "vals", "force")]
     pat = (f"order_staged_kernelILb{bits[0]}ELb{bits[1]}ELb{bits[2]}ELb0ELi3"
            f"ELi6ELi{2 if bits[1] else 0}ELb{int(mono)}ELb{int(not full)}EE")
-    text = " ".join(ptxas_lines(FUSED if full else PARTS_KERNEL, pat))
+    lib = (FUSED if full else PARTS_MONO_KERNEL if mono else PARTS_KERNEL)
+    text = " ".join(ptxas_lines(lib, pat))
     regs = re.search(r"Used (\d+) registers", text)
     spill = re.search(r"(\d+) bytes spill stores", text)
     return (f"{regs.group(1) if regs else '?'} registers, "
@@ -5488,6 +5540,519 @@ def pack_1m(melt: dict, relaxed: tuple, dev, smi: str) -> dict:
     return {"times": times, "peak_gib": peak_pack}
 
 
+def ql_flops(l: int, mono: bool = False) -> tuple:
+    """(value, force) FP32 operations per pair of a Q_l, scaled from
+    FLOP_PER_PAIR's Q_6 by the work that grows with l: the recurrence's
+    Horner chains ((l + 1)(l + 2) / 2 coefficients) and its l + 1 values;
+    the general monomial mode's n_mono(l) products and sums for the values
+    and n_mono(l - 1) products and dot products for the force.  Estimates
+    to within ~50%, as FLOP_PER_PAIR's."""
+    fp = FLOP_PER_PAIR
+    if mono:
+        nm = lambda d: (d + 1) * (d + 2) // 2  # noqa: E731
+        return (fp["q6_mono_value"] * (3 * nm(l) + 3 * l) / (3 * nm(6) + 18),
+                fp["q6_mono_force"] * (8 * nm(l - 1) + 15) / (8 * nm(5) + 15))
+    grow = (l + 1) * (l + 2) + 8 * (l + 1)
+    return (fp["q6_value"] * grow / 112, fp["q6_force"] * grow / 112)
+
+
+def order_bounds(st, spec, cvs, fused: bool, mono: bool = False,
+                 cell_mask=None) -> dict:
+    """(bound ms, bound by) of kernels 2, 3 and 4 (``fused``: 4 alone) on
+    ``st`` for ``cvs`` (Q_l at any l, coordination): positions in and
+    forces out, each CV's pairs inside its cut-off (the values of kernel 4
+    under ``cell_mask`` only its masked cells')."""
+    fp = FLOP_PER_PAIR
+    val = frc = valm = 0.0
+    for cv in cvs:
+        p = pairs_within(st, spec, cv.r_cut)
+        pm = (pairs_within(st, spec, cv.r_cut, cell_mask)
+              if cell_mask is not None else p)
+        if hasattr(cv, "l"):
+            v, f = ql_flops(cv.l, mono)
+        else:
+            v, f = fp["coord_value"], fp["coord_force"]
+        val, frc, valm = val + p * v, frc + p * f, valm + pm * v
+    n_pad = spec.n_pad
+    if fused:
+        lj = pairs_within(st, spec, spec.r_cut)
+        return {"fused": bound(36 * n_pad, lj * fp["lj"] + frc + valm)}
+    return {"values": bound(12 * n_pad, val),
+            "force": bound(24 * n_pad, frc)}
+
+
+def config3_state(dev, noise: float = 0.05):
+    """Config 3's start plus noise (cap 32, 14^3 cells, Npad 87,808) on the
+    packed engine: (state, spec, a)."""
+    import numpy as np
+    from metadyn_tpu_torch import Box, PackedEngine
+    pos, vel, L, a, spec = config3_inputs(32, noise=noise)
+    n = pos.shape[0]
+    st, overflow = PackedEngine(spec, dev, rebuild_every=10).pack_state(
+        pos, Box.cubic(L, dev), np.zeros(n, np.int32), np.ones(n, np.float32),
+        np.ones(n, np.float32), vel=vel)
+    assert not overflow and (spec.cap, spec.n_pad) == (32, 87808)
+    return st, spec, a
+
+
+def values_f64(st, spec, cv) -> tuple:
+    """A Q_l's value terms (Re, Im, bond count) over every ordered pair of
+    real slots inside its cut-off, in float64 throughout: the positions,
+    the shifts, the p_lm coefficients and norms of cv/steinhardt.py before
+    their f32 rounding.  The oracle of the kernels' f32 error at high l."""
+    import torch
+    from metadyn_tpu_torch.cv.steinhardt import _norms, _plm_over_sinm_coeffs
+    from metadyn_tpu_torch.ops.packed import OFFSETS, _tables, shift_rows_cart
+    cap, C, l = spec.cap, spec.n_cells, cv.l
+    coeffs = [[float(x) for x in c] for c in _plm_over_sinm_coeffs(l)]
+    norms = [float(x) for x in _norms(l)]
+    r = st.r.double()
+    real = st.pid < spec.n_real
+    x = r.reshape(3, cap, *spec.cells_per_dim)
+    rl = real.reshape(cap, *spec.cells_per_dim)
+    shifts = shift_rows_cart(_tables(spec, r.device).ushift, st.box)
+    xi = r.reshape(3, 1, cap, C)
+    re = torch.zeros(l + 1, dtype=torch.float64, device=r.device)
+    im = torch.zeros_like(re)
+    nb = 0.0
+    for oi, o in enumerate(OFFSETS):
+        back = (-o[0], -o[1], -o[2])
+        xj = (torch.roll(x, back, (2, 3, 4)).reshape(3, cap, C)
+              + shifts[oi].double()[:, None])
+        rj = torch.roll(rl, back, (1, 2, 3)).reshape(cap, 1, C)
+        d = xi - xj[:, :, None, :]
+        r2 = (d * d).sum(0)
+        w = ((r2 < cv.r_cut ** 2) & (r2 > 1e-12) & rj
+             & real.reshape(1, cap, C))
+        d, r2 = d[:, w], r2[w]
+        inv = r2.rsqrt()
+        cth, ux, uy = d[2] * inv, d[0] * inv, d[1] * inv
+        pr, pi = torch.ones_like(cth), torch.zeros_like(cth)
+        for m in range(l + 1):
+            p = torch.zeros_like(cth)
+            for c in coeffs[m][::-1]:
+                p = p * cth + c
+            re[m] += (norms[m] * p * pr).sum()
+            im[m] += (norms[m] * p * pi).sum()
+            pr, pi = pr * ux - pi * uy, pr * uy + pi * ux
+        nb += float(w.sum())
+    return re, im, nb
+
+
+def wide_order_phase(dev, smi: str) -> dict:
+    """Phase 43: the order kernels past 64 lanes, at Config 3's shapes with
+    [Q8, Q10, Q12] (Q6's r_cut each; 69 value and 66 aux lanes, the wide
+    layout of csrc/order_cv.cuh): kernels 2, 3 and 4 (recurrence) against
+    their plain versions on fcc + noise 0.05 (§2's gates), with times,
+    bounds and repeat calls bit for bit; kernel 2's f32 error against a
+    float64 evaluation (values_f64) at l = 12, 16 and 20, beside the plain
+    f32 sweep's; the slice (MetadSampler on a 32^3 well-tempered grid)
+    lagged (kernels 1, 2, 4) and exact (1, 2, 3), 20 steps each at gamma 0
+    against the plain path, then the lagged one timed (4 warm and 2 timed
+    strides of 100, exact launches per stride).  Returns per kernel (max abs error,
+    kernel ms, plain ms, bound ms, bound by) and the launches by path."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch import PackedSteinhardtQl
+    from metadyn_tpu_torch.cv.packed_order import (
+        order_force_plain, order_values_plain,
+    )
+    from metadyn_tpu_torch.ops.packed_fused_cuda import (
+        fused_lj_order_force_cuda, fused_lj_order_force_plain,
+    )
+    from metadyn_tpu_torch.ops.packed_order_cuda import (
+        lane_layout, order_force_cuda, order_values_cuda,
+    )
+
+    t43 = time.perf_counter()
+    st, spec, a = config3_state(dev)
+    cvs = config3_cvs(spec, a, "q8_q10_q12")
+    assert lane_layout(cvs)[2:] == (66, 69), lane_layout(cvs)
+    tag = "phase 43 [Q8, Q10, Q12] config3"
+    out = {}
+    tk = order_values_cuda(st, spec, cvs)
+    tp = order_values_plain(st, spec, cvs)
+    err = lanes_close("wide values", cvs, tk, tp, 2e-5)
+    same = order_values_cuda(st, spec, cvs)
+    assert torch.equal(lanes_of(tk), lanes_of(same)), "values: repeat"
+    out["values"] = (err, cuda_ms(lambda: order_values_cuda(st, spec, cvs)),
+                     cuda_ms(lambda: order_values_plain(st, spec, cvs),
+                             calls=5, warm=1))
+    dV = torch.tensor([0.9, -1.3, 0.6], device=dev)
+    auxs = [cv.grad_aux(t, dV[i]) for i, (cv, t) in enumerate(zip(cvs, tp))]
+    gk = order_force_cuda(st, spec, cvs, auxs)
+    gp = order_force_plain(st, spec, cvs, auxs)
+    err, gmax = force_close("wide g", gk, gp, 2e-3, 2e-4)
+    assert torch.equal(gk, order_force_cuda(st, spec, cvs, auxs))
+    out["force"] = (err,
+                    cuda_ms(lambda: order_force_cuda(st, spec, cvs, auxs)),
+                    cuda_ms(lambda: order_force_plain(st, spec, cvs, auxs),
+                            calls=5, warm=1))
+    k4 = fused_lj_order_force_cuda(st, spec, cvs, auxs)
+    p4 = fused_lj_order_force_plain(st, spec, cvs, auxs)
+    ef, _ = force_close("wide f_lj", k4[0], p4[0], 0.0, 1e-3)
+    eg, _ = force_close("wide fused g", k4[1], p4[1], 2e-3, 2e-4)
+    el = lanes_close("wide fused values", cvs, k4[2], p4[2], 2e-4)
+    same_bits("wide fused", k4, fused_lj_order_force_cuda(st, spec, cvs,
+                                                          auxs))
+    out["fused"] = (max(ef, eg, el),
+                    cuda_ms(lambda: fused_lj_order_force_cuda(st, spec, cvs,
+                                                              auxs)),
+                    cuda_ms(lambda: fused_lj_order_force_plain(st, spec, cvs,
+                                                               auxs),
+                            calls=5, warm=1))
+    bounds = {**order_bounds(st, spec, cvs, False),
+              **order_bounds(st, spec, cvs, True)}
+    for k in out:
+        out[k] += bounds[k]
+        e, ms, pms, bms, by = out[k]
+        print(f"{tag} {k} kernel_vs_plain: max|d|={e:.3e} kernel_ms={ms:.4f} "
+              f"plain_ms={pms:.4f} bound_ms={bms:.5f} ({by}) on {smi}")
+    del k4, p4, gk, gp
+
+    # kernel 2's f32 error at high degree against float64
+    for l in (12, 16, 20):
+        cv = PackedSteinhardtQl(spec, r_cut=cvs[0].r_cut, l=l, name=f"q{l}")
+        (kt,) = order_values_cuda(st, spec, [cv])
+        (pt,) = order_values_plain(st, spec, [cv])
+        re, im, nb = values_f64(st, spec, cv)
+        ref = torch.cat([re, im])
+        scale = float(ref.abs().max())
+        ek = float((torch.cat([kt[0], kt[1]]).double() - ref).abs().max())
+        ep = float((torch.cat([pt[0], pt[1]]).double() - ref).abs().max())
+        assert float(kt[2]) == nb and np.isfinite(ek)
+        qk, q64 = float(cv.finalize_value(kt)), float(
+            cv.finalize_value((re, im, torch.tensor(nb, dtype=torch.float64,
+                                                    device=dev))))
+        print(f"{tag} f32 error at l={l} (kernel 2 vs float64): "
+              f"max|dlane|/max|lane|={ek / scale:.3e} (plain f32 sweep "
+              f"{ep / scale:.3e}; max|lane|={scale:.4e}) Q_{l} kernel "
+              f"{qk:.7f} float64 {q64:.7f} rel {abs(qk - q64) / q64:.3e}")
+
+    # the slice, lagged and exact, against the plain path, then timed
+    launches = {}
+    for lag, need in ((True, ("pair", "values", "fused")),
+                      (False, ("pair", "values", "force"))):
+        launches[f"slice gamma=0 mts_lag={lag}"] = config3_kernel_vs_plain(
+            dev, mts_lag=lag, cvs="q8_q10_q12", need=need)
+    # per stride: kernel 2 once per CV at the stride's end (3 here, 2 in
+    # phase 10)
+    launches["timed mts_lag=True (2 strides)"] = config3_timed(
+        dev, True, warm=(2, 2), n_runs=1, n_timed=2,
+        per_stride={"pair": 91, "fused": 10, "values": 3}, smi=smi,
+        tag=f"{tag} mts_lag=True", cvs="q8_q10_q12")
+    print(f"{tag}: {time.perf_counter() - t43:.1f} s")
+    return {"kernels": out, "launches": launches}
+
+
+def slabs_q6_q4_phase(dev, smi: str) -> dict:
+    """Phase 44: kernel 4's general monomial mode at Config 3's shapes with
+    [Q6, Q4] (Q6's r_cut both; 45 value and 93 aux lanes in the reference's
+    row): on the whole grid (row 4m′'s route, unmasked) and on shard 0 of
+    SPATIAL_SHARDS x-slabs' extended grid (9 x 14 x 14) under the interior
+    mask, each against its plain monomial version (§2's kernel-4 gates),
+    repeat calls bit for bit, with times and bounds; the slice on
+    SpatialPackedEngine (mts_lag, the islands' masked monomial kernel) for
+    20 steps at gamma 0 against the unsharded plain path (positions to
+    1e-3); the slab slice timed (4 warm and 2 timed strides of 100, exact
+    launches per stride).  Returns per variant (max abs error, kernel ms,
+    plain ms, bound ms, bound by) and the launches by path."""
+    import torch
+    from metadyn_tpu_torch.cv.packed_order import order_values_plain
+    from metadyn_tpu_torch.ops.packed_fused_cuda import (
+        fused_lj_order_force_cuda, fused_lj_order_force_plain,
+    )
+    from metadyn_tpu_torch.ops.packed_order_cuda import lane_layout
+
+    t44 = time.perf_counter()
+    st, spec, a = config3_state(dev)
+    cvs = config3_cvs(spec, a, "q6_q4")
+    assert lane_layout(cvs, mono=True)[2:] == (93, 45)
+    tag = "phase 44 [Q6, Q4] config3"
+    dV = torch.tensor([0.9, -1.3], device=dev)
+    auxs = [cv.grad_aux(t, dV[i]) for i, (cv, t)
+            in enumerate(zip(cvs, order_values_plain(st, spec, cvs)))]
+    slabs, ext = spatial_ext_states(st, spec, SPATIAL_SHARDS, dev)
+    grids = {"whole grid": (st, spec, None),
+             f"masked shard 0 of {SPATIAL_SHARDS}": (
+                 ext[0], slabs.spec_ext, slabs.interior[0])}
+    out = {}
+    for name, (sx, spx, mask) in grids.items():
+        before = (fused_lj_order_force_cuda.mono_launches,
+                  fused_lj_order_force_cuda.masked_launches)
+        k = fused_lj_order_force_cuda(sx, spx, cvs, auxs, mono=True,
+                                      cell_mask=mask)
+        counted = (fused_lj_order_force_cuda.mono_launches - before[0],
+                   fused_lj_order_force_cuda.masked_launches - before[1])
+        assert counted == ((0, 1) if mask is not None else (1, 0)), counted
+        p = fused_lj_order_force_plain(sx, spx, cvs, auxs, mono=True,
+                                       cell_mask=mask)
+        ef, _ = force_close(f"{name} f_lj", k[0], p[0], 0.0, 1e-3)
+        eg, _ = force_close(f"{name} g", k[1], p[1], 2e-3, 2e-4)
+        el = lanes_close(f"{name} values", cvs, k[2], p[2], 2e-4)
+        same_bits(f"{tag} {name}", k, fused_lj_order_force_cuda(
+            sx, spx, cvs, auxs, mono=True, cell_mask=mask))
+        ms = cuda_ms(lambda: fused_lj_order_force_cuda(
+            sx, spx, cvs, auxs, mono=True, cell_mask=mask))
+        pms = cuda_ms(lambda: fused_lj_order_force_plain(
+            sx, spx, cvs, auxs, mono=True, cell_mask=mask), calls=5, warm=1)
+        bms, by = order_bounds(sx, spx, cvs, True, True, mask)["fused"]
+        out[name] = (max(ef, eg, el), ms, pms, bms, by)
+        print(f"{tag} mono {name} kernel_vs_plain: max|df_lj|={ef:.3e} "
+              f"max|dg|={eg:.3e} max|dlane|={el:.3e} kernel_ms={ms:.4f} "
+              f"plain_ms={pms:.4f} bound_ms={bms:.5f} ({by}; Npad "
+              f"{spx.n_pad}) on {smi}")
+        del k, p
+    launches = {"slice gamma=0 (slabs vs the unsharded plain path)":
+                config3_kernel_vs_plain(
+                    dev, mts_lag=True, cvs="q6_q4",
+                    engine_cls=spatial_engine(SPATIAL_SHARDS),
+                    need=("pair", "pair masked", "fused mono masked"))}
+    n = SPATIAL_SHARDS
+    launches["timed (2 strides)"] = config3_timed(
+        dev, True, warm=(2, 2), n_runs=1, n_timed=2,
+        per_stride={"pair": 91 * n, "pair masked": n, "fused": 10 * n,
+                    "fused mono masked": 10 * n, "values": 2},
+        smi=smi, engine_cls=spatial_engine(n),
+        tag=f"{tag} mts_lag=True spatial shards={n}", cvs="q6_q4")
+    print(f"{tag}: {time.perf_counter() - t44:.1f} s")
+    return {"kernels": out, "launches": launches}
+
+
+# phase 45's melt: stars of a centre and STAR_ARMS arms of STAR_ARM_LEN
+# beads, 2,016 of them at rho 0.85 (62,496 beads)
+STAR_ARMS = 6
+STAR_ARM_LEN = 5
+STAR_COUNT = 2016
+STAR_RHO = 0.85
+
+
+def star_melt(n_stars: int = STAR_COUNT, seed: int = 0) -> dict:
+    """Phase 45's start, built here as tests/test_packed_bonds.py builds its
+    4-arm star: STAR_ARMS arms of STAR_ARM_LEN beads from each centre, each
+    arm a persistent random walk (bond 0.97, numpy seed ``seed``), the
+    centres on a jittered cubic grid at STAR_RHO; types A on the centre
+    and the first two beads of each arm, B outwards; the bond-partner
+    attrs of STAR_ARMS slots."""
+    import numpy as np
+    from metadyn_tpu_torch import bond_partner_attrs
+    per = 1 + STAR_ARMS * STAR_ARM_LEN
+    n = n_stars * per
+    L = float((n / STAR_RHO) ** (1.0 / 3.0))
+    rng = np.random.default_rng(seed)
+    m = int(np.ceil(n_stars ** (1.0 / 3.0)))
+    grid = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
+                    -1).reshape(-1, 3)[:n_stars]
+    pos = np.zeros((n_stars, per, 3))
+    pos[:, 0] = (grid + 0.5) * (L / m) + rng.normal(0, 0.1, (n_stars, 3))
+    idx = np.arange(n).reshape(n_stars, per)
+    bonds = []
+    for arm in range(STAR_ARMS):
+        step = rng.normal(size=(n_stars, 3))
+        prev = 0
+        for k in range(STAR_ARM_LEN):
+            step = (0.9 * step / np.linalg.norm(step, axis=1, keepdims=True)
+                    + rng.normal(0, 0.5, (n_stars, 3)))
+            at = 1 + arm * STAR_ARM_LEN + k
+            pos[:, at] = pos[:, prev] + 0.97 * step / np.linalg.norm(
+                step, axis=1, keepdims=True)
+            bonds.append(np.stack([idx[:, prev], idx[:, at]], 1))
+            prev = at
+    pos = (pos.reshape(n, 3) % L) - L / 2
+    bonds = np.concatenate(bonds).astype(np.int32)
+    types = np.tile((np.arange(per) - 1) % STAR_ARM_LEN >= 2, n_stars)
+    types[::per] = False
+    return {"pos": pos.astype(np.float32), "bonds": bonds,
+            "types": types.astype(np.int32), "L": L, "n": n,
+            "bp": bond_partner_attrs(bonds, n, slots=STAR_ARMS)}
+
+
+def star_pack(melt: dict, dev, layout: str, engine_cls=None, cv=None):
+    """(engine, state, spec): the relaxed star melt in a CFG2_LAYOUTS
+    bonded layout with STAR_ARMS bond slots (Config 5's production spec is
+    "se_usig_fene_wca"), velocities from numpy seed 2."""
+    import numpy as np
+    from metadyn_tpu_torch import Box, PackedEngine, PackedSpec
+    n, types = melt["n"], melt["types"]
+    kw, _ = CFG2_LAYOUTS[layout]
+    spec = PackedSpec.create(melt["L"], n, bond_slots=STAR_ARMS, **kw)
+    engine = (engine_cls or PackedEngine)(spec, dev, rebuild_every=5)
+    vel = np.random.default_rng(2).normal(0.0, 1.0, (n, 3)).astype(
+        np.float32)
+    vel -= vel.mean(axis=0)
+    extra = dict(melt["bp"])
+    if cv is not None:
+        extra[cv.attr_name] = np.asarray([1.0, -1.0], np.float32)[types]
+    state, overflow = engine.pack_state(
+        melt["pos"], Box.cubic(melt["L"], dev), types,
+        np.ones(n, np.float32), np.ones(n, np.float32), vel=vel,
+        extra_attrs=extra)
+    assert not overflow, f"cell capacity overflow at the star pack ({layout})"
+    return engine, state, spec
+
+
+def star_sampler(melt: dict, dev, engine_cls=None, gamma: float = 1.0,
+                 stride: int = CFG2_STRIDE):
+    """Phase 45's slice: the star melt on Config 5's WCA + FENE production
+    spec, Config 2's S(k) CV (PackedMesh 32^3, k0 1.18, width 0.4) on a
+    101-point well-tempered grid over [0, max(8 S(k0), 10)] with walls,
+    Langevin dt 0.002 at kT 1, bias_every 1.  Returns (sampler, S(k0))."""
+    from metadyn_tpu_torch import (
+        GridSpec, HillSpec, MetadSampler, PackedMesh, WallSpec,
+        WELL_TEMPERED, make_packed_langevin_step, make_system,
+    )
+    n, L = melt["n"], melt["L"]
+    cv = PackedMesh.create((32, 32, 32), L, n_real=n, k0=1.18, width=0.4,
+                           name="sk")
+    engine, state, spec = star_pack(melt, dev, "se_usig_fene_wca",
+                                    engine_cls, cv)
+    system = make_system(n, dev, types=melt["types"], bonds=melt["bonds"])
+    s0 = float(cv.value(state, system))
+    hi = max(8.0 * s0, 10.0)
+    grid = GridSpec.create([0.0], [hi], [101], [hi / 80.0], dev)
+    sampler = MetadSampler(
+        system, state, engine, [cv], grid,
+        HillSpec.create(W=0.3, stride=stride, mode=WELL_TEMPERED,
+                        deltaT=5.0),
+        lambda f: make_packed_langevin_step(f, dt=0.002, kT=1.0,
+                                            gamma=gamma),
+        seed=2, chunks_per_block=4, bias_every=1,
+        walls=WallSpec.at_grid_edges(grid, k=50.0))
+    return sampler, s0
+
+
+STAR_T_BAND = (0.5, 10.0)
+
+
+def star_melt_phase(dev, smi: str) -> dict:
+    """Phase 45: kernels 1 and v1 at 6 bond slots on a melt of 2,016 6-arm
+    stars (62,496 beads at rho 0.85): the soft push-off layout (1s′)
+    against the plain sweep at the start; the push-off (Config 5's: 1000
+    soft steps at A 100, 500 at A 1000; exactly one launch per step and
+    one per init), its T after it in Config 5's witness band (0.5-10); on
+    the relaxed melt kernel 1
+    in Config 5's production layout (WCA + FENE, se + uniform sigma) and in
+    the per-slot WCA + FENE layout, forces only and with energy, and v1,
+    each against the plain force (v1 also against kernel 1); the slice
+    (star_sampler) for 20 steps at gamma 0 against the plain-force engine
+    (positions to 1e-3); then 1 warm and 1 timed stride of 100 (exactly
+    101 pair launches per stride, T in STAR_T_BAND).  Returns per variant
+    (max abs error, kernel ms, plain ms, bound ms, bound by) and the
+    launches."""
+    import numpy as np
+    import torch
+    from metadyn_tpu_torch.core.pushoff import pushoff_pack
+    from metadyn_tpu_torch.ops.packed import packed_lj_force, unpack_positions
+    from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
+    from metadyn_tpu_torch.ops.packed_v1_cuda import packed_lj_force_v1_cuda
+
+    t45 = time.perf_counter()
+    melt = star_melt()
+    n, nb = melt["n"], len(melt["bonds"])
+    assert (n, nb) == (62496, STAR_COUNT * STAR_ARMS * STAR_ARM_LEN)
+    tag = f"phase 45 star melt N={n}"
+    out = {}
+    engine, st, spec = pushoff_pack(melt["pos"], melt["L"], melt["types"],
+                                    melt["bp"], dev)
+    assert spec.bond_slots == STAR_ARMS, spec.bond_slots
+    out.update(pair_kernel_vs_plain(tag, "soft 6 slots", st, spec, nb,
+                                    calls=10, plain_calls=3, plain_warm=1))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    st, aux = config5_pushoff(engine, st)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    steps = CFG5_PUSHOFF_STEPS + CFG5_PUSHOFF2_STEPS
+    assert counts["pair"] == steps + 2, counts
+    assert not bool(aux.overflow), "overflow in the star push-off"
+    pos, vel = relaxed_of(st, spec)
+    # the second stage's stiffer pair (A 1000 at dt 0.002) leaves the melt
+    # above kT: held to the band of Config 5's witness after that stage
+    T = float((vel.astype(np.float64) ** 2).sum() / (3 * n))
+    assert CFG5_WITNESS_T_BAND[0] < T < CFG5_WITNESS_T_BAND[1], T
+    print(f"{tag} push-off: {steps} soft steps (cap {spec.cap}, Npad "
+          f"{spec.n_pad}, 6 bond slots) {dt:.3f} s {n * steps / dt:.1f} "
+          f"particle-steps/s T={T:.4f} launches={counts['pair']} on {smi}")
+    melt = {**melt, "pos": pos}
+    del engine, st, aux
+    for layout in ("se_usig_fene_wca", "se_hs_fene_wca"):
+        _, sx, spx = star_pack(melt, dev, layout)
+        out.update(pair_kernel_vs_plain(tag, f"{layout} 6 slots", sx, spx,
+                                        nb, calls=10, plain_calls=3,
+                                        plain_warm=1))
+        if layout == "se_hs_fene_wca":
+            v1 = packed_lj_force_v1_cuda(sx, spx)
+            plain = packed_lj_force(sx, spx, with_energy=True)
+            k1 = packed_lj_force_cuda(sx, spx, with_energy=True)
+            err, line = pair_close(f"{tag} v1", v1, plain, True)
+            err_k1, line_k1 = pair_close(f"{tag} v1 vs kernel 1", v1, k1, True)
+            assert torch.equal(v1.f, packed_lj_force_v1_cuda(sx, spx).f)
+            ms = cuda_ms(lambda: packed_lj_force_v1_cuda(sx, spx), calls=10)
+            pms = cuda_ms(lambda: packed_lj_force(sx, spx, with_energy=True),
+                          calls=3, warm=1)
+            bms, by = pair_kernel_bound(spx, pairs_within(sx, spx,
+                                                          spx.r_cut),
+                                        nb, True, v1=True)
+            out["v1 se_hs_fene_wca 6 slots"] = (max(err, err_k1), ms, pms,
+                                                bms, by)
+            print(f"{tag} v1 kernel: vs plain {line}; vs pair kernel "
+                  f"{line_k1} kernel_ms={ms:.4f} plain_ms={pms:.4f} "
+                  f"bound_ms={bms:.5f} ({by}) on {smi}")
+            del v1, plain, k1
+        del sx
+    torch.cuda.empty_cache()
+
+    # the slice against the plain-force engine at gamma 0
+    finals = []
+    for plain in (False, True):
+        reset_counts()
+        s, s0 = star_sampler(melt, dev, plain_force_engine() if plain
+                             else None, gamma=0.0, stride=20)
+        m = s.run(20)[-1]
+        counts = read_counts()
+        assert counts["pair"] == (0 if plain else 21 + 2), counts
+        finals.append((unpack_positions(s.state, s.engine.spec).cpu().numpy(),
+                       float(np.asarray(m["cv"])[0])))
+    L = melt["L"]
+    dpos = finals[0][0] - finals[1][0]
+    dpos -= L * np.round(dpos / L)
+    dpos = float(np.abs(dpos).max())
+    assert dpos <= 1e-3, dpos
+    print(f"{tag} slice gamma=0 20 steps kernel vs plain: max|dpos|="
+          f"{dpos:.3e} S(k0) {finals[0][1]:.4f} and {finals[1][1]:.4f}")
+
+    # timed
+    s, s0 = star_sampler(melt, dev)
+    hist = s.run(CFG2_STRIDE)
+    warm_T = [round(float(m["temperature"]), 4) for m in hist]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = s.run(CFG2_STRIDE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    assert counts == {**{k: 0 for k in counts},
+                      "pair": CFG2_STRIDE + 1}, counts
+    for m in hist:
+        for k in ("cv", "bias_V", "hill_height", "temperature",
+                  "potential_energy"):
+            assert np.all(np.isfinite(m[k])), (k, m)
+        assert not m["nlist_overflow"] and not m["cell_width_violation"], m
+        assert STAR_T_BAND[0] < float(m["temperature"]) < STAR_T_BAND[1], m
+    print(f"{tag} timed: 1 stride {dt:.3f} s "
+          f"{n * CFG2_STRIDE / dt:.1f} particle-steps/s S(k0) start "
+          f"{s0:.4f} T warm {warm_T} T={float(hist[-1]['temperature']):.4f} "
+          f"launches={counts} on {smi}")
+    print(f"{tag}: {time.perf_counter() - t45:.1f} s")
+    return {"kernels": out,
+            "launches": {"push-off (1500 steps and two inits)": steps + 2,
+                         "slice gamma=0 (20 steps, init and refresh)": 23,
+                         "timed (1 stride of 100)": counts["pair"]}}
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -5524,7 +6089,8 @@ def main() -> int:
     # writer's core with the host compiler)
     from metadyn_tpu_torch.io.gsd_file import NATIVE as GSD_LIB
     order_libs = (packed_order_cuda.KERNEL, packed_fused_cuda.KERNEL,
-                  packed_fused_cuda.PARTS_KERNEL)
+                  packed_fused_cuda.PARTS_KERNEL,
+                  packed_fused_cuda.PARTS_MONO_KERNEL)
     build_secs = build_all((KERNEL, packed_v1_cuda.KERNEL) + order_libs
                            + (GSD_LIB,))
     print(f"build: csrc/{GSD_LIB}.cpp {_build.cxx()} "
@@ -5608,7 +6174,7 @@ def main() -> int:
 
     # 5./6. the slice, timed
     rates, d2h = {}, {}
-    for bias_every, n_timed in ((5, 4), (1, 2)):
+    for bias_every, n_timed in ((5, 4), (1, 1)):
         s = build(PackedEngine, bias_every)
         s.run(STRIDE)                                   # warm stride
         hills0 = s.bias.n_hills
@@ -5653,7 +6219,8 @@ def main() -> int:
         print(f"build: csrc/{lib}.cu nvcc {' '.join(_build.NVCC_FLAGS[:2])} "
               f"{build_secs[lib]:.2f} s; "
               + "; ".join(ptxas_lines(lib)[-4:]))
-    for lib in order_libs[1:]:
+    for lib in (packed_fused_cuda.KERNEL,
+                packed_fused_cuda.PARTS_MONO_KERNEL):
         rows = mono_ptxas(_build.log_path(lib).read_text())
         assert rows and all(None not in r for r in rows), (lib, rows)
         for fn, regs, spill in rows:
@@ -5784,6 +6351,14 @@ def main() -> int:
     gsd_cli(dev, smi[0])
     pack_1m(melt5, relaxed5, dev, smi[0])
     del relaxed5
+
+    # 43.-45. the card's last three refusals lifted: the order kernels
+    # past 64 lanes ([Q8, Q10, Q12] at Config 3), kernel 4's general
+    # monomial mode (Config 3's slabs on [Q6, Q4]), kernels 1 and v1 at
+    # 6 bond slots (a melt of 6-arm stars)
+    wide = wide_order_phase(dev, smi[0])
+    q6q4 = slabs_q6_q4_phase(dev, smi[0])
+    stars = star_melt_phase(dev, smi[0])
     print(f"chip_smoke wall: {time.perf_counter() - t_main:.1f} s")
 
     def cli_launches(kernel: str) -> dict:
@@ -5817,7 +6392,9 @@ def main() -> int:
         **cfg5["variants"],
         **{f"{k} wte N=62500": v for k, v in wte["variants"].items()},
         **{f"{k} npt N=62500 (phase 30)": v
-           for k, v in npt["variants"].items()}}
+           for k, v in npt["variants"].items()},
+        **{f"{k} star melt N=62496 (phase 45)": v
+           for k, v in stars["kernels"].items() if not k.startswith("v1")}}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 
     def tric_variants(kernel, layout):
@@ -5847,14 +6424,23 @@ def main() -> int:
                                 "with energy)": wte["launches"],
                                 "cli config6_wte (build and run)":
                                 wte["cli_launches"],
-                                "npt N=62500 (2 strides, every launch with "
+                                "npt N=62500 (1 stride, every launch with "
                                 "energy, the box read from device memory)":
                                 npt["launches"],
                                 "box metadynamics N=62500 (3 strides of "
                                 "100)": box["launches"],
                                 "config5 N=1048576 on 2 slabs (1 period; "
                                 "one launch per shard per force call)":
-                                slabs5["launches"]},
+                                slabs5["launches"],
+                                **{f"star melt N=62496 6 bond slots "
+                                   f"(phase 45) {k}": v
+                                   for k, v in stars["launches"].items()},
+                                **{f"config3 [Q8, Q10, Q12] (phase 43) {k}":
+                                   c["pair"]
+                                   for k, c in wide["launches"].items()},
+                                **{f"config3 [Q6, Q4] on 2 slabs (phase 44) "
+                                   f"{k}": c["pair"]
+                                   for k, c in q6q4["launches"].items()}},
               variants={k: dict(zip(keys, v)) for k, v in variants.items()}),
         entry(f"{KERNEL} per-walker box", KERNEL,
               "metadyn_tpu/ops/packed_pallas2.py:301 (the reference runs "
@@ -5899,7 +6485,7 @@ def main() -> int:
               design=staged + "; the grid of blocks once per walker on a "
               "second grid dimension, the energy reduction one block per "
               "walker",
-              launches_by_path={f"walkers {WALKERS} x liq64k (2 strides, "
+              launches_by_path={f"walkers {WALKERS} x liq64k (1 stride, "
                                 f"{WALKERS} walkers per launch)":
                                 walk["launches"]},
               variants={k: dict(zip(keys, v))
@@ -5929,24 +6515,49 @@ def main() -> int:
               "queue across a warp's i rows, a partials row per cell",
               launches_by_path={"config3 mts_lag": lag_counts["values"],
                                 "triclinic": tric_counts["values"],
-                                **cli_launches("values")},
-              variants=tric_variants("values", "validity")),
+                                **cli_launches("values"),
+                                **{f"config3 [Q8, Q10, Q12] (phase 43) {k}":
+                                   c["values"]
+                                   for k, c in wide["launches"].items()}},
+              variants={**tric_variants("values", "validity"),
+                        "[Q8, Q10, Q12] config3 (phase 43; 69 lanes, the "
+                        "wide layout)": dict(zip(keys,
+                                                 wide["kernels"]["values"]))}),
         entry("packed_order_force", packed_order_cuda.KERNEL,
               "metadyn_tpu/ops/packed_order_pallas.py:309",
               exact_counts["force"], order["force"],
               design=staged + ", prefiltered to the CVs' reach",
               launches_by_path={"config3 exact": exact_counts["force"],
                                 "triclinic": tric_counts["force"],
-                                **cli_launches("force")},
-              variants=tric_variants("force", "validity")),
+                                **cli_launches("force"),
+                                **{f"config3 [Q8, Q10, Q12] (phase 43) {k}":
+                                   c["force"]
+                                   for k, c in wide["launches"].items()}},
+              variants={**tric_variants("force", "validity"),
+                        "[Q8, Q10, Q12] config3 (phase 43; 66 aux lanes, "
+                        "the wide layout)": dict(zip(keys,
+                                                     wide["kernels"]["force"]))}),
         entry(packed_fused_cuda.KERNEL, packed_fused_cuda.KERNEL,
               "metadyn_tpu/ops/packed_fused_pallas.py:296",
               lag_counts["fused"], order["fused"],
               design=staged + ", one staging prefiltered to the larger of "
               "the LJ and CV cut-offs for the LJ and the CV math",
               launches_by_path={"config3 mts_lag": lag_counts["fused"],
-                                **cli_launches("fused")},
-              variants=tric_variants("fused", "sentinel")),
+                                **cli_launches("fused"),
+                                **{f"config3 [Q8, Q10, Q12] (phase 43) {k}":
+                                   c["fused"]
+                                   for k, c in wide["launches"].items()},
+                                **{f"config3 [Q6, Q4] on 2 slabs (phase 44; "
+                                   f"the general monomial mode, masked) {k}":
+                                   c["fused mono masked"]
+                                   for k, c in q6q4["launches"].items()}},
+              variants={**tric_variants("fused", "sentinel"),
+                        "[Q8, Q10, Q12] config3 recurrence (phase 43; the "
+                        "wide layout)": dict(zip(keys,
+                                                 wide["kernels"]["fused"])),
+                        **{f"[Q6, Q4] config3 general monomial mode {k} "
+                           "(phase 44)": dict(zip(keys, v))
+                           for k, v in q6q4["kernels"].items()}}),
         entry("packed_fused_parts", packed_fused_cuda.PARTS_KERNEL,
               "metadyn_tpu/ops/packed_fused_pallas.py:296 (parts, :75, "
               ":143-229)",
@@ -5955,7 +6566,8 @@ def main() -> int:
               parts["{}"][:5],
               design=staged + ", prefiltered to the larger of the LJ and CV "
               "cut-offs for every subset; the outputs a subset leaves out "
-              "are zeros (the wrapper's torch.zeros)",
+              "are zeros (the wrapper's torch.zeros); the monomial mode's "
+              "subsets in csrc/packed_fused_parts_mono.cu",
               launches_by_path={"parts split at config3 N=62500 (phase 40: "
                                 "checks and timing)": sum(
                                     v[-1] for k, v in parts.items()
@@ -5972,7 +6584,11 @@ def main() -> int:
               cfg2["v1 se_hs_fene_wca"],
               variants={**{k: dict(zip(keys, v)) for k, v in cfg2.items()
                            if k.startswith("v1")},
-                        **tric_variants("v1", "se_hs")}),
+                        **tric_variants("v1", "se_hs"),
+                        **{f"{k} star melt N=62496 (phase 45)":
+                           dict(zip(keys, v))
+                           for k, v in stars["kernels"].items()
+                           if k.startswith("v1")}}),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -58,11 +58,12 @@ def pushoff_spec(pos: np.ndarray, L: float, **bond_kw) -> PackedSpec:
 
 def pushoff_pack(pos, L: float, types, bond_attrs: dict, device):
     """The packed example's push-off start: soft pair with A = 100 through
-    ``eps_i``, FENE bonds (k 30, r0 1.5) in the sweep, rebuild every 5
-    steps.  Returns (engine, state, spec)."""
+    ``eps_i``, FENE bonds (k 30, r0 1.5) in the sweep, one bond slot per
+    ``bp*`` attr of ``bond_attrs`` (``bond_partner_attrs``), rebuild every
+    5 steps.  Returns (engine, state, spec)."""
     n = pos.shape[0]
     spec = pushoff_spec(pos, L, fene_k=PUSHOFF_FENE_K,
-                        fene_r0=PUSHOFF_FENE_R0)
+                        fene_r0=PUSHOFF_FENE_R0, bond_slots=len(bond_attrs))
     engine = PackedEngine(spec, device, rebuild_every=CHECK_EVERY)
     st, overflow = engine.pack_state(
         pos, Box.cubic(L, device), types, np.full(n, PUSHOFF_A, np.float32),

@@ -76,7 +76,12 @@
 // Q_l CV has l = 6, so Q6's m and Horner loops unroll, and on the value
 // lanes: the CV lists [Q6] and [Q6, coordination] (the main paths') have
 // their lane offsets at compile time, so the per-lane value sums live in
-// registers; other lists index them at run time (local memory).
+// registers; other lists index them at run time (local memory).  Those
+// layouts keep the descriptor (kMaxDesc floats), the aux lanes (kMaxAux)
+// and the value sums (kMaxTerms) in static arrays; a list past any of
+// them runs the wide layout (kLanesWide: kinds and l read per CV, the
+// arrays in dynamic shared memory sized from the plan), up to the
+// reference's 128 value and 128 aux lanes, any number of CVs, any l.
 //
 // What bounds it on Hopper: the CV math of the in-cut pairs (~12 per slot
 // for Q6 at r_cut 1.37-1.49, ~300 FP32 operations each for the gradient,
@@ -98,7 +103,7 @@
 // value sums, each ordered pair on exactly one shard.
 //
 // Monomial mode (Mono; metadyn_tpu/cv/ylm_mono.py, the fused kernel's
-// mono=True): one Q_l, l = 6, in the homogeneous-monomial basis of the unit
+// mono=True), first one Q_l, l = 6, in the homogeneous-monomial basis of the unit
 // bond vector u; coordination keeps its math.  Per pair the bias force is
 // g_a = b_a . mono_5(u) for a = x, y, z, projected off u and divided by r,
 // and the value terms are mono_6(u) (28) and the bond count.  The monomials
@@ -123,6 +128,13 @@
 //   reduce_terms_kernel does and writes the recurrence's value lanes, C
 //   times the monomial sums, in double.
 // So a mono call runs the same device operations as a recurrence call.
+// Any other list of Q_l (each l <= 8, several, with different cut-offs)
+// runs the general monomial mode (L = 0, the wide layout): each Q_l's C
+// and D tables in its descriptor table, its force vectors at h[6] of a
+// shared array, the pairs inside the largest Q_l cut-off on the Q_l
+// queue, and per round mono_round: the powers of u in a per-warp table,
+// each Q_l's force per lane, its monomial sums across the round's pairs
+// by lanes t, t + 32, ... into the warp's row of value sums.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -135,9 +147,13 @@ namespace order_cv {
 
 constexpr float kVacantThr = 1.0e6f;  // ops/packed.py VACANT_THR
 constexpr int kHdr = 9;
-constexpr int kMaxCVs = 8;
-constexpr int kMaxTerms = 64;  // value lanes over all CVs
-constexpr int kMaxAux = 64;    // aux lanes over all CVs
+// Value and aux lanes over all CVs: the reference's lane row (1, 128).
+constexpr int kMaxLanes = 128;
+// The narrow instantiations' static arrays (every layout but kLanesWide):
+// a plan past any of these runs the wide one, whose arrays are sized from
+// the plan (WideSmem).
+constexpr int kMaxTerms = 64;  // value lanes
+constexpr int kMaxAux = 64;    // aux lanes
 constexpr int kMaxDesc = 1024; // descriptor floats
 constexpr int kQl = 0;
 constexpr int kCoord = 1;
@@ -149,6 +165,11 @@ constexpr int kSetMixed = 3;
 constexpr int kLanesAny = 0;      // offsets from the descriptor
 constexpr int kLanesQ6 = 1;       // [Q6]: lanes 0..14
 constexpr int kLanesQ6Coord = 2;  // [Q6, coordination]: 0..14, 15
+// offsets from the descriptor; the descriptor, the aux lanes and the
+// value sums in dynamic shared memory sized from the plan, up to kMaxLanes
+// lanes (launch_staged_set picks it past the narrow arrays, and for the
+// general monomial mode)
+constexpr int kLanesWide = 3;
 constexpr int kQ6Terms = 15;      // Re (7), Im (7), bond count
 constexpr int kQ6MonoTerms = 29;  // mono_6 sums (28), bond count
 
@@ -164,6 +185,14 @@ constexpr int kMonoDcol = kY6 * kMono6;             // the table's columns
 constexpr int kMonoDval = kMonoDcol + 3 * kMono5;   // and values
 constexpr int kMonoB = 64;  // s_aux: (b_x, b_y, b_z, 0)_t after the aux lanes
 constexpr int kTileLd = 33;       // a tile row: 32 columns and a pad
+// The general monomial mode's largest degree: 3 n_mono(l - 1) aux lanes of
+// one sphere CV fit the 128 of the reference's lane row up to l = 8.
+constexpr int kMaxMonoDeg = 8;
+constexpr int kPowRows = kMaxMonoDeg + 1;  // powers 0..8 per axis
+
+__host__ __device__ constexpr bool fixed_lanes(int lanes) {
+  return lanes == kLanesQ6 || lanes == kLanesQ6Coord;
+}
 
 // Q6's value lanes in the recurrence (15) or the monomial mode (29).
 template <bool Mono>
@@ -180,9 +209,8 @@ constexpr int kMonoReduceThreads = 1024;  // a warp per monomial lane
 // cudaErrorInvalidValue.
 inline int check_args(int n_cvs, int desc_len, int n_terms, int n_aux,
                       int n_pad) {
-  if (n_cvs < 1 || n_cvs > kMaxCVs || desc_len < kHdr * n_cvs ||
-      desc_len > kMaxDesc || n_terms < 0 || n_terms > kMaxTerms ||
-      n_aux < 0 || n_aux > kMaxAux || n_pad < 1) {
+  if (n_cvs < 1 || desc_len < kHdr * n_cvs || n_terms < 0 ||
+      n_terms > kMaxLanes || n_aux < 0 || n_aux > kMaxLanes || n_pad < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
@@ -379,6 +407,109 @@ __device__ void mono_sweep(int n_rows, int* queue, int* queue_q, Hit hit,
   __syncwarp();
 }
 
+// The general monomial mode (any list of Q_l CVs, each l <= kMaxMonoDeg,
+// read from the descriptor; the L = 0 instantiations).  A warp's power
+// table holds u_a^n (a = x, y, z; n = 0..kMaxMonoDeg) of each Q_l pair of
+// a round, one column per lane, rows kTileLd apart: lanes that read
+// different powers of one column read different banks.  Monomial ux^i uy^j
+// uz^k of a pair is pw(x, i) pw(y, j) pw(z, k), its powers by repeated
+// products: the plain version's split products to a few ulp.
+__device__ __forceinline__ float pw_at(const float* pw, int axis, int n,
+                                       int col) {
+  return pw[(axis * kPowRows + n) * kTileLd + col];
+}
+
+// The exponents (i, j) of monomial t of degree d in cv/ylm_mono.py's
+// mono_powers order: t = s (s + 1) / 2 + k with s = d - i, k = s - j.
+__device__ __forceinline__ void mono_exps(int d, int t, int& i, int& j) {
+  int s = 0;
+  while ((s + 1) * (s + 2) / 2 <= t) ++s;
+  i = d - s;
+  j = s - (t - s * (s + 1) / 2);
+}
+
+// One round of Q_l pairs in the general monomial mode, called by all 32
+// lanes with the warp converged; live: this lane holds a pair inside the
+// largest Q_l cut-off, (dx, dy, dz, r2) its geometry.  Per Q_l CV (header
+// h: l at h[1], value lanes from h[2], cut-off h[5], force vectors at
+// bvec + h[6], (b_x, b_y, b_z, 0) per degree-(l - 1) monomial): Grad adds
+// the force of this lane's pair inside the CV's cut-off, (g - u (u . g))
+// / r with g_a = b_a . mono_{l-1}(u), into (gx, gy, gz); Vals adds the
+// round's monomial sums into this warp's row red, lane t taking monomials
+// t, t + 32, ... over the pairs in lane order, and lane 0 the bond count.
+template <bool Vals, bool Grad>
+__device__ void mono_round(const float* desc, int n_cvs, const float* bvec,
+                           float* pw, float* red, int l_max, bool live,
+                           float dx, float dy, float dz, float r2, float& gx,
+                           float& gy, float& gz) {
+  const int lane = threadIdx.x & 31;
+  float ux = 0.0f, uy = 0.0f, uz = 0.0f, inv_r = 0.0f;
+  if (live) {
+    inv_r = rsqrtf(r2);
+    ux = dx * inv_r;
+    uy = dy * inv_r;
+    uz = dz * inv_r;
+    float px = 1.0f, py = 1.0f, pz = 1.0f;
+    for (int n = 0; n <= l_max; ++n) {
+      pw[n * kTileLd + lane] = px;
+      pw[(kPowRows + n) * kTileLd + lane] = py;
+      pw[(2 * kPowRows + n) * kTileLd + lane] = pz;
+      px *= ux;
+      py *= uy;
+      pz *= uz;
+    }
+  }
+  __syncwarp();
+  for (int c = 0; c < n_cvs; ++c) {
+    const float* h = desc + c * kHdr;
+    if (static_cast<int>(h[0]) != kQl) continue;
+    const int l = static_cast<int>(h[1]);
+    const bool on = live && r2 < h[5];
+    if (Grad && on) {
+      const float4* b = reinterpret_cast<const float4*>(
+          bvec + static_cast<int>(h[6]));
+      const int d = l - 1;
+      float gux = 0.0f, guy = 0.0f, guz = 0.0f;
+      int t = 0;
+      for (int i = d; i >= 0; --i) {
+        const float a = pw_at(pw, 0, i, lane);
+        for (int j = d - i; j >= 0; --j, ++t) {
+          const float v =
+              a * pw_at(pw, 1, j, lane) * pw_at(pw, 2, d - i - j, lane);
+          const float4 cb = b[t];
+          gux += cb.x * v;
+          guy += cb.y * v;
+          guz += cb.z * v;
+        }
+      }
+      const float dot = ux * gux + uy * guy + uz * guz;
+      gx += (gux - ux * dot) * inv_r;
+      gy += (guy - uy * dot) * inv_r;
+      gz += (guz - uz * dot) * inv_r;
+    }
+    if (Vals) {
+      const unsigned mq = __ballot_sync(cell_stage::kFull, on);
+      if (mq != 0u) {  // the same on every lane
+        const int vo = static_cast<int>(h[2]);
+        const int nm = n_mono(l);
+        for (int t = lane; t < nm; t += 32) {
+          int i, j;
+          mono_exps(l, t, i, j);
+          float acc = 0.0f;
+          for (unsigned m = mq; m != 0u; m &= m - 1u) {
+            const int col = __ffs(m) - 1;
+            acc += pw_at(pw, 0, i, col) * pw_at(pw, 1, j, col) *
+                   pw_at(pw, 2, l - i - j, col);
+          }
+          red[vo + t] += acc;
+        }
+        if (lane == 0) red[vo + nm] += static_cast<float>(__popc(mq));
+      }
+    }
+  }
+  __syncwarp();
+}
+
 // Coordination of one ordered pair (cv/packed_order.PackedCoordination):
 // s = 1 / (1 + (r/r0)^6), stretched below the cut-off.  VO as ql_pair.
 template <bool Vals, bool Grad, int VO = -1>
@@ -410,7 +541,7 @@ __device__ __forceinline__ void cv_pair(const float* desc, int n_cvs,
                                         const float* aux, float dx, float dy,
                                         float dz, float r2, float* vacc,
                                         float& gx, float& gy, float& gz) {
-  if constexpr (Lanes != kLanesAny) {
+  if constexpr (fixed_lanes(Lanes)) {
     ql_pair<Vals, Grad, 6, 0>(desc, desc + static_cast<int>(desc[4]), aux,
                               dx, dy, dz, r2, vacc, gx, gy, gz);
     if constexpr (Lanes == kLanesQ6Coord) {
@@ -431,7 +562,7 @@ __device__ __forceinline__ void cv_pair(const float* desc, int n_cvs,
   }
 }
 
-// The CVs other than the Q_6 on one pair in the monomial mode: the
+// The CVs other than the Q_l on one pair in the monomial mode: the
 // coordination of [Q6, coordination] (its value lane after the Q_6's 29),
 // or every non-Q_l CV of a list read from the descriptor.
 template <bool Vals, bool Grad, int Kinds, int Lanes>
@@ -443,7 +574,7 @@ __device__ __forceinline__ void mono_others(const float* desc, int n_cvs,
   if constexpr (Lanes == kLanesQ6Coord) {
     coord_pair<Vals, Grad, kQ6MonoTerms>(desc + kHdr, aux, dx, dy, dz, r2,
                                          vacc, gx, gy, gz);
-  } else if constexpr (Lanes == kLanesAny && Kinds == kSetMixed) {
+  } else if constexpr (!fixed_lanes(Lanes) && Kinds == kSetMixed) {
     for (int c = 0; c < n_cvs; ++c) {
       const float* h = desc + c * kHdr;
       if (static_cast<int>(h[0]) != kQl) {
@@ -458,6 +589,7 @@ template <int Lanes, bool Mono>
 __host__ __device__ constexpr int lane_count() {
   return Lanes == kLanesQ6       ? q6_terms<Mono>()
          : Lanes == kLanesQ6Coord ? q6_terms<Mono>() + 1
+         : Lanes == kLanesWide    ? kMaxLanes
                                   : kMaxTerms;
 }
 
@@ -487,37 +619,77 @@ __host__ __device__ constexpr int aux_smem() {
   return Mono ? kMonoB + 4 * kMono5 : kMaxAux;
 }
 
+// The static arrays of order_staged_kernel (the descriptor, the aux lanes,
+// the warps' value sums): the narrow layouts' sizes, a placeholder in the
+// wide layout, whose arrays are dynamic (WideSmem).
+template <int Lanes>
+__host__ __device__ constexpr int desc_static() {
+  return Lanes == kLanesWide ? 1 : kMaxDesc;
+}
+template <bool Mono, int Lanes>
+__host__ __device__ constexpr int aux_static() {
+  return Lanes == kLanesWide ? 4 : aux_smem<Mono>();
+}
+template <int Lanes>
+__host__ __device__ constexpr int red_static() {
+  return Lanes == kLanesWide ? 1 : kStageWarps * kMaxTerms;
+}
+
 // Static shared memory of order_staged_kernel, beside its dynamic rows.
-template <bool Mono>
+template <bool Mono, int Lanes>
 constexpr size_t static_smem() {
-  return sizeof(float) *
-         (kMaxDesc + aux_smem<Mono>() + 6 + kStageWarps * kMaxTerms);
+  return sizeof(float) * (desc_static<Lanes>() + aux_static<Mono, Lanes>() +
+                          6 + red_static<Lanes>());
 }
 
 // The monomial mode's dynamic shared memory past cell_stage's scratch
-// (which then holds no hit queues), per warp: its hit queue and its Q_6
-// queue (kQueue ints each); with Vals its tile, kMono6 rows of kTileLd
-// floats: row t takes monomial t of each Q_6 pair of a round, one column
-// per pair.  The tile takes the 28 value sums off each lane's registers
-// (PERF.md: with them in registers the fused sweep spilled).
-template <bool Mono, bool Vals, bool Grad>
+// (which then holds no hit queues), per warp: its hit queue and its Q_l
+// queue (kQueue ints each).  Q_6 alone (L = 6): with Vals its tile, kMono6
+// rows of kTileLd floats: row t takes monomial t of each Q_6 pair of a
+// round, one column per pair.  The tile takes the 28 value sums off each
+// lane's registers (PERF.md: with them in registers the fused sweep
+// spilled).  The general mode (L = 0): the power table of mono_round, 3
+// kPowRows rows of kTileLd floats.
+template <bool Mono, bool Vals, bool Grad, int L>
 struct MonoSmem {
   static constexpr bool kOn = Mono && (Vals || Grad);
-  static constexpr bool kTile = kOn && Vals;
+  static constexpr bool kGen = kOn && L == 0;
+  static constexpr bool kTile = kOn && Vals && !kGen;
   static constexpr int kQueueWords = kOn ? 2 * cell_stage::kQueue : 0;
   static constexpr int kWarpWords =
-      kQueueWords + (kTile ? kMono6 * kTileLd : 0);
+      kQueueWords + (kTile ? kMono6 * kTileLd : 0) +
+      (kGen ? 3 * kPowRows * kTileLd : 0);
   static constexpr int kScratchWarps = kOn ? 0 : kStageWarps;
   static constexpr size_t kBytes = sizeof(float) * kStageWarps * kWarpWords;
 };
 
 // Dynamic shared memory: the staged rows, cell_stage's scratch and MonoSmem.
-template <bool Mono, bool Vals, bool Grad>
+template <bool Mono, bool Vals, bool Grad, int L>
 inline size_t staged_smem(int cap) {
-  using MS = MonoSmem<Mono, Vals, Grad>;
+  using MS = MonoSmem<Mono, Vals, Grad, L>;
   return sizeof(float4) * cell_stage::kOffsets * cap +
          cell_stage::scratch_bytes(cap, MS::kScratchWarps) + MS::kBytes;
 }
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// The wide layout's arrays, past staged_smem from the next 16-byte
+// boundary, in floats: the descriptor (desc_len), the aux lanes (n_aux)
+// and, Mono, the force vectors of every Q_l (n_bvec: 4 n_mono(l - 1)
+// each), each rounded to 4; Mono with Grad the scratch of the conversion
+// a = C^T aux (n_terms); with Vals the warps' value sums (kStageWarps rows
+// of n_terms).
+struct WideSmem {
+  int desc, aux, bvec, conv, red, words;
+  __host__ __device__ WideSmem(int desc_len, int n_aux, int n_bvec,
+                               int n_terms, bool mono, bool grad, bool vals)
+      : desc(0),
+        aux(round4(desc_len)),
+        bvec(aux + round4(n_aux)),
+        conv(bvec + round4(n_bvec)),
+        red(conv + (mono && grad ? round4(n_terms) : 0)),
+        words(red + (vals ? kStageWarps * n_terms : 0)) {}
+};
 
 // The Q_6's place in the monomial mode's CV list: 0 in the fixed layouts,
 // else the list's one Q_l.
@@ -550,25 +722,30 @@ __device__ __forceinline__ int mono_cv(const float* desc, int n_cvs) {
 // took the values sweep to 54 registers, 4 blocks per SM and 9% of its
 // time on Config 3's input, and a bound of 1 lets the compiler take more
 // than 64.
-template <bool WithLJ, bool Mono>
+// The wide layout (its value sums in local memory, the general monomial
+// mode's runtime degrees) 3 (80): at 4 blocks its fused and monomial
+// sweeps spilled, at 5 its force sweep.
+template <bool WithLJ, bool Mono, int Lanes>
 constexpr int min_blocks() {
-  return WithLJ || Mono ? 4 : 5;
+  return Lanes == kLanesWide ? 3 : WithLJ || Mono ? 4 : 5;
 }
 
 template <bool WithLJ, bool Vals, bool Grad, bool Valid, int Kinds, int L,
           int Lanes, bool Mono, bool Split = false>
 __global__ void __launch_bounds__(kStageThreads,
-                                  min_blocks<WithLJ || Split, Mono>())
+                                  min_blocks<WithLJ || Split, Mono, Lanes>())
 order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
                     const float* __restrict__ desc, int desc_len, int n_cvs,
                     int n_terms, const float* __restrict__ aux, int n_aux,
                     StagedParams p, float* __restrict__ f,
                     float* __restrict__ g, float* __restrict__ partials,
-                    const float* __restrict__ cell_mask) {
-  using MS = MonoSmem<Mono, Vals, Grad>;
+                    const float* __restrict__ cell_mask, int n_bvec) {
+  using MS = MonoSmem<Mono, Vals, Grad, L>;
+  constexpr bool kWide = Lanes == kLanesWide;
   extern __shared__ float4 s_pos[];  // (27 cap): x, y, z with the shift
-  __shared__ float s_desc[kMaxDesc];
-  __shared__ __align__(16) float s_aux[aux_smem<Mono>()];
+  __shared__ float s_desc_n[desc_static<Lanes>()];
+  __shared__ __align__(16) float s_aux_n[aux_static<Mono, Lanes>()];
+  __shared__ float s_red_n[red_static<Lanes>()];
   __shared__ float s_box[6];  // fractional lo (3) and hi (3) of the i rows
   const int cap = p.g.cap;
   const int n_pad = p.g.n_pad;
@@ -584,6 +761,21 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
           reinterpret_cast<char*>(s_pos + cell_stage::kOffsets * cap) +
           cell_stage::scratch_bytes(cap, MS::kScratchWarps)) +
       warp * MS::kWarpWords;
+  // the descriptor, the aux lanes and the warps' value sums (kStageWarps
+  // rows of red_ld): the static arrays, or in the wide layout WideSmem's
+  // from the 16-byte boundary past the last warp's MonoSmem
+  const WideSmem ws(desc_len, n_aux, n_bvec, n_terms, Mono, Grad, Vals);
+  float* const wide =
+      kWide ? reinterpret_cast<float*>(
+                  (reinterpret_cast<size_t>(
+                       m_warp + (kStageWarps - warp) * MS::kWarpWords) +
+                   15) &
+                  ~static_cast<size_t>(15))
+            : nullptr;
+  float* const s_desc = kWide ? wide + ws.desc : s_desc_n;
+  float* const s_aux = kWide ? wide + ws.aux : s_aux_n;
+  float* const s_red = kWide ? wide + ws.red : s_red_n;
+  const int red_ld = kWide ? n_terms : kMaxTerms;
   for (int k = threadIdx.x; k < desc_len; k += kStageThreads) {
     s_desc[k] = desc[k];
   }
@@ -623,7 +815,64 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
     }
   }
   __syncthreads();
-  if constexpr (MS::kOn && Grad) {
+  // the general monomial mode: the largest degree and cut-off of its Q_l
+  int l_max = 0;
+  float rc2_q = 0.0f;
+  if constexpr (MS::kGen) {
+    for (int c = 0; c < n_cvs; ++c) {
+      const float* h = s_desc + c * kHdr;
+      if (static_cast<int>(h[0]) == kQl) {
+        l_max = max(l_max, static_cast<int>(h[1]));
+        rc2_q = fmaxf(rc2_q, h[5]);
+      }
+    }
+    if (Vals) {
+      for (int k = threadIdx.x; k < kStageWarps * n_terms;
+           k += kStageThreads) {
+        s_red[k] = 0.0f;
+      }
+    }
+  }
+  if constexpr (MS::kGen && Grad) {
+    // per Q_l: a = C^T (Re, Im) of its aux lanes (m in order) into the
+    // scratch at its value lanes, then b_a = D_a a into its force vectors
+    // (bvec + h[6]; C, then the columns and values of D_x, D_y, D_z: its
+    // table in the descriptor); the staging's barriers order them before
+    // the sweep
+    float* const conv = wide + ws.conv;
+    for (int c = 0; c < n_cvs; ++c) {
+      const float* h = s_desc + c * kHdr;
+      if (static_cast<int>(h[0]) != kQl) continue;
+      const int l = static_cast<int>(h[1]);
+      const int nm = n_mono(l);
+      const float* tab = s_desc + static_cast<int>(h[4]);
+      const float* re_im = s_aux + static_cast<int>(h[3]);
+      for (int t = threadIdx.x; t < nm; t += kStageThreads) {
+        float a = 0.0f;
+        for (int m = 0; m < 2 * (l + 1); ++m) a += tab[m * nm + t] * re_im[m];
+        conv[static_cast<int>(h[2]) + t] = a;
+      }
+    }
+    __syncthreads();
+    for (int c = 0; c < n_cvs; ++c) {
+      const float* h = s_desc + c * kHdr;
+      if (static_cast<int>(h[0]) != kQl) continue;
+      const int l = static_cast<int>(h[1]);
+      const int nb = n_mono(l - 1);
+      const float* cols =
+          s_desc + static_cast<int>(h[4]) + 2 * (l + 1) * n_mono(l);
+      const float* a = conv + static_cast<int>(h[2]);
+      float* const b = wide + ws.bvec + static_cast<int>(h[6]);
+      for (int j = threadIdx.x; j < 4 * nb; j += kStageThreads) {
+        const int t = j >> 2;
+        const int ax = j & 3;
+        b[j] = ax < 3 ? cols[3 * nb + ax * nb + t] *
+                            a[static_cast<int>(cols[ax * nb + t])]
+                      : 0.0f;
+      }
+    }
+  }
+  if constexpr (MS::kOn && !MS::kGen && Grad) {
     // b_a = D_a C^T (Re, Im) of the Q_6's aux lanes into s_aux, by warp 1
     // (its share of the staging below is one column of the nine, warp 0's
     // two): lane t < 28 forms a_t, then lane j takes b_j = value_j
@@ -690,7 +939,7 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
   int* queue = sc.queue + warp * cell_stage::kQueue;
   constexpr int kTerms = Vals ? lane_count<Lanes, Mono>() : 1;
   // compile-time in the fixed layouts, so their loops over t unroll
-  const int nt = !Vals ? 0 : Lanes == kLanesAny ? n_terms : kTerms;
+  const int nt = !Vals ? 0 : fixed_lanes(Lanes) ? kTerms : n_terms;
   float vacc[kTerms];
 #pragma unroll
   for (int t = 0; t < nt; ++t) vacc[t] = 0.0f;
@@ -749,12 +998,45 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
   // the monomial mode: the Q_6's header at qc (0 at compile time in the
   // fixed layouts), its value lanes from vq (the monomial sums, then its
   // bond count)
-  const int qc = MS::kOn ? mono_cv<Lanes>(s_desc, n_cvs) : 0;
-  const int vq = MS::kOn && Vals && Lanes == kLanesAny
+  const int qc = MS::kOn && !MS::kGen ? mono_cv<Lanes>(s_desc, n_cvs) : 0;
+  const int vq = MS::kOn && !MS::kGen && Vals && Lanes == kLanesAny
                      ? static_cast<int>(s_desc[qc * kHdr + 2])
                      : 0;
   float tacc = 0.0f;
-  if constexpr (MS::kOn) {
+  if constexpr (MS::kGen) {
+    // the general monomial mode: the Q_l pairs on their own queue, each
+    // round through mono_round
+    int* const mqueue = reinterpret_cast<int*>(m_warp);
+    int* const queue_q = mqueue + cell_stage::kQueue;
+    float* const pw = m_warp + MS::kQueueWords;
+    float* const red = s_red + warp * red_ld;
+    const float* const bvec = wide + ws.bvec;
+    for (int ii = warp; ii < n_i; ii += kStageWarps) {
+      const float4 xi = s_pos[i0 + ii];
+      float fx = 0.0f, fy = 0.0f, fz = 0.0f;
+      float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+      mono_sweep(
+          n_rows, mqueue, queue_q,
+          [&](int q) { return hit(xi, q); },
+          [&](int q, bool live) -> bool {
+            if (!live) return false;
+            float dx, dy, dz;
+            const float r2 = geom(xi, q, &dx, &dy, &dz);
+            lj(dx, dy, dz, r2, fx, fy, fz);
+            mono_others<Vals, Grad, Kinds, Lanes>(s_desc, n_cvs, s_aux, dx,
+                                                  dy, dz, r2, vacc, gx, gy,
+                                                  gz);
+            return r2 < rc2_q;
+          },
+          [&](int q, bool live) {
+            float dx = 0.0f, dy = 0.0f, dz = 0.0f, r2 = 0.0f;
+            if (live) r2 = geom(xi, q, &dx, &dy, &dz);
+            mono_round<Vals, Grad>(s_desc, n_cvs, bvec, pw, red, l_max, live,
+                                   dx, dy, dz, r2, gx, gy, gz);
+          });
+      write_row(ii, fx, fy, fz, gx, gy, gz);
+    }
+  } else if constexpr (MS::kOn) {
     // Q_6's cut-off and the i row read from shared memory where used:
     // two registers fewer across the sweep, none spilled
     auto rc2_q = [&]() -> float { return s_desc[qc * kHdr + 5]; };
@@ -854,22 +1136,29 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
 
   if (Vals) {
     // a shuffle tree per term (the tile's terms: lane t's sum), then the
-    // warps in order into the cell's row
-    __shared__ float s_red[kStageWarps][kMaxTerms];
+    // warps in order into the cell's row; the general monomial mode adds
+    // the trees (its Q_l lanes' sums are in the row already, their vacc
+    // zero)
     if constexpr (MS::kTile) {
-      if (lane <= kMono6) s_red[warp][vq + lane] = tacc;
+      if (lane <= kMono6) s_red[warp * red_ld + vq + lane] = tacc;
     }
 #pragma unroll
     for (int t = 0; t < nt; ++t) {
       if (MS::kTile && t >= vq && t <= vq + kMono6) continue;
       const float v = cell_stage::warp_sum(vacc[t]);
-      if (lane == 0) s_red[warp][t] = v;
+      if (lane == 0) {
+        if (MS::kGen) {
+          s_red[warp * red_ld + t] += v;
+        } else {
+          s_red[warp * red_ld + t] = v;
+        }
+      }
     }
     __syncthreads();
     const float m = cell_mask != nullptr ? cell_mask[cell] : 1.0f;
     for (int t = threadIdx.x; t < nt; t += kStageThreads) {
       float acc = 0.0f;
-      for (int w = 0; w < kStageWarps; ++w) acc += s_red[w][t];
+      for (int w = 0; w < kStageWarps; ++w) acc += s_red[w * red_ld + t];
       partials[cell * nt + t] = acc * m;
     }
   }
@@ -896,15 +1185,16 @@ reduce_terms_kernel(const float* __restrict__ partials, int n_blocks,
 
 // The monomial mode's second pass: every partials lane summed as
 // reduce_terms_kernel sums it, then written as the recurrence's value lanes,
-// the descriptor's CVs in order: a Q_6's Re and Im lanes C . (its monomial
-// sums) in double, k = 0..27 in order, then its bond count; a
-// coordination's lane as summed.  out: the recurrence's lanes (15 per Q_6,
-// 1 per coordination).  Two calls give the same bits.
+// the descriptor's CVs in order: a Q_l's Re and Im lanes C . (its
+// monomial sums) in double, k = 0..n_mono(l) - 1 in order, then its bond
+// count; a coordination's lane as summed.  out: the recurrence's lanes
+// (2 (l + 1) + 1 per Q_l, 1 per coordination).  Two calls give the same
+// bits.
 __global__ void __launch_bounds__(kMonoReduceThreads)
 reduce_mono_kernel(const float* __restrict__ partials, int n_blocks,
                    int n_terms, const float* __restrict__ desc, int n_cvs,
                    float* __restrict__ out) {
-  __shared__ double s_sum[kMaxTerms];
+  __shared__ double s_sum[kMaxLanes];
   const int lane = threadIdx.x & 31;
   for (int t = threadIdx.x >> 5; t < n_terms;
        t += kMonoReduceThreads / 32) {
@@ -923,17 +1213,20 @@ reduce_mono_kernel(const float* __restrict__ partials, int n_blocks,
     const float* h = desc + c * kHdr;
     const int vo = static_cast<int>(h[2]);
     const bool ql = static_cast<int>(h[0]) == kQl;
-    const int width = ql ? kY6 + 1 : 1;
+    const int l = static_cast<int>(h[1]);
+    const int ny = ql ? 2 * (l + 1) : 0;  // Re and Im lanes
+    const int nm = ql ? n_mono(l) : 0;
+    const int width = ny + 1;
     if (k >= dec && k < dec + width) {
       const int j = k - dec;
       double v = 0.0;
-      if (ql && j < kY6) {
+      if (j < ny) {
         const float* C = desc + static_cast<int>(h[4]);
-        for (int t = 0; t < kMono6; ++t) {
-          v += static_cast<double>(C[j * kMono6 + t]) * s_sum[vo + t];
+        for (int t = 0; t < nm; ++t) {
+          v += static_cast<double>(C[j * nm + t]) * s_sum[vo + t];
         }
       } else {
-        v = s_sum[vo + (ql ? kMono6 : 0)];
+        v = s_sum[vo + nm];
       }
       out[k] = static_cast<float>(v);
     }
@@ -956,6 +1249,7 @@ struct StagedArgs {
   float* partials;  // (cells, n_terms) with Vals
   float* out;       // (n_terms,) with Vals; Mono: the recurrence's lanes
   const float* cell_mask;  // (cells,) value weights with Vals, or null
+  int n_bvec;  // Mono: the Q_l's force vectors, 4 n_mono(l - 1) floats each
 };
 
 // Launches one instantiation on a block per cell, and with Vals the second
@@ -964,10 +1258,18 @@ struct StagedArgs {
 template <bool WithLJ, bool Vals, bool Grad, bool Valid, int Kinds, int L,
           int Lanes, bool Mono = false, bool Split = false>
 int launch_staged(const StagedArgs& a, cudaStream_t st) {
-  const size_t smem = staged_smem<Mono, Vals, Grad>(a.p.g.cap);
+  size_t smem = staged_smem<Mono, Vals, Grad, L>(a.p.g.cap);
+  if constexpr (Lanes == kLanesWide) {
+    // WideSmem's arrays from the next 16-byte boundary
+    smem = (smem + 15) / 16 * 16 +
+           sizeof(float) * WideSmem(a.desc_len, a.n_aux, a.n_bvec,
+                                    a.n_terms, Mono, Grad, Vals)
+                               .words;
+  }
   auto kernel = order_staged_kernel<WithLJ, Vals, Grad, Valid, Kinds, L,
                                     Lanes, Mono, Split>;
-  const int rc = cell_stage::request_smem(kernel, smem, static_smem<Mono>());
+  const int rc =
+      cell_stage::request_smem(kernel, smem, static_smem<Mono, Lanes>());
   if (rc != 0) return rc;
   const cudaError_t copied = cudaMemcpyToSymbolAsync(
       c_geo, a.p.g.box, sizeof(cell_geom::BoxRow), 0,
@@ -976,7 +1278,7 @@ int launch_staged(const StagedArgs& a, cudaStream_t st) {
   const int n_cells = a.p.g.cx * a.p.g.cy * a.p.g.cz;
   kernel<<<n_cells, kStageThreads, smem, st>>>(
       a.r, a.pid, a.desc, a.desc_len, a.n_cvs, a.n_terms, a.aux, a.n_aux,
-      a.p, a.f, a.g, a.partials, a.cell_mask);
+      a.p, a.f, a.g, a.partials, a.cell_mask, a.n_bvec);
   if constexpr (Vals && Mono) {
     reduce_mono_kernel<<<1, kMonoReduceThreads, 0, st>>>(
         a.partials, n_cells, a.n_terms, a.desc, a.n_cvs, a.out);
@@ -988,17 +1290,26 @@ int launch_staged(const StagedArgs& a, cudaStream_t st) {
 }
 
 // Picks the instantiation of a CV list: cv_set (kSet*), l_fixed (6 if every
-// Q_l has l = 6, else 0), lanes (kLanes*; with Vals only, else ignored).
-// Mono (the fused kernel's monomial mode) needs a Q_l and l_fixed = 6.
-// Returns launch_staged's code, or cudaErrorInvalidValue for a combination
-// without an instantiation.
+// Q_l has l = 6, in the monomial mode if the list has one Q_l and its l is
+// 6; else 0), lanes (kLanes*; with Vals only, else ignored).  A plan past
+// the narrow arrays (kMaxDesc, kMaxTerms, kMaxAux), and the monomial mode
+// (Mono) with l_fixed = 0, run the wide layout, the kinds read per CV:
+// any list within kMaxLanes value and aux lanes (check_args).  Returns
+// launch_staged's code, or cudaErrorInvalidValue for a combination without
+// an instantiation.
 template <bool WithLJ, bool Vals, bool Grad, bool Valid, bool Mono = false,
           bool Split = false>
 int launch_staged_set(int cv_set, int l_fixed, int lanes,
                       const StagedArgs& a, cudaStream_t st) {
   constexpr int bad = static_cast<int>(cudaErrorInvalidValue);
   if (l_fixed != 0 && l_fixed != 6) return bad;
-  if (Mono && (l_fixed != 6 || cv_set == kSetCoord)) return bad;
+  if ((Mono && l_fixed != 6) || a.desc_len > kMaxDesc ||
+      a.n_terms > kMaxTerms || a.n_aux > kMaxAux) {
+    if (Vals && lanes != kLanesAny) return bad;
+    return launch_staged<WithLJ, Vals, Grad, Valid, kSetMixed, 0, kLanesWide,
+                         Mono, Split>(a, st);
+  }
+  if (Mono && cv_set == kSetCoord) return bad;
   if constexpr (Vals) {
     if (lanes == kLanesQ6) {
       if (cv_set != kSetQl || l_fixed != 6 || a.n_cvs != 1 ||

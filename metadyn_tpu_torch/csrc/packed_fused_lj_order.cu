@@ -1,7 +1,7 @@
 // Fused LJ + order-CV sweep over the cell-major slot layout (sentinel
 // layout, orthorhombic or tilted box): the hand-written Hopper counterpart of
 // metadyn_tpu/ops/packed_fused_pallas.py fused_lj_order_force (kernel 4) in
-// its recurrence mode and its monomial mode (mono, Q_6 in the monomial basis
+// its recurrence mode and its monomial mode (mono, Q_l in the monomial basis
 // of cv/ylm_mono.py; order_cv.cuh), with the cell mask of the value sums
 // (the spatial decomposition's).  One traversal gives the LJ pair force,
 // the order-CV bias force from the lagged bias coefficients, and the fresh
@@ -41,9 +41,10 @@ extern "C" {
 // prefilter radius is pre_rc + margin * (the sum of the box's perpendicular
 // widths; pre_rc inf: no prefilter); mono: nonzero for the monomial mode
 // (aux as in the recurrence; n_terms and partials the monomial sums'
-// lanes, out the recurrence's value lanes, the Q_6's table the monomial
-// one; order_cv.cuh); cell_mask: (cx cy cz,) f32 weights of each cell's
-// value sums, or null.
+// lanes, out the recurrence's value lanes, each Q_l's table the monomial
+// one; order_cv.cuh); n_bvec: with mono, the floats of the Q_l's force
+// vectors, 4 n_mono(l - 1) each (0 without mono); cell_mask: (cx cy cz,)
+// f32 weights of each cell's value sums, or null.
 // Launches on `stream` and returns 0, a refused argument
 // (cudaErrorInvalidValue), -2 when cap does not fit a block's shared
 // memory, or a CUDA error.
@@ -53,7 +54,7 @@ int packed_fused_lj_order(const float* r, const float* desc, int desc_len,
                           int n_pad, int cap, int cx, int cy, int cz,
                           const float* box, float rc2, float sig2, float eps4,
                           int cv_set, int l_fixed, int lanes, float rc2_hit,
-                          float pre_rc, float margin, int mono,
+                          float pre_rc, float margin, int mono, int n_bvec,
                           const float* cell_mask, void* stream) {
   const int bad = check_args(n_cvs, desc_len, n_terms, n_aux, n_pad);
   if (bad) return bad;
@@ -61,7 +62,7 @@ int packed_fused_lj_order(const float* r, const float* desc, int desc_len,
       r, nullptr, desc, desc_len, n_cvs, n_terms, aux, n_aux,
       StagedParams{{n_pad, cap, cx, cy, cz, box}, 0, rc2_hit, rc2, sig2,
                    eps4, pre_rc, margin},
-      f, g, partials, out, cell_mask};
+      f, g, partials, out, cell_mask, n_bvec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rc =
       mono ? launch_staged_set<true, true, true, false, true>(cv_set, l_fixed,

@@ -18,7 +18,11 @@
 //   (d) bonds on (b) or (c): partners matched by pid through the bp attrs
 //       (partner pid + 1, 0 = none), at any distance, not gated on r_cut;
 //       a bonded pair gets FENE + WCA at the pair's (table-scaled) eps and
-//       sigma, or a harmonic spring, instead of the pair term;
+//       sigma, or a harmonic spring, instead of the pair term; any number
+//       of bond slots, as in the reference: an i row keeps the partner pids
+//       of the first four in registers and, past four (the template flag
+//       More: a branched or star melt), stages the others per warp in
+//       shared memory, read from one stacked array;
 //   (s) the soft (DPD-conservative) pair on (b) with per-slot hs, with or
 //       without FENE bonds: u = A rc/2 (1 - r/rc)^2, A = se_i se_j, the
 //       push-off that relaxes a random-walk melt's overlaps.  The JAX
@@ -114,20 +118,25 @@ constexpr int extra_fields() {
   return (HsSig ? 1 : 0) + (Table ? 1 : 0) + (Bond != kBondNone ? 1 : 0);
 }
 
+// The staged rows, the table, cell_stage's scratch and, past the first
+// kRegBondSlots slots, each warp's i row partner pids (n_more).
 template <bool HsSig, bool Table, int Bond>
-size_t smem_bytes(int cap, int n_types) {
+size_t smem_bytes(int cap, int n_types, int n_more) {
   const size_t rows = static_cast<size_t>(cell_stage::kOffsets) * cap;
   return rows * (sizeof(float4) +
                  sizeof(float) * extra_fields<HsSig, Table, Bond>()) +
          (Table ? sizeof(float) * 2 * n_types * n_types : 0) +
-         cell_stage::scratch_bytes(cap, kWarps);
+         cell_stage::scratch_bytes(cap, kWarps) +
+         (Bond != kBondNone ? sizeof(float) * kWarps * n_more : 0);
 }
 
 // SeEps: eps from se (else uniform, vacancy by the coordinate sentinel);
 // HsSig: sigma from hs (else uniform); Table: scale tables; Bond: kBond*;
-// Soft: the soft pair in place of LJ (with SeEps and HsSig only).
+// Soft: the soft pair in place of LJ (with SeEps and HsSig only); More:
+// bond slots past the first kRegBondSlots (bp.more), each i row's partner
+// pids there staged in shared memory per warp.
 template <bool SeEps, bool HsSig, bool Table, int Bond, bool Soft,
-          bool WithEnergy>
+          bool WithEnergy, bool More = false>
 __global__ void __launch_bounds__(kThreads)
 lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
                 const float* __restrict__ hs, const int* __restrict__ typ,
@@ -150,6 +159,11 @@ lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
   float* s_tab = s_next;
   if (Table) s_next += 2 * nt * nt;
   const cell_stage::Scratch sc = cell_stage::scratch_at(s_next, cap);
+  // this warp's i row partner pids past the first kRegBondSlots slots
+  float* const s_bpx =
+      reinterpret_cast<float*>(reinterpret_cast<char*>(s_next) +
+                               cell_stage::scratch_bytes(cap, kWarps)) +
+      (threadIdx.x >> 5) * bp.n_more;
 
   if (Table) {
     for (int t = threadIdx.x; t < 2 * nt * nt; t += kThreads) {
@@ -166,9 +180,13 @@ lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
   if (SeEps) se += w * n_pad;
   if (HsSig) hs += w * n_pad;
   if (Table) typ += w * n_pad;
+  // the slots past the first kRegBondSlots: slot k's rows every
+  // more_ld floats
+  const size_t more_ld = static_cast<size_t>(gridDim.y) * n_pad;
   if (Bond != kBondNone) {
     pid += w * n_pad;
-    for (int b = 0; b < bp.n; ++b) bp.bp[b] += w * n_pad;
+    for (int b = 0; b < bp.n_reg; ++b) bp.bp[b] += w * n_pad;
+    if (More) bp.more += w * n_pad;
   }
   if (WithEnergy) partials += w * C * 4;
   auto keep = [&](int, int j, float3) -> bool {
@@ -208,12 +226,20 @@ lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
     const int s = sc.islot[ii];
     const float hs_i = HsSig ? s_hs[i0 + ii] : 0.0f;
     const int ti = Table ? s_typ[i0 + ii] : 0;
-    float bp_i[pair_terms::kMaxBondSlots];
+    float bp_i[pair_terms::kRegBondSlots];
     bool has_partner = false;
     if (Bond != kBondNone) {
-      for (int b = 0; b < bp.n; ++b) {
+      for (int b = 0; b < bp.n_reg; ++b) {
         bp_i[b] = bp.bp[b][s];
         has_partner |= bp_i[b] > 0.0f;
+      }
+      if (More) {
+        __syncwarp();  // the previous row's reads are done
+        for (int k = lane; k < bp.n_more; k += 32) {
+          s_bpx[k] = bp.more[k * more_ld + s];
+        }
+        __syncwarp();
+        for (int k = 0; k < bp.n_more; ++k) has_partner |= s_bpx[k] > 0.0f;
       }
     }
     // the pair's geometry and its class: inside r_cut (with eps > 0),
@@ -228,7 +254,10 @@ lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
       *bonded = false;
       if (Bond != kBondNone && has_partner) {
         const float pj = s_pid1[q];
-        for (int b = 0; b < bp.n; ++b) *bonded |= bp_i[b] == pj;
+        for (int b = 0; b < bp.n_reg; ++b) *bonded |= bp_i[b] == pj;
+        if (More) {
+          for (int k = 0; k < bp.n_more; ++k) *bonded |= s_bpx[k] == pj;
+        }
         *bonded &= *r2 > 1.0e-12f;
       }
       // r2 > 1e-12 drops the slot itself (r2 == 0 exactly)
@@ -319,11 +348,13 @@ struct Args {
 // the shared-memory request or the launch, or cell_stage::kSmemTooLarge
 // when cap does not fit a block's shared memory.
 template <bool SeEps, bool HsSig, bool Table, int Bond, bool Soft,
-          bool WithEnergy>
+          bool WithEnergy, bool More>
 int launch_one(const Args& a, cudaStream_t st) {
   const int n_blocks = a.p.g.cx * a.p.g.cy * a.p.g.cz;
-  const size_t smem = smem_bytes<HsSig, Table, Bond>(a.p.g.cap, a.p.n_types);
-  auto kernel = lj_force_kernel<SeEps, HsSig, Table, Bond, Soft, WithEnergy>;
+  const size_t smem =
+      smem_bytes<HsSig, Table, Bond>(a.p.g.cap, a.p.n_types, a.bp.n_more);
+  auto kernel =
+      lj_force_kernel<SeEps, HsSig, Table, Bond, Soft, WithEnergy, More>;
   // beside the static array of pair_terms::block_partials and the cell
   // matrix
   const int rc = cell_stage::request_smem(
@@ -342,11 +373,25 @@ int launch_one(const Args& a, cudaStream_t st) {
   return 0;
 }
 
+template <bool SeEps, bool HsSig, bool Table, int Bond, bool Soft = false,
+          bool More = false>
+int launch_energy(const Args& a, bool with_energy, cudaStream_t st) {
+  return with_energy
+             ? launch_one<SeEps, HsSig, Table, Bond, Soft, true, More>(a, st)
+             : launch_one<SeEps, HsSig, Table, Bond, Soft, false, More>(a,
+                                                                      st);
+}
+
+// More: the bonded layouts with bond slots past the first kRegBondSlots.
 template <bool SeEps, bool HsSig, bool Table, int Bond, bool Soft = false>
 int launch(const Args& a, bool with_energy, cudaStream_t st) {
-  return with_energy
-             ? launch_one<SeEps, HsSig, Table, Bond, Soft, true>(a, st)
-             : launch_one<SeEps, HsSig, Table, Bond, Soft, false>(a, st);
+  if constexpr (Bond != kBondNone) {
+    if (a.bp.n_more > 0) {
+      return launch_energy<SeEps, HsSig, Table, Bond, Soft, true>(
+          a, with_energy, st);
+    }
+  }
+  return launch_energy<SeEps, HsSig, Table, Bond, Soft>(a, with_energy, st);
 }
 
 constexpr int kNoLayout = -1;
@@ -384,7 +429,9 @@ int packed_lj_force_blocks(int cx, int cy, int cz) { return cx * cy * cz; }
 // where the layout does not read them (se_eps, hs_sig = 0); typ, pid:
 // (n_pad,) i32 or null (table = null, bond_kind = 0); n_real: the bonded
 // layout's vacancy bound (pid < n_real is real); bp0..bp3: the first
-// bond_slots bond-partner attrs; table: (2, n_types, n_types) f32 = (k_eps,
+// min(bond_slots, 4) bond-partner attrs, bp_more: the others as one
+// contiguous (bond_slots - 4, n_walkers, n_pad) f32 array (null for at
+// most 4 slots); table: (2, n_types, n_types) f32 = (k_eps,
 // k_sig) or null.  With with_energy != 0, partials: (cx cy cz, 4) f32
 // scratch and out: (4,) f32 = (PE, Wxx, Wyy, Wzz); otherwise both may be
 // null; cell_mask: (cx cy cz,) f32 per-cell weights of the energy and
@@ -405,7 +452,8 @@ int packed_lj_force_blocks(int cx, int cy, int cz) { return cx * cy * cz; }
 int packed_lj_force(const float* r, const float* se, const float* hs,
                     const int* typ, const int* pid, const float* bp0,
                     const float* bp1, const float* bp2, const float* bp3,
-                    const float* table, float* f, float* partials, float* out,
+                    const float* bp_more, const float* table, float* f,
+                    float* partials, float* out,
                     const float* cell_mask, int n_pad, int cap, int cx, int cy, int cz, int n_real,
                     int se_eps, int hs_sig, int n_types, int bond_kind,
                     int bond_slots, int shift_energy, int with_energy,
@@ -413,11 +461,13 @@ int packed_lj_force(const float* r, const float* se, const float* hs,
                     float r_cut,
                     float sig2, float eps, float bond_k, float bond_r0,
                     void* stream) {
-  if (bond_slots < 0 || bond_slots > pair_terms::kMaxBondSlots ||
+  BondSlots bp;
+  if (!pair_terms::bond_slots_of(bond_slots, bp0, bp1, bp2, bp3, bp_more,
+                                 &bp) ||
       n_walkers < 1 || n_walkers > 65535) {
     return kNoLayout;
   }
-  Args a{r, se, hs, typ, pid, {{bp0, bp1, bp2, bp3}, bond_slots}, table, f,
+  Args a{r, se, hs, typ, pid, bp, table, f,
          partials, out, cell_mask,
          Params{{n_pad, cap, cx, cy, cz, box},
                 n_real, n_types, shift_energy, rc2, r_cut, sig2, eps, bond_k,

@@ -7,7 +7,9 @@
 // halving, kept as the cross-check of `packed_lj_force_pallas2`): eps_ij =
 // se_i se_j, sigma_ij = hs_i + hs_j, energy shift per pair when the spec asks
 // for it, bonded pairs (partner pid matched through the bp attrs, at any
-// distance) get FENE + WCA or a harmonic spring instead of the pair term.
+// distance) get FENE + WCA or a harmonic spring instead of the pair term,
+// for any number of bond slots (the first four partner pids of a thread's
+// slot in registers, the others in shared memory).
 // No per-type tables, as in the reference.  Unlike the reference it applies
 // the eps > 0 gate before the power chain: vacant slots (se = 0) drift in
 // the per-slot layout, and two of them within r^2 ~ 1e-8 would give
@@ -53,18 +55,23 @@ struct Params {
   float bond_r0;
 };
 
-template <int Bond>
+// More: bond slots past the first kRegBondSlots (bp.more), each thread's
+// partner pids there in shared memory.
+template <int Bond, bool More>
 __global__ void lj_force_v1_kernel(const float* __restrict__ r,
                                    const float* __restrict__ se,
                                    const float* __restrict__ hs,
                                    const int* __restrict__ pid, BondSlots bp,
                                    float* __restrict__ f,
                                    float* __restrict__ partials, Params p) {
-  extern __shared__ float stage[];  // (kRows, 27 * cap)
+  // (kRows, 27 * cap), then (bp.n_more, threads): each thread's partner
+  // pids past the first kRegBondSlots slots
+  extern __shared__ float stage[];
   const int C = p.cx * p.cy * p.cz;
   const int n_pad = p.n_pad;
   const int cell = blockIdx.x;
   const int n_stage = 27 * p.cap;
+  float* const bpx = stage + kRows * n_stage + threadIdx.x;
   const int iz = cell % p.cz;
   const int iy = (cell / p.cz) % p.cy;
   const int ix = cell / (p.cy * p.cz);
@@ -97,8 +104,13 @@ __global__ void lj_force_v1_kernel(const float* __restrict__ r,
     const float zi = r[2 * n_pad + s];
     const float se_i = se[s];
     const float hs_i = hs[s];
-    float bp_i[pair_terms::kMaxBondSlots];
-    for (int b = 0; b < bp.n; ++b) bp_i[b] = bp.bp[b][s];
+    float bp_i[pair_terms::kRegBondSlots];
+    for (int b = 0; b < bp.n_reg; ++b) bp_i[b] = bp.bp[b][s];
+    if (More) {
+      for (int k = 0; k < bp.n_more; ++k) {
+        bpx[k * blockDim.x] = bp.more[k * n_pad + s];
+      }
+    }
     float fx = 0.0f, fy = 0.0f, fz = 0.0f;
     for (int q = 0; q < n_stage; ++q) {
       const float dx = xi - stage[q];
@@ -108,7 +120,12 @@ __global__ void lj_force_v1_kernel(const float* __restrict__ r,
       bool bonded = false;
       if (Bond != kBondNone) {
         const float pj = stage[5 * n_stage + q];
-        for (int b = 0; b < bp.n; ++b) bonded |= bp_i[b] == pj;
+        for (int b = 0; b < bp.n_reg; ++b) bonded |= bp_i[b] == pj;
+        if (More) {
+          for (int k = 0; k < bp.n_more; ++k) {
+            bonded |= bpx[k * blockDim.x] == pj;
+          }
+        }
         bonded &= r2 > 1.0e-12f;
       }
       const float eps = se_i * stage[3 * n_stage + q];
@@ -136,25 +153,38 @@ __global__ void lj_force_v1_kernel(const float* __restrict__ r,
   pair_terms::block_partials(acc, partials);
 }
 
+template <int Bond, bool More>
+int launch_more(const float* r, const float* se, const float* hs,
+                const int* pid, BondSlots bp, float* f, float* partials,
+                float* out, Params p, cudaStream_t st) {
+  const int C = p.cx * p.cy * p.cz;
+  const int threads = ((p.cap + 31) / 32) * 32;
+  const size_t smem =
+      sizeof(float) * (kRows * 27 * p.cap + bp.n_more * threads);
+  if (threads > 1024) return -1;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lj_force_v1_kernel<Bond, More>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  lj_force_v1_kernel<Bond, More><<<C, threads, smem, st>>>(
+      r, se, hs, pid, bp, f, partials, p);
+  pair_terms::reduce_partials_kernel<<<1, pair_terms::kReduceThreads, 0,
+                                       st>>>(partials, C, out);
+  return 0;
+}
+
 template <int Bond>
 int launch(const float* r, const float* se, const float* hs, const int* pid,
            BondSlots bp, float* f, float* partials, float* out, Params p,
            cudaStream_t st) {
-  const int C = p.cx * p.cy * p.cz;
-  const int threads = ((p.cap + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * kRows * 27 * p.cap;
-  if (threads > 1024) return -1;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lj_force_v1_kernel<Bond>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (Bond != kBondNone && bp.n_more > 0) {
+    return launch_more<Bond, true>(r, se, hs, pid, bp, f, partials, out, p,
+                                   st);
   }
-  lj_force_v1_kernel<Bond><<<C, threads, smem, st>>>(r, se, hs, pid, bp, f,
-                                                     partials, p);
-  pair_terms::reduce_partials_kernel<<<1, pair_terms::kReduceThreads, 0,
-                                       st>>>(partials, C, out);
-  return 0;
+  return launch_more<Bond, false>(r, se, hs, pid, bp, f, partials, out, p,
+                                  st);
 }
 
 }  // namespace
@@ -162,7 +192,9 @@ int launch(const float* r, const float* se, const float* hs, const int* pid,
 extern "C" {
 
 // r: (3, n_pad) f32; se, hs: (n_pad,) f32; pid: (n_pad,) i32 (may be null
-// without bonds); bp0..bp3: the first bond_slots bond-partner attrs; f:
+// without bonds); bp0..bp3: the first min(bond_slots, 4) bond-partner
+// attrs, bp_more: the others as one contiguous (bond_slots - 4, n_pad) f32
+// array (null for at most 4 slots); f:
 // (3, n_pad) f32 out; partials: (C, 4) f32 scratch (one row per cell); out:
 // (4,) f32 = (PE, Wxx, Wyy, Wzz).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success), -1 for a cap above 1024 or an unknown
@@ -170,13 +202,17 @@ extern "C" {
 // (cell_geom.cuh BoxRow; zero tilt for an orthorhombic box).
 int packed_lj_force_v1(const float* r, const float* se, const float* hs,
                        const int* pid, const float* bp0, const float* bp1,
-                       const float* bp2, const float* bp3, float* f,
+                       const float* bp2, const float* bp3,
+                       const float* bp_more, float* f,
                        float* partials, float* out, int n_pad, int cap,
                        int cx, int cy, int cz, int bond_kind, int bond_slots,
                        int shift_energy, const float* box, float rc2,
                        float bond_k, float bond_r0, void* stream) {
-  if (bond_slots < 0 || bond_slots > pair_terms::kMaxBondSlots) return -1;
-  BondSlots bp{{bp0, bp1, bp2, bp3}, bond_slots};
+  BondSlots bp;
+  if (!pair_terms::bond_slots_of(bond_slots, bp0, bp1, bp2, bp3, bp_more,
+                                 &bp)) {
+    return -1;
+  }
   Params p{n_pad, cap, cx, cy, cz, shift_energy, box, rc2, bond_k, bond_r0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc;

@@ -16,7 +16,9 @@ constexpr float kVacantThr = 1.0e6f;  // ops/packed.py VACANT_THR
 constexpr int kBondNone = 0;
 constexpr int kBondFene = 1;
 constexpr int kBondHarmonic = 2;
-constexpr int kMaxBondSlots = 4;
+// Bond slots whose partner pids an i row keeps in registers; the others
+// (any number) it reads from shared memory.
+constexpr int kRegBondSlots = 4;
 
 // Lennard-Jones 4 eps ((s/r)^12 - (s/r)^6), shifted to 0 at r_cut when
 // `shift` is set.  eps4 = 4 eps, sig2 = sigma^2.
@@ -132,10 +134,28 @@ reduce_partials_kernel(const float* __restrict__ partials, int n_blocks,
   }
 }
 
-// Bond-partner attrs bp0..bp3 (partner pid + 1 as f32, 0 = none).
+// Bond-partner attrs (partner pid + 1 as f32, 0 = none): the columns of
+// the first n_reg <= kRegBondSlots slots, bp0..bp3, and the other n_more
+// slots as one (n_more, walkers, n_pad) array `more` (null without them).
 struct BondSlots {
-  const float* bp[kMaxBondSlots];
-  int n;
+  const float* bp[kRegBondSlots];
+  const float* more;
+  int n_reg;
+  int n_more;
 };
+
+// BondSlots of bond_slots slots, the first four columns bp0..bp3 and the
+// rest in `more`; false for a negative count or a missing array.
+inline bool bond_slots_of(int bond_slots, const float* bp0, const float* bp1,
+                          const float* bp2, const float* bp3,
+                          const float* more, BondSlots* out) {
+  if (bond_slots < 0) return false;
+  out->n_reg = bond_slots < kRegBondSlots ? bond_slots : kRegBondSlots;
+  out->n_more = bond_slots - out->n_reg;
+  const float* cols[kRegBondSlots] = {bp0, bp1, bp2, bp3};
+  for (int b = 0; b < kRegBondSlots; ++b) out->bp[b] = cols[b];
+  out->more = more;
+  return out->n_more == 0 || more != nullptr;
+}
 
 }  // namespace pair_terms

@@ -50,16 +50,19 @@ from .packed import (
 )
 
 KERNEL = "packed_lj_force"
-MAX_BOND_SLOTS = 4          # csrc/pair_terms.cuh kMaxBondSlots
+# bond slots whose partner columns the kernels take one by one
+# (csrc/pair_terms.cuh kRegBondSlots); any further slots go as one stacked
+# array (bond_ptrs)
+REG_BOND_SLOTS = 4
 BOND_KINDS = {None: 0, "fene": 1, "harmonic": 2}
 
 
 def check_spec(spec: PackedSpec) -> None:
     """Raise on any spec the kernel does not take: a uniform ε without a
     uniform σ, the sentinel layout with bonds, tables outside the per-slot
-    ``se``/``hs`` layout, more than 4 bond slots, and the soft pair outside
-    the per-slot ``se``/``hs`` layout without tables, with no bonds or FENE
-    bonds."""
+    ``se``/``hs`` layout, and the soft pair outside the per-slot
+    ``se``/``hs`` layout without tables, with no bonds or FENE bonds.  Any
+    number of bond slots is taken, as in the reference."""
     if spec.pair_kind not in ("lj", "soft"):
         raise NotImplementedError(
             f"CUDA pair kernel: pair_kind {spec.pair_kind!r}")
@@ -80,9 +83,6 @@ def check_spec(spec: PackedSpec) -> None:
                                 or spec.uniform_sigma is not None):
         raise NotImplementedError("CUDA pair kernel: pair tables need the "
                                   "per-slot se/hs layout")
-    if spec.has_bonds and spec.bond_slots > MAX_BOND_SLOTS:
-        raise NotImplementedError(f"CUDA pair kernel: at most "
-                                  f"{MAX_BOND_SLOTS} bond slots")
 
 
 def check_state(state: PackedState, spec: PackedSpec, who: str,
@@ -138,12 +138,19 @@ def mask_ptr(cell_mask, spec: PackedSpec, device, who: str):
 
 
 def bond_ptrs(state: PackedState, spec: PackedSpec, who: str,
-              lead: tuple = ()) -> list:
-    """The bp0.. attrs' pointers, padded with None to MAX_BOND_SLOTS."""
+              lead: tuple = ()) -> tuple:
+    """(pointers, keep): the bp0..bp3 attrs' pointers, padded with None to
+    REG_BOND_SLOTS, then that of the further slots' attrs stacked into one
+    contiguous (bond_slots − 4, *lead, Npad) array (None for at most 4
+    slots); ``keep`` holds that array until the launch is queued."""
     n = spec.bond_slots if spec.has_bonds else 0
-    ptrs = [slot_ptr(state.attrs[f"bp{k}"], torch.float32, spec, who,
-                     f"bp{k}", lead) for k in range(n)]
-    return ptrs + [None] * (MAX_BOND_SLOTS - n)
+    cols = [state.attrs[f"bp{k}"] for k in range(n)]
+    ptrs = [slot_ptr(c, torch.float32, spec, who, f"bp{k}", lead)
+            for k, c in enumerate(cols)]
+    more = (torch.stack(cols[REG_BOND_SLOTS:]).contiguous()
+            if n > REG_BOND_SLOTS else None)
+    return (ptrs[:REG_BOND_SLOTS] + [None] * max(REG_BOND_SLOTS - n, 0)
+            + [None if more is None else more.data_ptr()]), more
 
 
 @functools.lru_cache(maxsize=16)
@@ -167,7 +174,7 @@ def _library():
     lib = _build.load(KERNEL)
     fn = lib.packed_lj_force
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 15
+        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 15
                        + [ctypes.c_void_p] + [ctypes.c_float] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -241,11 +248,11 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
     m_ptr = mask_ptr(cell_mask, spec, r.device, who)
     bond_kind = BOND_KINDS[spec.bond_kind if spec.has_bonds else None]
     cx, cy, cz = spec.cells_per_dim
+    bps, _keep = bond_ptrs(state, spec, who, lead)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = lib.packed_lj_force(
-            r.data_ptr(), se, hs, typ, pid,
-            *bond_ptrs(state, spec, who, lead),
+            r.data_ptr(), se, hs, typ, pid, *bps,
             table, f.data_ptr(), p_ptr, o_ptr, m_ptr,
             spec.n_pad, spec.cap, cx, cy, cz, spec.n_real, int(se_eps),
             int(hs_sig), n_types, bond_kind,

@@ -1,8 +1,8 @@
 """Wrapper of the hand-written Hopper fused LJ + order-CV kernel
 (``csrc/packed_fused_lj_order.cu``), the counterpart of
 ``metadyn_tpu/ops/packed_fused_pallas.fused_lj_order_force`` in its
-recurrence mode and its monomial mode (``mono=True``: Q_6 in the monomial
-basis of ``cv/ylm_mono.py``), with or without the spatial decomposition's
+recurrence mode and its monomial mode (``mono=True``: every Q_l in the
+monomial basis of ``cv/ylm_mono.py``), with or without the spatial decomposition's
 ``cell_mask`` on the value sums (the reference's rule: only with
 ``mono``), in the sentinel layout (the reference's rule), in an
 orthorhombic or a tilted box.  One block per cell stages the real rows of
@@ -31,8 +31,10 @@ mask and ``masked_launches`` those with one.
 
 ``parts``, a proper subset of {``lj``, ``vals``, ``force``}, selects the
 reference's timing modes (its ``parts`` switch): the same traversal with
-only the named outputs computed, from the library of its own
-``csrc/packed_fused_parts.cu``; the others come out exactly zero.  No
+only the named outputs computed, from the libraries of their own
+``csrc/packed_fused_parts.cu`` (the recurrence) and
+``csrc/packed_fused_parts_mono.cu`` (the monomial mode); the others come
+out exactly zero.  No
 production path calls them: they split kernel 4's time among its parts
 (``chip_smoke.py`` phase 40).  ``fused_lj_order_force_cuda.parts_launches``
 counts their launches by :func:`parts_key`.
@@ -53,15 +55,16 @@ from .packed_order_cuda import (
 
 KERNEL = "packed_fused_lj_order"
 PARTS_KERNEL = "packed_fused_parts"
+PARTS_MONO_KERNEL = "packed_fused_parts_mono"
 ALL_PARTS = frozenset({"lj", "vals", "force"})
-# the parts argument of csrc/packed_fused_parts.cu, a bit per part
+# the parts argument of csrc/fused_parts.cuh, a bit per part
 PART_BITS = {"lj": 1, "vals": 2, "force": 4}
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
              + [ctypes.c_void_p, ctypes.c_int]
              + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
              + [ctypes.c_void_p] + [ctypes.c_float] * 3
              + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
-             + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
 
 
 def _library():
@@ -73,13 +76,14 @@ def _library():
     return lib
 
 
-def _parts_library():
-    lib = _build.load(PARTS_KERNEL)
-    fn = lib.packed_fused_parts
+def _parts_function(mono: bool):
+    """The parts subsets' entry point of the library of ``mono``'s mode."""
+    name = PARTS_MONO_KERNEL if mono else PARTS_KERNEL
+    fn = getattr(_build.load(name), name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] + _ARGTYPES
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def check_parts(parts) -> frozenset:
@@ -141,7 +145,7 @@ def fused_lj_order_force_cuda(state: PackedState, spec: PackedSpec, cvs,
 
     ``auxs``: per-CV ``grad_aux`` outputs, usually from the previous
     evaluation's terms (the lag); ``terms`` are the fresh value sums.
-    ``mono``: Q_l's math in the monomial basis (Q_6 on the card).
+    ``mono``: Q_l's math in the monomial basis.
     ``cell_mask`` ((C,) f32, with ``mono`` only, as in the reference): each
     pair's value terms times its i cell's weight; the forces unmasked.
     ``parts``: the outputs to compute (a proper subset launches the parts
@@ -191,16 +195,17 @@ def fused_lj_order_force_cuda(state: PackedState, spec: PackedSpec, cvs,
             *geometry_args(state, spec, "fused_lj_order_force_cuda"),
             float(spec.r_cut) ** 2, sig2, 4.0 * float(spec.uniform_eps),
             plan.cv_set, plan.l_fixed, plan.lanes, rc2_hit,
-            prefilter_base(rc2_hit), PREFILTER_MARGIN, int(plan.mono), m_ptr,
-            _stream(r.device))
+            prefilter_base(rc2_hit), PREFILTER_MARGIN, int(plan.mono),
+            plan.n_bvec, m_ptr, _stream(r.device))
     full = parts == ALL_PARTS
     with torch.cuda.device(r.device):
         if full:
             err = _library().packed_fused_lj_order(*args)
         else:
             bits = sum(PART_BITS[p] for p in parts)
-            err = _parts_library().packed_fused_parts(bits, *args)
-    raise_on(err, KERNEL if full else PARTS_KERNEL, spec)
+            err = _parts_function(plan.mono)(bits, *args)
+    raise_on(err, KERNEL if full else
+             PARTS_MONO_KERNEL if plan.mono else PARTS_KERNEL, spec)
     if full:
         fused_lj_order_force_cuda.launches += 1
         if cell_mask is not None:

@@ -29,10 +29,15 @@ The CVs reach the kernels as a float descriptor (format in
 uploaded once per (CV list, device, mode).  Value terms and bias
 coefficients use the lane layout of :func:`lane_layout`: per CV its
 ``n_value_terms`` value lanes and ``aux_size`` aux lanes, in list order.
-In the fused kernel's monomial mode a Q_6 sums n_mono(6) + 1 value lanes
+In the fused kernel's monomial mode a Q_l sums n_mono(l) + 1 value lanes
 per cell, and the kernel's second pass writes them back as the
-recurrence's lanes; the aux lanes are the recurrence's in both modes (the
-kernel forms the monomial coefficients itself).
+recurrence's lanes; the kernels take the recurrence's aux lanes in both
+modes (they form the monomial coefficients themselves).
+
+The kernels take every CV list the reference's lane row takes: at most
+128 value lanes (kernels 2 and 4) and 128 aux lanes (kernels 3 and 4),
+counted in the monomial mode as the reference counts them (3·n_mono(l − 1)
+aux lanes per Q_l, :func:`lane_layout`), any number of CVs, any l.
 """
 from __future__ import annotations
 
@@ -51,14 +56,10 @@ from .packed_cuda import box_ptr, check_state, mask_ptr, raise_on, slot_ptr
 
 KERNEL = "packed_order"
 
-# descriptor limits, as csrc/order_cv.cuh states them (MAX_L is this
-# wrapper's: the f32 p_lm tables lose accuracy at high degree)
+# the descriptor's header floats per CV, and the lanes of the reference's
+# lane row (1, 128), value and aux each (csrc/order_cv.cuh kMaxLanes)
 HDR = 9
-MAX_CVS = 8
-MAX_L = 12
-MAX_TERMS = 64
-MAX_AUX = 64
-MAX_DESC = 1024
+MAX_LANES = 128
 KIND_QL = 0
 # the kernels' CV-kind sets and value-lane layouts (csrc/order_cv.cuh):
 # LANES_Q6 is the CV list [Q6], LANES_Q6_COORD [Q6, coordination], whose
@@ -77,18 +78,39 @@ def is_mono(cv, mono: bool) -> bool:
 
 
 def lane_layout(cvs, mono: bool = False) -> tuple[list, list, int, int]:
-    """(aux lane offsets, value lane offsets, aux lanes, value lanes) as the
-    sweeps take and sum them: the CVs' ``grad_aux`` lanes, and their value
-    lanes per cell, in the monomial mode a Q_l's n_mono(l) monomial sums
-    and its bond count."""
+    """(aux lane offsets, value lane offsets, aux lanes, value lanes) of
+    the reference's lane row (``packed_fused_pallas._lane_layout``): per
+    CV its ``grad_aux`` lanes and its value lanes per cell, in the
+    monomial mode a Q_l's 3·n_mono(l − 1) force-vector lanes, and its
+    n_mono(l) monomial sums and bond count.  The kernels sum these value
+    lanes; they take the recurrence's aux lanes (``mono=False``) in both
+    modes."""
     aux_off, val_off = [], []
     na = nv = 0
     for cv in cvs:
         aux_off.append(na)
         val_off.append(nv)
-        na += cv.aux_size
-        nv += n_mono(cv.l) + 1 if is_mono(cv, mono) else cv.n_value_terms
+        if is_mono(cv, mono):
+            na += 3 * n_mono(cv.l - 1)
+            nv += n_mono(cv.l) + 1
+        else:
+            na += cv.aux_size
+            nv += cv.n_value_terms
     return aux_off, val_off, na, nv
+
+
+def check_lanes(cvs, mono: bool, values: bool, aux: bool) -> None:
+    """Raise ValueError where the reference's lane row refuses the CV
+    list: over 128 value lanes (``values``: kernels 2 and 4) or 128 aux
+    lanes (``aux``: kernels 3 and 4), counted as :func:`lane_layout`
+    counts them."""
+    _, _, na, nv = lane_layout(cvs, mono)
+    over = ([f"{nv} value lanes"] if values and nv > MAX_LANES else []) + (
+        [f"{na} aux lanes"] if aux and na > MAX_LANES else [])
+    if over:
+        raise ValueError(f"CUDA order kernels: {' and '.join(over)} exceed "
+                         f"the lane row's {MAX_LANES}"
+                         + (" (the monomial mode's count)" if mono else ""))
 
 
 def pack_force_aux(cvs, auxs) -> torch.Tensor:
@@ -107,16 +129,17 @@ def decode_value_lanes(cvs, vals: torch.Tensor) -> tuple:
                  for cv, off in zip(cvs, val_off))
 
 
-@functools.lru_cache(maxsize=1)
-def mono_tables() -> tuple:
-    """The monomial mode's tables as the fused kernel takes them (a Q_6's
-    table in the descriptor, ``csrc/order_cv.cuh``), from
-    ``cv/ylm_mono.py``: C = ``ylm_mono_matrix(6)`` as (14, 28) f32, and
-    each row of the differentiation matrices D_x, D_y, D_z (21 × 28 each,
-    one nonzero per row) as that nonzero's column (63,) and value (63,)."""
-    C = np.ascontiguousarray(ylm_mono_matrix(6), np.float32)
+@functools.lru_cache(maxsize=None)
+def mono_tables(l: int) -> tuple:
+    """The monomial mode's tables of a Q_l as the fused kernel takes them
+    (its table in the descriptor, ``csrc/order_cv.cuh``), from
+    ``cv/ylm_mono.py``: C = ``ylm_mono_matrix(l)`` as (2(l + 1),
+    n_mono(l)) f32, and each row of the differentiation matrices D_x, D_y,
+    D_z (n_mono(l − 1) × n_mono(l) each, one nonzero per row) as that
+    nonzero's column (3·n_mono(l − 1),) and value (3·n_mono(l − 1),)."""
+    C = np.ascontiguousarray(ylm_mono_matrix(l), np.float32)
     cols, vals = [], []
-    for D in diff_matrices(6):
+    for D in diff_matrices(l):
         for row in D:
             (k,) = np.flatnonzero(row)
             cols.append(k)
@@ -127,31 +150,22 @@ def mono_tables() -> tuple:
 
 def cv_descriptor(cvs, mono: bool = False) -> np.ndarray:
     """The kernels' CV descriptor: one header of ``HDR`` floats per CV
-    ``[kind, l, val_off, aux_off, tab_off, rc2, r02, sc, scale]``, then the
-    CVs' tables; ``mono``: the value lanes of the monomial mode, whose
-    kernel takes one Q_l, with l = 6, its table :func:`mono_tables` (C,
-    then the columns, then the values).  Raises on a CV without kernel math,
-    on l > ``MAX_L`` and beyond the kernels' lane and descriptor limits."""
+    ``[kind, l, val_off, aux_off, tab_off, rc2, r02, sc, scale]`` (aux_off
+    in the recurrence's aux lanes), then the CVs' tables.  ``mono``: the
+    value lanes of the monomial mode; each Q_l's table is
+    :func:`mono_tables` (C, then the columns, then the values) and its r02
+    slot the offset of its force vectors (4·n_mono(l − 1) floats each, in
+    list order) in the kernel's shared array of them.  Raises on an empty
+    list and a CV without kernel math; the lanes each kernel takes are
+    :func:`check_lanes`'."""
     cvs = list(cvs)
-    if not 1 <= len(cvs) <= MAX_CVS:
-        raise ValueError(f"CUDA order kernels: 1..{MAX_CVS} CVs, got "
-                         f"{len(cvs)}")
-    for cv in cvs:
-        if is_mono(cv, mono) and cv.l != 6:
-            raise NotImplementedError(
-                f"CUDA fused kernel: the monomial mode takes Q_6 only "
-                f"(CV {cv.name!r} has l={cv.l}: the kernel's monomial "
-                f"tables are degree 6's)")
-    if sum(is_mono(cv, mono) for cv in cvs) > 1:
-        raise NotImplementedError(
-            "CUDA fused kernel: the monomial mode takes one Q_6 (its "
-            "monomial coefficients fill the kernel's shared table)")
-    aux_off, val_off, n_aux, n_vals = lane_layout(cvs, mono)
-    if n_vals > MAX_TERMS or n_aux > MAX_AUX:
-        raise ValueError(f"CUDA order kernels: {n_vals} value and {n_aux} aux "
-                         f"lanes exceed {MAX_TERMS} and {MAX_AUX}")
+    if not cvs:
+        raise ValueError("CUDA order kernels: an empty CV list")
+    aux_off = lane_layout(cvs)[0]
+    val_off = lane_layout(cvs, mono)[1]
     headers, tables = [], []
     tab_off = HDR * len(cvs)
+    b_off = 0
     for cv, ao, vo in zip(cvs, aux_off, val_off):
         if not hasattr(cv, "kernel_descriptor"):
             raise NotImplementedError(
@@ -160,53 +174,57 @@ def cv_descriptor(cvs, mono: bool = False) -> np.ndarray:
         kind, l, rc2, r02, sc, scale, table = cv.kernel_descriptor()
         if is_mono(cv, mono):
             table = np.concatenate([t.reshape(-1).astype(np.float32)
-                                    for t in mono_tables()])
-        if kind == 0 and l > MAX_L:
-            raise NotImplementedError(f"CUDA order kernels: Q_l with l={l} > "
-                                      f"{MAX_L}")
+                                    for t in mono_tables(l)])
+            r02 = b_off
+            b_off += 4 * n_mono(l - 1)
         headers += [kind, l, vo, ao, tab_off, rc2, r02, sc, scale]
         tables.append(np.asarray(table, np.float32))
         tab_off += len(tables[-1])
-    desc = np.concatenate([np.asarray(headers, np.float32)] + tables)
-    if desc.size > MAX_DESC:
-        raise ValueError(f"CUDA order kernels: descriptor of {desc.size} "
-                         f"floats exceeds {MAX_DESC}")
-    return desc
+    return np.concatenate([np.asarray(headers, np.float32)] + tables)
 
 
 class Plan(NamedTuple):
     """A CV list as the kernels take it."""
 
     desc: torch.Tensor  # the descriptor, on the device
-    n_vals: int         # value lanes
-    n_aux: int          # aux lanes
+    n_vals: int         # value lanes the sweep sums
+    n_aux: int          # aux lanes (the recurrence's, in both modes)
     cv_set: int         # CV_SET_*: the kinds the kernels instantiate
-    l_fixed: int        # 6 if every Q_l has l = 6 (unrolled math), else 0
+    l_fixed: int        # 6 if every Q_l has l = 6 (unrolled math; in the
+                        # monomial mode: one Q_l, with l = 6), else 0
     rc2_max: float      # the largest cut-off squared (inf if a CV has none)
     lanes: int          # LANES_*: the value-lane layout
     mono: bool          # the monomial mode (with at least one Q_l)
     n_out: int          # value lanes the kernels write (n_vals but in the
                         # monomial mode, where the second pass decodes)
+    n_bvec: int         # the monomial mode: the Q_l's force-vector floats
 
 
 @functools.lru_cache(maxsize=32)
-def _plan(cvs: tuple, device: torch.device, mono: bool = False) -> Plan:
+def _plan(cvs: tuple, device: torch.device, mono: bool = False,
+          values: bool = True, aux: bool = True) -> Plan:
     """The :class:`Plan` of a CV list, uploaded once per (CV list, device,
-    mode)."""
+    mode, kernel), for a kernel that sums its ``values`` and/or takes its
+    ``aux`` lanes; raises where the reference refuses those lanes."""
+    check_lanes(cvs, mono, values, aux)
     desc = cv_descriptor(cvs, mono)
-    _, _, n_aux, n_vals = lane_layout(cvs, mono)
+    n_aux = lane_layout(cvs)[2]
+    n_vals = lane_layout(cvs, mono)[3]
     heads = desc[:HDR * len(cvs)].reshape(len(cvs), HDR)
     ql = heads[:, 0] == KIND_QL
     cv_set = (CV_SET_QL if ql.all() else
               CV_SET_COORD if not ql.any() else CV_SET_MIXED)
-    l_fixed = 6 if ql.any() and (heads[ql, 1] == 6).all() else 0
+    mono = any(is_mono(cv, mono) for cv in cvs)
+    l_fixed = 6 if (ql.any() and (heads[ql, 1] == 6).all()
+                    and not (mono and ql.sum() > 1)) else 0
     q6 = ql[0] and heads[0, 1] == 6
     lanes = (LANES_Q6 if q6 and len(cvs) == 1 else
              LANES_Q6_COORD if q6 and len(cvs) == 2 and not ql[1] else
              LANES_ANY)
+    n_bvec = sum(4 * n_mono(cv.l - 1) for cv in cvs if is_mono(cv, mono))
     return Plan(torch.as_tensor(desc, device=device), n_vals, n_aux, cv_set,
-                l_fixed, float(heads[:, 5].max()), lanes,
-                any(is_mono(cv, mono) for cv in cvs), lane_layout(cvs)[3])
+                l_fixed, float(heads[:, 5].max()), lanes, mono,
+                lane_layout(cvs)[3], n_bvec)
 
 
 def prefilter_base(rc2_max: float) -> float:
@@ -300,7 +318,7 @@ def order_values_cuda(state: PackedState, spec: PackedSpec, cvs,
     pid, n_real = check_layout(state, spec, "order_values_cuda")
     m_ptr = mask_ptr(cell_mask, spec, state.r.device, "order_values_cuda")
     r = state.r
-    plan = _plan(tuple(cvs), r.device)
+    plan = _plan(tuple(cvs), r.device, aux=False)
     desc, n_vals = plan.desc, plan.n_vals
     partials = torch.empty((spec.n_cells, n_vals), dtype=torch.float32,
                            device=r.device)
@@ -329,7 +347,7 @@ def order_force_cuda(state: PackedState, spec: PackedSpec, cvs, auxs,
         return order_force_plain(state, spec, cvs, auxs, stacks=stacks)
     pid, n_real = check_layout(state, spec, "order_force_cuda")
     r = state.r
-    plan = _plan(tuple(cvs), r.device)
+    plan = _plan(tuple(cvs), r.device, values=False)
     aux = pack_force_aux(cvs, auxs)
     if aux.numel() != plan.n_aux or aux.device != r.device:
         raise ValueError(f"order_force_cuda: {aux.numel()} aux lanes on "

@@ -21,9 +21,7 @@ import torch
 
 from . import _build
 from .packed import PackedSpec, PackedState, packed_lj_force
-from .packed_cuda import (
-    BOND_KINDS, MAX_BOND_SLOTS, bond_ptrs, box_ptr, check_state, slot_ptr,
-)
+from .packed_cuda import BOND_KINDS, bond_ptrs, box_ptr, check_state, slot_ptr
 
 KERNEL = "packed_lj_force_v1"
 
@@ -31,7 +29,7 @@ KERNEL = "packed_lj_force_v1"
 def check_spec_v1(spec: PackedSpec) -> None:
     """Raise on a spec the v1 kernel does not take: the soft pair, per-type
     tables (the reference's v1 refuses them too), a cap above 1024 (one
-    thread per slot of a cell), more than 4 bond slots."""
+    thread per slot of a cell).  Any number of bond slots is taken."""
     if spec.pair_kind != "lj":
         raise NotImplementedError(f"CUDA v1 pair kernel: pair_kind "
                                   f"{spec.pair_kind!r} (only 'lj')")
@@ -40,15 +38,12 @@ def check_spec_v1(spec: PackedSpec) -> None:
                                   "run on the production kernel")
     if spec.cap > 1024:
         raise NotImplementedError("CUDA v1 pair kernel: cap above 1024")
-    if spec.has_bonds and spec.bond_slots > MAX_BOND_SLOTS:
-        raise NotImplementedError(f"CUDA v1 pair kernel: at most "
-                                  f"{MAX_BOND_SLOTS} bond slots")
 
 
 def _function():
     fn = _build.load(KERNEL).packed_lj_force_v1
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p] + [ctypes.c_float] * 3
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -78,9 +73,10 @@ def packed_lj_force_v1_cuda(state: PackedState,
                            device=r.device)
     out = torch.empty(4, dtype=torch.float32, device=r.device)
     cx, cy, cz = spec.cells_per_dim
+    bps, _keep = bond_ptrs(state, spec, who)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = fn(r.data_ptr(), se, hs, pid, *bond_ptrs(state, spec, who),
+        err = fn(r.data_ptr(), se, hs, pid, *bps,
                  f.data_ptr(), partials.data_ptr(), out.data_ptr(),
                  spec.n_pad, spec.cap, cx, cy, cz,
                  BOND_KINDS[spec.bond_kind if spec.has_bonds else None],

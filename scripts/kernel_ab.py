@@ -36,8 +36,8 @@ trees are timed alike), at the main paths' shapes:
   shard 0 of 2 x-slabs (chip_smoke.spatial_ext_states) without and with
   its interior mask (the slab path's call).
 
-The order-CV kernels (2, 3, 4) are also timed on the device alone, under
-the keys ending in ``_dev``: each call is queued behind a device sleep of
+The order-CV kernels (2, 3, 4) and kernel 1 in Config 2's layout are also
+timed on the device alone, under the keys ending in ``_dev``: each call is queued behind a device sleep of
 ~1 ms, so that the host's launch is out of the span and the CUDA events
 bracket only the call's device work (for kernels 2 and 4 the sweep, the
 second pass and the wrapper's small ops).  Compare those only with each
@@ -217,6 +217,10 @@ def main(root: pathlib.Path, bits=None) -> dict:
     out["k1_config2"] = ms(lambda: packed_lj_force_cuda(st, spec, False))
     out["k1_config2_energy"] = ms(lambda: packed_lj_force_cuda(st, spec,
                                                                True))
+    out["k1_config2_dev"] = device_ms(
+        lambda: packed_lj_force_cuda(st, spec, False))
+    out["k1_config2_energy_dev"] = device_ms(
+        lambda: packed_lj_force_cuda(st, spec, True))
 
     _, st, spec = cs.triclinic_pack(25, dev, noise=0.05)
     keep("se_hs_tilted62k", st, spec)

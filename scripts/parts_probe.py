@@ -35,7 +35,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("parts_probe: no CUDA device", file=sys.stderr)
         return 1
-    cs.build_all((pfc.KERNEL, pfc.PARTS_KERNEL))
+    cs.build_all((pfc.KERNEL, pfc.PARTS_KERNEL, pfc.PARTS_MONO_KERNEL))
     dev = torch.device("cuda", 0)
     pos, vel, L, a, spec = cs.config3_inputs(32, noise=0.05)
     n = pos.shape[0]
@@ -61,7 +61,7 @@ def main() -> int:
                       f"wrapper_device_ms={ev['call_ms']:.4f}")
     cuobj = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" \
         / "cuobjdump"
-    for lib in (pfc.PARTS_KERNEL, pfc.KERNEL):
+    for lib in (pfc.PARTS_KERNEL, pfc.PARTS_MONO_KERNEL, pfc.KERNEL):
         sass = subprocess.run([str(cuobj), "-sass",
                                str(_build.library_path(lib))],
                               capture_output=True, text=True,

@@ -7,6 +7,9 @@ layouts against the port's plain PyTorch pair force, on a card.
   plain force and against kernel 1.
 - The ε > 0 gate: vacant slots drifted to within r² ~ 1e-8 of each other
   give no NaN.
+- Both kernels at 6 bond slots (:func:`star_melt`, 6-arm stars): kernel 1
+  in every bonded layout and the soft push-off layout, under a cell mask
+  and as a walker batch; v1; repeat calls to the bit.
 
 The inputs are bead-spring chains laid straight along x on a lattice with
 noise, so no push-off is needed (:func:`lattice_melt`, shared with the CPU
@@ -97,6 +100,73 @@ def layout_inputs(spec_kw: dict, eps_table, chain_len: int = 8, m: int = 8):
     return spec, dict(pos=pos, types=types, eps_i=eps_i,
                       sigma_i=np.ones(n, np.float32), vel=vel,
                       extra_attrs=extra, L=L)
+
+
+def star_melt(n_stars: int, arms: int = 6, arm_len: int = 5,
+              rho: float = 0.3, seed: int = 0):
+    """``n_stars`` stars of a centre bead and ``arms`` arms of ``arm_len``
+    beads, each arm a persistent random walk (bond 0.97) from its centre,
+    the centres on a jittered cubic grid at density ``rho``.  Returns
+    (pos, bonds, L); bead ids star by star, the centre first."""
+    per = 1 + arms * arm_len
+    n = n_stars * per
+    L = float((n / rho) ** (1.0 / 3.0))
+    rng = np.random.default_rng(seed)
+    m = int(np.ceil(n_stars ** (1.0 / 3.0)))
+    grid = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
+                    -1).reshape(-1, 3)[:n_stars]
+    centres = (grid + 0.5) * (L / m) - L / 2 + rng.normal(0, 0.1, (n_stars, 3))
+    pos = np.zeros((n_stars, per, 3))
+    pos[:, 0] = centres
+    bonds = []
+    for s in range(n_stars):
+        base = s * per
+        for a in range(arms):
+            step = rng.normal(size=3)
+            prev = 0
+            for k in range(arm_len):
+                step = 0.9 * step / np.linalg.norm(step) + rng.normal(
+                    0, 0.5, 3)
+                idx = 1 + a * arm_len + k
+                pos[s, idx] = pos[s, prev] + 0.97 * step / np.linalg.norm(
+                    step)
+                bonds.append((base + prev, base + idx))
+                prev = idx
+    pos = (pos.reshape(n, 3) + L / 2) % L - L / 2
+    return pos.astype(np.float32), np.asarray(bonds, np.int32), L
+
+
+STAR_SLOTS = 6
+
+
+def star_layout(device, name: str, n_stars: int = 8, seed: int = 0):
+    """(state, spec): :func:`star_melt` (6 arms of 5 beads, ρ 0.3, numpy
+    seed ``seed``) in a bonded layout of LAYOUTS with 6 bond slots, or the
+    soft push-off layout with FENE bonds (``"soft_fene"``); types A on the
+    centre and the first two beads of each arm, B outwards."""
+    pos, bonds, L = star_melt(n_stars, seed=seed)
+    n = pos.shape[0]
+    types = np.tile((np.arange(31) % 5 >= 3).astype(np.int32), n_stars)
+    eps_i = np.ones(n, np.float32)
+    if name == "soft_fene":
+        spec_kw, table = dict(r_cut=1.0, skin=0.5, cap=24, pair_kind="soft",
+                              fene_k=30.0, fene_r0=1.5), None
+        eps_i = np.full(n, 100.0, np.float32)
+    else:
+        spec_kw, table = LAYOUTS[name]
+    eps_scale = None
+    if table is not None:
+        eps_scale, _, eps_diag, _ = pair_scale_tables(table)
+        eps_i = eps_diag[types]
+    spec = PackedSpec.create(L, n, eps_scale=eps_scale,
+                             **{**spec_kw, "cap": 24},
+                             bond_slots=STAR_SLOTS)
+    engine = PackedEngine(spec, device, rebuild_every=5)
+    state, ovf = engine.pack_state(
+        pos, Box.cubic(L, device), types, eps_i, np.ones(n, np.float32),
+        extra_attrs=bond_partner_attrs(bonds, n, slots=STAR_SLOTS))
+    assert not ovf
+    return state, spec
 
 
 def packed_layout(device, name: str):
@@ -217,8 +287,79 @@ def test_kernels_refuse_a_tilted_box(cuda_device):
         fused_lj_order_force_cuda(tilted, spec, cvs, auxs)
     lean = dataclasses.replace(spec, uniform_sigma=1.0, uniform_eps=1.0,
                                fene_k=None, fene_r0=None)
-    for kw in (dict(mono=True, parts={"vals"}),
-               dict(cell_mask=torch.ones(spec.n_cells, device=cuda_device)),
-               dict(parts={"lj"})):
-        with pytest.raises(NotImplementedError):
-            fused_lj_order_force_cuda(tilted, lean, cvs, auxs, **kw)
+    with pytest.raises(NotImplementedError):
+        fused_lj_order_force_cuda(
+            tilted, lean, cvs, auxs,
+            cell_mask=torch.ones(spec.n_cells, device=cuda_device))
+
+
+STAR_BONDED = ["se_hs_table_fene", "se_hs_fene_wca", "se_usig_fene_wca",
+               "se_hs_harmonic", "soft_fene"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_energy", [False, True])
+@pytest.mark.parametrize("name", STAR_BONDED)
+def test_six_slot_kernel_matches_plain(cuda_device, name, with_energy):
+    """Kernel 1 at 6 bond slots (a 6-arm star melt: every centre has six
+    partners, the slots past the fourth staged per warp) in every bonded
+    layout and the soft push-off layout, against the plain force; two
+    calls give the same bits."""
+    st, spec = star_layout(cuda_device, name)
+    check_spec(spec)
+    before = packed_lj_force_cuda.launches
+    a = packed_lj_force_cuda(st, spec, with_energy=with_energy)
+    b = packed_lj_force(st, spec, with_energy=with_energy)
+    torch.cuda.synchronize()
+    assert packed_lj_force_cuda.launches == before + 1
+    assert_force_close(a, b, with_energy)
+    assert float(b.f.abs().max()) > 1.0
+    again = packed_lj_force_cuda(st, spec, with_energy=with_energy)
+    assert torch.equal(a.f, again.f)
+    if with_energy:
+        assert torch.equal(a.potential_energy, again.potential_energy)
+        # the star's FENE bonds are in the sum: a 2-slot spec over the
+        # same state misses the centres' four other arms
+        two = dataclasses.replace(spec, bond_slots=2)
+        assert float((packed_lj_force(st, two).f - b.f).abs().max()) > 1.0
+
+
+@pytest.mark.cuda
+def test_six_slot_kernel_masked_and_walkers(cuda_device):
+    """Kernel 1 at 6 slots under a cell mask (energy and virial weighted
+    by each pair's i cell) and as a walker batch of 3 stars melts (the
+    stacked slots per walker), each against the plain version; the batch
+    equals single launches to the bit."""
+    from metadyn_tpu_torch.core.batch import stack_walkers
+    st, spec = star_layout(cuda_device, "se_hs_fene_wca")
+    mask = (torch.arange(spec.n_cells, device=cuda_device) % 2).float()
+    a = packed_lj_force_cuda(st, spec, cell_mask=mask)
+    b = packed_lj_force(st, spec, cell_mask=mask)
+    assert_force_close(a, b)
+    states = [star_layout(cuda_device, "se_hs_fene_wca", seed=w)[0]
+              for w in range(3)]
+    batch = stack_walkers(states)
+    out = packed_lj_force_cuda(batch, spec, with_energy=True)
+    ref = packed_lj_force(batch, spec, with_energy=True)
+    for w, s1 in enumerate(states):
+        one = packed_lj_force_cuda(s1, spec, with_energy=True)
+        assert torch.equal(out.f[w], one.f)
+        assert torch.equal(out.potential_energy[w], one.potential_energy)
+        fmax = float(ref.f[w].abs().max())
+        assert float((out.f[w] - ref.f[w]).abs().max()) <= 1e-4 * fmax + 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["se_hs_fene_wca", "se_hs_harmonic"])
+def test_six_slot_v1_matches_plain_and_kernel1(cuda_device, name):
+    st, spec = star_layout(cuda_device, name)
+    check_spec_v1(spec)
+    before = packed_lj_force_v1_cuda.launches
+    v1 = packed_lj_force_v1_cuda(st, spec)
+    plain = packed_lj_force(st, spec, with_energy=True)
+    k1 = packed_lj_force_cuda(st, spec, with_energy=True)
+    torch.cuda.synchronize()
+    assert packed_lj_force_v1_cuda.launches == before + 1
+    assert_force_close(v1, plain)
+    assert_force_close(v1, k1)
+    assert torch.equal(v1.f, packed_lj_force_v1_cuda(st, spec).f)

@@ -7,14 +7,17 @@ D_y, D_z as its one nonzero's column and value) against the JAX package's
 conversion of a Q_6's ``grad_aux`` into its force vectors from that table
 in plain numpy (``_mono_force_vecs_mirror``) against the reference's
 ``mono_force_vecs`` and the port's (rtol 1e-5 of the largest component);
-the refusals of the monomial descriptor (a Q_l other than Q_6, two Q_6)
-and its lane layout.
+the monomial descriptor of a Q_4 and of two Q_6 (the general mode), the
+refusals past the reference's lane row, and its lane layout.
 
 On a card (``cuda`` tests, skipped elsewhere): every monomial
 instantiation of kernel 4 and of its parts subsets against the plain
 monomial path (``fused_lj_order_force_plain``), in a cubic and a tilted
 box, for [Q6], [Q6, coordination] and [coordination, Q6] (the two fixed
-lane layouts and one read from the descriptor), without and with a cell
+lane layouts and one read from the descriptor) and, in the general
+monomial mode, [Q4], [Q8], [Q6, Q4], [Q6, Q6] and [Q6, Q4, coordination]
+(each Q_l with its own cut-off; the parts subsets on [Q6, Q4] too),
+without and with a cell
 mask of weights 0, 0.5 and 1, on 2,048 fcc particles with noise 0.05 and a
 hole: the cells of the first x-plane empty, cells filled to a cap that is
 not a multiple of 32, vacant slots beside real ones; two calls give the
@@ -127,22 +130,30 @@ def test_monomial_descriptor_refusals():
                              uniform_sigma=1.0, uniform_eps=1.0)
     q6 = PackedSteinhardtQl(spec, r_cut=1.4, l=6, name="a")
     co = PackedCoordination(spec, r0=1.0, r_cut=1.5)
-    with pytest.raises(NotImplementedError, match="Q_6 only"):
-        poc.cv_descriptor([PackedSteinhardtQl(spec, r_cut=1.4, l=4)],
-                          mono=True)
-    with pytest.raises(NotImplementedError, match="one Q_6"):
-        poc.cv_descriptor([q6, PackedSteinhardtQl(spec, r_cut=1.2, l=6,
-                                                  name="b")], mono=True)
-    # the lanes the sweeps take and sum: the aux lanes as the recurrence's,
-    # 29 summed value lanes for the Q_6 (its second pass writes 15)
-    assert poc.lane_layout([q6, co], mono=True) == ([0, 14], [0, 29], 15, 30)
-    assert poc.lane_layout([co, q6], mono=True) == ([0, 1], [0, 1], 15, 30)
+    # any Q_l and several: a Q_4 alone, two Q_6 (each with its tables and
+    # its force vectors' offset in header slot 6); refused only past the
+    # reference's lane row: Q_10 (165 aux lanes), [Q8, Q4] (138)
+    q4 = PackedSteinhardtQl(spec, r_cut=1.4, l=4)
+    q6b = PackedSteinhardtQl(spec, r_cut=1.2, l=6, name="b")
+    poc.check_lanes([q4], True, True, True)
+    desc = poc.cv_descriptor([q6, q6b], mono=True)
+    assert [desc[6], desc[poc.HDR + 6]] == [0, 4 * 21]
+    assert [desc[2], desc[poc.HDR + 2]] == [0, 29]
+    for bad in ([PackedSteinhardtQl(spec, r_cut=1.4, l=10)],
+                [PackedSteinhardtQl(spec, r_cut=1.4, l=8), q4]):
+        with pytest.raises(ValueError, match="aux lanes exceed"):
+            poc.check_lanes(bad, True, True, True)
+    # the lanes of the reference's row: 3 n_mono(5) = 63 aux lanes and 29
+    # summed value lanes for the Q_6 (the sweeps take its 14 recurrence
+    # aux lanes; the second pass writes its 15 value lanes)
+    assert poc.lane_layout([q6, co], mono=True) == ([0, 63], [0, 29], 64, 30)
+    assert poc.lane_layout([co, q6], mono=True) == ([0, 1], [0, 1], 64, 30)
     desc = poc.cv_descriptor([co, q6], mono=True)
     assert list(desc[poc.HDR:poc.HDR + 4]) == [0, 6, 1, 1]
     np.testing.assert_array_equal(
         desc[int(desc[poc.HDR + 4]):],
         np.concatenate([t.reshape(-1).astype(np.float32)
-                        for t in poc.mono_tables()]))
+                        for t in poc.mono_tables(6)]))
 
 
 def _pack(pos, L, tilt, cap, device):
@@ -185,8 +196,17 @@ def _case(device, box: str, cvs_kind: str):
     q6 = PackedSteinhardtQl(spec, r_cut=NN * 1.2, l=6, name="q6")
     co = PackedCoordination(spec, r0=NN * 1.35, r_cut=NN * 1.35 * 1.5,
                             name="co")
-    cvs = {"q6": [q6], "q6_coord": [q6, co], "coord_q6": [co, q6]}[cvs_kind]
-    dV = torch.tensor([0.9, -1.3][:len(cvs)], device=device)
+
+    def ql(l, f=1.2, name=None):
+        return PackedSteinhardtQl(spec, r_cut=NN * f, l=l,
+                                  name=name or f"q{l}")
+
+    cvs = {"q6": [q6], "q6_coord": [q6, co], "coord_q6": [co, q6],
+           # the general monomial mode (GENERAL_LISTS)
+           "q4": [ql(4)], "q8": [ql(8)], "q6_q4": [q6, ql(4, 1.1)],
+           "q6_q6": [q6, ql(6, 1.05, "q6b")],
+           "q6_q4_coord": [q6, ql(4, 1.1), co]}[cvs_kind]
+    dV = torch.tensor([0.9, -1.3, 0.6][:len(cvs)], device=device)
     auxs = [cv.grad_aux(t, dV[i]) for i, (cv, t) in
             enumerate(zip(cvs, order_values_plain(st, spec, cvs)))]
     return st, spec, cvs, auxs, spec.cap, occ
@@ -233,9 +253,14 @@ def _same_bits(a, b):
     assert torch.equal(_lanes(a[2]), _lanes(b[2]))
 
 
+# the CV lists of the general monomial mode (any Q_l list but one Q_6)
+GENERAL_LISTS = ["q4", "q8", "q6_q4", "q6_q6", "q6_q4_coord"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("box", ["cubic", "tilted"])
-@pytest.mark.parametrize("cvs_kind", ["q6", "q6_coord", "coord_q6"])
+@pytest.mark.parametrize("cvs_kind",
+                         ["q6", "q6_coord", "coord_q6"] + GENERAL_LISTS)
 @pytest.mark.parametrize("masked", [False, True], ids=["whole", "masked"])
 def test_mono_kernel_matches_plain(cuda_device, box, cvs_kind, masked):
     st, spec, cvs, auxs, cap, occ = _case(cuda_device, box, cvs_kind)
@@ -261,8 +286,9 @@ def test_mono_kernel_matches_plain(cuda_device, box, cvs_kind, masked):
     frozenset(c) for k in range(3)
     for c in itertools.combinations(sorted(pfc.ALL_PARTS), k)],
     ids=lambda p: "-".join(sorted(p)) or "none")
-def test_mono_parts_match_plain(cuda_device, parts):
-    st, spec, cvs, auxs, _, _ = _case(cuda_device, "cubic", "q6_coord")
+@pytest.mark.parametrize("cvs_kind", ["q6_coord", "q6_q4"])
+def test_mono_parts_match_plain(cuda_device, parts, cvs_kind):
+    st, spec, cvs, auxs, _, _ = _case(cuda_device, "cubic", cvs_kind)
     mask = _mask(spec, cuda_device)
     for m in (None, mask):
         out = pfc.fused_lj_order_force_cuda(st, spec, cvs, auxs, parts=parts,

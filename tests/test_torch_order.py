@@ -250,15 +250,23 @@ def test_order_cvs_refuse_what_the_reference_refuses():
         make_bias_force_parts(
             eng, [tpo.PackedSteinhardtQl(spec, r_cut=1.8, l=6)], None)
     # the monomial protocol is ported (tests/test_torch_ylm_mono.py); the
-    # card's monomial kernel takes Q_6 alone (its 63 + 1 aux lanes fill
-    # the kernel's 64), and the fused kernel's mask needs the mode
+    # card's monomial kernel takes any Q_l within the reference's lane row
+    # (3 n_mono(l - 1) aux lanes: Q_4 takes 30, Q_10 would take 165) and
+    # refuses, as the reference's lane assert does, what lies past it; the
+    # fused kernel's mask needs the mode
     from metadyn_tpu_torch.ops.packed_fused_cuda import (
         fused_lj_order_force_cuda,
     )
-    from metadyn_tpu_torch.ops.packed_order_cuda import cv_descriptor
+    from metadyn_tpu_torch.ops.packed_order_cuda import (
+        check_lanes, cv_descriptor,
+    )
     cv = tpo.PackedSteinhardtQl(spec, r_cut=1.4, l=4)
-    with pytest.raises(NotImplementedError):
-        cv_descriptor([cv], mono=True)
+    desc = cv_descriptor([cv], mono=True)
+    assert desc[6] == 0.0 and desc.size == 9 + 10 * 15 + 2 * 30
+    check_lanes([cv], True, True, True)
+    with pytest.raises(ValueError, match="165 aux lanes"):
+        check_lanes([tpo.PackedSteinhardtQl(spec, r_cut=1.4, l=10)], True,
+                    True, True)
     lean = interop.packed_spec_from(
         JSpec.create(12.0, 100, r_cut=2.5, skin=0.5, cap=8,
                      uniform_sigma=1.0, uniform_eps=1.0))

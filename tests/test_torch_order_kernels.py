@@ -75,6 +75,10 @@ def _cv_sets(spec) -> dict:
                                         r_cut=NN * 1.35 * 1.5)],
         "coord_no_cut": [PackedCoordination(spec, r0=NN * 1.35)],
         "q4": [PackedSteinhardtQl(spec, r_cut=NN * 1.2, l=4)],
+        # 69 value and 66 aux lanes: past the narrow kernels' 64, the wide
+        # layout (csrc/order_cv.cuh kLanesWide)
+        "q8_q10_q12": [PackedSteinhardtQl(spec, r_cut=NN * 1.2, l=l,
+                                          name=f"q{l}") for l in (8, 10, 12)],
     }
 
 
@@ -129,14 +133,20 @@ def test_descriptor_matches_kernel_layout():
             np.testing.assert_array_equal(tab[dco:dco + nd],
                                           np.float32(_dcoeffs(l)[m]))
             co, dco = co + nc, dco + nd
-    with pytest.raises(NotImplementedError):
-        poc.cv_descriptor([PackedSteinhardtQl(spec, r_cut=1.3, l=14)])
+    # any l: a Q_14's header and table as the kernels read them (the
+    # reference bounds l by the lanes alone); the empty list is refused
+    q14 = PackedSteinhardtQl(spec, r_cut=1.3, l=14)
+    desc = poc.cv_descriptor([q14])
+    assert list(desc[:5]) == [tpo.KIND_QL, 14, 0, 0, poc.HDR]
+    assert desc.size == poc.HDR + 15 + 15 * 16 // 2 + 14 * 15 // 2 + 1
+    np.testing.assert_array_equal(desc[poc.HDR:poc.HDR + 15], _norms(14))
     with pytest.raises(ValueError):
         poc.cv_descriptor([])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["q6_coord", "coord_no_cut", "q4"])
+@pytest.mark.parametrize("which",
+                         ["q6_coord", "coord_no_cut", "q4", "q8_q10_q12"])
 def test_order_kernels_match_plain(cuda_device, which):
     spec = _spec()
     st = _state(cuda_device, spec)
@@ -149,7 +159,7 @@ def test_order_kernels_match_plain(cuda_device, which):
     ref = tpo.order_values_plain(st, spec, cvs)
     _close(_lanes(terms), _lanes(ref), 2e-5, 1e-6, "value terms")
 
-    auxs = [cv.grad_aux(t, torch.tensor(DV[i], device=cuda_device))
+    auxs = [cv.grad_aux(t, torch.tensor(DV[i % 2], device=cuda_device))
             for i, (cv, t) in enumerate(zip(cvs, ref))]
     g = poc.order_force_cuda(st, spec, cvs, auxs)
     g_ref = tpo.order_force_plain(st, spec, cvs, auxs)
@@ -207,20 +217,19 @@ def test_order_wrappers_refuse_what_they_do_not_take(cuda_device):
 
 @pytest.mark.cuda
 def test_failed_launch_raises(cuda_device, monkeypatch):
-    """A launch the CUDA side refuses (a descriptor past its limit) raises:
-    no wrapper returns the plain result instead, and no launch counts."""
+    """A launch the CUDA side refuses (a degree without an instantiation)
+    raises: no wrapper returns the plain result instead, and no launch
+    counts."""
     spec = _spec()
     st = _state(cuda_device, spec)
     cvs = _cv_sets(spec)["q6_coord"]
     auxs = [cv.grad_aux(t, torch.tensor(1.0, device=cuda_device))
             for cv, t in zip(cvs, tpo.order_values_plain(st, spec, cvs))]
     plan = poc._plan(tuple(cvs), st.r.device)
-    oversized = torch.zeros(poc.MAX_DESC + 1, device=cuda_device)
-    oversized[:plan.desc.numel()] = plan.desc
     # the fused wrapper also passes its mode (the monomial one since the
-    # slab decomposition)
-    bad_plan = lambda cvs_, dev, mono=False: plan._replace(  # noqa: E731
-        desc=oversized)
+    # slab decomposition) and each wrapper the lanes it takes
+    bad_plan = lambda cvs_, dev, mono=False, **lanes: plan._replace(  # noqa
+        l_fixed=4)
     monkeypatch.setattr(poc, "_plan", bad_plan)
     monkeypatch.setattr(pfc, "_plan", bad_plan)
     before = (poc.order_values_cuda.launches, poc.order_force_cuda.launches,

@@ -13,6 +13,7 @@ its own single grid with the noise on, and the CLI with
    (atol 1e-5),
    two hills each, grid V rtol 1e-4 (atol 1e-6), PE rtol 1e-5.  γ = 0,
    since the two packages draw their noise from different generators.
+   Once more with Q6 + Q4 (both r_cut 1.2 nn), the same tolerances.
 2. The port's 2 shards against its single grid at γ = 1 with the same
    seed, lagged multiple time stepping on (the islands' monomial kernel
    against the single grid's recurrence one): the state is global, so is
@@ -76,20 +77,31 @@ def inputs():
     return pos, vel, n, N_CELLS * A
 
 
-def port_sampler(engine, gamma: float, **kw):
+# the single-grid comparison's CV lists: name -> (CVs of a package's spec,
+# grid lower and upper edges, hill widths); Q6 + Q4 is the pair of
+# bond-order CVs that tells fcc, hcp and bcc nuclei apart
+def cv_list(kind: str, spec, q_cls, co_cls, **kw) -> tuple:
+    q6 = q_cls(spec=spec, r_cut=NN * 1.2, l=6, name="q6", **kw)
+    if kind == "q6_q4":
+        return ([q6, q_cls(spec=spec, r_cut=NN * 1.2, l=4, name="q4", **kw)],
+                [0.0, 0.0], [0.7, 0.4], [0.02, 0.02])
+    return ([q6, co_cls(spec=spec, r0=NN * 1.35, r_cut=NN * 1.35 * 1.5,
+                        name="co", **kw)],
+            [0.0, 4.0], [0.7, 16.0], [0.02, 0.5])
+
+
+def port_sampler(engine, gamma: float, kind: str = "q6_coord", **kw):
     pos, vel, n, L = inputs()
     spec = engine.spec
     st, ovf = engine.pack_state(pos, Box.cubic(L, "cpu"),
                                 np.zeros(n, np.int32), np.ones(n, np.float32),
                                 np.ones(n, np.float32), vel=vel)
     assert not ovf
-    cvs = [PackedSteinhardtQl(spec, r_cut=NN * 1.2, l=6, name="q6"),
-           PackedCoordination(spec, r0=NN * 1.35, r_cut=NN * 1.35 * 1.5,
-                              name="co")]
+    cvs, lo, hi, sig = cv_list(kind, spec, PackedSteinhardtQl,
+                               PackedCoordination)
     return MetadSampler(
         make_system(n, "cpu"), st, engine, cvs,
-        GridSpec.create([0.0, 4.0], [0.7, 16.0], [24, 24], [0.02, 0.5],
-                        "cpu"),
+        GridSpec.create(lo, hi, [24, 24], sig, "cpu"),
         HillSpec.create(W=0.3, stride=10, mode=WELL_TEMPERED, deltaT=5.0),
         lambda f: make_packed_langevin_step(f, dt=0.002, kT=0.3,
                                             gamma=gamma),
@@ -101,6 +113,15 @@ def spec_of(L, n, **kw):
 
 
 def test_sharded_sampler_matches_reference_single_grid():
+    sharded_against_reference("q6_coord")
+
+
+def test_sharded_sampler_matches_reference_single_grid_q6_q4():
+    sharded_against_reference("q6_q4")
+
+
+def sharded_against_reference(kind: str):
+    """Test 1 for a CV list of :func:`cv_list`."""
     pos, vel, n, L = inputs()
     jspec = JSpec.create(L, n, **SPEC)
     assert jspec.cells_per_dim == (4, 4, 4)
@@ -109,14 +130,11 @@ def test_sharded_sampler_matches_reference_single_grid():
                                   eps_i=np.ones(n, np.float32),
                                   sigma_i=np.ones(n, np.float32), vel=vel)
     assert not bool(ovf)
+    jcvs, lo, hi, sig = cv_list(kind, jspec, jpo.PackedSteinhardtQl,
+                                jpo.PackedCoordination)
     jref = JSampler(
-        jmake_system(n), jst, jengine,
-        cvs=[jpo.PackedSteinhardtQl(spec=jspec, r_cut=NN * 1.2, l=6,
-                                    name="q6"),
-             jpo.PackedCoordination(spec=jspec, r0=NN * 1.35,
-                                    r_cut=NN * 1.35 * 1.5, name="co")],
-        grid_spec=JGridSpec.create([0.0, 4.0], [0.7, 16.0], [24, 24],
-                                   [0.02, 0.5]),
+        jmake_system(n), jst, jengine, cvs=jcvs,
+        grid_spec=JGridSpec.create(lo, hi, [24, 24], sig),
         hills=JHillSpec.create(W=0.3, stride=10, mode=JWT, deltaT=5.0),
         integrator_factory=lambda f: jstep(f, dt=0.002, kT=0.3, gamma=0.0),
         seed=0, chunks_per_block=1)
@@ -124,7 +142,7 @@ def test_sharded_sampler_matches_reference_single_grid():
 
     engine = SpatialPackedEngine(spec_of(L, n), ["cpu", "cpu"],
                                  rebuild_every=5)
-    s = port_sampler(engine, gamma=0.0)
+    s = port_sampler(engine, gamma=0.0, kind=kind)
     m = s.run(20)[-1]
     assert 0.4 < float(np.asarray(m_ref["cv"])[0]) < 0.65
     np.testing.assert_allclose(m["cv"], np.asarray(m_ref["cv"]), rtol=1e-4,

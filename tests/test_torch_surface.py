@@ -27,7 +27,7 @@ NO_COUNTERPART = {
     "ops/packed_fused_pallas.py": "Pallas kernel 4 (fused LJ + order CV) and "
                                   "its parts subsets: ported as csrc/"
                                   "packed_fused_lj_order.cu and csrc/"
-                                  "packed_fused_parts.cu "
+                                  "packed_fused_parts{,_mono}.cu "
                                   "(ops/packed_fused_cuda.py)",
     "utils/cache.py": "JAX's persistent compile-cache policy: PyTorch runs "
                       "eagerly and the kernels build once per checkout "
