@@ -62,7 +62,9 @@ Phases, one line or more each:
      the plain-force engine, from one state: positions must agree;
   5. the liquid slice with bias_every=5: 1 warm stride, 4 timed strides;
   6. the strict liquid slice with bias_every=1: 1 warm stride, 1 timed;
-  7. the order-CV libraries' build report (ptxas registers and spills);
+  7. the order-CV libraries' build report (ptxas registers and spills;
+     no spills in kernel 4's monomial mode, the wide layout of kernels
+     2-4 or kernel 1 past four bond slots);
   8. the order-CV kernels (values, force, fused LJ + CV) vs their plain
      versions at Config 3's shapes on fcc plus noise, with times per call,
      and vs their functions from the definition (every row of the 27 cells,
@@ -5179,18 +5181,20 @@ def kernel_event_check(fn, match: str, calls: int = 25, warm: int = 3,
         f"widest hole ms): {seen}")
 
 
-def device_ops(fn, windows: int = 3) -> list:
+def device_ops(fn, windows: int = 10) -> list:
     """The names of the device operations (kernels, copies, fills) that one
     call of ``fn()`` runs, after a warm call, from the profiler: the
-    longest list over ``windows`` windows of one call each (a window may
-    hand over fewer records than ran, never more)."""
+    longest list over windows of one call each (a window may hand over
+    fewer records than ran, never more, and late in a run several in a
+    row can hand over none): at least three windows, then on until two
+    have given that longest list's length, at most ``windows``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    best = []
-    for _ in range(windows):
+    best, seen = [], 0
+    for w in range(windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -5198,24 +5202,32 @@ def device_ops(fn, windows: int = 3) -> list:
             (e for e in prof.profiler.kineto_results.events()
              if e.device_type() == cuda), key=lambda e: e.start_ns())]
         if len(names) > len(best):
-            best = names
+            best, seen = names, 1
+        elif names and len(names) == len(best):
+            seen += 1
+        if w >= 2 and seen >= 2:
+            break
     return best
 
 
 # an order_staged_kernel instantiation in the monomial mode: its last two
 # template arguments are Mono (true) and Split
 MONO_ENTRY = r"order_staged_kernel.*ELb1ELb[01]EE"
+# one in the wide layout: its seventh, Lanes, is kLanesWide (3)
+WIDE_ENTRY = r"order_staged_kernelI(?:Lb[01]E){4}Li\d+ELi\d+ELi3E"
+# kernel 1 past four bond slots: its last, More, is true
+MORE_ENTRY = r"lj_force_kernelI(?:Lb[01]E){3}Li\d+E(?:Lb[01]E){2}Lb1EE"
 
 
-def mono_ptxas(log: str) -> list:
-    """[entry, registers, spill store bytes] of every order_staged_kernel
-    instantiation in the monomial mode in an nvcc build log (ptxas -v)."""
+def entry_ptxas(log: str, pattern: str = MONO_ENTRY) -> list:
+    """[entry, registers, spill store bytes] of every instantiation whose
+    mangled name matches ``pattern`` in an nvcc build log (ptxas -v)."""
     import re
     out, fn = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            fn = m.group(1) if re.search(MONO_ENTRY, m.group(1)) else None
+            fn = m.group(1) if re.search(pattern, m.group(1)) else None
             if fn:
                 out.append([fn, None, None])
             continue
@@ -5936,7 +5948,8 @@ def star_melt_phase(dev, smi: str) -> dict:
     each against the plain force (v1 also against kernel 1); the slice
     (star_sampler) for 20 steps at gamma 0 against the plain-force engine
     (positions to 1e-3); then 1 warm and 1 timed stride of 100 (exactly
-    101 pair launches per stride, T in STAR_T_BAND).  Returns per variant
+    101 pair launches per stride, T in STAR_T_BAND) and one profiled
+    stride (its busy ms).  Returns per variant
     (max abs error, kernel ms, plain ms, bound ms, bound by) and the
     launches."""
     import numpy as np
@@ -5945,6 +5958,7 @@ def star_melt_phase(dev, smi: str) -> dict:
     from metadyn_tpu_torch.ops.packed import packed_lj_force, unpack_positions
     from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
     from metadyn_tpu_torch.ops.packed_v1_cuda import packed_lj_force_v1_cuda
+    from metadyn_tpu_torch.utils.profiling import device_profile
 
     t45 = time.perf_counter()
     melt = star_melt()
@@ -6046,6 +6060,10 @@ def star_melt_phase(dev, smi: str) -> dict:
           f"{n * CFG2_STRIDE / dt:.1f} particle-steps/s S(k0) start "
           f"{s0:.4f} T warm {warm_T} T={float(hist[-1]['temperature']):.4f} "
           f"launches={counts} on {smi}")
+    # the busy ms of one more stride (101 launches of row 1★′ in it)
+    prof = device_profile(lambda: s.run(CFG2_STRIDE))
+    prof["busy_share_untraced"] = prof["busy_ms"] / (1e3 * dt)
+    print(f"profile {tag} one stride: {json.dumps(prof)} on {smi}")
     print(f"{tag}: {time.perf_counter() - t45:.1f} s")
     return {"kernels": out,
             "launches": {"push-off (1500 steps and two inits)": steps + 2,
@@ -6213,21 +6231,25 @@ def main() -> int:
               f"{json.dumps(prof)} on {smi[0]}")
 
     # 7. the order-CV libraries (built in phase 2); every instantiation of
-    # kernel 4's monomial mode without register spills
+    # kernel 4's monomial mode, of the order kernels' wide layout and of
+    # kernel 1 past four bond slots without register spills
     for lib in order_libs:
         print("\n".join(ptxas_lines(lib)), file=sys.stderr)
         print(f"build: csrc/{lib}.cu nvcc {' '.join(_build.NVCC_FLAGS[:2])} "
               f"{build_secs[lib]:.2f} s; "
               + "; ".join(ptxas_lines(lib)[-4:]))
-    for lib in (packed_fused_cuda.KERNEL,
-                packed_fused_cuda.PARTS_MONO_KERNEL):
-        rows = mono_ptxas(_build.log_path(lib).read_text())
+    gates = [(packed_fused_cuda.KERNEL, "mono", MONO_ENTRY),
+             (packed_fused_cuda.PARTS_MONO_KERNEL, "mono", MONO_ENTRY),
+             (KERNEL, "more", MORE_ENTRY)]
+    gates += [(lib, "wide", WIDE_ENTRY) for lib in order_libs]
+    for lib, what, pattern in gates:
+        rows = entry_ptxas(_build.log_path(lib).read_text(), pattern)
         assert rows and all(None not in r for r in rows), (lib, rows)
         for fn, regs, spill in rows:
-            print(f"build: csrc/{lib}.cu mono {fn}: {regs} registers, "
+            print(f"build: csrc/{lib}.cu {what} {fn}: {regs} registers, "
                   f"{spill} bytes spill stores")
         spilled = [r for r in rows if r[2]]
-        assert not spilled, f"monomial instantiations spill: {spilled}"
+        assert not spilled, f"{what} instantiations spill: {spilled}"
 
     # 8. order-CV kernels vs plain at Config 3's shapes
     order = order_kernels_vs_plain(dev)

@@ -81,7 +81,11 @@
 // and the value sums (kMaxTerms) in static arrays; a list past any of
 // them runs the wide layout (kLanesWide: kinds and l read per CV, the
 // arrays in dynamic shared memory sized from the plan), up to the
-// reference's 128 value and 128 aux lanes, any number of CVs, any l.
+// reference's 128 value and 128 aux lanes, any number of CVs, any l.  In
+// the recurrence the wide layout keeps no value sum in a thread: its Q_l
+// pairs run on a queue of their own, each Q_l at a compile-time l for the
+// even l up to 12 (ql_round), their value terms through a per-warp tile
+// into the warp's row of value sums (order_staged_kernel).
 //
 // What bounds it on Hopper: the CV math of the in-cut pairs (~12 per slot
 // for Q6 at r_cut 1.37-1.49, ~300 FP32 operations each for the gradient,
@@ -225,26 +229,23 @@ __device__ __forceinline__ float horner(const float* c, int n, float x) {
   return p;
 }
 
-// Q_l of one ordered pair (cv/packed_order.PackedSteinhardtQl.
-// pair_value_and_grad): value terms (Re S_m, Im S_m, n_b) into vacc, and the
-// closed-form gradient of phi(d) = sum_m N_m p_m(c) Re[(g_re - i g_im) u^m]
-// into g.  r2 > 1e-12 is guaranteed by the caller.  L > 0 fixes l at
-// compile time (the caller guarantees h[1] == L), so the m and Horner loops
-// unroll; L = 0 reads l from the header.  VO >= 0 fixes the value lane
-// offset at compile time (the caller guarantees h[2] == VO); VO < 0 reads
-// it from the header.
-template <bool Vals, bool Grad, int L = 0, int VO = -1>
-__device__ __forceinline__ void ql_pair(const float* h, const float* tab,
-                                        const float* aux, float dx, float dy,
-                                        float dz, float r2, float* vacc,
-                                        float& gx, float& gy, float& gz) {
-  if (!(r2 < h[5])) return;
-  const int l = L > 0 ? L : static_cast<int>(h[1]);
-  const int vo = VO >= 0 ? VO : static_cast<int>(h[2]);
+// The recurrence of one Q_l on one ordered pair (cv/packed_order.
+// PackedSteinhardtQl.pair_value_and_grad), r2 > 1e-12: with Vals the value
+// terms Re S_m and Im S_m, m = 0..l, handed to value(m, re, im) as they are
+// formed; with Grad the closed-form gradient of phi(d) = sum_m N_m p_m(c)
+// Re[(g_re - i g_im) u^m] added into g.  tab: the Q_l's table (the norms
+// N_m, the p_lm coefficients, their derivatives'); gre: its aux lanes
+// (g_re, then g_im).  L > 0 fixes l at compile time (the caller guarantees
+// l_rt == L), so the m and Horner loops unroll; L = 0 takes l_rt.
+template <bool Vals, bool Grad, int L, class Value>
+__device__ __forceinline__ void ql_terms(int l_rt, const float* tab,
+                                         const float* gre, float dx, float dy,
+                                         float dz, float r2, Value value,
+                                         float& gx, float& gy, float& gz) {
+  const int l = L > 0 ? L : l_rt;
   const float* norms = tab;
   const float* coef = tab + (l + 1);
   const float* dcoef = coef + (l + 1) * (l + 2) / 2;
-  const float* gre = aux + static_cast<int>(h[3]);
   const float* gim = gre + (l + 1);
   const float inv_r = rsqrtf(r2);
   const float cth = dz * inv_r;
@@ -261,8 +262,7 @@ __device__ __forceinline__ void ql_pair(const float* h, const float* tab,
     co += nc;
     if (Vals) {
       const float wn = norms[m] * pl;
-      vacc[vo + m] += wn * pr;
-      vacc[vo + l + 1 + m] += wn * pi;
+      value(m, wn * pr, wn * pi);
     }
     if (Grad) {
       const int nd = nc > 1 ? nc - 1 : 1;
@@ -285,12 +285,35 @@ __device__ __forceinline__ void ql_pair(const float* h, const float* tab,
     pi = pr * uy + pi * ux;
     pr = npr;
   }
-  if (Vals) vacc[vo + 2 * (l + 1)] += 1.0f;
   if (Grad) {
     gx += (D * (-cth * ux) + E - ux * BU) * inv_r;
     gy += (D * (-cth * uy) - F - uy * BU) * inv_r;
     gz += (D * (1.0f - cth * cth) - cth * BU) * inv_r;
   }
+}
+
+// Q_l of one ordered pair inside its cut-off (ql_terms): value terms (Re
+// S_m, Im S_m, n_b) into vacc and the gradient into g.  r2 > 1e-12 is
+// guaranteed by the caller.  L > 0 fixes l at compile time (the caller
+// guarantees h[1] == L); L = 0 reads l from the header.  VO >= 0 fixes the
+// value lane offset at compile time (the caller guarantees h[2] == VO);
+// VO < 0 reads it from the header.
+template <bool Vals, bool Grad, int L = 0, int VO = -1>
+__device__ __forceinline__ void ql_pair(const float* h, const float* tab,
+                                        const float* aux, float dx, float dy,
+                                        float dz, float r2, float* vacc,
+                                        float& gx, float& gy, float& gz) {
+  if (!(r2 < h[5])) return;
+  const int l = L > 0 ? L : static_cast<int>(h[1]);
+  const int vo = VO >= 0 ? VO : static_cast<int>(h[2]);
+  ql_terms<Vals, Grad, L>(
+      l, tab, aux + static_cast<int>(h[3]), dx, dy, dz, r2,
+      [&](int m, float re, float im) {
+        vacc[vo + m] += re;
+        vacc[vo + l + 1 + m] += im;
+      },
+      gx, gy, gz);
+  if (Vals) vacc[vo + 2 * (l + 1)] += 1.0f;
 }
 
 // The number of homogeneous monomials of degree d, and the position of
@@ -584,6 +607,195 @@ __device__ __forceinline__ void mono_others(const float* desc, int n_cvs,
   }
 }
 
+// The wide recurrence (kLanesWide without Mono): the rows of a warp's
+// value tile, Re and Im of one Q_l of l <= 12 (the compile-time degrees of
+// ql_round's dispatch; every even l of the reference's lists up to Q12).
+constexpr int kWideTileRows = 26;
+
+// One round of the wide recurrence's Q_l queue, called by all 32 lanes
+// with the warp converged; live: this lane holds a pair inside the largest
+// Q_l cut-off, (dx, dy, dz, r2) its geometry (r2 > 0 on every lane).  Per
+// Q_l CV of the descriptor (header h): the lanes with their pair inside
+// its cut-off run its math (ql_terms); Grad adds each pair's force into
+// (gx, gy, gz).  At a compile-time l (l = 2, 4, ..., 12) Vals writes the
+// pairs' value terms to the warp's tile, one column per pair in lane
+// order, and lane t adds row t over the columns, in column order, into the
+// warp's row of value sums red; at any other l, read from the header, every
+// lane runs the math and each term is summed by a shuffle tree.  Lane 0
+// adds the bond count.
+template <bool Vals, bool Grad>
+__device__ __forceinline__ void ql_round(const float* desc, int n_cvs,
+                                         const float* aux, float* tile,
+                                         float* red, bool live, float dx,
+                                         float dy, float dz, float r2,
+                                         float& gx, float& gy, float& gz) {
+  const int lane = threadIdx.x & 31;
+  for (int c = 0; c < n_cvs; ++c) {
+    const float* h = desc + c * kHdr;
+    if (static_cast<int>(h[0]) != kQl) continue;
+    const bool on = live && r2 < h[5];
+    const unsigned mq = __ballot_sync(cell_stage::kFull, on);
+    if (mq == 0u) continue;  // the same on every lane
+    const int l = static_cast<int>(h[1]);
+    const int vo = static_cast<int>(h[2]);
+    const float* tab = desc + static_cast<int>(h[4]);
+    const float* ga = aux + static_cast<int>(h[3]);
+    float* const col = tile + __popc(mq & ((1u << lane) - 1u));
+    bool tiled = true;  // a compile-time l: its terms through the tile
+#define ORDER_CV_QL_CASE(LL)                                               \
+  case LL:                                                                 \
+    if (on) {                                                              \
+      ql_terms<Vals, Grad, LL>(                                            \
+          LL, tab, ga, dx, dy, dz, r2,                                     \
+          [&](int m, float re, float im) {                                 \
+            col[m * kTileLd] = re;                                         \
+            col[(LL + 1 + m) * kTileLd] = im;                              \
+          },                                                               \
+          gx, gy, gz);                                                     \
+    }                                                                      \
+    break;
+    switch (l) {
+      ORDER_CV_QL_CASE(2)
+      ORDER_CV_QL_CASE(4)
+      ORDER_CV_QL_CASE(6)
+      ORDER_CV_QL_CASE(8)
+      ORDER_CV_QL_CASE(10)
+      ORDER_CV_QL_CASE(12)
+      default:
+        // any other l: with Vals every lane runs the math and each term
+        // is summed by a shuffle tree; a force alone runs on the lanes
+        // inside the cut-off
+        tiled = false;
+        if constexpr (Vals) {
+          float hx = 0.0f, hy = 0.0f, hz = 0.0f;
+          ql_terms<Vals, Grad, 0>(
+              l, tab, ga, dx, dy, dz, r2,
+              [&](int m, float re, float im) {
+                re = cell_stage::warp_sum(on ? re : 0.0f);
+                im = cell_stage::warp_sum(on ? im : 0.0f);
+                if (lane == 0) {
+                  red[vo + m] += re;
+                  red[vo + l + 1 + m] += im;
+                }
+              },
+              hx, hy, hz);
+          if (on) {
+            gx += hx;
+            gy += hy;
+            gz += hz;
+          }
+        } else if (on) {
+          ql_terms<Vals, Grad, 0>(l, tab, ga, dx, dy, dz, r2,
+                                  [](int, float, float) {}, gx, gy, gz);
+        }
+    }
+#undef ORDER_CV_QL_CASE
+    if (Vals) {
+      const int n_on = __popc(mq);
+      if (tiled) {
+        __syncwarp();
+        if (lane < 2 * (l + 1)) {
+          const float* row = tile + lane * kTileLd;
+          float acc = 0.0f;
+          for (int k = 0; k < n_on; ++k) acc += row[k];
+          red[vo + lane] += acc;
+        }
+        __syncwarp();
+      }
+      if (lane == 0) red[vo + 2 * (l + 1)] += static_cast<float>(n_on);
+    }
+  }
+}
+
+// The CVs other than Q_l (coordination) on one round of the wide
+// recurrence's hit queue, called by all 32 lanes with the warp converged,
+// live: this lane holds a pair.  Grad adds the pair's force into (gx, gy,
+// gz); Vals sums each CV's value over the round's pairs by a shuffle tree
+// into the warp's row red (lane 0).
+template <bool Vals, bool Grad>
+__device__ __forceinline__ void wide_others(const float* desc, int n_cvs,
+                                            const float* aux, float* red,
+                                            bool live, float dx, float dy,
+                                            float dz, float r2, float& gx,
+                                            float& gy, float& gz) {
+  for (int c = 0; c < n_cvs; ++c) {
+    const float* h = desc + c * kHdr;
+    if (static_cast<int>(h[0]) == kQl) continue;
+    const bool on = live && r2 < h[5];
+    if (Grad && on) {
+      coord_pair<false, true>(h, aux, dx, dy, dz, r2, nullptr, gx, gy, gz);
+    }
+    if (Vals && __ballot_sync(cell_stage::kFull, on) != 0u) {
+      float v = 0.0f, unused = 0.0f;
+      if (on) {
+        coord_pair<true, false, 0>(h, aux, dx, dy, dz, r2, &v, unused,
+                                   unused, unused);
+      }
+      v = cell_stage::warp_sum(v);
+      if ((threadIdx.x & 31) == 0) red[static_cast<int>(h[2])] += v;
+    }
+  }
+}
+
+// One warp's sweep of its i rows i = first, first + stride, ... < end
+// (the own cell's kept rows) in the wide recurrence: two queues, as
+// mono_sweep, each entry (i << 16) | q.  hit(i, q) is the cheap test;
+// hits are queued in order and run 32 at a time through near(e, live) (LJ
+// and the CVs other than Q_l), which returns whether the pair lies inside
+// the largest Q_l cut-off; those pairs move onto queue_q, and qround(e,
+// live) runs on 32 of them at a time, across rows, and on the rest at the
+// end.  PerRow: the hit queue is flushed at the end of each row, so that
+// each of its rounds holds one row; otherwise it is kept across the rows
+// too.  Every lane calls near and qround with the warp converged, live
+// false on a lane without an entry.  Called by all 32 lanes of the warp.
+template <bool PerRow, class Hit, class Near, class QRound>
+__device__ void wide_sweep(int first, int end, int stride, int n_rows,
+                           int* queue, int* queue_q, Hit hit, Near near,
+                           QRound qround) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lower = (1u << lane) - 1u;
+  int qn = 0, qm = 0;
+  auto round = [&](int e, bool live) {
+    const bool in_q = near(e, live);
+    const unsigned mq = __ballot_sync(cell_stage::kFull, in_q);
+    if (in_q) queue_q[qm + __popc(mq & lower)] = e;
+    qm += __popc(mq);
+    __syncwarp();
+    if (qm >= 32) {
+      qround(queue_q[lane], true);
+      qm -= 32;
+      __syncwarp();
+      if (lane < qm) queue_q[lane] = queue_q[32 + lane];
+      __syncwarp();
+    }
+  };
+  for (int i = first; i < end; i += stride) {
+    for (int base = 0; base < n_rows; base += 32) {
+      const int q = base + lane;
+      const bool h = q < n_rows && hit(i, q);
+      const unsigned m = __ballot_sync(cell_stage::kFull, h);
+      if (h) queue[qn + __popc(m & lower)] = (i << 16) | q;
+      qn += __popc(m);
+      __syncwarp();
+      if (qn >= 32) {
+        round(queue[lane], true);
+        qn -= 32;
+        __syncwarp();
+        if (lane < qn) queue[lane] = queue[32 + lane];
+        __syncwarp();
+      }
+    }
+    if constexpr (PerRow) {
+      round(lane < qn ? queue[lane] : 0, lane < qn);
+      qn = 0;
+      __syncwarp();
+    }
+  }
+  if constexpr (!PerRow) round(lane < qn ? queue[lane] : 0, lane < qn);
+  qround(lane < qm ? queue_q[lane] : 0, lane < qm);
+  __syncwarp();
+}
+
 // Value lanes a thread sums: the fixed layouts' count, else the limit.
 template <int Lanes, bool Mono>
 __host__ __device__ constexpr int lane_count() {
@@ -678,17 +890,27 @@ __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 // and, Mono, the force vectors of every Q_l (n_bvec: 4 n_mono(l - 1)
 // each), each rounded to 4; Mono with Grad the scratch of the conversion
 // a = C^T aux (n_terms); with Vals the warps' value sums (kStageWarps rows
-// of n_terms).
+// of n_terms).  The recurrence (not Mono, with Vals or Grad): each warp's
+// Q_l queue (kQueue ints); with Vals each warp's value tile (kWideTileRows
+// rows of kTileLd); with WithLJ or Grad the LJ force and the bias force of
+// each of the cell's cap rows (3 floats each).
 struct WideSmem {
-  int desc, aux, bvec, conv, red, words;
+  int desc, aux, bvec, conv, red, qq, tile, fsum, gsum, words;
   __host__ __device__ WideSmem(int desc_len, int n_aux, int n_bvec,
-                               int n_terms, bool mono, bool grad, bool vals)
+                               int n_terms, bool mono, bool grad, bool vals,
+                               bool lj, int cap)
       : desc(0),
         aux(round4(desc_len)),
         bvec(aux + round4(n_aux)),
         conv(bvec + round4(n_bvec)),
         red(conv + (mono && grad ? round4(n_terms) : 0)),
-        words(red + (vals ? kStageWarps * n_terms : 0)) {}
+        qq(red + (vals ? round4(kStageWarps * n_terms) : 0)),
+        tile(qq + (!mono && (vals || grad) ? kStageWarps * cell_stage::kQueue
+                                           : 0)),
+        fsum(tile + (!mono && vals ? kStageWarps * kWideTileRows * kTileLd
+                                   : 0)),
+        gsum(fsum + 3 * cap),
+        words(fsum + (!mono && (lj || grad) ? 6 * cap : 0)) {}
 };
 
 // The Q_6's place in the monomial mode's CV list: 0 in the fixed layouts,
@@ -716,18 +938,31 @@ __device__ __forceinline__ int mono_cv(const float* desc, int n_cvs) {
 // Split (the parts subsets of the fused sweep, packed_fused_parts.cu): the
 // fused sweep's traversal and launch bounds whatever the subset, so that
 // the subsets differ in their math alone.
+// The wide layout without Mono (the wide recurrence): wide_sweep, the Q_l
+// pairs on a queue of their own across the warp's rows, each Q_l at a
+// compile-time l where it is even and at most 12 (ql_round), its value
+// sums through the warp's tile into the warp's row of value sums in
+// shared memory; the forces of each round summed per row (a shuffle tree
+// per row of the round) into per-row arrays in shared memory, so that no
+// force sum stays in a register across rounds: no value sum in local
+// memory, and the Q_l math on full rounds of 32 pairs rather than on the
+// lanes of the LJ and coordination rounds that lie inside Q_l's cut-off.
+// With Vals alone (and not Split) the hit queue too is kept across the
+// rows.
 // Blocks per SM each sweep keeps: the values and force sweeps 5 (48
 // registers a thread), the fused sweep and the monomial mode 4 (64; 3
 // blocks at 80 registers measured slower, PERF.md).  Reading the box from constant memory (c_geo)
 // took the values sweep to 54 registers, 4 blocks per SM and 9% of its
 // time on Config 3's input, and a bound of 1 lets the compiler take more
 // than 64.
-// The wide layout (its value sums in local memory, the general monomial
-// mode's runtime degrees) 3 (80): at 4 blocks its fused and monomial
-// sweeps spilled, at 5 its force sweep.
+// The wide layout: the general monomial mode (runtime degrees) 3 (80): at
+// 4 blocks its fused sweep spilled; the recurrence's values and force
+// sweeps 4 (64), its fused sweep 3 (at 4 it spilled 124 bytes; at 2, 128
+// registers, it ran 15% slower; PERF.md).
 template <bool WithLJ, bool Mono, int Lanes>
 constexpr int min_blocks() {
-  return Lanes == kLanesWide ? 3 : WithLJ || Mono ? 4 : 5;
+  return Lanes == kLanesWide ? (Mono || WithLJ ? 3 : 4)
+                             : WithLJ || Mono ? 4 : 5;
 }
 
 template <bool WithLJ, bool Vals, bool Grad, bool Valid, int Kinds, int L,
@@ -764,7 +999,9 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
   // the descriptor, the aux lanes and the warps' value sums (kStageWarps
   // rows of red_ld): the static arrays, or in the wide layout WideSmem's
   // from the 16-byte boundary past the last warp's MonoSmem
-  const WideSmem ws(desc_len, n_aux, n_bvec, n_terms, Mono, Grad, Vals);
+  constexpr bool kWideRec = kWide && !Mono;
+  const WideSmem ws(desc_len, n_aux, n_bvec, n_terms, Mono, Grad, Vals,
+                    WithLJ, cap);
   float* const wide =
       kWide ? reinterpret_cast<float*>(
                   (reinterpret_cast<size_t>(
@@ -815,10 +1052,11 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
     }
   }
   __syncthreads();
-  // the general monomial mode: the largest degree and cut-off of its Q_l
+  // the general monomial mode and the wide recurrence: the largest degree
+  // and cut-off of their Q_l
   int l_max = 0;
   float rc2_q = 0.0f;
-  if constexpr (MS::kGen) {
+  if constexpr (MS::kGen || kWideRec) {
     for (int c = 0; c < n_cvs; ++c) {
       const float* h = s_desc + c * kHdr;
       if (static_cast<int>(h[0]) == kQl) {
@@ -830,6 +1068,11 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
       for (int k = threadIdx.x; k < kStageWarps * n_terms;
            k += kStageThreads) {
         s_red[k] = 0.0f;
+      }
+    }
+    if (kWideRec && (WithLJ || Grad)) {
+      for (int k = threadIdx.x; k < 6 * cap; k += kStageThreads) {
+        wide[ws.fsum + k] = 0.0f;
       }
     }
   }
@@ -937,12 +1180,15 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
   const int i0 = sc.off[cell_stage::kSelf];
   const int n_i = sc.off[cell_stage::kSelf + 1] - i0;
   int* queue = sc.queue + warp * cell_stage::kQueue;
-  constexpr int kTerms = Vals ? lane_count<Lanes, Mono>() : 1;
+  // the per-thread value sums (none in the wide recurrence)
+  constexpr int kTerms = Vals && !kWideRec ? lane_count<Lanes, Mono>() : 1;
   // compile-time in the fixed layouts, so their loops over t unroll
   const int nt = !Vals ? 0 : fixed_lanes(Lanes) ? kTerms : n_terms;
   float vacc[kTerms];
+  if constexpr (!kWideRec) {
 #pragma unroll
-  for (int t = 0; t < nt; ++t) vacc[t] = 0.0f;
+    for (int t = 0; t < nt; ++t) vacc[t] = 0.0f;
+  }
   // the pair's displacement r_i - r_j (staged row q) and r^2
   auto geom = [&](float4 xi, int q, float* dx, float* dy, float* dz) -> float {
     const float4 xj = s_pos[q];
@@ -1003,7 +1249,103 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
                      ? static_cast<int>(s_desc[qc * kHdr + 2])
                      : 0;
   float tacc = 0.0f;
-  if constexpr (MS::kGen) {
+  if constexpr (kWideRec) {
+    int* const queue_q =
+        reinterpret_cast<int*>(wide + ws.qq) + warp * cell_stage::kQueue;
+    float* const tile = wide + ws.tile + warp * kWideTileRows * kTileLd;
+    // (cap, 3) each: the rows' LJ force and bias force
+    float* const fsum = wide + ws.fsum;
+    float* const gsum = wide + ws.gsum;
+    float* const red = s_red + warp * red_ld;
+    constexpr bool kPerRow = WithLJ || Grad || Split;
+    wide_sweep<kPerRow>(
+        warp, n_i, kStageWarps, n_rows, queue, queue_q,
+        [&](int i, int q) { return hit(s_pos[i0 + i], q); },
+        [&](int e, bool live) -> bool {
+          float dx = 0.0f, dy = 0.0f, dz = 0.0f, r2 = 0.0f;
+          float fx = 0.0f, fy = 0.0f, fz = 0.0f;
+          float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+          if (live) {
+            r2 = geom(s_pos[i0 + (e >> 16)], e & 0xffff, &dx, &dy, &dz);
+            lj(dx, dy, dz, r2, fx, fy, fz);
+          }
+          wide_others<Vals, Grad>(s_desc, n_cvs, s_aux, red, live, dx, dy,
+                                  dz, r2, gx, gy, gz);
+          if constexpr (kPerRow && (WithLJ || Grad)) {
+            // a round of the hit queue holds one row (flushed per row), its
+            // live lanes first: its forces by shuffle trees into the row's
+            // sums (lane 0, if live: a round with none is another warp's
+            // row 0), so no sum lives across the Q_l rounds
+            const int row = __shfl_sync(cell_stage::kFull, e >> 16, 0);
+            if (WithLJ) {
+              fx = cell_stage::warp_sum(fx);
+              fy = cell_stage::warp_sum(fy);
+              fz = cell_stage::warp_sum(fz);
+              if (lane == 0 && live) {
+                fsum[3 * row] += fx;
+                fsum[3 * row + 1] += fy;
+                fsum[3 * row + 2] += fz;
+              }
+            }
+            if (Grad) {
+              gx = cell_stage::warp_sum(gx);
+              gy = cell_stage::warp_sum(gy);
+              gz = cell_stage::warp_sum(gz);
+              if (lane == 0 && live) {
+                gsum[3 * row] += gx;
+                gsum[3 * row + 1] += gy;
+                gsum[3 * row + 2] += gz;
+              }
+            }
+          }
+          return live && r2 < rc2_q;
+        },
+        [&](int e, bool live) {
+          const int i = e >> 16;
+          float dx = 0.0f, dy = 0.0f, dz = 1.0f, r2 = 1.0f;
+          if (live) r2 = geom(s_pos[i0 + i], e & 0xffff, &dx, &dy, &dz);
+          float qx = 0.0f, qy = 0.0f, qz = 0.0f;
+          ql_round<Vals, Grad>(s_desc, n_cvs, s_aux, tile, red, live, dx, dy,
+                               dz, r2, qx, qy, qz);
+          if constexpr (Grad) {
+            // each row of the round in turn: its lanes' forces by a
+            // shuffle tree into its gsum row (lane 0)
+            unsigned rem = __ballot_sync(cell_stage::kFull, live);
+            while (rem != 0u) {
+              const int row = __shfl_sync(cell_stage::kFull, i,
+                                          __ffs(rem) - 1);
+              const unsigned seg =
+                  __ballot_sync(cell_stage::kFull, live && i == row);
+              const bool mine = (seg >> lane) & 1u;
+              const float sx = cell_stage::warp_sum(mine ? qx : 0.0f);
+              const float sy = cell_stage::warp_sum(mine ? qy : 0.0f);
+              const float sz = cell_stage::warp_sum(mine ? qz : 0.0f);
+              if (lane == 0) {
+                gsum[3 * row] += sx;
+                gsum[3 * row + 1] += sy;
+                gsum[3 * row + 2] += sz;
+              }
+              rem &= ~seg;
+            }
+          }
+        });
+    // the warp's rows' forces, summed by lane 0 (the sweep ended
+    // converged)
+    for (int ii = warp + lane * kStageWarps; ii < n_i;
+         ii += 32 * kStageWarps) {
+      const int s = sc.islot[ii];
+      if (WithLJ) {
+        f[s] = fsum[3 * ii];
+        f[n_pad + s] = fsum[3 * ii + 1];
+        f[2 * n_pad + s] = fsum[3 * ii + 2];
+      }
+      if (Grad) {
+        g[s] = gsum[3 * ii];
+        g[n_pad + s] = gsum[3 * ii + 1];
+        g[2 * n_pad + s] = gsum[3 * ii + 2];
+      }
+    }
+  } else if constexpr (MS::kGen) {
     // the general monomial mode: the Q_l pairs on their own queue, each
     // round through mono_round
     int* const mqueue = reinterpret_cast<int*>(m_warp);
@@ -1142,15 +1484,17 @@ order_staged_kernel(const float* __restrict__ r, const int* __restrict__ pid,
     if constexpr (MS::kTile) {
       if (lane <= kMono6) s_red[warp * red_ld + vq + lane] = tacc;
     }
+    if constexpr (!kWideRec) {
 #pragma unroll
-    for (int t = 0; t < nt; ++t) {
-      if (MS::kTile && t >= vq && t <= vq + kMono6) continue;
-      const float v = cell_stage::warp_sum(vacc[t]);
-      if (lane == 0) {
-        if (MS::kGen) {
-          s_red[warp * red_ld + t] += v;
-        } else {
-          s_red[warp * red_ld + t] = v;
+      for (int t = 0; t < nt; ++t) {
+        if (MS::kTile && t >= vq && t <= vq + kMono6) continue;
+        const float v = cell_stage::warp_sum(vacc[t]);
+        if (lane == 0) {
+          if (MS::kGen) {
+            s_red[warp * red_ld + t] += v;
+          } else {
+            s_red[warp * red_ld + t] = v;
+          }
         }
       }
     }
@@ -1263,7 +1607,8 @@ int launch_staged(const StagedArgs& a, cudaStream_t st) {
     // WideSmem's arrays from the next 16-byte boundary
     smem = (smem + 15) / 16 * 16 +
            sizeof(float) * WideSmem(a.desc_len, a.n_aux, a.n_bvec,
-                                    a.n_terms, Mono, Grad, Vals)
+                                    a.n_terms, Mono, Grad, Vals, WithLJ,
+                                    a.p.g.cap)
                                .words;
   }
   auto kernel = order_staged_kernel<WithLJ, Vals, Grad, Valid, Kinds, L,

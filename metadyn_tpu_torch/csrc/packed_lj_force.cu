@@ -19,10 +19,11 @@
 //       (partner pid + 1, 0 = none), at any distance, not gated on r_cut;
 //       a bonded pair gets FENE + WCA at the pair's (table-scaled) eps and
 //       sigma, or a harmonic spring, instead of the pair term; any number
-//       of bond slots, as in the reference: an i row keeps the partner pids
-//       of the first four in registers and, past four (the template flag
-//       More: a branched or star melt), stages the others per warp in
-//       shared memory, read from one stacked array;
+//       of bond slots, as in the reference: up to four, an i row keeps its
+//       partner pids in registers and tests each staged row against them;
+//       past four (the template flag More: a branched or star melt) it
+//       resolves its partners once per row into a per-warp bitmask over
+//       the staged rows (below), so a candidate's bond test reads one bit;
 //   (s) the soft (DPD-conservative) pair on (b) with per-slot hs, with or
 //       without FENE bonds: u = A rc/2 (1 - r/rc)^2, A = se_i se_j, the
 //       push-off that relaxes a random-walk melt's overlaps.  The JAX
@@ -58,6 +59,19 @@
 // evaluations of the halved TPU kernel.  The layout is a set of template flags, so each variant compiles
 // only the loads and tests it needs.
 //
+// Past four bond slots (More): before its sweep, a warp loads its i row's
+// partner pids, one slot per lane (the first kColSlots columns by
+// pointer, any further ones from one stacked array), and sets bit q of
+// its bitmask over the staged rows for every staged row q whose pid is
+// one of them: a ballot per 32 staged rows, the partners broadcast by
+// shuffles.  The sweep's bond test, in the candidate test and again in
+// the pair math, is then one bit of shared memory: no partner pid lives
+// in a register or in local memory across the sweep, the row needs no
+// shared-memory staging of its pids (and no __syncwarp for it), and the
+// wrapper stacks no column for up to kColSlots slots.  The bonded set is
+// the one the pid test gives (every image of a partner among the staged
+// rows), so the forces are those of the pid test.
+//
 // Energy and diagonal virial are 1/2 of the sums over ordered pairs: per-
 // lane sums, a fixed-order block sum into one row of a (cells, 4) partials
 // buffer that every block writes in full, and a one-block second pass in
@@ -85,6 +99,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "cell_geom.cuh"
 #include "cell_stage.cuh"
 #include "pair_terms.cuh"
@@ -98,6 +114,36 @@ using pair_terms::kBondNone;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+
+// The More instantiations' bond-partner columns: the first kColSlots
+// slots by pointer, the others as one stacked (n - kColSlots, walkers,
+// n_pad) array `more` (null for at most kColSlots slots).
+constexpr int kColSlots = 8;
+struct BondCols {
+  const float* col[kColSlots];
+  const float* more;
+  int n;  // bond slots
+};
+template <bool More>
+using BondArg = std::conditional_t<More, BondCols, BondSlots>;
+
+// Words of a warp's bond bitmask over the 27 cap staged rows (More).
+__host__ __device__ inline int mask_words(int cap) {
+  return (cell_stage::kOffsets * cap + 31) / 32;
+}
+
+// Partner pid + 1 of bond slot k (k < bp.n) at element `at` of a column
+// (walker offset included); more_ld: the stride of the stacked slots.
+__device__ __forceinline__ float partner_of(const BondCols& bp, int k,
+                                            size_t at, size_t more_ld) {
+  if (k >= kColSlots) return bp.more[(k - kColSlots) * more_ld + at];
+  const float* c = bp.col[0];
+#pragma unroll
+  for (int b = 1; b < kColSlots; ++b) {
+    if (k == b) c = bp.col[b];  // constant indices: no local copy
+  }
+  return c[at];
+}
 
 struct Params {
   cell_stage::Grid g;
@@ -119,28 +165,28 @@ constexpr int extra_fields() {
 }
 
 // The staged rows, the table, cell_stage's scratch and, past the first
-// kRegBondSlots slots, each warp's i row partner pids (n_more).
-template <bool HsSig, bool Table, int Bond>
-size_t smem_bytes(int cap, int n_types, int n_more) {
+// kRegBondSlots slots (More), each warp's bond bitmask.
+template <bool HsSig, bool Table, int Bond, bool More>
+size_t smem_bytes(int cap, int n_types) {
   const size_t rows = static_cast<size_t>(cell_stage::kOffsets) * cap;
   return rows * (sizeof(float4) +
                  sizeof(float) * extra_fields<HsSig, Table, Bond>()) +
          (Table ? sizeof(float) * 2 * n_types * n_types : 0) +
          cell_stage::scratch_bytes(cap, kWarps) +
-         (Bond != kBondNone ? sizeof(float) * kWarps * n_more : 0);
+         (More ? sizeof(unsigned) * kWarps * mask_words(cap) : 0);
 }
 
 // SeEps: eps from se (else uniform, vacancy by the coordinate sentinel);
 // HsSig: sigma from hs (else uniform); Table: scale tables; Bond: kBond*;
 // Soft: the soft pair in place of LJ (with SeEps and HsSig only); More:
-// bond slots past the first kRegBondSlots (bp.more), each i row's partner
-// pids there staged in shared memory per warp.
+// bonds with more than kRegBondSlots slots (BondCols), each i row's
+// partners resolved into the warp's bitmask over the staged rows.
 template <bool SeEps, bool HsSig, bool Table, int Bond, bool Soft,
           bool WithEnergy, bool More = false>
 __global__ void __launch_bounds__(kThreads)
 lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
                 const float* __restrict__ hs, const int* __restrict__ typ,
-                const int* __restrict__ pid, BondSlots bp,
+                const int* __restrict__ pid, BondArg<More> bp,
                 const float* __restrict__ table, float* __restrict__ f,
                 float* __restrict__ partials,
                 const float* __restrict__ cell_mask, Params p) {
@@ -159,11 +205,11 @@ lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
   float* s_tab = s_next;
   if (Table) s_next += 2 * nt * nt;
   const cell_stage::Scratch sc = cell_stage::scratch_at(s_next, cap);
-  // this warp's i row partner pids past the first kRegBondSlots slots
-  float* const s_bpx =
-      reinterpret_cast<float*>(reinterpret_cast<char*>(s_next) +
-                               cell_stage::scratch_bytes(cap, kWarps)) +
-      (threadIdx.x >> 5) * bp.n_more;
+  // More: this warp's bond bitmask, bit q for staged row q
+  unsigned* const s_bmask =
+      reinterpret_cast<unsigned*>(reinterpret_cast<char*>(s_next) +
+                                  cell_stage::scratch_bytes(cap, kWarps)) +
+      (threadIdx.x >> 5) * mask_words(cap);
 
   if (Table) {
     for (int t = threadIdx.x; t < 2 * nt * nt; t += kThreads) {
@@ -180,13 +226,13 @@ lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
   if (SeEps) se += w * n_pad;
   if (HsSig) hs += w * n_pad;
   if (Table) typ += w * n_pad;
-  // the slots past the first kRegBondSlots: slot k's rows every
-  // more_ld floats
+  // More: the stacked slots' rows every more_ld floats
   const size_t more_ld = static_cast<size_t>(gridDim.y) * n_pad;
   if (Bond != kBondNone) {
     pid += w * n_pad;
-    for (int b = 0; b < bp.n_reg; ++b) bp.bp[b] += w * n_pad;
-    if (More) bp.more += w * n_pad;
+    if constexpr (!More) {
+      for (int b = 0; b < bp.n_reg; ++b) bp.bp[b] += w * n_pad;
+    }
   }
   if (WithEnergy) partials += w * C * 4;
   auto keep = [&](int, int j, float3) -> bool {
@@ -228,18 +274,34 @@ lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
     const int ti = Table ? s_typ[i0 + ii] : 0;
     float bp_i[pair_terms::kRegBondSlots];
     bool has_partner = false;
-    if (Bond != kBondNone) {
+    if constexpr (More) {
+      // the row's partners (slot g + lane) into the bitmask, 32 staged
+      // rows per word; the previous row's sweep ended converged
+      const int n_words = (n_rows + 31) >> 5;
+      for (int g = 0; g < bp.n; g += 32) {
+        const int k = g + lane;
+        const float pk =
+            k < bp.n ? partner_of(bp, k, w * n_pad + s, more_ld) : 0.0f;
+        const unsigned live = __ballot_sync(cell_stage::kFull, pk > 0.0f);
+        if (live == 0u) continue;  // the same on every lane
+        for (int c = 0; c < n_words; ++c) {
+          const int q = (c << 5) + lane;
+          // pid + 1 >= 1 on every staged row; 0 matches no partner
+          const float pj = q < n_rows ? s_pid1[q] : 0.0f;
+          bool b = false;
+          for (unsigned m = live; m != 0u; m &= m - 1u) {
+            b |= pj == __shfl_sync(cell_stage::kFull, pk, __ffs(m) - 1);
+          }
+          const unsigned word = __ballot_sync(cell_stage::kFull, b);
+          if (lane == 0) s_bmask[c] = has_partner ? s_bmask[c] | word : word;
+        }
+        has_partner = true;
+      }
+      __syncwarp();
+    } else if (Bond != kBondNone) {
       for (int b = 0; b < bp.n_reg; ++b) {
         bp_i[b] = bp.bp[b][s];
         has_partner |= bp_i[b] > 0.0f;
-      }
-      if (More) {
-        __syncwarp();  // the previous row's reads are done
-        for (int k = lane; k < bp.n_more; k += 32) {
-          s_bpx[k] = bp.more[k * more_ld + s];
-        }
-        __syncwarp();
-        for (int k = 0; k < bp.n_more; ++k) has_partner |= s_bpx[k] > 0.0f;
       }
     }
     // the pair's geometry and its class: inside r_cut (with eps > 0),
@@ -252,12 +314,13 @@ lj_force_kernel(const float* __restrict__ r, const float* __restrict__ se,
       *dz = xi.z - xj.z;
       *r2 = *dx * *dx + *dy * *dy + *dz * *dz;
       *bonded = false;
-      if (Bond != kBondNone && has_partner) {
+      if constexpr (More) {
+        if (has_partner) {
+          *bonded = ((s_bmask[q >> 5] >> (q & 31)) & 1u) && *r2 > 1.0e-12f;
+        }
+      } else if (Bond != kBondNone && has_partner) {
         const float pj = s_pid1[q];
         for (int b = 0; b < bp.n_reg; ++b) *bonded |= bp_i[b] == pj;
-        if (More) {
-          for (int k = 0; k < bp.n_more; ++k) *bonded |= s_bpx[k] == pj;
-        }
         *bonded &= *r2 > 1.0e-12f;
       }
       // r2 > 1e-12 drops the slot itself (r2 == 0 exactly)
@@ -334,7 +397,8 @@ struct Args {
   const float* hs;
   const int* typ;
   const int* pid;
-  BondSlots bp;
+  BondSlots bp;    // at most kRegBondSlots slots
+  BondCols cols;   // more
   const float* table;
   float* f;
   float* partials;
@@ -352,7 +416,7 @@ template <bool SeEps, bool HsSig, bool Table, int Bond, bool Soft,
 int launch_one(const Args& a, cudaStream_t st) {
   const int n_blocks = a.p.g.cx * a.p.g.cy * a.p.g.cz;
   const size_t smem =
-      smem_bytes<HsSig, Table, Bond>(a.p.g.cap, a.p.n_types, a.bp.n_more);
+      smem_bytes<HsSig, Table, Bond, More>(a.p.g.cap, a.p.n_types);
   auto kernel =
       lj_force_kernel<SeEps, HsSig, Table, Bond, Soft, WithEnergy, More>;
   // beside the static array of pair_terms::block_partials and the cell
@@ -361,7 +425,13 @@ int launch_one(const Args& a, cudaStream_t st) {
       kernel, smem, sizeof(float) * 128 + sizeof(cell_geom::HBox));
   if (rc != 0) return rc;
   const dim3 grid(n_blocks, a.n_walkers);
-  kernel<<<grid, kThreads, smem, st>>>(a.r, a.se, a.hs, a.typ, a.pid, a.bp,
+  BondArg<More> bp;
+  if constexpr (More) {
+    bp = a.cols;
+  } else {
+    bp = a.bp;
+  }
+  kernel<<<grid, kThreads, smem, st>>>(a.r, a.se, a.hs, a.typ, a.pid, bp,
                                        a.table, a.f, a.partials, a.cell_mask,
                                        a.p);
   if (WithEnergy) {
@@ -386,7 +456,7 @@ int launch_energy(const Args& a, bool with_energy, cudaStream_t st) {
 template <bool SeEps, bool HsSig, bool Table, int Bond, bool Soft = false>
 int launch(const Args& a, bool with_energy, cudaStream_t st) {
   if constexpr (Bond != kBondNone) {
-    if (a.bp.n_more > 0) {
+    if (a.cols.n > pair_terms::kRegBondSlots) {
       return launch_energy<SeEps, HsSig, Table, Bond, Soft, true>(
           a, with_energy, st);
     }
@@ -428,10 +498,11 @@ int packed_lj_force_blocks(int cx, int cy, int cz) { return cx * cy * cz; }
 // r: (3, n_pad) f32; f: (3, n_pad) f32 out.  se, hs: (n_pad,) f32 or null
 // where the layout does not read them (se_eps, hs_sig = 0); typ, pid:
 // (n_pad,) i32 or null (table = null, bond_kind = 0); n_real: the bonded
-// layout's vacancy bound (pid < n_real is real); bp0..bp3: the first
-// min(bond_slots, 4) bond-partner attrs, bp_more: the others as one
-// contiguous (bond_slots - 4, n_walkers, n_pad) f32 array (null for at
-// most 4 slots); table: (2, n_types, n_types) f32 = (k_eps,
+// layout's vacancy bound (pid < n_real is real); bp_cols: a host array
+// of the first min(bond_slots, kColSlots = 8) bond-partner attrs' device
+// pointers (null for no bonds), bp_more: the others as one contiguous
+// (bond_slots - 8, n_walkers, n_pad) f32 array (null for at most 8
+// slots); table: (2, n_types, n_types) f32 = (k_eps,
 // k_sig) or null.  With with_energy != 0, partials: (cx cy cz, 4) f32
 // scratch and out: (4,) f32 = (PE, Wxx, Wyy, Wzz); otherwise both may be
 // null; cell_mask: (cx cy cz,) f32 per-cell weights of the energy and
@@ -450,9 +521,9 @@ int packed_lj_force_blocks(int cx, int cy, int cz) { return cx * cy * cz; }
 // row (cell_geom.cuh BoxRow), whose cell matrix each block reads for its
 // walker (zero tilt for an orthorhombic box).
 int packed_lj_force(const float* r, const float* se, const float* hs,
-                    const int* typ, const int* pid, const float* bp0,
-                    const float* bp1, const float* bp2, const float* bp3,
-                    const float* bp_more, const float* table, float* f,
+                    const int* typ, const int* pid,
+                    const float* const* bp_cols, const float* bp_more,
+                    const float* table, float* f,
                     float* partials, float* out,
                     const float* cell_mask, int n_pad, int cap, int cx, int cy, int cz, int n_real,
                     int se_eps, int hs_sig, int n_types, int bond_kind,
@@ -461,13 +532,23 @@ int packed_lj_force(const float* r, const float* se, const float* hs,
                     float r_cut,
                     float sig2, float eps, float bond_k, float bond_r0,
                     void* stream) {
-  BondSlots bp;
-  if (!pair_terms::bond_slots_of(bond_slots, bp0, bp1, bp2, bp3, bp_more,
-                                 &bp) ||
-      n_walkers < 1 || n_walkers > 65535) {
+  if (bond_slots < 0 || (bond_slots > 0 && bp_cols == nullptr) ||
+      (bond_slots > kColSlots && bp_more == nullptr) || n_walkers < 1 ||
+      n_walkers > 65535) {
     return kNoLayout;
   }
-  Args a{r, se, hs, typ, pid, bp, table, f,
+  const float* reg[pair_terms::kRegBondSlots] = {};
+  BondCols cols{{}, bp_more, bond_slots};
+  for (int b = 0; b < bond_slots && b < kColSlots; ++b) {
+    if (b < pair_terms::kRegBondSlots) reg[b] = bp_cols[b];
+    cols.col[b] = bp_cols[b];
+  }
+  BondSlots bp;
+  pair_terms::bond_slots_of(bond_slots < pair_terms::kRegBondSlots
+                                ? bond_slots
+                                : pair_terms::kRegBondSlots,
+                            reg[0], reg[1], reg[2], reg[3], nullptr, &bp);
+  Args a{r, se, hs, typ, pid, bp, cols, table, f,
          partials, out, cell_mask,
          Params{{n_pad, cap, cx, cy, cz, box},
                 n_real, n_types, shift_energy, rc2, r_cut, sig2, eps, bond_k,

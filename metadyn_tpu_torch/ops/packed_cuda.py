@@ -50,10 +50,14 @@ from .packed import (
 )
 
 KERNEL = "packed_lj_force"
-# bond slots whose partner columns the kernels take one by one
+# bond slots whose partner columns the v1 kernel takes one by one
 # (csrc/pair_terms.cuh kRegBondSlots); any further slots go as one stacked
 # array (bond_ptrs)
 REG_BOND_SLOTS = 4
+# bond slots whose partner columns kernel 1 takes by pointer
+# (csrc/packed_lj_force.cu kColSlots); any further slots go as one stacked
+# array (bond_cols)
+COL_BOND_SLOTS = 8
 BOND_KINDS = {None: 0, "fene": 1, "harmonic": 2}
 
 
@@ -153,6 +157,25 @@ def bond_ptrs(state: PackedState, spec: PackedSpec, who: str,
             + [None if more is None else more.data_ptr()]), more
 
 
+def bond_cols(state: PackedState, spec: PackedSpec, who: str,
+              lead: tuple = ()) -> tuple:
+    """(cols, more, keep) as kernel 1 takes its bond-partner attrs: a
+    host array of the first min(bond_slots, COL_BOND_SLOTS) columns'
+    device pointers (None without bonds), the device pointer of the
+    further slots stacked into one contiguous (bond_slots − 8, *lead,
+    Npad) array (None for at most 8 slots), and ``keep``, which holds that
+    array until the launch is queued."""
+    n = spec.bond_slots if spec.has_bonds else 0
+    cols = [state.attrs[f"bp{k}"] for k in range(n)]
+    ptrs = [slot_ptr(c, torch.float32, spec, who, f"bp{k}", lead)
+            for k, c in enumerate(cols)]
+    more = (torch.stack(cols[COL_BOND_SLOTS:]).contiguous()
+            if n > COL_BOND_SLOTS else None)
+    head = ptrs[:COL_BOND_SLOTS]
+    arr = (ctypes.c_void_p * len(head))(*head) if head else None
+    return arr, None if more is None else more.data_ptr(), more
+
+
 @functools.lru_cache(maxsize=16)
 def scale_table(spec: PackedSpec, device) -> torch.Tensor:
     """(2, nt, nt) f32 = (k_eps, k_sig) on ``device``: the plain version's
@@ -174,7 +197,9 @@ def _library():
     lib = _build.load(KERNEL)
     fn = lib.packed_lj_force
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 15
+        fn.argtypes = ([ctypes.c_void_p] * 5
+                       + [ctypes.POINTER(ctypes.c_void_p)]
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
                        + [ctypes.c_void_p] + [ctypes.c_float] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -248,12 +273,11 @@ def packed_lj_force_cuda(state: PackedState, spec: PackedSpec,
     m_ptr = mask_ptr(cell_mask, spec, r.device, who)
     bond_kind = BOND_KINDS[spec.bond_kind if spec.has_bonds else None]
     cx, cy, cz = spec.cells_per_dim
-    bps, _keep = bond_ptrs(state, spec, who, lead)
+    cols, more, _keep = bond_cols(state, spec, who, lead)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = lib.packed_lj_force(
-            r.data_ptr(), se, hs, typ, pid, *bps,
-            table, f.data_ptr(), p_ptr, o_ptr, m_ptr,
+            r.data_ptr(), se, hs, typ, pid, cols, more, table, f.data_ptr(), p_ptr, o_ptr, m_ptr,
             spec.n_pad, spec.cap, cx, cy, cz, spec.n_real, int(se_eps),
             int(hs_sig), n_types, bond_kind,
             spec.bond_slots if spec.has_bonds else 0,

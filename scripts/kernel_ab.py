@@ -34,10 +34,27 @@ trees are timed alike), at the main paths' shapes:
   phase 16 holds it;
 - kernel 4 in the monomial mode on Config 3's input: the whole grid, and
   shard 0 of 2 x-slabs (chip_smoke.spatial_ext_states) without and with
-  its interior mask (the slab path's call).
+  its interior mask (the slab path's call);
+- kernels 2, 3 and 4 (recurrence) in the wide layout: Config 3's input
+  with [Q8, Q10, Q12] (69 value and 66 aux lanes, chip_smoke.py's phase
+  43 list);
+- kernel 1 at 6 bond slots, forces only and with energy, on
+  chip_smoke.py's star melt (2,016 6-arm stars, 62,496 beads) at its
+  push-off start: the soft push-off layout (core/pushoff.pushoff_pack)
+  and Config 5's production layout (se and a uniform sigma, WCA + FENE,
+  cap 48); and forces only on the same states at 4 slots (the centres'
+  fifth and sixth bonds dropped, ``_4slots_dev``), the cost of the slots
+  past four;
+- kernel 1 at 2 bond slots at Config 5's size: 1,024,000 beads in chains
+  of 16 (bcc_chains, 80 sites a side at rho 0.85) in Config 5's
+  production layout and in the soft push-off layout, forces only and with
+  energy (``k1_cfg5_1m_*``); and the device time of stacking the bond
+  columns into one array, at Config 2's and this size (``bp_stack_*``):
+  the copy a wrapper that stacked every column would add to each call.
 
-The order-CV kernels (2, 3, 4) and kernel 1 in Config 2's layout are also
-timed on the device alone, under the keys ending in ``_dev``: each call is queued behind a device sleep of
+The order-CV kernels (2, 3, 4), kernel 1 in Config 2's layout and at 6
+bond slots are also timed on the device alone, under the keys ending in
+``_dev``: each call is queued behind a device sleep of
 ~1 ms, so that the host's launch is out of the span and the CUDA events
 bracket only the call's device work (for kernels 2 and 4 the sweep, the
 second pass and the wrapper's small ops).  Compare those only with each
@@ -70,11 +87,12 @@ import sys
 HERE = pathlib.Path(__file__).resolve().parent.parent
 
 
-def bcc_chains(cells: int = 16, L: float = 21.3, noise: float = 0.05):
+def bcc_chains(cells: int = 16, L: float = 21.3, noise: float = 0.05,
+               chain: int = None):
     """2 cells^3 beads on a bcc lattice in a cubic box of side L, with
-    Gaussian noise (numpy seed 5); chains are the rows of ``cells`` sites
-    along x of one sublattice, diblock (the second half type 1).  Returns
-    (pos, types, bonds, L)."""
+    Gaussian noise (numpy seed 5); chains are runs of ``chain`` sites
+    (default ``cells``, a whole row) along x of one sublattice, diblock
+    (the second half type 1).  Returns (pos, types, bonds, L)."""
     import numpy as np
     a = L / cells
     i, j, k = np.meshgrid(*[np.arange(cells)] * 3, indexing="ij")
@@ -83,9 +101,10 @@ def bcc_chains(cells: int = 16, L: float = 21.3, noise: float = 0.05):
     # particle id = ((sub * cells + y) * cells + z) * cells + x
     pos = pos.transpose(0, 2, 3, 1, 4).reshape(-1, 3)
     pos += np.random.default_rng(5).normal(0.0, noise, pos.shape)
-    idx = np.arange(pos.shape[0]).reshape(-1, cells)
+    chain = chain or cells
+    idx = np.arange(pos.shape[0]).reshape(-1, chain)
     bonds = np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], axis=1)
-    types = (np.arange(pos.shape[0]) % cells >= cells // 2).astype(np.int32)
+    types = (np.arange(pos.shape[0]) % chain >= chain // 2).astype(np.int32)
     return pos.astype(np.float32), types, bonds.astype(np.int32), L
 
 
@@ -152,11 +171,13 @@ def main(root: pathlib.Path, bits=None) -> dict:
 
     saved = {}
 
-    def keep(name, st, spec):
-        """Kernel 1's outputs on ``st``, both modes, for ``--bits``."""
+    def keep(name, st, spec, real_only=False):
+        """Kernel 1's outputs on ``st``, both modes, for ``--bits`` (the
+        forces of the real slots alone with ``real_only``)."""
         for we in (False, True):
             o = packed_lj_force_cuda(st, spec, we)
-            saved[f"{name}_e{int(we)}_f"] = o.f.cpu().numpy()
+            f = o.f[:, st.pid < spec.n_real] if real_only else o.f
+            saved[f"{name}_e{int(we)}_f"] = f.cpu().numpy()
             if we:
                 saved[f"{name}_pe"] = o.potential_energy.cpu().numpy()
                 saved[f"{name}_virial"] = o.virial.cpu().numpy()
@@ -221,6 +242,9 @@ def main(root: pathlib.Path, bits=None) -> dict:
         lambda: packed_lj_force_cuda(st, spec, False))
     out["k1_config2_energy_dev"] = device_ms(
         lambda: packed_lj_force_cuda(st, spec, True))
+    cols = [st.attrs["bp0"], st.attrs["bp1"]]
+    out["bp_stack_config2_dev"] = device_ms(
+        lambda: torch.stack(cols).contiguous())
 
     _, st, spec = cs.triclinic_pack(25, dev, noise=0.05)
     keep("se_hs_tilted62k", st, spec)
@@ -291,6 +315,73 @@ def main(root: pathlib.Path, bits=None) -> dict:
         out[f"{key}_dev"] = device_ms(call)
         out[f"{key}_kernel"] = timing.kernel_event_check(
             call, "order_staged_kernel")["kernel_ms"]
+    # the wide layout: [Q8, Q10, Q12] on the same input
+    wcvs = cs.config3_cvs(spec, a, "q8_q10_q12")
+    dV = torch.tensor([0.9, -1.3, 0.6], device=dev)
+    wauxs = [cv.grad_aux(t, dV[i]) for i, (cv, t) in
+             enumerate(zip(wcvs, order_values_plain(st, spec, wcvs)))]
+    wide_calls = {
+        "values_wide_cfg3": lambda: [order_values_cuda(st, spec, wcvs)],
+        "force_wide_cfg3": lambda: order_force_cuda(st, spec, wcvs, wauxs),
+        "fused_wide_cfg3": lambda: fused_lj_order_force_cuda(st, spec, wcvs,
+                                                             wauxs)}
+    for key, call in wide_calls.items():
+        keep_out(key, call())
+        out[key] = ms(call, 51)
+        out[f"{key}_dev"] = device_ms(call)
+    out["fused_wide_cfg3_kernel"] = timing.kernel_event_check(
+        wide_calls["fused_wide_cfg3"], "order_staged_kernel")["kernel_ms"]
+    del st, slabs, exts
+
+    # kernel 1 at 6 bond slots: the star melt's push-off start in the soft
+    # layout and in Config 5's production layout
+    from metadyn_tpu_torch.core.pushoff import pushoff_pack
+    melt = cs.star_melt()
+    stars = {"k1_star_soft": pushoff_pack(melt["pos"], melt["L"],
+                                          melt["types"], melt["bp"],
+                                          dev)[1:],
+             "k1_star_prod": cs.star_pack(melt, dev, "se_usig_fene_wca")[1:]}
+    for key, (st, spec) in stars.items():
+        assert spec.bond_slots == 6, spec.bond_slots
+        keep(key, st, spec)
+        for we in (False, True):
+            def call(st=st, spec=spec, we=we):
+                return packed_lj_force_cuda(st, spec, we)
+            k = f"{key}_energy" if we else key
+            out[k] = ms(call)
+            out[f"{k}_dev"] = device_ms(call)
+        # the same state at 4 slots (the centres' fifth and sixth bonds
+        # dropped): what the slots past four cost
+        four = dataclasses.replace(spec, bond_slots=4)
+        out[f"{key}_4slots_dev"] = device_ms(
+            lambda st=st, four=four: packed_lj_force_cuda(st, four, False))
+    del st, stars
+
+    # kernel 1 at 2 slots at Config 5's size, production and soft layouts
+    pos, types, bonds, L = bcc_chains(80, (1_024_000 / 0.85) ** (1 / 3),
+                                      chain=16)
+    n = pos.shape[0]
+    bp = bond_partner_attrs(bonds, n)
+    kw, _ = cs.CFG2_LAYOUTS["se_usig_fene_wca"]
+    spec = PackedSpec.create(L, n, bond_slots=2, **kw)
+    st, ovf = PackedEngine(spec, dev).pack_state(
+        pos, Box.cubic(L, dev), types, np.ones(n, np.float32),
+        np.ones(n, np.float32), extra_attrs=bp)
+    assert not ovf
+    cfg5 = {"k1_cfg5_1m_prod": (st, spec),
+            "k1_cfg5_1m_soft": pushoff_pack(pos, L, types, bp, dev)[1:]}
+    for key, (st, spec) in cfg5.items():
+        assert spec.bond_slots == 2, spec.bond_slots
+        keep(key, st, spec, real_only=True)
+        for we in (False, True):
+            def call(st=st, spec=spec, we=we):
+                return packed_lj_force_cuda(st, spec, we)
+            k = f"{key}_energy" if we else key
+            out[k] = ms(call)
+            out[f"{k}_dev"] = device_ms(call)
+    cols = [st.attrs["bp0"], st.attrs["bp1"]]
+    out["bp_stack_cfg5_1m_dev"] = device_ms(
+        lambda: torch.stack(cols).contiguous())
     if bits:
         np.savez(bits, **saved)
     return out

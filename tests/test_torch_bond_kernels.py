@@ -9,7 +9,12 @@ layouts against the port's plain PyTorch pair force, on a card.
   give no NaN.
 - Both kernels at 6 bond slots (:func:`star_melt`, 6-arm stars): kernel 1
   in every bonded layout and the soft push-off layout, under a cell mask
-  and as a walker batch; v1; repeat calls to the bit.
+  and as a walker batch; v1; repeat calls to the bit.  Kernel 1 at 10
+  slots (10-arm stars: the slots past eight reach it in one stacked
+  array), alone and as a walker batch; and kernel 1's instantiations past
+  four slots (each row's partners resolved into a bitmask over the staged
+  rows) give the bits of its 4-slot ones where both apply (chains, whose
+  partners fill two slots, packed with six).
 
 The inputs are bead-spring chains laid straight along x on a lattice with
 noise, so no push-off is needed (:func:`lattice_melt`, shared with the CPU
@@ -139,14 +144,17 @@ def star_melt(n_stars: int, arms: int = 6, arm_len: int = 5,
 STAR_SLOTS = 6
 
 
-def star_layout(device, name: str, n_stars: int = 8, seed: int = 0):
-    """(state, spec): :func:`star_melt` (6 arms of 5 beads, ρ 0.3, numpy
-    seed ``seed``) in a bonded layout of LAYOUTS with 6 bond slots, or the
-    soft push-off layout with FENE bonds (``"soft_fene"``); types A on the
-    centre and the first two beads of each arm, B outwards."""
-    pos, bonds, L = star_melt(n_stars, seed=seed)
+def star_layout(device, name: str, n_stars: int = 8, seed: int = 0,
+                arms: int = STAR_SLOTS):
+    """(state, spec): :func:`star_melt` (``arms`` arms of 5 beads, ρ 0.3,
+    numpy seed ``seed``) in a bonded layout of LAYOUTS with ``arms`` bond
+    slots, or the soft push-off layout with FENE bonds (``"soft_fene"``);
+    types A on the centre and the first two beads of each arm, B
+    outwards."""
+    pos, bonds, L = star_melt(n_stars, arms=arms, seed=seed)
     n = pos.shape[0]
-    types = np.tile((np.arange(31) % 5 >= 3).astype(np.int32), n_stars)
+    per = 1 + 5 * arms
+    types = np.tile((np.arange(per) % 5 >= 3).astype(np.int32), n_stars)
     eps_i = np.ones(n, np.float32)
     if name == "soft_fene":
         spec_kw, table = dict(r_cut=1.0, skin=0.5, cap=24, pair_kind="soft",
@@ -159,12 +167,11 @@ def star_layout(device, name: str, n_stars: int = 8, seed: int = 0):
         eps_scale, _, eps_diag, _ = pair_scale_tables(table)
         eps_i = eps_diag[types]
     spec = PackedSpec.create(L, n, eps_scale=eps_scale,
-                             **{**spec_kw, "cap": 24},
-                             bond_slots=STAR_SLOTS)
+                             **{**spec_kw, "cap": 24}, bond_slots=arms)
     engine = PackedEngine(spec, device, rebuild_every=5)
     state, ovf = engine.pack_state(
         pos, Box.cubic(L, device), types, eps_i, np.ones(n, np.float32),
-        extra_attrs=bond_partner_attrs(bonds, n, slots=STAR_SLOTS))
+        extra_attrs=bond_partner_attrs(bonds, n, slots=arms))
     assert not ovf
     return state, spec
 
@@ -302,9 +309,9 @@ STAR_BONDED = ["se_hs_table_fene", "se_hs_fene_wca", "se_usig_fene_wca",
 @pytest.mark.parametrize("name", STAR_BONDED)
 def test_six_slot_kernel_matches_plain(cuda_device, name, with_energy):
     """Kernel 1 at 6 bond slots (a 6-arm star melt: every centre has six
-    partners, the slots past the fourth staged per warp) in every bonded
-    layout and the soft push-off layout, against the plain force; two
-    calls give the same bits."""
+    partners, each row's partners resolved into its warp's bitmask over
+    the staged rows) in every bonded layout and the soft push-off layout,
+    against the plain force; two calls give the same bits."""
     st, spec = star_layout(cuda_device, name)
     check_spec(spec)
     before = packed_lj_force_cuda.launches
@@ -347,6 +354,62 @@ def test_six_slot_kernel_masked_and_walkers(cuda_device):
         assert torch.equal(out.potential_energy[w], one.potential_energy)
         fmax = float(ref.f[w].abs().max())
         assert float((out.f[w] - ref.f[w]).abs().max()) <= 1e-4 * fmax + 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["se_usig_fene_wca", "soft_fene"])
+def test_ten_slot_kernel_stacked_columns(cuda_device, name):
+    """Kernel 1 at 10 bond slots (10-arm stars: the first eight columns by
+    pointer, the ninth and tenth from the wrapper's stacked array), with
+    energy, against the plain force, twice to the bit; as a walker batch
+    of 2 (the stacked slots per walker), equal to single launches."""
+    from metadyn_tpu_torch.core.batch import stack_walkers
+    states = [star_layout(cuda_device, name, n_stars=4, seed=w, arms=10)
+              for w in range(2)]
+    spec = states[0][1]
+    for st, _ in states:
+        a = packed_lj_force_cuda(st, spec, with_energy=True)
+        b = packed_lj_force(st, spec, with_energy=True)
+        assert_force_close(a, b)
+        assert float(b.f.abs().max()) > 1.0
+        assert torch.equal(a.f, packed_lj_force_cuda(st, spec).f)
+    out = packed_lj_force_cuda(stack_walkers([s for s, _ in states]), spec,
+                               with_energy=True)
+    for w, (s1, _) in enumerate(states):
+        one = packed_lj_force_cuda(s1, spec, with_energy=True)
+        assert torch.equal(out.f[w], one.f)
+        assert torch.equal(out.virial[w], one.virial)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_energy", [False, True])
+@pytest.mark.parametrize("name", ["se_hs_table_fene", "se_usig_fene_wca",
+                                  "se_hs_harmonic"])
+def test_more_slots_give_the_four_slot_bits(cuda_device, name, with_energy):
+    """Chains, whose partners fill two bond slots, packed with six: the
+    instantiation past four slots (the bitmask) and the 2-slot one (the
+    partner pids in registers) give the same bits, since both bond the
+    same staged rows and sum in the same queue order."""
+    spec_kw, table = LAYOUTS[name]
+    spec, a = layout_inputs(spec_kw, table)
+    _, _, bonds, _, _ = lattice_melt()
+    spec = dataclasses.replace(spec, bond_slots=6)
+    state, ovf = PackedEngine(spec, cuda_device).pack_state(
+        a["pos"], Box.cubic(a["L"], cuda_device), a["types"], a["eps_i"],
+        a["sigma_i"], vel=a["vel"],
+        extra_attrs=bond_partner_attrs(bonds, a["pos"].shape[0], slots=6))
+    assert not ovf
+    assert float(state.attrs["bp2"].abs().max()) == 0.0
+    six = packed_lj_force_cuda(state, spec, with_energy=with_energy)
+    two = packed_lj_force_cuda(state, dataclasses.replace(spec, bond_slots=2),
+                               with_energy=with_energy)
+    assert torch.equal(six.f, two.f)
+    if with_energy:
+        assert torch.equal(six.potential_energy, two.potential_energy)
+        assert torch.equal(six.virial, two.virial)
+    assert_force_close(six, packed_lj_force(state, spec,
+                                            with_energy=with_energy),
+                       with_energy)
 
 
 @pytest.mark.cuda

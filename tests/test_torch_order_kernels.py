@@ -38,7 +38,8 @@ from metadyn_tpu_torch.cv.steinhardt import (
 from metadyn_tpu_torch.ops import packed_fused_cuda as pfc
 from metadyn_tpu_torch.ops import packed_order_cuda as poc
 from metadyn_tpu_torch.ops.packed import (
-    pack_host, packed_lj_force, unpack_positions,
+    OFFSETS, _tables, pack_host, packed_lj_force, shift_rows_cart,
+    unpack_positions,
 )
 from metadyn_tpu_torch.ops.packed_cuda import packed_lj_force_cuda
 
@@ -79,6 +80,12 @@ def _cv_sets(spec) -> dict:
         # layout (csrc/order_cv.cuh kLanesWide)
         "q8_q10_q12": [PackedSteinhardtQl(spec, r_cut=NN * 1.2, l=l,
                                           name=f"q{l}") for l in (8, 10, 12)],
+        # 67 value and 65 aux lanes, the wide layout: Q14 and Q16 past the
+        # compile-time degrees (their value terms summed by shuffle
+        # trees), a coordination with the larger cut-off
+        "q14_q16_coord": [PackedSteinhardtQl(spec, r_cut=NN * 1.2, l=l,
+                                             name=f"q{l}") for l in (14, 16)]
+        + [PackedCoordination(spec, r0=NN * 1.35, r_cut=NN * 1.35 * 1.5)],
     }
 
 
@@ -144,9 +151,52 @@ def test_descriptor_matches_kernel_layout():
         poc.cv_descriptor([])
 
 
+WIDE_SETS = ["q8_q10_q12", "q14_q16_coord"]
+
+
+def _ql_lanes_f64(st, spec, cv, cell_mask) -> torch.Tensor:
+    """A Q_l's value lanes (Re, then Im) over every ordered pair of real
+    slots inside its cut-off, each pair weighted by its i cell's
+    ``cell_mask`` entry, in float64 throughout: the positions, the shifts,
+    the p_lm coefficients and norms before their f32 rounding."""
+    cap, C, l = spec.cap, spec.n_cells, cv.l
+    coeffs = [[float(x) for x in c] for c in _plm_over_sinm_coeffs(l)]
+    norms = [float(x) for x in _norms(l)]
+    r = st.r.double()
+    real = st.pid < spec.n_real
+    x = r.reshape(3, cap, *spec.cells_per_dim)
+    rl = real.reshape(cap, *spec.cells_per_dim)
+    shifts = shift_rows_cart(_tables(spec, r.device).ushift, st.box)
+    xi = r.reshape(3, 1, cap, C)
+    wt_i = cell_mask.double().reshape(1, 1, C).expand(cap, cap, C)
+    re = torch.zeros(l + 1, dtype=torch.float64, device=r.device)
+    im = torch.zeros_like(re)
+    for oi, o in enumerate(OFFSETS):
+        back = (-o[0], -o[1], -o[2])
+        xj = (torch.roll(x, back, (2, 3, 4)).reshape(3, cap, C)
+              + shifts[oi].double()[:, None])
+        rj = torch.roll(rl, back, (1, 2, 3)).reshape(cap, 1, C)
+        d = xi - xj[:, :, None, :]
+        r2 = (d * d).sum(0)
+        w = ((r2 < cv.r_cut ** 2) & (r2 > 1e-12) & rj
+             & real.reshape(1, cap, C))
+        d, r2, wt = d[:, w], r2[w], wt_i[w]
+        inv = r2.rsqrt()
+        cth, ux, uy = d[2] * inv, d[0] * inv, d[1] * inv
+        pr, pi = torch.ones_like(cth), torch.zeros_like(cth)
+        for m in range(l + 1):
+            pm = torch.zeros_like(cth)
+            for c in coeffs[m][::-1]:
+                pm = pm * cth + c
+            re[m] += (wt * norms[m] * pm * pr).sum()
+            im[m] += (wt * norms[m] * pm * pi).sum()
+            pr, pi = pr * ux - pi * uy, pr * uy + pi * ux
+    return torch.cat([re, im])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("which",
-                         ["q6_coord", "coord_no_cut", "q4", "q8_q10_q12"])
+                         ["q6_coord", "coord_no_cut", "q4"] + WIDE_SETS)
 def test_order_kernels_match_plain(cuda_device, which):
     spec = _spec()
     st = _state(cuda_device, spec)
@@ -179,6 +229,63 @@ def test_order_kernels_match_plain(cuda_device, which):
     after = (poc.order_values_cuda.launches, poc.order_force_cuda.launches,
              pfc.fused_lj_order_force_cuda.launches)
     assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", WIDE_SETS)
+def test_wide_kernels_repeat_bits_and_mask(cuda_device, which):
+    """The wide layout's recurrence (csrc/order_cv.cuh wide_sweep: the Q_l
+    pairs on their own queue across a warp's rows, the value sums through
+    the warp's tile or shuffle trees): repeat calls of kernels 2, 3 and 4
+    give the same bits, and kernel 2 under a cell mask matches its plain
+    version."""
+    spec = _spec()
+    st = _state(cuda_device, spec)
+    cvs = _cv_sets(spec)[which]
+    assert poc.lane_layout(cvs)[3] > 64
+    ref = tpo.order_values_plain(st, spec, cvs)
+    auxs = [cv.grad_aux(t, torch.tensor(DV[i % 2], device=cuda_device))
+            for i, (cv, t) in enumerate(zip(cvs, ref))]
+    for call in (lambda: _lanes(poc.order_values_cuda(st, spec, cvs)),
+                 lambda: poc.order_force_cuda(st, spec, cvs, auxs),
+                 lambda: pfc.fused_lj_order_force_cuda(st, spec, cvs,
+                                                       auxs)):
+        a, b = call(), call()
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, y)
+            else:
+                assert torch.equal(_lanes(x), _lanes(y))
+    # the masked sums are a subset of the same f32 terms: held to the
+    # absolute tolerance of the unmasked comparison (1e-6 of its largest
+    # lane), since at l = 14, 16 a lane that cancels to ~3 rounds apart by
+    # ~3e-3 in another summation order while the masked bond count, the
+    # largest masked lane, is a third of the unmasked one
+    mask = (torch.arange(spec.n_cells, device=cuda_device) % 3 == 0).float()
+    got = poc.order_values_cuda(st, spec, cvs, cell_mask=mask)
+    want = tpo.order_values_plain(st, spec, cvs, cell_mask=mask)
+    np.testing.assert_allclose(
+        _lanes(got).double().cpu().numpy(),
+        _lanes(want).double().cpu().numpy(), rtol=2e-5,
+        atol=1e-6 * float(_lanes(ref).abs().max()),
+        err_msg="masked value terms")
+    # the float64 witness: per Q_l, the kernel's masked lanes are as far
+    # from their float64 value as the plain f32 sweep's (the f32 p_lm
+    # tables and sums), however far the two f32 sums lie apart
+    for c, cv in enumerate(cvs):
+        if not isinstance(cv, PackedSteinhardtQl):
+            continue
+        f64 = _ql_lanes_f64(st, spec, cv, mask)
+        k = torch.cat(got[c][:2]).double()
+        p = torch.cat(want[c][:2]).double()
+        ek, ep = (float((k - f64).abs().max()),
+                  float((p - f64).abs().max()))
+        gap = float((k - p).abs().max())
+        print(f"masked Q{cv.l} f64 witness: max|kernel - f64| {ek:.3e}, "
+              f"max|plain - f64| {ep:.3e}, max|kernel - plain| {gap:.3e}, "
+              f"max|f64| {float(f64.abs().max()):.4e}")
+        assert ek <= 2.0 * ep + 1e-6 * float(f64.abs().max()), (cv.l, ek, ep)
 
 
 @pytest.mark.cuda
